@@ -28,7 +28,18 @@ Phases, in order; any failure exits non-zero:
 7. layer 0's kernel inputs captured from the main run (one prefill
    chunk, one decode step): kernel against plain version on them, and
    the kernel, plain and library times (device time of a CUDA-graph
-   replay, L2 flushed before each) at the main path's shapes.
+   replay, L2 flushed before each) at the main path's shapes;
+8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
+   their plain versions, causal and not, at T = 128, 100 and 150
+   (head_dim 16) and at (1, 32, 2048, 128), in float32 and bfloat16;
+9. a small float32 model trained 3 Adam steps by ``SPMDTrainer`` on the
+   card and on the CPU: the losses agree within 1e-4 relative;
+10. the training main path: the full-width Llama-3-8B cut to 4 layers,
+   float32, 1 warm-up and 5 counted steps on 1 x 2048 tokens; the flash
+   launch counts must be 20 each and the dense rule must not fire;
+   torch.profiler over one more step;
+11. layer 0's flash inputs captured from the first counted step: kernel
+   against plain version, and the kernel, plain and library times.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
@@ -37,7 +48,10 @@ exits non-zero without one.
 Tolerances (kernel against plain version, max absolute error): 2e-5 in
 float32, where the two differ only in the order of their sums; 2e-2 in
 bfloat16, where each rounds its float32 result to bfloat16 (one bf16
-ulp is 2**-7 relative) after sums taken in other orders.
+ulp is 2**-7 relative) after sums taken in other orders.  The flash
+gradients (dq, dk, dv) are held relative to their largest element
+(``GRAD_TOL``), since their size follows dO's, which the training loss
+makes tiny.
 """
 
 import json
@@ -53,6 +67,12 @@ import torch
 H100_BYTES_PER_S = 3.35e12
 H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: flash gradients, max abs error over max |plain|: float32 sums in other
+#: orders stay within a few ulps of the largest element (2**-23 each);
+#: in bfloat16 both sides sum in float32 and round once, and two
+#: roundings of nearly equal values differ by at most one bf16 ulp,
+#: 2**-7 of the value at most
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
 TINY = dict(D=16, bs=8, KV=2, rep=2, B=4, T=8, ctx=40)
 LLAMA_8B = dict(D=128, bs=16, KV=8, rep=4, B=8, T=64, ctx=640)
 SERVE = dict(num_slots=8, max_length=1024, block_size=16, prefill_chunk=64)
@@ -62,7 +82,19 @@ KERNEL_SOURCES = {
                         "mxtpu/ops/pallas/paged_attention.py:117"),
     "paged_prefill": ("mxtpu_torch/csrc/prefill_attention.cu",
                       "mxtpu/ops/pallas/prefill_attention.py:113"),
+    "flash_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
+                  "mxtpu/ops/pallas/flash_attention.py:107"),
+    "flash_dq": ("mxtpu_torch/csrc/flash_attention.cu",
+                 "mxtpu/ops/pallas/flash_attention.py:202"),
+    "flash_dkv": ("mxtpu_torch/csrc/flash_attention.cu",
+                  "mxtpu/ops/pallas/flash_attention.py:246"),
 }
+#: flash kernels against plain versions: (B, H, T, D)
+FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
+                (1, 32, 2048, 128)]
+#: the training main path: Llama-3-8B at full width, 4 of 32 layers
+TRAIN = dict(depth_factor=0.125, batch=1, seq=2048, lr=3e-4, warmup=1,
+             steps=5)
 
 
 def log(**fields):
@@ -166,6 +198,36 @@ def library_prefill(q, pool_k, pool_v, table, start):
     mask = torch.arange(k.shape[2], device=q.device)[None, :] <= qpos[:, None]
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+# -- the training path's data and loss ----------------------------------------
+
+def synthetic_batches(batch, seq, steps, vocab, seed=0):
+    """The reference training example's synthetic language
+    (examples/parallel/llama_train.py), with the vocabulary a parameter:
+    arithmetic token sequences with 2% noise, as int32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    for _ in range(steps):
+        start = rng.randint(0, vocab, (batch, 1))
+        stride = rng.randint(1, 5, (batch, 1))
+        base = (start + stride * np.arange(seq)) % vocab
+        noise = (rng.rand(batch, seq) < 0.02) * rng.randint(0, vocab,
+                                                            (batch, seq))
+        yield ((base + noise) % vocab).astype(np.int32)
+
+
+class NextTokenLoss:
+    """The reference training example's shifted cross-entropy: predict token t+1
+    from the prefix up to t (one loss per predicted token)."""
+
+    def __init__(self):
+        from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+        self._ce = SoftmaxCrossEntropyLoss()
+
+    def __call__(self, logits, labels):
+        return self._ce(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                        labels[:, 1:].reshape(-1))
 
 
 # -- phase 1 and 2 ----------------------------------------------------------
@@ -277,7 +339,7 @@ def measure(name, args, flush, timed=True):
                              "error %g > %g (%s, %s)" % (
                                  name, err, TOL[dtype], dtype,
                                  tuple(args[0].shape)))
-    res = dict(max_abs_err=err, tol=TOL[dtype])
+    res = dict(max_abs_err=err, err_over_tol=err / TOL[dtype])
     if timed:
         res["ms"] = cuda_ms(lambda: kernel(*args), flush)
         res["plain_ms"] = cuda_ms(lambda: plain(*args), flush)
@@ -524,28 +586,21 @@ def serve_llama_3_8b():
                       "paged_prefill": prefill_cap.args}
 
 
-def profile_decode_steps(eng, vocab, steps=4):
-    """torch.profiler over a few pooled decode steps (8 slots at ~520
-    tokens of context, after the main run and outside its counts): the
-    device time per step by kernel, and the share of the step the
-    device sat idle."""
+def profile_device(run, steps):
+    """torch.profiler over ``steps`` calls of ``run``: the wall time per
+    step, the device time per step by kernel, and the share of the step
+    the device sat idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.RandomState(5)
-    for _ in range(SERVE["num_slots"]):
-        eng.submit(rng.randint(0, vocab, (1, 512)), steps + 12)
-    for _ in range(512 // SERVE["prefill_chunk"] + 1):
-        eng.step()                     # every slot prefilled, decoding
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    eng.run()
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -557,11 +612,271 @@ def profile_decode_steps(eng, vocab, steps=4):
             rows.append((us / 1e3 / steps, e.key, e.count // steps))
     rows.sort(reverse=True)
     device = sum(r[0] for r in rows)
-    log(phase="profile_decode", steps=steps, wall_ms_per_step=wall,
-        device_ms_per_step=device if rows else "not measured",
-        device_idle_share=1.0 - device / wall if rows else "not measured",
-        top=[dict(kernel=k[:80], ms_per_step=ms, calls_per_step=n)
-             for ms, k, n in rows[:12]])
+    return dict(steps=steps, wall_ms_per_step=wall,
+                device_ms_per_step=device if rows else "not measured",
+                device_idle_share=1.0 - device / wall if rows
+                else "not measured",
+                top=[dict(kernel=k[:80], ms_per_step=ms, calls_per_step=n)
+                     for ms, k, n in rows[:12]])
+
+
+def profile_decode_steps(eng, vocab, steps=4):
+    """The profile of a few pooled decode steps (8 slots at ~520 tokens
+    of context, after the main run and outside its counts)."""
+    rng = np.random.RandomState(5)
+    for _ in range(SERVE["num_slots"]):
+        eng.submit(rng.randint(0, vocab, (1, 512)), steps + 12)
+    for _ in range(512 // SERVE["prefill_chunk"] + 1):
+        eng.step()                     # every slot prefilled, decoding
+    res = profile_device(eng.step, steps)
+    eng.run()
+    log(phase="profile_decode", **res)
+
+
+# -- phase 8: the flash kernels against their plain versions ----------------
+
+def flash_args(q, k, v, do, causal):
+    """Each flash kernel's operands on (q, k, v, dO), as its wrapper
+    takes them: K4 and K5 get the plain forward's lse and
+    delta = rowsum(dO*O)."""
+    from mxtpu_torch.ops import flash_attention as fa
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(dim=-1), scale,
+           causal)
+    return {"flash_fwd": (q, k, v, scale, causal), "flash_dq": bwd,
+            "flash_dkv": bwd}
+
+
+def flash_err(kind, args):
+    """Max abs error of flash kernel ``kind`` against its plain version
+    on its operands ``args``, and the largest error over its bound:
+    ``TOL`` on o and 2e-5 on lse; ``GRAD_TOL`` times max |plain| on the
+    gradients, so a kernel that wrote zeros is off by its whole bound
+    over ``GRAD_TOL``, whatever the size of dO."""
+    from mxtpu_torch.ops import flash_attention as fa
+
+    got = getattr(fa, kind)(*args)
+    want = getattr(fa, kind + "_plain")(*args)
+    if kind == "flash_dq":
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        e = float((a.float() - b.float()).abs().max())
+        tol = TOL[b.dtype] if kind == "flash_fwd" else (
+            GRAD_TOL[b.dtype] * float(b.float().abs().max()))
+        if not e <= tol:
+            raise AssertionError("%s disagrees with its plain version: "
+                                 "output %d max abs error %g > %g (%s, %s,"
+                                 " causal=%s)" % (kind, i, e, tol,
+                                                  args[0].dtype,
+                                                  tuple(args[0].shape),
+                                                  args[-1]))
+        err, worst = max(err, e), max(worst, e / tol if tol else 0.0)
+    return err, worst
+
+
+def flash_case(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            for _ in range(4)]
+
+
+def flash_kernels_against_plain():
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_case(shape, dtype, seed=shape[2])
+            for causal in (True, False):
+                errs = {kind: flash_err(kind, args) for kind, args in
+                        flash_args(q, k, v, do, causal).items()}
+                log(phase="flash_vs_plain", shape=list(shape),
+                    dtype=str(dtype).split(".")[1], causal=causal,
+                    max_abs_err={k: e[0] for k, e in errs.items()},
+                    err_over_tol={k: e[1] for k, e in errs.items()})
+
+
+# -- phase 9: a small model trained on the card against the CPU -------------
+
+def small_training_check(steps=3):
+    """A 2-layer float32 model (T = 32, so flash_attention takes K3-K5)
+    trained 3 Adam steps on the card through the kernels and on the CPU
+    through their plain versions, from the same numpy-seeded weights and
+    data: the losses agree within 1e-4 relative (float32 on both sides,
+    sums in other orders, over three steps)."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models.transformer import llama_tiny
+    from mxtpu_torch.parallel.trainer import SPMDTrainer
+
+    batches = list(synthetic_batches(2, 32, steps, vocab=512, seed=1))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = llama_tiny(vocab_size=512, device=dev)
+        rng = np.random.RandomState(11)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if not name.endswith("norm.weight"):
+                    p.copy_(torch.from_numpy(
+                        rng.normal(0, 0.05, p.shape).astype(np.float32)))
+        trainer = SPMDTrainer(model, NextTokenLoss(), "adam",
+                              {"learning_rate": 1e-3})
+        base.reset_counts()
+        losses[dev] = [float(trainer.step(b, b)) for b in batches]
+        launches = base.counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    want = {"flash_fwd": 2 * steps, "flash_dq": 2 * steps,
+            "flash_dkv": 2 * steps}
+    if not rel <= 1e-4 or launches != want:
+        raise AssertionError("small model: card losses %r, CPU losses %r "
+                             "(max rel %g > 1e-4) or launches %r != %r"
+                             % (losses["cuda"], losses["cpu"], rel,
+                                launches, want))
+    log(phase="small_training_reference", losses_cuda=losses["cuda"],
+        losses_cpu=losses["cpu"], max_rel_diff=rel, launches=launches)
+
+
+# -- phases 10 and 11: the training main path ---------------------------------
+
+def train_llama_3_8b():
+    """Llama-3-8B at full width and 4 layers, float32, seeded random
+    weights, trained by SPMDTrainer with Adam (lr 3e-4) on one batch of
+    1 x 2048 tokens of the synthetic language over the full vocabulary:
+    one warm-up step, then 5 steps with the launch counts zeroed just
+    before and read just after.  Every step trains on the same batch, so
+    a falling loss shows the gradients and the update descend (on fresh
+    batches of 128k random token ids five steps move the loss less than
+    one batch differs from the next).  Layer 0's flash inputs are
+    captured from the first counted step."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models.transformer import llama_3_8b
+    from mxtpu_torch.ops import flash_attention as fa
+    from mxtpu_torch.parallel.trainer import SPMDTrainer
+
+    t0 = time.perf_counter()
+    model = llama_3_8b(depth_factor=TRAIN["depth_factor"], device="cuda",
+                       dtype=torch.float32)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0), 0.02)
+    n_layers = len(model.layers)
+    trainer = SPMDTrainer(model, NextTokenLoss(), "adam",
+                          {"learning_rate": TRAIN["lr"]})
+    batch = next(synthetic_batches(TRAIN["batch"], TRAIN["seq"], 1,
+                                   vocab=model.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    log(phase="train_model", layers=n_layers, dtype="float32",
+        params=sum(p.numel() for p in model.parameters()),
+        seconds=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.step(batch, batch) for _ in range(TRAIN["warmup"])]
+    torch.cuda.synchronize()
+    # the backward runs the layers last to first: layer 0's is the last
+    # dq/dkv call of a step
+    caps = [Capture(fa, "flash_fwd", lambda n, a: n == 0),
+            Capture(fa, "flash_dq", lambda n, a: n == n_layers - 1),
+            Capture(fa, "flash_dkv", lambda n, a: n == n_layers - 1)]
+    events = []
+    with caps[0], caps[1], caps[2]:
+        base.reset_counts()
+        t_run = time.perf_counter()
+        for _ in range(TRAIN["steps"]):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            losses.append(trainer.step(batch, batch))
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = base.counts()
+    losses = [float(x) for x in losses]
+    timed = losses[TRAIN["warmup"]:]
+    want = n_layers * TRAIN["steps"]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches.get(name, 0) != want:
+            raise AssertionError("%s launched %d times, wanted %d"
+                                 % (name, launches.get(name, 0), want))
+    if launches.get(fa.DENSE_NAME, 0) != 0:
+        raise AssertionError("the dense rule fired %d times on the main "
+                             "path" % launches[fa.DENSE_NAME])
+    if not all(np.isfinite(losses)) or not timed[-1] < timed[0]:
+        raise AssertionError("training losses not finite or not falling: "
+                             "%r" % losses)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    mean_ms = sum(step_ms) / len(step_ms)
+    log(phase="train", steps=TRAIN["steps"], launches=launches,
+        losses=losses, ms_per_step=step_ms, mean_ms_per_step=mean_ms,
+        tokens_per_step=tokens, tokens_per_s=tokens / (mean_ms / 1e3),
+        wall_s=wall,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(phase="profile_train", **profile_device(
+        lambda: trainer.step(batch, batch), 1))
+    if any(c.args is None for c in caps):
+        raise AssertionError("no flash inputs were captured")
+    return launches, {c.attr: c.args for c in caps}
+
+
+def flash_work(kind, q, causal):
+    """Bytes and operations one flash call needs on these inputs: each
+    operand read once and each result written once; 4*D (K3), 6*D (K4)
+    or 8*D (K5) operations per attended (row, key) pair, the causal
+    half when causal."""
+    B, H, T, D = q.shape
+    n, rows, elt = B * H * T * D, B * H * T, q.element_size()
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    if kind == "flash_fwd":
+        return 4 * n * elt + 4 * rows, 4 * D * pairs
+    if kind == "flash_dq":
+        return 5 * n * elt + 8 * rows, 6 * D * pairs
+    return 6 * n * elt + 8 * rows, 8 * D * pairs
+
+
+def event_ms(fn, flush, iters=10):
+    """Mean milliseconds of ``fn`` between CUDA events, the L2 flushed
+    before each call (for work a CUDA graph cannot capture)."""
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def measure_flash(kind, args, flush):
+    """Layer 0's captured flash operands: the kernel against its plain
+    version, and the kernel, plain and library times.  The library is
+    scaled_dot_product_attention: its forward for K3, its autograd
+    backward (dq, dk and dv together) for K4 and K5."""
+    from mxtpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    q, k, v = args[:3]
+    scale, causal = args[-2:]
+    err, ratio = flash_err(kind, args)
+    res = dict(max_abs_err=err, err_over_tol=ratio)
+    res["ms"] = cuda_ms(lambda: getattr(fa, kind)(*args), flush)
+    res["plain_ms"] = cuda_ms(lambda: getattr(fa, kind + "_plain")(*args),
+                              flush)
+    if kind == "flash_fwd":
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale), flush)
+    else:
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                             scale=scale)
+        res["library_ms"] = event_ms(lambda: torch.autograd.grad(
+            out, (lq, lk, lv), args[3], retain_graph=True), flush)
+    work = flash_work(kind, q, causal)
+    res["bound_ms"], res["bound_by"] = bound(work[0], work[1], q.dtype)
+    return res
 
 
 def main():
@@ -577,15 +892,29 @@ def main():
     kernels_against_plain(flush)
     small_model_reference_check()
     launches, served = serve_llama_3_8b()
-    rows = []
+    results = {}
     for name, args in served.items():
-        res = measure(name, args, flush)
+        results[name] = measure(name, args, flush)
         log(phase="served_inputs", kernel=name, shape=list(args[0].shape),
-            **res)
+            **results[name])
+    del served
+    torch.cuda.empty_cache()
+    flash_kernels_against_plain()
+    small_training_check()
+    trained, captured = train_llama_3_8b()
+    torch.cuda.empty_cache()
+    launches.update(trained)
+    for name, args in captured.items():
+        results[name] = measure_flash(name, args, flush)
+        log(phase="training_inputs", kernel=name,
+            shape=list(args[0].shape), **results[name])
+    rows = []
+    for name, res in results.items():
         source, replaces = KERNEL_SOURCES[name]
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
-                         max_abs_err=res["max_abs_err"], ms=res["ms"],
+                         max_abs_err=res["max_abs_err"],
+                         err_over_tol=res["err_over_tol"], ms=res["ms"],
                          plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))

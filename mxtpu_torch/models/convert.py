@@ -8,6 +8,9 @@ the reference's own decoder does (``transformerlm1_embed_weight`` →
 ``embed_weight``), so the same architecture maps one to one whatever
 instance counter the exporting process had reached.  Dense weights are
 (out, in) in both frameworks and copy as they are.
+
+``export_mxtpu_params`` is the inverse: a port model's parameters as
+``{prefix-stripped reference name: numpy array}``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from ..base import MXTPUError
 
-__all__ = ["load_mxtpu_params", "mxtpu_name", "strip_instance_prefix"]
+__all__ = ["load_mxtpu_params", "export_mxtpu_params", "mxtpu_name",
+           "strip_instance_prefix"]
 
 # port module path → reference parameter name suffix, where the two
 # differ by more than "." vs "_"
@@ -66,3 +70,15 @@ def load_mxtpu_params(model, params):
         with torch.no_grad():
             p.copy_(src.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def export_mxtpu_params(model):
+    """``{reference name: numpy array}`` of ``model``'s parameters, names
+    without an instance prefix (what :func:`load_mxtpu_params` takes);
+    bfloat16 parameters come out as float32."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        out[mxtpu_name(name)] = (t.float() if t.dtype == torch.bfloat16
+                                 else t).numpy()
+    return out

@@ -7,7 +7,13 @@ split as [q | k | v], and the kv-major GQA fold — query head
 h = kv*rep + r attends kv head kv — so the paged kernels read the
 UNrepeated cache.  Dense weights are (out, in) in both frameworks.
 
-Two cache forms:
+The full forward (``TransformerLM.forward``, token ids → logits) is the
+training path: its attention repeats each kv head ``rep`` times
+(``repeat_interleave``, MXNet's element-wise ``repeat``: head h reads kv
+head h // rep) and goes through ``ops.flash_attention`` (K3 forward,
+K4/K5 backward), differentiable.
+
+Two cache forms, both under ``torch.no_grad``:
 
 - the paged pool (``init_block_pool`` / ``prefill_pages`` /
   ``step_pages`` / ``copy_block``), what the serving engine runs.  Its
@@ -33,6 +39,7 @@ from torch.nn import functional as F
 
 from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.contrib import rms_norm, rope
 from ..ops.tensor import (paged_block_copy, paged_cache_write,
                           paged_cache_write_rows)
@@ -61,8 +68,8 @@ def _masked_softmax(scores, valid):
 
 class MultiHeadAttention(nn.Module):
     """Causal self-attention of the Llama decoder: the fused QKV
-    projection (no bias), GQA and rotary embedding, in its cached decode
-    forms."""
+    projection (no bias), GQA and rotary embedding, in its full forward
+    and its cached decode forms."""
 
     def __init__(self, units, num_heads, num_kv_heads=None, device=None,
                  dtype=None):
@@ -94,6 +101,16 @@ class MultiHeadAttention(nn.Module):
         """(B, H, T, D) attention output → (B, T, C) projected."""
         B, H, T, D = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(B, T, H * D))
+
+    def forward(self, x):
+        """x (B, T, C) → (B, T, C): rope at offset 0, each kv head
+        repeated for its ``rep`` query heads, causal flash attention."""
+        q, k, v = self._project(x, 0)
+        rep = self.heads // self.kv_heads
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        return self._merge(flash_attention(q, k, v, causal=True))
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
@@ -181,6 +198,9 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.down_proj(F.silu(self.gate_proj(h))
                                   * self.up_proj(h))
 
+    def forward(self, x):
+        return self._ffn(x + self.attn(self.attn_norm(x)))
+
     def prefill(self, x, cache_k, cache_v, start_pos=0):
         return self._ffn(x + self.attn.prefill(self.attn_norm(x), cache_k,
                                                cache_v, start_pos))
@@ -224,6 +244,14 @@ class TransformerLM(nn.Module):
 
     def _logits(self, x):
         return self.lm_head(self.norm(x))
+
+    def forward(self, token_ids):
+        """token_ids (B, T) → logits (B, T, V), differentiable: the
+        training forward."""
+        x = self.embed(torch.as_tensor(token_ids, device=self.device).long())
+        for layer in self.layers:
+            x = layer(x)
+        return self._logits(x)
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
@@ -341,9 +369,17 @@ def llama_tiny(vocab_size=256, device=None, dtype=torch.float32):
                          dtype=dtype)
 
 
-def llama_3_8b(vocab_size=128256, device=None, dtype=torch.bfloat16):
+def llama_3_8b(vocab_size=128256, width_factor=1.0, depth_factor=1.0,
+               device=None, dtype=torch.bfloat16):
     """Llama-3-8B geometry: 4096 units, 32 heads over 8 kv heads
-    (head_dim 128), SwiGLU 14336, 32 layers, vocab 128256."""
-    return TransformerLM(vocab_size, units=4096, hidden_size=14336,
-                         num_layers=32, num_heads=32, num_kv_heads=8,
+    (head_dim 128), SwiGLU 14336, 32 layers, vocab 128256.
+
+    ``width_factor``/``depth_factor`` scale it down as the reference
+    does, with its rounding: heads a multiple of 4 (at least 4), head_dim
+    128, SwiGLU a multiple of 128, 4:1 GQA, at least one layer."""
+    heads = max(4, int(32 * width_factor) // 4 * 4)
+    hidden = int(14336 * width_factor) // 128 * 128 or 128
+    return TransformerLM(vocab_size, units=128 * heads, hidden_size=hidden,
+                         num_layers=max(1, int(32 * depth_factor)),
+                         num_heads=heads, num_kv_heads=max(1, heads // 4),
                          device=device, dtype=dtype)

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, over geometries the main path does not reach: head_dim 16 to 256,
-block sizes 8 to 64, GQA rep 1 to 16, a single-buffered tile (float32 at
-head_dim 256), long tables, dead lanes, pages out of order and chunks
-starting mid-page.  Also what the wrappers reject on the card.
+card.  The paged kernels (K1, K2) over geometries the main path does not
+reach: head_dim 16 to 256, block sizes 8 to 64, GQA rep 1 to 16, a
+single-buffered tile (float32 at head_dim 256), long tables, dead lanes,
+pages out of order and chunks starting mid-page.  The flash-attention
+kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
+and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
+plus head_dim 72 and 256.  Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
 where there is none.  On the card:
@@ -12,19 +15,27 @@ where there is none.  On the card:
 Tolerances (max absolute error against the plain version): 2e-5 in
 float32, where the two differ only in the order of their sums; 2e-2 in
 bfloat16, where each rounds its float32 result to bfloat16 after sums
-taken in other orders.  This file imports neither JAX nor ``mxtpu``."""
+taken in other orders.  The flash gradients (dq, dk, dv) are held
+relative to their largest element, so that their bound follows dO's
+size: 2e-5 of it in float32 (sums in other orders, a few 2**-23 ulps
+apart), 2**-7 in bfloat16 (both sides sum in float32 and round once;
+two roundings of nearly equal values differ by at most one bfloat16
+ulp, 2**-7 of the value at most).  This file imports neither JAX nor
+``mxtpu``."""
 
 import numpy as np
 import pytest
 import torch
 
 from mxtpu_torch import base
+from mxtpu_torch.ops import flash_attention as fa
 from mxtpu_torch.ops import paged_attention as pa
 from mxtpu_torch.ops import prefill_attention as pf
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
 DTYPES = [torch.float32, torch.bfloat16]
 
 # (head_dim, block_size, kv heads, rep, slots, chunk T, context)
@@ -131,3 +142,83 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         with pytest.raises(base.MXTPUError):
             pa.paged_decode_attention(*args)
     assert base.count(pa.KERNEL_NAME) == 0
+
+
+# (B, H, T, D) of the flash kernels
+FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
+                (1, 3, 70, 72), (1, 2, 96, 256), (1, 32, 2048, 128)]
+
+
+def _flash_case(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "T%d-D%d-H%d" % (s[2], s[3], s[1]))
+def test_flash_kernels_match_plain(cuda, shape, dtype, causal):
+    q, k, v, do = _flash_case(shape, dtype, seed=shape[2] + shape[3])
+    scale = 1.0 / shape[3] ** 0.5
+    if shape[3] == 256 and dtype == torch.float32:
+        # K3 fits one block single-buffered; K4 and K5 do not fit
+        o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        assert _err(o, want_o) <= TOL[dtype]
+        delta = torch.zeros_like(lse)
+        with pytest.raises(base.MXTPUError, match="shared memory"):
+            fa.flash_dq(q, k, v, do, lse, delta, scale, causal)
+        return
+    base.reset_counts()
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert _err(o, want_o) <= TOL[dtype]
+    assert _err(lse, want_lse) <= TOL[torch.float32]
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, scale, causal)
+    want = [fa.flash_dq_plain(q, k, v, do, lse, delta, scale, causal),
+            *fa.flash_dkv_plain(q, k, v, do, lse, delta, scale, causal)]
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        bound = GRAD_TOL[dtype] * float(ref.float().abs().max())
+        assert _err(got, ref) <= bound, name
+    assert base.counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
+    """flash_attention's gradients through the kernels on the card
+    against the plain versions on the CPU."""
+    q, k, v, w = _flash_case((2, 4, 150, 64), torch.float32, seed=7)
+    cq, ck, cv = (x.cpu().requires_grad_() for x in (q, k, v))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, causal=True)
+    (out * w).sum().backward()
+    ref = fa.flash_attention(cq, ck, cv, causal=True)
+    (ref * w.cpu()).sum().backward()
+    assert _err(out.cpu(), ref) <= 2e-5
+    for a, b in ((q, cq), (k, ck), (v, cv)):
+        assert _err(a.grad.cpu(), b.grad) <= 2e-5 * float(
+            b.grad.abs().max())
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, do = _flash_case((1, 2, 64, 16), torch.float32, seed=1)
+    base.reset_counts()
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    bad = [
+        (q.double(), k.double(), v.double()),                 # dtype
+        (q.transpose(2, 3), k, v),                            # shape
+        (q[..., :12].contiguous(), k[..., :12].contiguous(),
+         v[..., :12].contiguous()),                           # D % 8
+        (q, k.cpu(), v),                                      # device
+        (torch.randn(1, 2, 64, 32, device="cuda")[..., :16], k, v),  # layout
+    ]
+    for args in bad:
+        with pytest.raises(base.MXTPUError):
+            fa.flash_fwd(*args, 0.25, True)
+    with pytest.raises(base.MXTPUError, match="lse"):
+        fa.flash_dq(q, k, v, do, lse.double(), lse, 0.25, True)
+    assert base.counts() == {}

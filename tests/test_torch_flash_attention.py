@@ -1,0 +1,147 @@
+"""The port's flash attention (K3 forward, K4 dq, K5 dk/dv) held against
+the JAX reference's Pallas kernels, run in interpret mode on the CPU as
+the reference's own tests run them.  The same seeded numpy inputs go
+through both; on a CPU tensor each port wrapper runs its kernel's plain
+version.
+
+Cases: causal and non-causal at T = 128, 100 and 150 (B = H = 2,
+D = 16) with ``q_block=64, kv_block=128`` on the reference side (its
+own cases in ``tests/test_flash_attention.py``), and the reference's
+dense rule (T < 16 or D % 8 != 0).  Tolerance rtol 1e-4 / atol 1e-5, as
+the reference's own tests use: both sides compute in float32 and differ
+only in the order of their sums."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxtpu.ops.pallas.flash_attention import (_flash_bwd, _flash_fwd,
+                                              flash_attention as jax_flash)
+from mxtpu_torch import base
+from mxtpu_torch.base import MXTPUError
+from mxtpu_torch.ops import flash_attention as fa
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+B, H, D = 2, 2, 16
+CASES = [(T, causal) for T in (128, 100, 150) for causal in (True, False)]
+IDS = ["T%d-%s" % (T, "causal" if c else "full") for T, c in CASES]
+
+
+def _inputs(T, seed, d=D):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, H, T, d).astype("float32") for _ in range(4)]
+
+
+def _blocks(T):
+    """The blocks the reference's flash_attention would take for
+    q_block=64, kv_block=128 (it clamps both to T)."""
+    return min(64, T), min(128, T)
+
+
+def _ref_fwd(q, k, v, causal):
+    T = q.shape[2]
+    qb, kb = _blocks(T)
+    o, lse = _flash_fwd(jnp.array(q), jnp.array(k), jnp.array(v),
+                        1.0 / math.sqrt(D), causal, qb, kb, True)
+    return np.asarray(o), np.asarray(lse)[:, :T].reshape(B, H, T)
+
+
+@pytest.mark.parametrize("T,causal", CASES, ids=IDS)
+def test_plain_forward_matches_pallas_forward(T, causal):
+    q, k, v, _ = _inputs(T, seed=T)
+    o_ref, lse_ref = _ref_fwd(q, k, v, causal)
+    o, lse = fa.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)),
+                                1.0 / math.sqrt(D), causal)
+    np.testing.assert_allclose(o.numpy(), o_ref, **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, **TOL)
+
+
+@pytest.mark.parametrize("T,causal", CASES, ids=IDS)
+def test_plain_backward_matches_pallas_backward(T, causal):
+    """dq, dk and dv given the same o, lse and dO on both sides."""
+    q, k, v, do = _inputs(T, seed=T + 1)
+    scale = 1.0 / math.sqrt(D)
+    qb, kb = _blocks(T)
+    jq, jk, jv = jnp.array(q), jnp.array(k), jnp.array(v)
+    o, lse_pad = _flash_fwd(jq, jk, jv, scale, causal, qb, kb, True)
+    want = _flash_bwd(jq, jk, jv, o, lse_pad, jnp.array(do), scale, causal,
+                      qb, kb, True)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    to = torch.from_numpy(np.array(o))
+    lse = torch.from_numpy(np.array(lse_pad)[:, :T].reshape(B, H, T))
+    delta = (tdo * to).sum(dim=-1)
+    dq = fa.flash_dq_plain(tq, tk, tv, tdo, lse, delta, scale, causal)
+    dk, dv = fa.flash_dkv_plain(tq, tk, tv, tdo, lse, delta, scale, causal)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("T,causal", CASES, ids=IDS)
+def test_autograd_matches_jax_grad(T, causal):
+    """The port's differentiable flash_attention (K3, then K4/K5 through
+    the autograd Function) against jax.grad of the reference's, on a
+    weighted sum of the output; the dense rule does not fire."""
+    q, k, v, w = _inputs(T, seed=T + 2)
+
+    def ref_loss(a, b, c):
+        out = jax_flash(a, b, c, causal=causal, q_block=64, kv_block=128)
+        return jnp.sum(out * jnp.array(w))
+
+    want_o = np.asarray(jax_flash(jnp.array(q), jnp.array(k), jnp.array(v),
+                                  causal=causal, q_block=64, kv_block=128))
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        jnp.array(q), jnp.array(k), jnp.array(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    base.reset_counts()
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert base.counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    np.testing.assert_allclose(out.detach().numpy(), want_o, **TOL)
+    for got, ref, name in zip((tq, tk, tv), want, "qkv"):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), **TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("T,d,causal", [(8, 16, True), (8, 16, False),
+                                        (32, 12, True)],
+                         ids=["T8-causal", "T8-full", "D12-causal"])
+def test_dense_rule_matches_reference_and_skips_the_kernels(T, d, causal):
+    """T < 16 or D % 8 != 0: both sides take the dense path; only
+    ``flash_attention_dense`` moves."""
+    q, k, v, w = _inputs(T, seed=T + d, d=d)
+
+    def ref_loss(a, b, c):
+        return jnp.sum(jax_flash(a, b, c, causal=causal) * jnp.array(w))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        jnp.array(q), jnp.array(k), jnp.array(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    base.reset_counts()
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert base.counts() == {fa.DENSE_NAME: 1}
+    want_o = np.asarray(jax_flash(jnp.array(q), jnp.array(k), jnp.array(v),
+                                  causal=causal))
+    np.testing.assert_allclose(out.detach().numpy(), want_o, **TOL)
+    for got, ref, name in zip((tq, tk, tv), want, "qkv"):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), **TOL,
+                                   err_msg=name)
+
+
+def test_wrappers_raise_off_the_cpu_and_the_card():
+    """No kernel and no plain fallback for another device type."""
+    x = torch.empty(1, 1, 32, 16, device="meta")
+    lse = torch.empty(1, 1, 32, device="meta")
+    base.reset_counts()
+    with pytest.raises(MXTPUError, match="no kernel"):
+        fa.flash_fwd(x, x, x, 0.25, True)
+    with pytest.raises(MXTPUError, match="no kernel"):
+        fa.flash_dq(x, x, x, x, lse, lse, 0.25, True)
+    with pytest.raises(MXTPUError, match="no kernel"):
+        fa.flash_dkv(x, x, x, x, lse, lse, 0.25, True)
+    assert base.counts() == {}

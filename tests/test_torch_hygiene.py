@@ -36,13 +36,17 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import sys\n"
         "import mxtpu_torch\n"
         "import mxtpu_torch.parallel.serving, mxtpu_torch.models.convert\n"
+        "import mxtpu_torch.parallel.trainer, mxtpu_torch.gluon.loss\n"
+        "import mxtpu_torch.optimizer\n"
         "import mxtpu_torch.ops.paged_attention as pa\n"
-        "import mxtpu_torch.ops.prefill_attention\n"
+        "import mxtpu_torch.ops.prefill_attention as pf\n"
+        "import mxtpu_torch.ops.flash_attention as fa\n"
         "from mxtpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
         "assert not bad, bad\n"
-        "assert not _build._LOADED and not pa._FNS\n"
+        "assert not _build._LOADED and not pa._FNS and not pf._FNS\n"
+        "assert not fa._FNS\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
