@@ -39,7 +39,22 @@ Phases, in order; any failure exits non-zero:
    launch counts must be 20 each and the dense rule must not fire;
    torch.profiler over one more step;
 11. layer 0's flash inputs captured from the first counted step: kernel
-   against plain version, and the kernel, plain and library times.
+   against plain version, and the kernel, plain and library times;
+12. the conv backward kernel (K6) against its plain version at the test
+   geometries and ResNet-50's three stage shapes at batch 128, in
+   float32 and bfloat16;
+13. a narrow ResNet-v1 trained 3 SGD steps by ``gluon.Trainer`` on the
+   card and on the CPU, the card's net taking the CPU's weights before
+   each step: each step's loss within 1e-4 relative, its gradients
+   within 1e-4 of their largest element;
+14. the vision main path: ``resnet50_v1`` at full width and depth,
+   float32, Xavier weights from seed 0, trained by ``Trainer("sgd")``
+   on one batch of 128 synthetic 224x224 images, 1 warm-up and 5
+   counted steps; K6 must launch exactly 13 times a step and the loss
+   must fall; torch.profiler over one more step;
+15. one K6 call per stage shape captured from the first counted step:
+   kernel against plain version, and the kernel, plain and library
+   (cuDNN's convolution backward) times.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
@@ -49,9 +64,12 @@ Tolerances (kernel against plain version, max absolute error): 2e-5 in
 float32, where the two differ only in the order of their sums; 2e-2 in
 bfloat16, where each rounds its float32 result to bfloat16 (one bf16
 ulp is 2**-7 relative) after sums taken in other orders.  The flash
-gradients (dq, dk, dv) are held relative to their largest element
-(``GRAD_TOL``), since their size follows dO's, which the training loss
-makes tiny.
+gradients (dq, dk, dv) and K6's are held relative to their largest
+element (``GRAD_TOL``), since their size follows dO's, which the training
+loss makes tiny; K6's float32 dW to 1e-4 of it (``DW_TOL``), since each
+element sums up to N*H*W = 401,408 products in another order on each
+side, and the rounding error of a sum of random-sign terms grows as
+about 2**-24 * sqrt(N*H*W) of its largest partial sum (4e-5 there).
 """
 
 import json
@@ -73,6 +91,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: roundings of nearly equal values differ by at most one bf16 ulp,
 #: 2**-7 of the value at most
 GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+DW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 TINY = dict(D=16, bs=8, KV=2, rep=2, B=4, T=8, ctx=40)
 LLAMA_8B = dict(D=128, bs=16, KV=8, rep=4, B=8, T=64, ctx=640)
 SERVE = dict(num_slots=8, max_length=1024, block_size=16, prefill_chunk=64)
@@ -88,6 +107,8 @@ KERNEL_SOURCES = {
                  "mxtpu/ops/pallas/flash_attention.py:202"),
     "flash_dkv": ("mxtpu_torch/csrc/flash_attention.cu",
                   "mxtpu/ops/pallas/flash_attention.py:246"),
+    "conv_bwd": ("mxtpu_torch/csrc/conv_bwd.cu",
+                 "mxtpu/ops/pallas/conv_bwd.py:101"),
 }
 #: flash kernels against plain versions: (B, H, T, D)
 FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
@@ -95,6 +116,20 @@ FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
 #: the training main path: Llama-3-8B at full width, 4 of 32 layers
 TRAIN = dict(depth_factor=0.125, batch=1, seq=2048, lr=3e-4, warmup=1,
              steps=5)
+#: K6 against its plain version, (N, Ci, Co, H, W): the test geometries
+#: and ResNet-50 v1's three stage shapes at batch 128
+CONV_SHAPES = [(2, 16, 32, 8, 8), (1, 32, 32, 14, 14), (2, 8, 24, 7, 9),
+               (128, 64, 64, 56, 56), (128, 128, 128, 28, 28),
+               (128, 256, 256, 14, 14)]
+#: the example's optimizer (examples/gluon/image_classification.py)
+SGD_PARAMS = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+#: the narrow ResNet-v1 of tests/test_torch_resnet.py
+SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[16, 32, 64, 128, 256],
+                    classes=10, batch=4, size=64, steps=3, seed=1,
+                    eligible=4)
+#: the vision main path: ResNet-50 v1, 13 of its 16 3x3 convs take K6
+RESNET = dict(batch=128, size=224, classes=1000, seed=0, warmup=1, steps=5,
+              eligible=13)
 
 
 def log(**fields):
@@ -228,6 +263,20 @@ class NextTokenLoss:
     def __call__(self, logits, labels):
         return self._ce(logits[:, :-1].reshape(-1, logits.shape[-1]),
                         labels[:, 1:].reshape(-1))
+
+
+def synthetic_images(n, size, classes, seed):
+    """The reference image-classification example's synthetic set
+    (examples/gluon/image_classification.py, ``synth``), with the number
+    of classes a parameter: class centres drawn once from seed 0, images
+    ``clip(centre + 0.15 * noise, 0, 1)`` of shape (n, 3, size, size)
+    float32, labels int64."""
+    centers = np.random.RandomState(0).rand(classes, 3, 1, 1).astype("f")
+    r = np.random.RandomState(seed)
+    ys = r.randint(0, classes, n)
+    xs = (centers[ys] + 0.15 * r.randn(n, 3, size, size).astype("f")).clip(
+        0, 1)
+    return xs, ys.astype(np.int64)
 
 
 # -- phase 1 and 2 ----------------------------------------------------------
@@ -434,7 +483,7 @@ class Capture:
 
     def __init__(self, module, attr, want):
         self.module, self.attr, self.want = module, attr, want
-        self.inner = getattr(module, attr)
+        self.inner = None
         self.calls = 0
         self.args = None
 
@@ -446,6 +495,8 @@ class Capture:
         return self.inner(*args, **kw)
 
     def __enter__(self):
+        # what is there at entry: another Capture of the same wrapper nests
+        self.inner = getattr(self.module, self.attr)
         setattr(self.module, self.attr, self)
         return self
 
@@ -613,6 +664,7 @@ def profile_device(run, steps):
     rows.sort(reverse=True)
     device = sum(r[0] for r in rows)
     return dict(steps=steps, wall_ms_per_step=wall,
+                kernels_per_step=sum(r[2] for r in rows),
                 device_ms_per_step=device if rows else "not measured",
                 device_idle_share=1.0 - device / wall if rows
                 else "not measured",
@@ -879,6 +931,260 @@ def measure_flash(kind, args, flush):
     return res
 
 
+# -- phases 12 to 15: the vision training path -------------------------------
+
+def conv_err(args):
+    """K6 against its plain version on (x, w, dy): max abs errors of dX
+    and dW, and the larger of the two over its bound (``GRAD_TOL`` for
+    dX, ``DW_TOL`` for dW, times the plain result's largest element)."""
+    from mxtpu_torch.ops import conv_bwd as cb
+
+    got = cb.conv3x3_s1_backward(*args)
+    want = cb.conv_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs, worst = [], 0.0
+    for name, a, b, tols in zip(("dx", "dw"), got, want, (GRAD_TOL, DW_TOL)):
+        e = float((a.float() - b.float()).abs().max())
+        tol = tols[b.dtype] * float(b.float().abs().max())
+        if not e <= tol:
+            raise AssertionError("conv_bwd disagrees with its plain version: "
+                                 "%s max abs error %g > %g (%s, x %s)"
+                                 % (name, e, tol, b.dtype,
+                                    tuple(args[0].shape)))
+        errs.append(e)
+        worst = max(worst, e / tol if tol else 0.0)
+    return max(errs), worst
+
+
+def conv_kernel_against_plain():
+    for N, Ci, Co, H, W in CONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(N + Ci + Co + H)
+            dev = dict(device="cuda", dtype=dtype, generator=g)
+            args = (torch.randn(N, Ci, H, W, **dev),
+                    torch.randn(Co, Ci, 3, 3, **dev),
+                    torch.randn(N, Co, H, W, **dev))
+            err, ratio = conv_err(args)
+            log(phase="conv_vs_plain", shape=[N, Ci, Co, H, W],
+                dtype=str(dtype).split(".")[1], max_abs_err=err,
+                err_over_tol=ratio)
+
+
+def resnet_step(net, loss_fn, trainer, x, y):
+    """One step of the example's loop: forward, the per-sample loss,
+    its sum's backward (MXNet's ``loss.backward()``), then
+    ``trainer.step(batch)``.  Returns the mean loss (device tensor)."""
+    loss = loss_fn(net(x), y)
+    loss.sum().backward()
+    trainer.step(x.shape[0])
+    return loss.detach().mean()
+
+
+def gap_over_bound(want, got, tol=1e-4):
+    """The largest gap between two ``{name: tensor}`` maps (gradients,
+    or weights and running statistics), each over its bound, and the
+    name it is at.  The bound is ``tol`` of the tensor's max-abs, except
+    for a conv bias that feeds a BatchNorm: its gradient is 0 in exact
+    arithmetic (the batch mean takes any shift out), so it and the bias
+    itself (0 at the start) are float32 residue on either side, held to
+    ``tol`` of the conv weight's max-abs, on each side's value."""
+    worst, where = 0.0, None
+    for name, w in want.items():
+        w, g = np.asarray(w), np.asarray(got[name])
+        if g.shape != w.shape:
+            return np.inf, name
+        if name.startswith("stage") and name.endswith("_bias"):
+            bound = tol * float(np.abs(want[name[:-4] + "weight"]).max())
+            gap = max(float(np.abs(g).max()), float(np.abs(w).max()))
+        else:
+            bound = tol * float(np.abs(w).max())
+            gap = float(np.abs(g - w).max())
+        ratio = gap / bound if bound else (np.inf if gap else 0.0)
+        if ratio >= worst:
+            worst, where = ratio, name
+    return worst, where
+
+
+def small_resnet_training_check():
+    """The narrow ResNet-v1 of the CPU tests, Xavier weights (seed 1),
+    trained 3 SGD steps on the card through K6 and on the CPU through
+    its plain version, on the same synthetic 64x64 images.  Before each
+    step the card's net takes the CPU net's weights and running
+    statistics (each trainer keeps its own momentum): the 3-step
+    trajectory of this net can turn a rounding-sized change of its start
+    into a jump (a ReLU or max-pool switch crossed; ROADMAP C), so each
+    step is compared from one state.
+    Gates, each step: the loss within 1e-4 relative; each gradient, and
+    each weight and running statistic after the card's and the CPU's
+    ``Trainer.step`` and BatchNorm update, within ``gap_over_bound``'s
+    1e-4 of its largest element (one step from a shared state moves a
+    tensor by lr times its gradient and momentum, so its gap is at most
+    the gradient's, relative to a tensor that started at 0 like beta);
+    K6 4 times a step on the card."""
+    from mxtpu_torch import base
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+    from mxtpu_torch.gluon.trainer import Trainer
+    from mxtpu_torch.initializer import Xavier
+
+    cfg = SMALL_RESNET
+    xs, ys = synthetic_images(cfg["batch"] * cfg["steps"], cfg["size"],
+                              cfg["classes"], seed=1)
+    nets, trainers = {}, {}
+    for dev in ("cpu", "cuda"):
+        nets[dev] = ResNetV1(BottleneckV1, cfg["layers"], cfg["channels"],
+                             classes=cfg["classes"], device=dev)
+        trainers[dev] = Trainer(nets[dev].collect_params(), "sgd",
+                                dict(SGD_PARAMS))
+    nets["cpu"].initialize(Xavier(magnitude=2.0),
+                           torch.Generator().manual_seed(cfg["seed"]))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    losses = {"cpu": [], "cuda": []}
+    rel, launches = 0.0, 0
+    gaps = {"grads": (0.0, None), "states": (0.0, None)}
+    for i in range(cfg["steps"]):
+        nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+        part = slice(i * cfg["batch"], (i + 1) * cfg["batch"])
+        grads, states = {}, {}
+        for dev, net in nets.items():
+            x, y = (torch.from_numpy(a[part]).to(dev) for a in (xs, ys))
+            base.reset_counts()
+            loss = loss_fn(net(x), y)
+            loss.sum().backward()
+            launches += base.count("conv_bwd") if dev == "cuda" else 0
+            grads[dev] = {k: t.grad.detach().cpu().clone() for k, t in
+                          net.collect_params().items()
+                          if isinstance(t, torch.nn.Parameter)}
+            trainers[dev].step(cfg["batch"])
+            states[dev] = {k: t.detach().cpu().clone() for k, t in
+                           net.collect_params().items()}
+            losses[dev].append(float(loss.detach().mean()))
+        rel = max(rel, abs(losses["cuda"][-1] - losses["cpu"][-1])
+                  / abs(losses["cpu"][-1]))
+        for key, pair in (("grads", grads), ("states", states)):
+            gaps[key] = max(gaps[key], gap_over_bound(pair["cpu"],
+                                                      pair["cuda"]),
+                            key=lambda g: g[0])
+    want = cfg["eligible"] * cfg["steps"]
+    if (not rel <= 1e-4 or not all(g[0] <= 1.0 for g in gaps.values())
+            or launches != want):
+        raise AssertionError("small ResNet: card losses %r, CPU losses %r "
+                             "(max rel %g > 1e-4), gaps over their bounds "
+                             "%r, or %d K6 launches != %d"
+                             % (losses["cuda"], losses["cpu"], rel, gaps,
+                                launches, want))
+    log(phase="small_resnet_reference", losses_cuda=losses["cuda"],
+        losses_cpu=losses["cpu"], max_rel_diff=rel,
+        grad_gap_over_tol=gaps["grads"][0],
+        state_gap_over_tol=gaps["states"][0],
+        worst_state=gaps["states"][1], launches={"conv_bwd": launches})
+
+
+def train_resnet50():
+    """ResNet-50 v1 at full width and depth, float32, Xavier (magnitude
+    2) weights from seed 0, trained by Trainer("sgd", lr 0.05, momentum
+    0.9, wd 1e-4) on one batch of 128 synthetic 224x224 images of 1000
+    classes: one warm-up step, then 5 steps with the launch counts zeroed
+    just before and read just after.  One K6 call per stage shape is
+    captured from the first counted step."""
+    from mxtpu_torch import base
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxtpu_torch.gluon.trainer import Trainer
+    from mxtpu_torch.initializer import Xavier
+    from mxtpu_torch.ops import conv_bwd as cb
+
+    cfg = RESNET
+    t0 = time.perf_counter()
+    net = resnet50_v1(classes=cfg["classes"], device="cuda")
+    net.initialize(Xavier(magnitude=2.0),
+                   torch.Generator(device="cuda").manual_seed(cfg["seed"]))
+    net.train()
+    trainer = Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    xs, ys = synthetic_images(cfg["batch"], cfg["size"], cfg["classes"],
+                              seed=cfg["seed"])
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    torch.cuda.synchronize()
+    log(phase="resnet_model", dtype="float32",
+        params=sum(p.numel() for p in net.parameters()),
+        batch=list(x.shape), seconds=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [resnet_step(net, loss_fn, trainer, x, y)
+              for _ in range(cfg["warmup"])]
+    torch.cuda.synchronize()
+    shapes = [(s[0], s[1], s[3], s[4]) for s in CONV_SHAPES
+              if s[0] == cfg["batch"]]
+    caps = [Capture(cb, "conv3x3_s1_backward",
+                    lambda n, a, s=s: tuple(a[0].shape) == s)
+            for s in shapes]
+    events = []
+    with caps[0], caps[1], caps[2]:
+        base.reset_counts()
+        t_run = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            losses.append(resnet_step(net, loss_fn, trainer, x, y))
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = base.counts()
+    losses = [float(v) for v in losses]
+    timed = losses[cfg["warmup"]:]
+    want = {"conv_bwd": cfg["eligible"] * cfg["steps"]}
+    if launches != want:
+        raise AssertionError("ResNet-50: launches %r, wanted %r"
+                             % (launches, want))
+    if not all(np.isfinite(losses)) or not timed[-1] < timed[0]:
+        raise AssertionError("ResNet-50 losses not finite or not falling: "
+                             "%r" % losses)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    mean_ms = sum(step_ms) / len(step_ms)
+    log(phase="train_resnet50", steps=cfg["steps"], launches=launches,
+        losses=losses, ms_per_step=step_ms, mean_ms_per_step=mean_ms,
+        images_per_step=cfg["batch"],
+        images_per_s=cfg["batch"] / (mean_ms / 1e3), wall_s=wall,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(phase="profile_resnet50", **profile_device(
+        lambda: resnet_step(net, loss_fn, trainer, x, y), 1))
+    if any(c.args is None for c in caps):
+        raise AssertionError("no K6 inputs were captured")
+    return launches, [c.args for c in caps]
+
+
+def conv_work(x, w):
+    """Bytes and operations one K6 call needs: x, dY and w read once, dX
+    and dW written once; two products of 2*N*H*W*9*Ci*Co operations."""
+    N, Ci, H, W = x.shape
+    Co = w.shape[0]
+    nbytes = (2 * x.numel() + N * Co * H * W) * x.element_size() \
+        + 2 * w.numel() * w.element_size()
+    return nbytes, 4 * N * H * W * 9 * Ci * Co
+
+
+def measure_conv(args, flush):
+    """One captured K6 call: kernel against plain version, and the
+    kernel, plain and library times, each as CUDA-graph replays.  The
+    library is cuDNN's backward of the same conv
+    (``aten.convolution_backward`` for dX and dW, TF32 off as ``card``
+    set it)."""
+    from mxtpu_torch.ops import conv_bwd as cb
+
+    x, w, dy = args
+    err, ratio = conv_err(args)
+    res = dict(max_abs_err=err, err_over_tol=ratio)
+    res["ms"] = cuda_ms(lambda: cb.conv3x3_s1_backward(*args), flush)
+    res["plain_ms"] = cuda_ms(lambda: cb.conv_bwd_plain(*args), flush)
+    res["library_ms"] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+        dy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, False]), flush)
+    res["bound_ms"], res["bound_by"] = bound(*conv_work(x, w), x.dtype)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device — it runs on an NVIDIA GPU",
@@ -908,6 +1214,19 @@ def main():
         results[name] = measure_flash(name, args, flush)
         log(phase="training_inputs", kernel=name,
             shape=list(args[0].shape), **results[name])
+    del captured
+    torch.cuda.empty_cache()
+    conv_kernel_against_plain()
+    small_resnet_training_check()
+    trained, captured = train_resnet50()
+    torch.cuda.empty_cache()
+    launches.update(trained)
+    for i, args in enumerate(captured):
+        res = measure_conv(args, flush)
+        log(phase="resnet_inputs", kernel="conv_bwd",
+            shape=list(args[0].shape), cout=args[1].shape[0], **res)
+        if i == 0:                     # the kernels line: stage 1's shape
+            results["conv_bwd"] = res
     rows = []
     for name, res in results.items():
         source, replaces = KERNEL_SOURCES[name]

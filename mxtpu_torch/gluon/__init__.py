@@ -1,1 +1,2 @@
-"""Gluon pieces of the port: the losses the training path uses."""
+"""Gluon pieces of the port: the block base, the layers, the vision model
+zoo, the losses and the ``Trainer``."""

@@ -2,15 +2,20 @@
 
 ``load_mxtpu_params`` takes ``{name: numpy array}`` as exported from the
 reference block's ``collect_params()`` (``p.data().asnumpy()`` per
-parameter) and copies it into a port ``TransformerLM``.  Names are
-matched with the outermost ``<block><N>_`` instance prefix stripped, as
-the reference's own decoder does (``transformerlm1_embed_weight`` →
-``embed_weight``), so the same architecture maps one to one whatever
-instance counter the exporting process had reached.  Dense weights are
-(out, in) in both frameworks and copy as they are.
+parameter) and copies it into a port ``TransformerLM`` or a port Gluon
+block (a ResNet).  Names are matched with the outermost ``<block><N>_``
+instance prefix stripped, as the reference's own decoder does
+(``transformerlm1_embed_weight`` → ``embed_weight``,
+``resnetv10_stage1_conv0_weight`` → ``stage1_conv0_weight``), so the same
+architecture maps one to one whatever instance counter the exporting
+process had reached.  A Gluon block names its tensors itself
+(``HybridBlock.collect_params``: every conv weight and bias, BatchNorm's
+gamma, beta and running statistics, the Dense output); the transformer's
+names follow from its module paths (``mxtpu_name``).  Dense and conv
+weights have the same layout in both frameworks and copy as they are.
 
-``export_mxtpu_params`` is the inverse: a port model's parameters as
-``{prefix-stripped reference name: numpy array}``.
+``export_mxtpu_params`` is the inverse: a port model's parameters (and
+running statistics) as ``{prefix-stripped reference name: numpy array}``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,13 @@ def mxtpu_name(torch_name: str) -> str:
     return name.replace(".", "_")
 
 
+def _named_tensors(model):
+    """``{prefix-stripped reference name: tensor}`` of a port model."""
+    if hasattr(model, "collect_params"):
+        return model.collect_params()
+    return {mxtpu_name(n): p for n, p in model.named_parameters()}
+
+
 def load_mxtpu_params(model, params):
     """Copy the reference's parameters ``{name: array}`` into ``model``
     in place (cast to each parameter's dtype and device).  Raises
@@ -56,7 +68,7 @@ def load_mxtpu_params(model, params):
     if len(given) != len(params):
         raise MXTPUError("two reference parameters share a name once the "
                          "instance prefix is stripped")
-    wanted = {mxtpu_name(n): p for n, p in model.named_parameters()}
+    wanted = _named_tensors(model)
     missing = sorted(set(wanted) - set(given))
     extra = sorted(set(given) - set(wanted))
     if missing or extra:
@@ -77,8 +89,7 @@ def export_mxtpu_params(model):
     without an instance prefix (what :func:`load_mxtpu_params` takes);
     bfloat16 parameters come out as float32."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in _named_tensors(model).items():
         t = p.detach().cpu()
-        out[mxtpu_name(name)] = (t.float() if t.dtype == torch.bfloat16
-                                 else t).numpy()
+        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out

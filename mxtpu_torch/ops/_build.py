@@ -36,7 +36,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: kernel sources, one shared library each
-SOURCES = ("paged_attention", "prefill_attention", "flash_attention")
+SOURCES = ("paged_attention", "prefill_attention", "flash_attention",
+           "conv_bwd")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

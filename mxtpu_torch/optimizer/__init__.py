@@ -1,6 +1,6 @@
-"""Optimizers of the port (the training path's ``Adam`` and the base it
-needs)."""
+"""Optimizers of the port (the training paths' ``SGD`` and ``Adam`` and
+the base they need)."""
 
-from .optimizer import Adam, Optimizer, create, register
+from .optimizer import SGD, Adam, Optimizer, create, register
 
-__all__ = ["Optimizer", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]

@@ -1,6 +1,6 @@
 """Optimizers (the port of ``mxtpu/optimizer/optimizer.py`` as far as the
-training path uses it): the ``Optimizer`` base — learning rate, weight
-decay, gradient rescale and clip, the registry — and ``Adam``.
+training paths use it): the ``Optimizer`` base — learning rate, weight
+decay, gradient rescale and clip, the registry — ``SGD`` and ``Adam``.
 
 Each rule is ``_step(weight, grad, state, lr, wd)`` and, for rules that
 depend on the update count, ``_step_t(..., t)``, as in the reference.
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "Adam", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "register", "create"]
 
 
 class Optimizer:
@@ -77,6 +77,33 @@ class Optimizer:
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum and weight decay (the reference's
+    ``sgd_mom_update``, or ``sgd_update`` when ``momentum`` is 0):
+
+        g   = clip(grad * rescale_grad) + wd * w
+        mom = momentum * mom - lr * g
+        w  += mom                        (w -= lr * g without momentum)"""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else torch.zeros_like(weight)
+
+    @torch.no_grad()
+    def _step(self, weight, grad, state, lr, wd):
+        g = self._grad(weight, grad, wd)
+        if self.momentum == 0.0:
+            weight.sub_(g * lr)
+            return weight, None
+        state.mul_(self.momentum).sub_(g * lr)
+        weight.add_(state)
+        return weight, state
 
 
 @register

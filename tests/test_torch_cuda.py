@@ -5,7 +5,10 @@ single-buffered tile (float32 at head_dim 256), long tables, dead lanes,
 pages out of order and chunks starting mid-page.  The flash-attention
 kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
 and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
-plus head_dim 72 and 256.  Also what the wrappers reject on the card.
+plus head_dim 72 and 256.  The conv backward kernel (K6) over
+geometries the main path does not reach: Ci != Co, H != W, N = 1,
+channel counts that are not multiples of its 64-wide tiles, and one
+ResNet-50 stage shape.  Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
 where there is none.  On the card:
@@ -20,7 +23,12 @@ relative to their largest element, so that their bound follows dO's
 size: 2e-5 of it in float32 (sums in other orders, a few 2**-23 ulps
 apart), 2**-7 in bfloat16 (both sides sum in float32 and round once;
 two roundings of nearly equal values differ by at most one bfloat16
-ulp, 2**-7 of the value at most).  This file imports neither JAX nor
+ulp, 2**-7 of the value at most).  K6's gradients are held the same way
+(``GRAD_TOL``), except its float32 dW (``DW_TOL``, 1e-4 of the largest
+element): each element sums up to N*H*W = 401,408 products in another
+order on each side, and the rounding error of such a sum grows with its
+length, about 2**-24 * sqrt(N*H*W) of the largest partial sum for terms
+of random sign (4e-5 at 401,408 terms).  This file imports neither JAX nor
 ``mxtpu``."""
 
 import numpy as np
@@ -28,6 +36,7 @@ import pytest
 import torch
 
 from mxtpu_torch import base
+from mxtpu_torch.ops import conv_bwd as cb
 from mxtpu_torch.ops import flash_attention as fa
 from mxtpu_torch.ops import paged_attention as pa
 from mxtpu_torch.ops import prefill_attention as pf
@@ -36,6 +45,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+DW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 DTYPES = [torch.float32, torch.bfloat16]
 
 # (head_dim, block_size, kv heads, rep, slots, chunk T, context)
@@ -221,4 +231,69 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
             fa.flash_fwd(*args, 0.25, True)
     with pytest.raises(base.MXTPUError, match="lse"):
         fa.flash_dq(q, k, v, do, lse.double(), lse, 0.25, True)
+    assert base.counts() == {}
+
+
+#: K6 geometries (N, Ci, Co, H, W)
+CONV_GEOMETRIES = [(2, 16, 32, 8, 8), (1, 32, 32, 14, 14), (2, 8, 24, 7, 9),
+                   (3, 70, 66, 12, 10), (1, 130, 7, 5, 6), (4, 64, 64, 56, 56)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", CONV_GEOMETRIES,
+                         ids=lambda g: "N%d-%dto%d-%dx%d" % g)
+def test_conv_bwd_kernel_matches_plain(cuda, geom, dtype):
+    N, Ci, Co, H, W = geom
+    g = torch.Generator(device="cuda").manual_seed(sum(geom))
+    x, dy = (torch.randn(N, c, H, W, generator=g, device="cuda",
+                         dtype=dtype) for c in (Ci, Co))
+    w = torch.randn(Co, Ci, 3, 3, generator=g, device="cuda", dtype=dtype)
+    base.reset_counts()
+    dx, dw = cb.conv3x3_s1_backward(x, w, dy)
+    want_dx, want_dw = cb.conv_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    assert base.counts() == {"conv_bwd": 1}
+    assert dx.dtype == dtype and dw.dtype == dtype
+    assert _err(dx, want_dx) <= GRAD_TOL[dtype] * float(
+        want_dx.float().abs().max())
+    assert _err(dw, want_dw) <= DW_TOL[dtype] * float(
+        want_dw.float().abs().max())
+
+
+def test_conv_bwd_autograd_on_the_card_matches_the_cpu(cuda):
+    """A 3x3 convolution's gradients through K6 on the card against the
+    plain version on the CPU."""
+    from mxtpu_torch.ops import nn as ops
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 12, 9, 11, generator=g, device="cuda")
+    w = torch.randn(20, 12, 3, 3, generator=g, device="cuda")
+    ct = torch.randn(2, 20, 9, 11, generator=g, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        a, b = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        y = ops.convolution(a, b, kernel=(3, 3), pad=(1, 1))
+        (y * ct.to(dev)).sum().backward()
+        grads.append((a.grad.cpu(), b.grad.cpu()))
+    for got, want in zip(*grads):
+        assert _err(got, want) <= 2e-5 * float(want.abs().max())
+
+
+def test_conv_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 4, 6, 6, device="cuda")
+    w = torch.randn(5, 4, 3, 3, device="cuda")
+    dy = torch.randn(2, 5, 6, 6, device="cuda")
+    base.reset_counts()
+    bad = [
+        (x.half(), w.half(), dy.half()),                      # dtype
+        (x.double(), w.double(), dy.double()),                # dtype
+        (x, torch.randn(5, 4, 5, 5, device="cuda"), dy),      # 5x5 kernel
+        (x, w, dy[:, :4]),                                    # dy shape
+        (x, w[:, :3], dy),                                    # Ci differs
+        (x, w.cpu(), dy),                                     # device
+        (x, w.to(torch.bfloat16), dy),                        # mixed dtype
+    ]
+    for args in bad:
+        with pytest.raises(base.MXTPUError):
+            cb.conv3x3_s1_backward(*args)
     assert base.counts() == {}
