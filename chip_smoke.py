@@ -15,8 +15,21 @@ Phases, in order; any failure exits non-zero:
    64-token chunks), in float32 and bfloat16, with ragged tables, null
    padding, pages out of order and a chunk starting mid-page; kernel,
    plain and library (gather + scaled_dot_product_attention) times;
+3b. K1's speculative verify window (W = 2, 4, 8, 16, 32) and tree
+   ancestor mask (seeded branchy trees) against the plain version at
+   head_dim 64 and 128, block 8, 16 and 32, rep 1, 4 and 8, float32 and
+   bfloat16 (llama_3_8b's geometry holds more lanes than one block from
+   W = 16), with its two bit-exact invariants (``torch.equal``): a
+   degenerate-chain ``anc`` gives the bits of no ``anc``, and lane w of
+   a W-lane window equals a W = 1 call at pos + w;
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
+4b. a 1-layer float32 model (vocab 20, numpy-seeded weights) served by
+   one engine with spec_k = 3 and spec_tree = (6, 2) over a mixed pool,
+   greedy, seeded-sampled and penalized, prefix sharing and chunked
+   prefill in play: every stream equals the same settings' stream with
+   speculation off and ``generate``; drafts are accepted, a tree
+   side-branch fix-up runs, no page leaks;
 5. the main path: the full-width 32-layer Llama-3-8B in bfloat16 with
    seeded random weights, serving 12 requests (prompts of 64-640
    tokens, 6 sharing a 256-token prefix, 32 new tokens each, 2 of them
@@ -25,10 +38,20 @@ Phases, in order; any failure exits non-zero:
    equal 32 per decode step and 32 per prefill chunk;
 6. torch.profiler over four more decode steps of the same engine: the
    device time by kernel and the device's idle share;
-7. layer 0's kernel inputs captured from the main run (one prefill
-   chunk, one decode step): kernel against plain version on them, and
-   the kernel, plain and library times (device time of a CUDA-graph
-   replay, L2 flushed before each) at the main path's shapes;
+6b. the speculative main path: the same model serves 12 motif requests
+   (``motif_traffic``: 6 tree, 5 linear, 1 not speculating; 2 sampled,
+   1 penalized; 32 new tokens each) twice on the main path's engine
+   settings, with speculation off and with spec_k = 4, spec_tree =
+   (15, 2); K1's launches must be 32 per step or verify call, by W and
+   tree; streams are held identical up to the first bf16 tie that the
+   window's other GEMM rounding may break (``TIE_GAP``), K1 to
+   invariant (b) on the captured window, and which ops round a window
+   lane otherwise is logged (``window_op_bits``);
+7. layer 0's kernel inputs captured from the main runs (one prefill
+   chunk, one decode step, one linear verify window and one tree): kernel
+   against plain version on them, and the kernel, plain and library
+   times (device time of a CUDA-graph replay, L2 flushed before each)
+   at the main path's shapes;
 8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
    their plain versions, causal and not, at T = 128, 100 and 150
    (head_dim 16) and at (1, 32, 2048, 128), in float32 and bfloat16;
@@ -56,7 +79,9 @@ Phases, in order; any failure exits non-zero:
    kernel against plain version, and the kernel, plain and library
    (cuDNN's convolution backward) times.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
+The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
+inputs as rows of their own, ``paged_attention[W=8]`` and
+``paged_attention[tree,W=16]``); the last line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
 
@@ -72,6 +97,7 @@ side, and the rounding error of a sum of random-sign terms grows as
 about 2**-24 * sqrt(N*H*W) of its largest partial sum (4e-5 there).
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -186,17 +212,31 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def decode_work(q, pool_k, tables, pos):
-    """Bytes and operations a decode call needs on these inputs: q read
-    and out written once, each slot's keys and values 0..pos[b] read
-    once, 4 operations per (lane, key, d) for the scores and the sum."""
+def attended_keys(pos, W, anc=None):
+    """(B, W) keys each window lane attends: pos + w + 1 on a linear
+    window, pos + popcount(anc[b, w]) + 1 on a tree."""
+    p = pos.long().reshape(-1, 1)
+    if anc is None:
+        return p + torch.arange(W, device=pos.device)[None, :] + 1
+    bits = anc.long()
+    pop = sum((bits >> i) & 1 for i in range(32))
+    return p + pop + 1
+
+
+def decode_work(q, pool_k, tables, pos, anc=None):
+    """Bytes and operations a decode or verify call needs on these
+    inputs: q (and anc) read and out written once, each slot's keys and
+    values 0..pos[b]+W-1 read once, 4 operations per (lane, attended
+    key, d) for the scores and the sum."""
     B, H, W, D = q.shape
     KV = pool_k.shape[1]
     elt = q.element_size()
-    keys = int((pos.long() + 1).sum())
+    keys = int((pos.long() + W).sum())
     nbytes = (2 * q.numel() * elt + keys * KV * D * 2 * elt
-              + 4 * (tables.numel() + pos.numel()))
-    return nbytes, 4 * keys * H * W * D
+              + 4 * (tables.numel() + pos.numel())
+              + (0 if anc is None else 4 * anc.numel()))
+    attended = int(attended_keys(pos, W, anc).sum())
+    return nbytes, 4 * attended * H * D
 
 
 def prefill_work(q, pool_k, table, start):
@@ -211,15 +251,29 @@ def prefill_work(q, pool_k, table, start):
     return nbytes, 4 * attended * H * D
 
 
-def library_decode(q, pool_k, pool_v, tables, pos):
+def verify_mask(pos, W, T, anc=None):
+    """(B, 1, W, T) boolean mask of K1's lanes: key t <= pos + w, or with
+    ``anc`` the history, the lane itself and its ancestors."""
+    t = torch.arange(T, device=pos.device)[None, None, :]
+    p = pos.long()[:, None, None]
+    w = torch.arange(W, device=pos.device)[None, :, None]
+    if anc is None:
+        return (t <= p + w)[:, None]
+    rel = t - p
+    bit = (anc.long()[:, :, None] >> rel.clamp(0, 31)) & 1
+    return ((rel < 0) | (rel == w)
+            | ((rel >= 0) & (rel < W) & (bit == 1)))[:, None]
+
+
+def library_decode(q, pool_k, pool_v, tables, pos, anc=None):
     """The yardstick: gather each slot's pages, then PyTorch's
-    scaled_dot_product_attention over them (never called by the port)."""
+    scaled_dot_product_attention over them with K1's boolean mask
+    (never called by the port)."""
     from mxtpu_torch.ops.tensor import paged_cache_gather
 
     k = paged_cache_gather(pool_k, tables)           # (B, KV, M*bs, D)
     v = paged_cache_gather(pool_v, tables)
-    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
+    mask = verify_mask(pos, q.shape[2], k.shape[2], anc)
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True)
 
@@ -364,15 +418,19 @@ def prefill_case(geom, dtype, seed):
 
 def measure(name, args, flush, timed=True):
     """Kernel against plain version on ``args``; with ``timed`` also the
-    kernel, plain and library times and the bound."""
+    kernel, plain and library times and the bound.  K1's args may end
+    with a tree's ``anc``."""
     from mxtpu_torch.ops import paged_attention as pa
     from mxtpu_torch.ops import prefill_attention as pf
 
-    if name == "paged_attention":
-        kernel, plain, library = (pa.paged_decode_attention,
-                                  pa.paged_decode_attention_plain,
-                                  library_decode)
-        work = decode_work(args[0], args[1], args[3], args[4])
+    if name.startswith("paged_attention"):
+        anc = args[5] if len(args) > 5 else None
+        args = tuple(args[:5])
+        kernel, plain, library = (
+            lambda *a: pa.paged_decode_attention(*a, anc=anc),
+            lambda *a: pa.paged_decode_attention_plain(*a, anc=anc),
+            lambda *a: library_decode(*a, anc=anc))
+        work = decode_work(args[0], args[1], args[3], args[4], anc)
     else:
         kernel, plain, library = (pf.paged_prefill_attention,
                                   pf.paged_prefill_attention_plain,
@@ -395,6 +453,91 @@ def measure(name, args, flush, timed=True):
         res["library_ms"] = cuda_ms(lambda: library(*args), flush)
         res["bound_ms"], res["bound_by"] = bound(work[0], work[1], dtype)
     return res
+
+
+#: K1's verify window and tree geometries: (name, dict) as decode_case
+#: takes them; llama_3_8b's holds more lanes than one block from W = 16
+VERIFY_GEOMS = [
+    ("D64-bs8-rep1", dict(D=64, bs=8, KV=2, rep=1, B=4, ctx=200)),
+    ("D128-bs16-rep4", dict(LLAMA_8B)),
+    ("D128-bs32-rep8", dict(D=128, bs=32, KV=2, rep=8, B=3, ctx=300)),
+]
+VERIFY_WIDTHS = (2, 4, 8, 16, 32)
+
+
+def tree_anc(rng, B, W, chain=False):
+    """(B, W) int32 numpy strict-ancestor bitmasks of seeded branchy
+    trees in window-lane order (each lane's parent one of the 3 lanes
+    before it), or of the degenerate chain anc[b, w] = (1 << w) - 1."""
+    anc = np.zeros((B, W), np.int64)
+    for b in range(B):
+        for w in range(1, W):
+            p = w - 1 if chain else int(rng.randint(max(0, w - 3), w))
+            anc[b, w] = anc[b, p] | (1 << p)
+    return anc.astype(np.int32)
+
+
+def verify_kernels_against_plain():
+    """K1's verify window (W = 2..32) and tree mask against the plain
+    version, float32 and bfloat16, and its two bit-exact invariants:
+    (a) a degenerate-chain anc gives the bits of no anc; (b) lane w of a
+    W-lane linear call equals a W = 1 call at pos + w."""
+    from mxtpu_torch.ops import paged_attention as pa
+
+    worst = 0.0
+    for gname, geom in VERIFY_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for W in VERIFY_WIDTHS:
+                rng = np.random.RandomState(W)
+                case = dict(geom, ctx=geom["ctx"] + W)
+                q, pk, pv, tables, pos = decode_case(case, dtype, seed=W)
+                B, H = q.shape[:2]
+                # every live slot's table covers its window
+                pos = torch.clamp(pos - W, min=0)
+                pos[1] = 0
+                q = torch.randn(B, H, W, q.shape[-1], device="cuda",
+                                dtype=dtype, generator=torch.Generator(
+                                    device="cuda").manual_seed(W))
+                errs = {}
+                lin = pa.paged_decode_attention(q, pk, pv, tables, pos)
+                for kind, anc in (("linear", None),
+                                  ("tree", tree_anc(rng, B, W)),
+                                  ("chain", tree_anc(rng, B, W, True))):
+                    if anc is not None:
+                        anc = torch.from_numpy(anc).cuda()
+                    got = lin if anc is None else \
+                        pa.paged_decode_attention(q, pk, pv, tables, pos,
+                                                  anc=anc)
+                    want = pa.paged_decode_attention_plain(
+                        q, pk, pv, tables, pos, anc=anc)
+                    torch.cuda.synchronize()
+                    errs[kind] = float((got.float() - want.float())
+                                       .abs().max())
+                    if not errs[kind] <= TOL[dtype]:
+                        raise AssertionError(
+                            "K1 %s W=%d disagrees with its plain version: "
+                            "%g > %g (%s, %s)" % (kind, W, errs[kind],
+                                                  TOL[dtype], gname, dtype))
+                    if kind == "chain" and not torch.equal(got, lin):
+                        raise AssertionError(
+                            "K1 invariant (a): a chain anc changed the "
+                            "bits (W=%d, %s, %s)" % (W, gname, dtype))
+                for w in range(W):
+                    one = pa.paged_decode_attention(
+                        q[:, :, w:w + 1].contiguous(), pk, pv, tables,
+                        pos + w)
+                    if not torch.equal(one, lin[:, :, w:w + 1]):
+                        raise AssertionError(
+                            "K1 invariant (b): lane %d of a W=%d window "
+                            "differs from a W=1 call at pos+%d (%s, %s)"
+                            % (w, W, w, gname, dtype))
+                worst = max(worst, max(e / TOL[dtype]
+                                       for e in errs.values()))
+                log(phase="verify_vs_plain", geometry=gname,
+                    dtype=str(dtype).split(".")[1], W=W,
+                    lanes=H // pk.shape[1] * W, max_abs_err=errs,
+                    invariants="a,b bit-exact")
+    return worst
 
 
 def kernels_against_plain(flush):
@@ -486,11 +629,14 @@ class Capture:
         self.inner = None
         self.calls = 0
         self.args = None
+        self.kwargs = None
 
     def __call__(self, *args, **kw):
-        if self.args is None and self.want(self.calls, args):
+        if self.args is None and self.want(self.calls, args, kw):
             self.args = [a.clone() if torch.is_tensor(a) else a
                          for a in args]
+            self.kwargs = {k: a.clone() if torch.is_tensor(a) else a
+                           for k, a in kw.items()}
         self.calls += 1
         return self.inner(*args, **kw)
 
@@ -581,10 +727,10 @@ def serve_llama_3_8b():
     before = eng.stats
     reqs = traffic(model.vocab_size)
     decode_cap = Capture(pa, "paged_decode_attention",
-                         lambda n, a: n >= 20 * n_layers
+                         lambda n, a, kw: n >= 20 * n_layers
                          and n % n_layers == 0)
     prefill_cap = Capture(pf, "paged_prefill_attention",
-                          lambda n, a: a[4] >= 256)
+                          lambda n, a, kw: a[4] >= 256)
     with decode_cap, prefill_cap, FiniteLogits(sampler) as finite, \
             Timed(model, "prefill_pages") as t_pre, \
             Timed(model, "step_pages") as t_dec:
@@ -633,8 +779,8 @@ def serve_llama_3_8b():
     if decode_cap.args is None or prefill_cap.args is None:
         raise AssertionError("no kernel inputs were captured")
     profile_decode_steps(eng, model.vocab_size)
-    return launches, {"paged_attention": decode_cap.args,
-                      "paged_prefill": prefill_cap.args}
+    return model, launches, {"paged_attention": decode_cap.args,
+                             "paged_prefill": prefill_cap.args}
 
 
 def profile_device(run, steps):
@@ -683,6 +829,486 @@ def profile_decode_steps(eng, vocab, steps=4):
     res = profile_device(eng.step, steps)
     eng.run()
     log(phase="profile_decode", **res)
+
+
+# -- speculative serving: a small model, then the 8B main path --------------
+
+class Counted:
+    """Counts every call of one attribute (a kernel wrapper or a model
+    method) during a run, by ``key(args, kwargs)``, and passes it on."""
+
+    def __init__(self, owner, attr, key):
+        self.owner, self.attr, self.key = owner, attr, key
+        self.inner = None
+        self.own = False
+        self.counts = {}
+
+    def __call__(self, *args, **kw):
+        k = self.key(args, kw)
+        self.counts[k] = self.counts.get(k, 0) + 1
+        return self.inner(*args, **kw)
+
+    def __enter__(self):
+        # an instance's method is restored by deleting the override (a
+        # bound method kept on the instance would hold it in a cycle)
+        self.own = self.attr in getattr(self.owner, "__dict__", {})
+        self.inner = getattr(self.owner, self.attr)
+        setattr(self.owner, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own or isinstance(self.owner, type(sys)):
+            setattr(self.owner, self.attr, self.inner)
+        elif self.attr in self.owner.__dict__:
+            # (a Timed nested inside may have removed the override)
+            delattr(self.owner, self.attr)
+
+
+def k1_key(args, kw):
+    """A K1 call's window width and whether it took a tree's anc."""
+    return (int(args[0].shape[2]), kw.get("anc") is not None)
+
+
+def model_key(args, kw):
+    """A step_pages or verify_pages call's window width and kind."""
+    return (int(args[0].shape[1]), kw.get("tree", args[5] if len(args) > 5
+                                         else None) is not None)
+
+
+def init_weights_numpy(model, seed, std):
+    """Normal(0, std) weights drawn with numpy from ``seed``, in
+    parameter order (the same on every device); RMSNorm gains stay 1."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.endswith("norm.weight"):
+                p.copy_(torch.from_numpy(
+                    rng.normal(0.0, std, tuple(p.shape)).astype("f")))
+
+
+#: the small speculative model: the reference tests' cycling micro-model
+#: geometry (vocab 20, 1 layer, 32 units, 4 heads over 2 kv heads)
+SPEC_SMALL = dict(vocab=20, units=32, hidden=64, layers=1, heads=4, kv=2,
+                  seed=2, std=0.5)
+#: branchy prompts (tests/test_tree_speculative.py): the trailing bigram
+#: recurs with two continuations, so the tree drafter forks
+P_FORK = [1, 2, 3, 1, 2, 4, 1, 2, 3, 1, 2]
+P_FORK2 = [5, 6, 7, 5, 6, 8, 5, 6, 7, 5, 6]
+P_FORK3 = [9, 3, 2, 9, 3, 5, 9, 3, 2, 9, 3]
+
+
+def fork_prompts(model, n, rng, tries=60):
+    """``n`` prompts s + y + s + [z] + s[:2] whose greedy continuation on
+    ``model`` is s[2], y: after the first token the history ends with s,
+    whose most recent occurrence continues with z (the tree drafter's
+    primary chain) and whose earlier one with y (a side branch), so the
+    accepted path takes the side branch and the fix-up runs.  Found by
+    a fixed-point search on the model itself."""
+    V = model.vocab_size
+    out = []
+    for _ in range(tries):
+        s = [int(t) for t in rng.randint(0, V, 3)]
+        y = [int(t) for t in rng.randint(0, V, 2)]
+        for _ in range(4):
+            p = s + y + s + [(y[0] + 1) % V] + s[:2]
+            c = model.generate(torch.tensor([p]), 3)[0, len(p):].tolist()
+            if c == [s[2]] + y:
+                out.append(p)
+                break
+            s[2], y = c[0], c[1:]
+        if len(out) == n:
+            return out
+    raise AssertionError("no prompt of the model forks onto a side branch")
+
+
+def small_model_speculative_check(device="cuda"):
+    """A 1-layer float32 model on ``device``, numpy-seeded weights,
+    served by one engine with spec_k = 3 and spec_tree = (6, 2) over a
+    mixed pool (one request drafts linearly, spec_tree=False), prefix
+    sharing and 2-chunk prefills in play: every greedy, seeded-sampled
+    and penalized stream equals the same engine settings' stream with
+    speculation off and the model's isolated generate.  Drafts must be
+    accepted, a tree side-branch fix-up must run, and every page must
+    come back."""
+    from mxtpu_torch.models.transformer import TransformerLM
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    c = SPEC_SMALL
+    model = TransformerLM(c["vocab"], c["units"], c["hidden"], c["layers"],
+                          c["heads"], c["kv"], device=device)
+    init_weights_numpy(model, c["seed"], c["std"])
+    cfg = dict(num_slots=3, max_length=64, block_size=8, prefill_chunk=8,
+               device=device)
+    shared = P_FORK + P_FORK2
+    reqs = [(p, 16, {}) for p in fork_prompts(model, 2,
+                                               np.random.RandomState(0))]
+    reqs += [(P_FORK, 20, {}),
+             (P_FORK2, 20, dict(temperature=0.8, seed=7)),
+             (P_FORK3, 18, dict(temperature=0.6, seed=9,
+                                repetition_penalty=1.3)),
+             (P_FORK2 + P_FORK, 16, dict(spec_tree=False)),
+             (shared, 14, {}),
+             (shared + [4, 9], 14, dict(repetition_penalty=1.3))]
+    outs = {}
+    for spec in (False, True):
+        eng = PagedContinuousBatchingEngine(
+            model, **cfg, **(dict(spec_k=3, spec_tree=(6, 2)) if spec
+                             else {}))
+        with Counted(model, "permute_pool_span", lambda a, kw: 0) as fix:
+            rids = []
+            for j, (p, n, kw) in enumerate(reqs):
+                rids.append(eng.submit(np.array([p]), n, **kw))
+                if p is shared:
+                    for _ in range(3):
+                        eng.step()      # the donor's pages register
+            res = eng.run()
+        outs[spec] = [res[r].numpy() for r in rids]
+        st = eng.stats
+    for j, (p, n, kw) in enumerate(reqs):
+        kw = {k: v for k, v in kw.items() if k != "spec_tree"}
+        want = model.generate(torch.tensor([p]), n, **kw).cpu().numpy()
+        for spec in (False, True):
+            if not np.array_equal(outs[spec][j], want):
+                raise AssertionError(
+                    "small speculative model: request %d (%r, spec=%s) "
+                    "gave %r, generate %r" % (j, kw, spec, outs[spec][j],
+                                              want))
+    fixups = fix.counts.get(0, 0)
+    if (st["accepted_tokens"] <= 0 or st["tree_nodes_drafted"] <= 0
+            or fixups <= 0 or st["blocks_in_use"] != 0
+            or st["prefix_hit_requests"] <= 0):
+        raise AssertionError("small speculative model: no accepts, no "
+                             "tree, no fix-up, no prefix hit or leaked "
+                             "pages: %r, %d fix-ups" % (st, fixups))
+    log(phase="small_model_speculative", device=str(device),
+        requests=len(reqs), fixups=fixups,
+        **{k: st[k] for k in ("drafted_tokens", "accepted_tokens",
+                              "tree_nodes_drafted", "tree_paths",
+                              "verify_calls", "slot_iterations",
+                              "prefix_hit_requests")})
+
+
+#: the speculative main path's engine: SERVE plus speculation
+SPEC_SERVE = dict(SERVE, spec_k=4, spec_tree=(15, 2))
+#: a divergence between the speculative and the plain stream is allowed
+#: only where the plain run's two best decision scores (logits; for a
+#: sampled draw, the tempered logits plus its Gumbel draw, times the
+#: temperature) were this close: bf16 logits of |x| < 16 are spaced
+#: 2**-4 at most, two steps of that
+TIE_GAP = 2 * 2.0 ** -4
+
+
+#: speculative traffic: a MOTIF_LEN-token motif prompt, continued by the
+#: model's own greedy text, probed PROBE tokens deep
+MOTIF_LEN = 128
+PROBE = 400
+
+
+def motif_traffic(model, seed=0):
+    """12 requests of 256-528 prompt tokens: a seeded random 16-48-token
+    motif repeated to 128 tokens with 2 random substitutions (the
+    repetitive text n-gram drafting targets), followed by the model's
+    own greedy continuation of it, cut where the model's next token
+    already occurs in the prompt (an n-gram match).  A random-weight
+    model neither continues a motif nor repeats itself: its tokens are
+    near-uniform over the vocabulary, so without the cut almost no
+    request would draft.  The continuations come from one paged-engine
+    run of PROBE tokens; each cut is then confirmed by a one-token run
+    on the main path's engine settings (the same prefill as the
+    measured runs, so the same first token), moving to the request's
+    next match where it fails.  A request without a confirmed match is
+    cut at a seeded point.  6 requests draft trees, 5 draft linearly
+    (spec_tree=False), 1 does not speculate; 2 are seeded-sampled (one of
+    them a tree), 1 penalized.  Returns the (prompt, submit kwargs)
+    pairs and the number of confirmed cuts."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    rng = np.random.RandomState(seed)
+    V = model.vocab_size
+    motifs, kws = [], []
+    for i in range(12):
+        motif = rng.randint(0, V, int(rng.randint(16, 49)))
+        p = np.tile(motif, MOTIF_LEN // len(motif) + 1)[:MOTIF_LEN]
+        at = rng.randint(0, MOTIF_LEN, MOTIF_LEN // 64)
+        p[at] = rng.randint(0, V, len(at))
+        motifs.append(p[None].astype(np.int64))
+        kw = {} if i < 6 else (dict(spec_tree=False) if i < 11
+                               else dict(speculative=False))
+        if i in (2, 7):
+            kw.update(temperature=0.8, top_p=0.9, seed=2000 + i)
+        if i == 4:
+            kw.update(repetition_penalty=1.2)
+        kws.append(kw)
+    probe = PagedContinuousBatchingEngine(
+        model, **dict(SERVE, num_slots=12))
+    rids = [probe.submit(p, PROBE) for p in motifs]
+    res = probe.run()
+    del probe
+    rows = [res[r].numpy()[0] for r in rids]
+    cands = []
+    for row in rows:
+        seen, c = set(row[:2 * MOTIF_LEN].tolist()), []
+        for j in range(2 * MOTIF_LEN, len(row)):
+            if int(row[j]) in seen:
+                c.append(j)
+            seen.add(int(row[j]))
+        cands.append(c)
+    check = PagedContinuousBatchingEngine(model, **SERVE)
+    cut = [c[0] if c else None for c in cands]
+    ok = [False] * 12
+    for _ in range(3):
+        todo = [i for i in range(12) if cut[i] is not None and not ok[i]]
+        if not todo:
+            break
+        rids = {i: check.submit(rows[i][None, :cut[i]], 1, **kws[i])
+                for i in todo}
+        res = check.run()
+        for i, r in rids.items():
+            first = int(res[r].numpy()[0, -1])
+            if first in set(rows[i][:cut[i]].tolist()):
+                ok[i] = True
+            else:
+                later = [j for j in cands[i] if j > cut[i]]
+                cut[i] = later[0] if later else None
+    del check
+    reqs = []
+    for i in range(12):
+        c = cut[i] if ok[i] else int(rng.randint(2 * MOTIF_LEN,
+                                                 len(rows[i])))
+        reqs.append((rows[i][None, :c].astype(np.int64), kws[i]))
+    return reqs, sum(ok)
+
+
+def serve_speculative(model, eng, reqs, record_scores=False):
+    """One run of ``reqs`` through ``eng`` with the K1 calls and the
+    model's step/verify calls counted by (W, tree), the decode calls
+    timed, the sampled logits checked finite, and (``record_scores``) the
+    decision scores of every plain-step draw kept by (rid, token
+    index).  The first linear and the first tree K1 call are
+    captured."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models import sampler
+    from mxtpu_torch.ops import paged_attention as pa
+
+    n_layers = len(model.layers)
+    scores = {}
+    if record_scores:
+        inner = eng._sample_pool
+
+        def sample_pool(last, active):
+            # the scores each row's draw takes its argmax over, the
+            # sampled rows' Gumbel draw taken from a copy of their
+            # generator; kept on the logit scale (times the temperature)
+            for row in active:
+                s = eng._slots[row]
+                r = s.req
+                gen = None if s.gen is None else \
+                    sampler.generator_at(s.gen.get_state(), last.device)
+                x = sampler.sampling_scores(
+                    last[row:row + 1], gen, r.temperature, r.top_k, r.top_p,
+                    r.repetition_penalty,
+                    seen_mask=(eng._seen[row:row + 1] if r.penalized
+                               else None))[0]
+                scores[(r.rid, s.n_emitted)] = (x * r.temperature
+                                              if r.sampled else x)
+            return inner(last, active)
+        eng._sample_pool = sample_pool
+    lin_cap = Capture(pa, "paged_decode_attention",
+                      lambda n, a, kw: a[0].shape[2] > 1
+                      and kw.get("anc") is None)
+    tree_cap = Capture(pa, "paged_decode_attention",
+                       lambda n, a, kw: kw.get("anc") is not None)
+    before = eng.stats
+    torch.cuda.reset_peak_memory_stats()
+    with lin_cap, tree_cap, Counted(pa, "paged_decode_attention",
+                                    k1_key) as k1, \
+            Counted(model, "step_pages", model_key) as steps, \
+            Counted(model, "verify_pages", model_key) as verifies, \
+            FiniteLogits(sampler) as finite, \
+            Timed(model, "step_pages") as t_step, \
+            Timed(model, "verify_pages") as t_ver:
+        torch.cuda.synchronize()
+        rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+        base.reset_counts()
+        t_run = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = base.counts()
+    if record_scores:
+        del eng._sample_pool
+    after = eng.stats
+    d = {k: after[k] - before[k] for k in (
+        "steps", "generated_tokens", "prefill_tokens", "verify_calls",
+        "drafted_tokens", "accepted_tokens", "tree_nodes_drafted",
+        "tree_paths", "slot_iterations")}
+    calls = dict(steps.counts)
+    calls.update(verifies.counts)
+    for key, n in calls.items():
+        if k1.counts.get(key, 0) != n_layers * n:
+            raise AssertionError("K1 launched %d times with (W, tree) = %r"
+                                 ", wanted %d x %d model calls"
+                                 % (k1.counts.get(key, 0), key, n_layers,
+                                    n))
+    if (set(k1.counts) != set(calls)
+            or sum(verifies.counts.values()) != d["verify_calls"]
+            or sum(calls.values()) != d["steps"]
+            or launches.get("paged_attention", 0)
+            != n_layers * d["steps"]):
+        raise AssertionError("K1 launches %r do not equal %d x (plain steps "
+                             "+ verify calls) %r, stats %r"
+                             % (k1.counts, n_layers, calls, d))
+    if finite.ok is None or not bool(finite.ok):
+        raise AssertionError("a sampled logit row was not finite")
+    if after["blocks_in_use"] != 0:
+        raise AssertionError("pages leaked: %r" % after)
+    # generated_tokens counts decode tokens (each request's first token
+    # comes from its prefill)
+    decode_tokens = d["generated_tokens"]
+    decode_ms = t_step.ms() + t_ver.ms()
+    n_calls = sum(calls.values())
+    out = dict(decode_calls={"%s%d" % ("tree,W=" if t else "W=", w): n
+                             for (w, t), n in sorted(calls.items())},
+               k1_launches={"%s%d" % ("tree,W=" if t else "W=", w): n
+                            for (w, t), n in sorted(k1.counts.items())},
+               decode_tokens=decode_tokens, decode_ms=decode_ms,
+               decode_tokens_per_s=decode_tokens / (decode_ms / 1e3),
+               mean_ms_per_decode_call=decode_ms / n_calls,
+               mean_ms_per_step=t_step.ms() / max(1, len(t_step.events)),
+               mean_ms_per_verify=(t_ver.ms() / len(t_ver.events)
+                                   if t_ver.events else None),
+               tokens_per_slot_iteration=decode_tokens
+               / max(1, d["slot_iterations"]),
+               accepted_per_slot_iteration=d["accepted_tokens"]
+               / max(1, d["slot_iterations"]),
+               draft_hit_rate=(d["accepted_tokens"] / d["drafted_tokens"]
+                               if d["drafted_tokens"] else 0.0),
+               wall_s=wall,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               **d)
+    streams = [res[r].numpy() for r in rids]
+    caps = {"linear": lin_cap.args and (lin_cap.args[:5]),
+            "tree": tree_cap.args and (tree_cap.args[:5]
+                                       + [tree_cap.kwargs["anc"]])}
+    return out, streams, rids, scores, k1.counts, caps
+
+
+def serve_llama_3_8b_speculative(model):
+    """The 8B model served the motif traffic twice on the main path's
+    engine settings: once with speculation off, once with spec_k = 4
+    and spec_tree = (15, 2).  K1's launches must be 32 per model call by
+    (W, tree).  The streams must be identical, except where the plain
+    run's best decision scores tied within TIE_GAP: a slot in a verify
+    call gets its logits from products over 8W rows where a step's run
+    over 8, and cuBLAS may round those otherwise (``window_op_bits``
+    says which ops do), so there the streams may part.  They are held
+    identical up to that token, where the token the speculative run took
+    must have scored within TIE_GAP of the plain run's best; and K1
+    itself to invariant (b) on the main path's window."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    reqs, matched = motif_traffic(model)
+    log(phase="speculative_traffic", requests=len(reqs),
+        prompt_tokens=[int(p.shape[1]) for p, _ in reqs],
+        confirmed_matches=matched, seconds=time.perf_counter() - t0)
+    runs = {}
+    for spec in (False, True):
+        eng = PagedContinuousBatchingEngine(
+            model, **(SPEC_SERVE if spec else SERVE))
+        eng.submit(np.arange(64)[None], 2)      # warm-up, outside counts
+        eng.run()
+        runs[spec] = serve_speculative(model, eng, reqs,
+                                       record_scores=not spec)
+        log(phase="serve_speculative", speculative=spec,
+            engine={k: v for k, v in (SPEC_SERVE if spec
+                                      else SERVE).items()},
+            **runs[spec][0])
+        del eng
+        torch.cuda.empty_cache()
+    plain, spec = runs[False], runs[True]
+    if spec[0]["verify_calls"] <= 0 or spec[0]["tree_nodes_drafted"] <= 0:
+        raise AssertionError("no verify call or no tree drafted: %r"
+                             % spec[0])
+    parted = []
+    for j, (a, b) in enumerate(zip(plain[1], spec[1])):
+        if a.shape != b.shape:
+            raise AssertionError("request %d: %s vs %s tokens"
+                                 % (j, a.shape, b.shape))
+        diff = np.nonzero(a[0] != b[0])[0]
+        if not diff.size:
+            continue
+        at = int(diff[0]) - reqs[j][0].shape[1]    # token index
+        scores = plain[3].get((plain[2][j], at))
+        if scores is None:
+            raise AssertionError("request %d parts at token %d, which no "
+                                 "plain step drew" % (j, at))
+        tok_p = int(a[0, reqs[j][0].shape[1] + at])
+        tok_s = int(b[0, reqs[j][0].shape[1] + at])
+        gap = float(scores.max() - scores[tok_s])
+        second = float(scores.max() - torch.topk(scores, 2).values[1])
+        parted.append(dict(request=j, token=at, plain=tok_p, spec=tok_s,
+                           spec_gap=gap, top2_gap=second))
+        if not gap <= TIE_GAP or float(scores[tok_p]) != float(
+                scores.max()):
+            raise AssertionError("request %d: the speculative stream "
+                                 "parts from the plain one at token %d, "
+                                 "where the speculative token scored %g "
+                                 "below the plain run's best (> %g): %r"
+                                 % (j, at, gap, TIE_GAP, parted[-1]))
+    log(phase="speculative_identity", requests=len(reqs),
+        identical=len(reqs) - len(parted), parted=parted)
+    caps = spec[5]
+    if caps["tree"] is None:
+        raise AssertionError("no tree verify call was captured")
+    derived = caps["linear"] is None
+    if derived:
+        # no iteration drafted linearly alone: the tree call's inputs as
+        # an 8-lane linear window
+        t = caps["tree"]
+        caps["linear"] = [t[0][:, :, :8].contiguous()] + list(t[1:5])
+    log(phase="verify_capture", linear_W=int(caps["linear"][0].shape[2]),
+        tree_W=int(caps["tree"][0].shape[2]), linear_derived=derived)
+    lane_invariant(caps["linear"])
+    log(phase="window_op_bits", **window_op_bits(model))
+    return spec[4], caps
+
+
+def lane_invariant(args):
+    """K1 invariant (b) on a captured main-path window: lane w equals a
+    W = 1 call at pos + w, bit for bit."""
+    from mxtpu_torch.ops import paged_attention as pa
+
+    q, pk, pv, tables, pos = args
+    lin = pa.paged_decode_attention(q, pk, pv, tables, pos)
+    for w in range(q.shape[2]):
+        one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk,
+                                        pv, tables, pos + w)
+        if not torch.equal(one, lin[:, :, w:w + 1]):
+            raise AssertionError("K1 invariant (b) fails on the main "
+                                 "path's window at lane %d" % w)
+
+
+def window_op_bits(model, W=16):
+    """Which of the model's ops give a verify window's lane 0 other bits
+    than the sequential step's row on the same input row: each op once
+    on (8, 1, in) and once on (8, W, in) whose lane 0 is that row."""
+    layer = model.layers[0]
+    ops = [("attn_norm", layer.attn_norm), ("qkv", layer.attn.qkv),
+           ("out_proj", layer.attn.out_proj), ("ffn_norm", layer.ffn_norm),
+           ("gate_proj", layer.gate_proj), ("up_proj", layer.up_proj),
+           ("down_proj", layer.down_proj), ("lm_head", model.lm_head)]
+    g = torch.Generator(device=model.device).manual_seed(3)
+    same, differ = [], []
+    with torch.no_grad():
+        for name, op in ops:
+            n = op.weight.shape[-1]
+            xw = torch.randn(8, W, n, generator=g, device=model.device,
+                             dtype=model.dtype)
+            one = op(xw[:, :1].contiguous())
+            (same if torch.equal(op(xw)[:, :1], one) else differ).append(
+                name)
+    return dict(W=W, bit_identical=same, bits_differ=differ)
 
 
 # -- phase 8: the flash kernels against their plain versions ----------------
@@ -824,9 +1450,9 @@ def train_llama_3_8b():
     torch.cuda.synchronize()
     # the backward runs the layers last to first: layer 0's is the last
     # dq/dkv call of a step
-    caps = [Capture(fa, "flash_fwd", lambda n, a: n == 0),
-            Capture(fa, "flash_dq", lambda n, a: n == n_layers - 1),
-            Capture(fa, "flash_dkv", lambda n, a: n == n_layers - 1)]
+    caps = [Capture(fa, "flash_fwd", lambda n, a, kw: n == 0),
+            Capture(fa, "flash_dq", lambda n, a, kw: n == n_layers - 1),
+            Capture(fa, "flash_dkv", lambda n, a, kw: n == n_layers - 1)]
     events = []
     with caps[0], caps[1], caps[2]:
         base.reset_counts()
@@ -1116,7 +1742,7 @@ def train_resnet50():
     shapes = [(s[0], s[1], s[3], s[4]) for s in CONV_SHAPES
               if s[0] == cfg["batch"]]
     caps = [Capture(cb, "conv3x3_s1_backward",
-                    lambda n, a, s=s: tuple(a[0].shape) == s)
+                    lambda n, a, kw, s=s: tuple(a[0].shape) == s)
             for s in shapes]
     events = []
     with caps[0], caps[1], caps[2]:
@@ -1196,14 +1822,30 @@ def main():
     build()
     flush = _L2Flush()
     kernels_against_plain(flush)
+    verify_kernels_against_plain()
     small_model_reference_check()
-    launches, served = serve_llama_3_8b()
+    small_model_speculative_check()
+    model, launches, served = serve_llama_3_8b()
+    k1_counts, verify_caps = serve_llama_3_8b_speculative(model)
+    del model
+    gc.collect()
     results = {}
     for name, args in served.items():
         results[name] = measure(name, args, flush)
         log(phase="served_inputs", kernel=name, shape=list(args[0].shape),
             **results[name])
-    del served
+    for kind, args in verify_caps.items():
+        W = int(args[0].shape[2])
+        name = "paged_attention[%sW=%d]" % ("tree," if kind == "tree" else "",
+                                            W)
+        results[name] = measure(name, args, flush)
+        launches[name] = k1_counts.get((W, kind == "tree"), 0)
+        if not launches[name]:
+            raise AssertionError("the speculative main path never launched "
+                                 "K1 as %s" % name)
+        log(phase="verify_inputs", kernel=name, shape=list(args[0].shape),
+            launches=launches[name], **results[name])
+    del served, verify_caps
     torch.cuda.empty_cache()
     flash_kernels_against_plain()
     small_training_check()
@@ -1229,7 +1871,7 @@ def main():
             results["conv_bwd"] = res
     rows = []
     for name, res in results.items():
-        source, replaces = KERNEL_SOURCES[name]
+        source, replaces = KERNEL_SOURCES[name.split("[")[0]]
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=res["max_abs_err"],

@@ -5,8 +5,16 @@
 // set of query lanes whose causal limit differs per lane:
 //
 //   decode  — lane l = r*W + w of slot b attends positions <= pos[b] + w;
+//   tree    — lane l = r*W + w attends positions < pos[b] (the committed
+//             history) and the window positions pos[b] + j whose bit j
+//             is set in anc[b, w] | (1 << w) (its ancestors and itself);
 //   prefill — fold lane L = r*T + t of the chunk attends positions
 //             <= start + t.
+//
+// So a key at position `key` is attended by lane ln when key <= lim[ln],
+// or when rel = key - win_lo lies in [0, 32) with bit rel set in the
+// lane's window mask win[ln].  Plain decode and prefill lanes carry an
+// empty mask.
 //
 // The Pallas kernels on the TPU ran the page walk as the sequential
 // third grid axis with the softmax state in VMEM scratch; here the walk
@@ -130,7 +138,7 @@ __host__ __device__ inline size_t attend_smem_bytes(int lanes, int D, int bs,
                         + (size_t)lanes * tile_keys(bs)          // scores
                         + 3 * (size_t)lanes                      // m, l, corr
                         + (size_t)lanes * D;                     // acc
-  return kv + floats * sizeof(float) + ((size_t)lanes + M) * sizeof(int);
+  return kv + floats * sizeof(float) + (2 * (size_t)lanes + M) * sizeof(int);
 }
 
 // Tile buffers a launch uses: two when they fit in kMaxSmem, else one
@@ -153,6 +161,7 @@ struct AttendSmem {
   float* corr;  // lanes, this tile's rescale factor
   float* acc;   // lanes x D, running numerator
   int* lim;     // lanes, last key position each lane attends
+  unsigned* win;  // lanes, window mask: bit j = key win_lo + j attended
   int* pages;   // the walked table row's page ids
 
   __device__ AttendSmem(void* base, int lanes, int D, int bs, int stages) {
@@ -169,7 +178,8 @@ struct AttendSmem {
     corr = l + lanes;
     acc = corr + lanes;
     lim = reinterpret_cast<int*>(acc + lanes * D);
-    pages = lim + lanes;
+    win = reinterpret_cast<unsigned*>(lim + lanes);
+    pages = reinterpret_cast<int*>(win + lanes);
   }
 };
 
@@ -204,18 +214,20 @@ __device__ void issue_tile(T* kdst, T* vdst, const T* __restrict__ pool_k,
   }
 }
 
-// The page walk.  On entry sm.q holds the lanes' queries and sm.lim
-// their limits, both visible to the whole block (the caller synced);
-// nv pages are walked (the caller trims it to the last page any lane
-// attends).  Writes the lanes' outputs to `out` (lanes x D, contiguous).
+// The page walk.  On entry sm.q holds the lanes' queries, sm.lim their
+// limits and sm.win their window masks (relative to key position
+// win_lo), all visible to the whole block (the caller synced); nv pages
+// are walked (the caller trims it to the last page any lane attends).
+// Writes the lanes' outputs to `out` (lanes x D, contiguous).
 // blockDim.x must be a multiple of 32 and at least tile_keys(bs), and
 // lanes at most max_lanes(blockDim.x, bs).
 template <typename T>
 __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
                              const T* __restrict__ pool_k,
                              const T* __restrict__ pool_v,
-                             const int* table, int nv, int kv, int KV,
-                             int bs, int D, T* __restrict__ out) {
+                             const int* table, int nv, int win_lo,
+                             int kv, int KV, int bs, int D,
+                             T* __restrict__ out) {
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int kt = tile_keys(bs);
@@ -285,11 +297,16 @@ __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
         }
       }
       const int key = j * kt + t;
+      // (unsigned)rel >= 32 for keys before win_lo: no window bit
+      const unsigned rel = (unsigned)(key - win_lo);
 #pragma unroll
       for (int u = 0; u < kLanesPerThread; ++u) {
         const int ln = g + u * G;
-        if (ln < lanes)
-          sm.s[ln * kt + t] = key <= sm.lim[ln] ? dot[u] : kNegInf;
+        if (ln < lanes) {
+          const bool ok = key <= sm.lim[ln] ||
+                          (rel < 32u && ((sm.win[ln] >> rel) & 1u));
+          sm.s[ln * kt + t] = ok ? dot[u] : kNegInf;
+        }
       }
     }
     __syncthreads();

@@ -53,8 +53,10 @@ __global__ void __launch_bounds__(kThreads)
   const size_t base = ((size_t)kv * fold + lane0) * D;
   mxtpu_port::load_rows(sm.q, q + base, lanes, D, sm_scale);
   const int st = start[0];
-  for (int ln = threadIdx.x; ln < lanes; ln += blockDim.x)
+  for (int ln = threadIdx.x; ln < lanes; ln += blockDim.x) {
     sm.lim[ln] = st + (lane0 + ln) % T_len;
+    sm.win[ln] = 0u;
+  }
   // the tile's last attended key: its pages past that are fully masked
   // for every lane, and skipping them changes nothing
   const int t0 = lane0 % T_len;
@@ -62,7 +64,7 @@ __global__ void __launch_bounds__(kThreads)
   const int walk = min(nv[0], (st + max_t) / bs + 1);
   __syncthreads();
   mxtpu_port::attend_pages(sm, stages, lanes, pool_k, pool_v, table, walk,
-                           kv, KV, bs, D, out + base);
+                           st, kv, KV, bs, D, out + base);
 }
 
 template <typename T>

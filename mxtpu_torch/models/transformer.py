@@ -16,7 +16,8 @@ K4/K5 backward), differentiable.
 Two cache forms, both under ``torch.no_grad``:
 
 - the paged pool (``init_block_pool`` / ``prefill_pages`` /
-  ``step_pages`` / ``copy_block``), what the serving engine runs.  Its
+  ``step_pages`` / ``verify_pages`` / ``permute_pool_span`` /
+  ``copy_block``), what the serving engine runs.  Its
   attention always goes through the two kernel wrappers
   (``ops.paged_attention``, ``ops.prefill_attention``), which alone
   pick the plain version on a CPU tensor or the CUDA kernel on the card;
@@ -41,8 +42,9 @@ from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.contrib import rms_norm, rope
-from ..ops.tensor import (paged_block_copy, paged_cache_write,
-                          paged_cache_write_rows)
+from ..ops.tensor import (paged_block_copy, paged_cache_permute_span,
+                          paged_cache_write, paged_cache_write_rows,
+                          paged_cache_write_span)
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
@@ -88,7 +90,7 @@ class MultiHeadAttention(nn.Module):
 
     def _project(self, x, offset):
         """x (B, T, C) → q (B, H, T, D), k and v (B, KV, T, D), rope
-        applied at ``offset`` (python int or (B,) tensor)."""
+        applied at ``offset`` (python int, (B,) or (B, T) tensor)."""
         B, T, _ = x.shape
         H, KV, D = self.heads, self.kv_heads, self.head_dim
         qkv = self.qkv(x)
@@ -166,6 +168,28 @@ class MultiHeadAttention(nn.Module):
             q.contiguous(), pool_k, pool_v, tables, pos)
         return self._merge(out)
 
+    def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
+                     tree=None):
+        """A speculative verify window per slot: x (B, W, C) holds row
+        b's last sampled token and up to W-1 drafted tokens, written at
+        positions pos[b] .. pos[b]+W-1 (its first ``valid_len[b]`` lanes;
+        the rest go to the null page), then read by the paged decode
+        kernel: lane w attends [0, pos[b] + w].
+
+        ``tree=(depth, anc)``, both (B, W) int32, verifies a draft tree
+        instead: lane w is rotated at pos[b] + depth[b, w] and attends
+        the committed history, itself and the lanes ``anc[b, w]`` marks
+        as its ancestors.  Rejected lanes stay in the pool past the
+        slot's position, behind every later mask."""
+        off = pos if tree is None else pos.reshape(-1, 1) + tree[0]
+        q, k, v = self._project(x, off)
+        paged_cache_write_span(pool_k, k, tables, pos, valid_len)
+        paged_cache_write_span(pool_v, v, tables, pos, valid_len)
+        out = paged_attention.paged_decode_attention(
+            q.contiguous(), pool_k, pool_v, tables, pos,
+            anc=None if tree is None else tree[1])
+        return self._merge(out)
+
     def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
         """One prompt chunk x (1, T, C) at positions [start_pos,
         start_pos+T): its K/V scatter through ``table`` (M,) int32, then
@@ -208,6 +232,12 @@ class LlamaDecoderLayer(nn.Module):
     def step_pages(self, x, pool_k, pool_v, tables, pos):
         return self._ffn(x + self.attn.step_pages(self.attn_norm(x), pool_k,
                                                   pool_v, tables, pos))
+
+    def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
+                     tree=None):
+        return self._ffn(x + self.attn.verify_pages(
+            self.attn_norm(x), pool_k, pool_v, tables, pos, valid_len,
+            tree))
 
     def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
         return self._ffn(x + self.attn.prefill_pages(
@@ -288,6 +318,32 @@ class TransformerLM(nn.Module):
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.step_pages(x, pk, pv, tables, pos)
         return self._logits(x)
+
+    @torch.no_grad()
+    def verify_pages(self, token_ids, pools, tables, pos, valid_len,
+                     tree=None):
+        """Score a speculative window per slot in one forward:
+        token_ids (B, W) — row b's last sampled token then up to W-1
+        drafted tokens, from position pos[b] — → logits (B, W, V).
+        Lane w's logits are those the sequential step at pos[b] + w
+        would give (on its own tree path with ``tree=(depth, anc)``, see
+        ``MultiHeadAttention.verify_pages``).  ``valid_len`` (B,) int32
+        counts each row's real lanes.  Rejection needs only a host
+        position roll-back."""
+        x = self.embed(token_ids)
+        for layer, (pk, pv) in zip(self.layers, pools):
+            x = layer.verify_pages(x, pk, pv, tables, pos, valid_len, tree)
+        return self._logits(x)
+
+    @torch.no_grad()
+    def permute_pool_span(self, pools, tables, pos, src_lane):
+        """The tree fix-up in every layer's pools, in place: row b's
+        entry at position pos[b] + src_lane[b, j] moves to pos[b] + j,
+        so an accepted side-branch path lands where sequential decode
+        would have written it (lanes marked -1 stay as they are)."""
+        for pk, pv in pools:
+            paged_cache_permute_span(pk, tables, pos, src_lane)
+            paged_cache_permute_span(pv, tables, pos, src_lane)
 
     @torch.no_grad()
     def prefill_pages(self, token_ids, pools, table, start_pos=0):

@@ -23,11 +23,15 @@ def rope(data, offset=0):
     (B, T, D), in the Llama half-split pair layout: pairs are
     (x[..., :D/2], x[..., D/2:]).
 
-    ``offset`` is a python int (every row starts at the same position)
-    or a (B,) integer tensor: row b's positions start at offset[b] (the
-    pooled decode step, where each slot sits at its own depth).  Base
-    10000; angles are float32 (positions are exact in float32 below
-    2**24)."""
+    ``offset`` is a python int (every row starts at the same position),
+    a (B,) integer tensor: row b's positions start at offset[b] (the
+    pooled decode step, where each slot sits at its own depth), or a
+    (B, T) integer tensor of absolute positions: element (b, t) is
+    rotated at offset[b, t] (tree verify, where window lane t sits at
+    its tree depth rather than at t).  Base 10000; angles are float32
+    (positions are exact in float32 below 2**24, so the (B, T) form is
+    bit-identical to the (B,) form wherever offset[b, t] ==
+    offset[b] + t)."""
     x = data.float()
     D = x.shape[-1]
     T = x.shape[-2]
@@ -38,8 +42,11 @@ def rope(data, offset=0):
         -torch.arange(0, half, dtype=torch.float32, device=dev) / half)
     steps = torch.arange(T, dtype=torch.float32, device=dev)
     if torch.is_tensor(offset) and offset.ndim >= 1:
-        off = offset.reshape(-1).to(device=dev, dtype=torch.float32)
-        pos = steps[None, :] + off[:, None]                    # (B, T)
+        if offset.ndim >= 2:
+            pos = offset.to(device=dev, dtype=torch.float32)    # (B, T)
+        else:
+            off = offset.reshape(-1).to(device=dev, dtype=torch.float32)
+            pos = steps[None, :] + off[:, None]                # (B, T)
         ang = pos[..., None] * freqs                            # (B, T, D/2)
         shape = (x.shape[0],) + (1,) * (x.ndim - 3) + (T, half)
     else:

@@ -8,10 +8,10 @@ launches the kernel, or raises for what the kernel does not take —
 there is no fallback from the card to the plain version.  Each call
 adds one to the ``paged_attention`` launch counter (``mxtpu_torch.base``).
 
-Ported: the plain decode read, W = 1, float32 and bfloat16 pools.  Not
-yet: the speculative verify window (W > 1), the tree ancestor mask
-(``anc``) and the int8 pools (``k_scales``/``v_scales``) — they raise
-``NotImplementedError``.
+Ported: the plain decode read (W = 1), the speculative verify window
+(W > 1) and the tree ancestor mask (``anc``, W <= 32), float32 and
+bfloat16 pools.  Not yet: the int8 pools (``k_scales``/``v_scales``
+raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -37,12 +37,15 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _FNS: dict = {}
 
 
-def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos):
+def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos, anc=None):
     """The kernel's plain version: gather every table entry, then a
     masked float32 softmax (the math of the reference's
     ``xla_reference``).  q (B, H, W, D), pools (N, KV, bs, D), tables
-    (B, M), pos (B,) → (B, H, W, D) in q's dtype; lane w of slot b
-    attends positions <= pos[b] + w."""
+    (B, M), pos (B,) → (B, H, W, D) in q's dtype.  Without ``anc`` lane
+    w of slot b attends positions <= pos[b] + w.  With ``anc`` (B, W)
+    int32 (tree verify: bit j of anc[b, w] marks window lane j a strict
+    ancestor of lane w) lane w attends the committed history
+    (< pos[b]), itself, and its ancestors."""
     B, H, W, D = q.shape
     KV = pool_k.shape[1]
     rep = H // KV
@@ -52,8 +55,16 @@ def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos):
     s = torch.einsum("bkld,bktd->bklt", qr, keys)
     k_pos = torch.arange(keys.shape[2], device=q.device)
     w = torch.arange(rep * W, device=q.device) % W
-    valid = (k_pos[None, None, :]
-             <= pos.reshape(-1).long()[:, None, None] + w[None, :, None])
+    base = pos.reshape(-1).long()
+    if anc is not None:
+        bits = anc.reshape(B, W).long()[:, w]               # (B, lanes)
+        rel = k_pos[None, None, :] - base[:, None, None]    # (B, 1, t)
+        bit = (bits[:, :, None] >> rel.clamp(0, 31)) & 1
+        valid = ((rel < 0) | (rel == w[None, :, None])
+                 | ((rel >= 0) & (rel < W) & (bit == 1)))   # (B, l, t)
+    else:
+        valid = (k_pos[None, None, :]
+                 <= base[:, None, None] + w[None, :, None])
     s = torch.where(valid[:, None], s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bklt,bktd->bkld", p, values)
@@ -114,46 +125,43 @@ def _decode_fn(dtype):
     if fn is None:
         lib = _build.load("paged_attention")
         fn = getattr(lib, "mxtpu_paged_decode_" + _DTYPES[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         stages = lib.mxtpu_paged_decode_stages
         stages.argtypes = [ctypes.c_int] * 5
         stages.restype = ctypes.c_int
-        max_lanes = lib.mxtpu_paged_decode_max_lanes
-        max_lanes.argtypes = [ctypes.c_int]
-        max_lanes.restype = ctypes.c_int
-        fn = (fn, stages, max_lanes)
+        fn = (fn, stages)
         _FNS[dtype] = fn
     return fn
 
 
 def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
                            v_scales=None, anc=None):
-    """Ragged paged attention over block tables (one decode token per
-    slot).
+    """Ragged paged attention over block tables: one decode token, or a
+    speculative verify window of W tokens, per slot.
 
-    q : (B, H, 1, D) queries, rope applied; head h = kv*rep + r.
+    q : (B, H, W, D) queries, rope applied; head h = kv*rep + r.
     pool_k / pool_v : (N, KV, bs, D) page pools (page 0 = null page).
     tables : (B, M) int32 block tables.
-    pos : (B,) int32 positions (the position this step wrote).
+    pos : (B,) int32 positions (the position window lane 0 wrote).
+    anc : optional (B, W) int32 tree ancestor bitmask (W <= 32; see
+        :func:`paged_decode_attention_plain`).
 
-    Returns (B, H, 1, D) in q's dtype."""
-    if anc is not None:
-        raise NotImplementedError(
-            "paged_decode_attention: the tree ancestor mask is not ported "
-            "to the CUDA kernel yet")
+    Returns (B, H, W, D) in q's dtype."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
             "paged_decode_attention: int8 pools are not ported yet")
     B, H, W, D = q.shape
-    if W != 1:
-        raise NotImplementedError(
-            "paged_decode_attention: the verify window W=%d > 1 is not "
-            "ported yet" % W)
+    if anc is not None and W > 32:
+        raise ValueError(
+            "paged_decode_attention: K004: tree verify window W=%d exceeds "
+            "the 32-lane int32 ancestor bitmask — cap spec_tree at 31 "
+            "draft nodes (+ root)" % W)
     if q.device.type == "cpu":
         bump(KERNEL_NAME)
-        return paged_decode_attention_plain(q, pool_k, pool_v, tables, pos)
+        return paged_decode_attention_plain(q, pool_k, pool_v, tables, pos,
+                                            anc)
     if q.device.type != "cuda":
         raise MXTPUError("paged_decode_attention: no kernel for device %s"
                          % q.device)
@@ -162,21 +170,22 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     M = tables.shape[-1]
     check_index("tables", tables, (B, M), q.device)
     check_index("pos", pos, (B,), q.device)
+    if anc is not None:
+        check_index("anc", anc, (B, W), q.device)
     lanes = (H // KV) * W
-    fn, stages, max_lanes = _decode_fn(q.dtype)
-    if lanes > max_lanes(bs) or not stages(lanes, D, bs, M,
-                                           q.element_size()):
-        raise MXTPUError("paged_decode_attention: %d query lanes per kv head "
-                         "at D=%d, bs=%d do not fit one block (at most %d "
-                         "lanes and %d bytes of shared memory)"
-                         % (lanes, D, bs, max_lanes(bs), MAX_SMEM_BYTES))
+    fn, stages = _decode_fn(q.dtype)
+    if not stages(lanes, D, bs, M, q.element_size()):
+        raise MXTPUError("paged_decode_attention: D=%d, bs=%d, M=%d need "
+                         "more than %d bytes of shared memory"
+                         % (D, bs, M, MAX_SMEM_BYTES))
     sm_scale = 1.0 / math.sqrt(D)
     nv = torch.clamp(torch.div(pos + (W - 1), bs, rounding_mode="floor")
                      + 1, 1, M).to(torch.int32)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), nv.data_ptr(), out.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), nv.data_ptr(),
+            0 if anc is None else anc.data_ptr(), out.data_ptr(),
             B, KV, lanes, W, D, bs, M, sm_scale, stream)
     if rc != 0:
         raise MXTPUError("paged_decode_attention: CUDA launch failed "

@@ -13,7 +13,8 @@ Each ``step()`` is one scheduler iteration:
    divergence is cloned copy-on-write, pages are allocated, and the
    first chunk runs at once; a request that cannot get its pages now
    waits at the queue head (FIFO kept);
-3. ONE pooled decode step over every decoding slot, then sampling.
+3. ONE pooled decode step over every decoding slot, then sampling —
+   or, where speculation drafted tokens, ONE pooled verify call.
 
 The chunk plan, the table width and the allocation order are the
 reference's, so page ids and written positions match the JAX engine's
@@ -28,10 +29,27 @@ copy-on-write clone runs before the first chunk's own writes, and a
 shared prefix page is never written (the allocator hands a request only
 pages it owns alone for every position it writes).
 
-Not in this slice: speculative and tree verify, the int8 cache, the
-hierarchical cache and sessions, fault sites, tracing, quarantine and
-retries, deadlines, bounded admission, weight hot-swap, tensor
-parallelism.  ``submit`` raises ``NotImplementedError`` for their knobs.
+Speculative decoding (``spec_k > 0`` and/or ``spec_tree``): a host-side
+n-gram drafter proposes up to ``spec_k`` tokens per slot from the
+request's own prompt and output (``NGramDrafter``), or a small tree of
+alternatives (``TreeDrafter``); ONE pooled ``verify_pages`` call scores
+every slot's window (lane w at pos + w) or tree (lane w on its own
+root-to-node path, through the kernel's ancestor mask).  Each window
+position is drawn with the rule and the draw sequential decode would use
+there — greedy, penalized with the window's earlier tokens, or from the
+request's generator peeked ahead (``sampler.future_states``) and
+advanced by the tokens emitted — and a slot emits its longest matching
+prefix plus one, so every stream equals its non-speculative stream.
+Rejected lanes stay in the slot's pages past its position, behind every
+later mask; rollback is a host position fix-up.  A tree whose accepted
+path took a side branch moves that path's K/V into depth order
+(``permute_pool_span``) before the next step reads it.
+
+Not in this slice: draft-model speculation (``draft_block``), the
+``MXTPU_SPEC_TREE`` default, the int8 cache, the hierarchical cache and
+sessions, fault sites, tracing, quarantine and retries, deadlines,
+bounded admission, weight hot-swap, tensor parallelism.  ``submit`` and
+the constructor raise ``NotImplementedError`` for their knobs.
 """
 
 from __future__ import annotations
@@ -56,14 +74,65 @@ def _bucket(n, base=8):
     return b
 
 
+def _parse_spec_tree(value):
+    """Normalize a tree-speculation config to ``(max_nodes, branch)``
+    ints: 1 <= max_nodes <= 31 (root + 31 draft nodes fill the verify
+    kernel's 32-lane ancestor bitmask) and branch >= 1.  Accepts a
+    tuple or list, a bare int (branch 2) or a ``"nodes,branch"``
+    string."""
+    if isinstance(value, str):
+        value = tuple(p for p in value.replace(",", " ").split() if p)
+    if isinstance(value, int):
+        value = (value, 2)
+    try:
+        nodes = int(value[0])
+        branch = int(value[1]) if len(value) > 1 else 2
+    except (TypeError, ValueError, IndexError):
+        raise ValueError(
+            "spec_tree must be (max_nodes, branch), a bare node count, "
+            "or a 'nodes,branch' string — got %r" % (value,))
+    if not 1 <= nodes <= 31:
+        raise ValueError(
+            "spec_tree max_nodes must be in [1, 31] (root + 31 draft "
+            "nodes fill the verify kernel's 32-lane int32 ancestor "
+            "bitmask), got %d" % nodes)
+    if branch < 1:
+        raise ValueError("spec_tree branch must be >= 1, got %d" % branch)
+    return nodes, branch
+
+
+def _tree_paths(parent):
+    """Per-lane path tables of draft trees given by their parent lanes
+    (B, W) (parent[b, w] < w for w >= 1): depth (B, W) int32, the lane's
+    depth; anc (B, W) int32, its strict-ancestor lane bitmask (K1's
+    tree mask); perm (B, W, W) int64, its root path in depth order
+    padded with the lane itself (gathering at perm[b, w] gives
+    "ancestors and self")."""
+    B, W = parent.shape
+    depth = np.zeros((B, W), np.int32)
+    anc = np.zeros((B, W), np.int32)
+    perm = np.zeros((B, W, W), np.int64)
+    for b in range(B):
+        for w in range(1, W):
+            p = int(parent[b, w])
+            dw = depth[b, p] + 1
+            depth[b, w] = dw
+            anc[b, w] = anc[b, p] | (1 << p)
+            perm[b, w, :dw] = perm[b, p, :dw]
+            perm[b, w, dw:] = w
+    return depth, anc, perm
+
+
 class Request:
     """One generation request (host-side record)."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_k",
-                 "top_p", "repetition_penalty", "seed", "eos_id")
+                 "top_p", "repetition_penalty", "seed", "eos_id",
+                 "speculative", "spec_tree")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature=0.0, top_k=0,
-                 top_p=0.0, repetition_penalty=1.0, seed=None, eos_id=None):
+                 top_p=0.0, repetition_penalty=1.0, seed=None, eos_id=None,
+                 speculative=None, spec_tree=None):
         self.rid = rid
         self.prompt = prompt            # (1, Tp) int32 numpy
         self.max_new_tokens = int(max_new_tokens)
@@ -73,6 +142,9 @@ class Request:
         self.repetition_penalty = float(repetition_penalty or 1.0)
         self.seed = seed
         self.eos_id = eos_id
+        self.speculative = speculative  # None = engine default
+        self.spec_tree = spec_tree      # None = engine default;
+        #                                 False = linear drafting
 
     @property
     def sampled(self):
@@ -89,16 +161,55 @@ class Request:
                 self.repetition_penalty)
 
 
+class _SpecTokens:
+    """One verify iteration's emitted tokens for ONE slot (host ints,
+    >= 1): the per-slot entry form of ``_Slot.emitted`` beside the
+    pooled (B,) vectors of plain steps."""
+
+    __slots__ = ("toks",)
+
+    def __init__(self, toks):
+        self.toks = toks
+
+
+class _TreeDraft:
+    """One slot's draft tree for one verify iteration (host ints).
+    Node j rides window lane j + 1 (lane 0 carries the committed root
+    token); ``parent[j]`` is the window lane of its parent, so
+    ``parent[j] <= j``.  A linear draft is the chain 0, 1, ..., k-1."""
+
+    __slots__ = ("toks", "parent")
+
+    def __init__(self, toks, parent):
+        self.toks = [int(t) for t in toks]
+        self.parent = [int(p) for p in parent]
+        if len(self.parent) != len(self.toks):
+            raise ValueError(
+                "tree draft needs one parent lane per node: %d nodes "
+                "vs %d parents" % (len(self.toks), len(self.parent)))
+        for j, p in enumerate(self.parent):
+            if not 0 <= p <= j:
+                raise ValueError(
+                    "tree draft is not topological: node %d (window "
+                    "lane %d) names parent lane %d" % (j, j + 1, p))
+
+    def __len__(self):
+        return len(self.toks)
+
+
 class _Slot:
     """Host-side state of one occupied pool row.  ``pos`` is None while
     the prompt is still prefilling (one chunk per iteration); afterwards
     it is the cache position of the last sampled token, which the next
     decode step writes.  ``emitted`` holds references to the pooled
-    (B,) token vector of each iteration: row ``row`` is this slot's
-    token, read back to the host only when the request finishes."""
+    (B,) token vector of each plain step (row ``row`` is this slot's
+    token, read back to the host only when the request finishes) and a
+    :class:`_SpecTokens` per verify iteration.  A speculating slot keeps
+    a host mirror of its ``history`` (prompt and emitted tokens), which
+    the drafters propose from."""
 
     __slots__ = ("req", "row", "Tp", "chunks", "chunk_i", "cow", "pos",
-                 "emitted", "n_emitted", "gen")
+                 "emitted", "n_emitted", "gen", "history")
 
     def __init__(self, req, row, Tp, chunks, cow):
         self.req = req
@@ -111,6 +222,7 @@ class _Slot:
         self.emitted = []
         self.n_emitted = 0
         self.gen = None               # torch.Generator of a sampled request
+        self.history = None           # host ints while speculating
 
     @property
     def prefilling(self):
@@ -143,13 +255,30 @@ class PagedContinuousBatchingEngine:
         power-of-two ladder, as the reference pads them to its compiled
         shapes, which keeps the chunk plan, and so the page ids,
         identical to the reference's.
+    spec_k : most drafted tokens per slot per iteration (0, the
+        default, drafts nothing unless ``spec_tree`` is set).
+    spec_ngram : longest n-gram the drafters match (>= 1).
+    spec_tree : ``(max_nodes, branch)`` (or ``"nodes,branch"``, or a bare
+        node count) to draft trees instead of chains: at most
+        ``max_nodes`` <= 31 nodes, ``branch`` children a node.  Requests
+        opt out with ``submit(spec_tree=False)`` (linear drafting) or
+        name their own; linear windows ride the tree verify call as
+        chains.  None: no tree drafting.
     device : where the engine runs; the CUDA card unless named.  With no
         device named and no CUDA present the constructor raises.
     """
 
     def __init__(self, model, num_slots: int = 4, max_length: int = 256,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefill_chunk: int = 64, device=None):
+                 prefill_chunk: int = 64, spec_k: int = 0,
+                 spec_ngram: int = 3, spec_tree=None, draft_block=None,
+                 device=None):
+        if draft_block is not None:
+            raise NotImplementedError(
+                "draft-model speculation (draft_block=) is not ported to "
+                "mxtpu_torch yet")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0, got %d" % spec_k)
         self._device = resolve_device(device)
         if not _same_device(model.device, self._device):
             raise MXTPUError("the model is on %s, the engine on %s"
@@ -191,6 +320,23 @@ class PagedContinuousBatchingEngine:
         self._prefix_hits = 0
         self._cow_copies = 0
         self._shed = 0
+        # -- speculative decoding ----------------------------------------
+        self._spec_k = int(spec_k)
+        self._spec_ngram = int(spec_ngram)
+        self._spec_tree = (None if spec_tree is None
+                           else _parse_spec_tree(spec_tree))
+        self._spec_on = self._spec_k > 0 or self._spec_tree is not None
+        self._drafter = (sampler.NGramDrafter(max_ngram=self._spec_ngram)
+                         if self._spec_on else None)
+        self._tree_drafters: Dict[tuple, sampler.TreeDrafter] = {}
+        self._drafted_tokens = 0
+        self._accepted_tokens = 0
+        self._tree_nodes_drafted = 0   # draft nodes proposed as trees
+        self._tree_paths = 0           # root-to-leaf paths proposed
+        self._verify_calls = 0
+        self._slot_iterations = 0      # slot participations in decode
+        #                                calls: tokens per slot-iteration
+        #                                is the speculation multiplier
 
     # -- introspection ---------------------------------------------------
     @property
@@ -217,6 +363,14 @@ class PagedContinuousBatchingEngine:
             "cow_copied_blocks": self._cow_copies,
             "block_size": self._bs,
             "num_blocks": self._bp.capacity,
+            "drafted_tokens": self._drafted_tokens,
+            "accepted_tokens": self._accepted_tokens,
+            "tree_nodes_drafted": self._tree_nodes_drafted,
+            "tree_paths": self._tree_paths,
+            "slot_iterations": self._slot_iterations,
+            "draft_hit_rate": (self._accepted_tokens / self._drafted_tokens
+                               if self._drafted_tokens else 0.0),
+            "verify_calls": self._verify_calls,
         }
 
     def status(self, rid) -> str:
@@ -254,16 +408,24 @@ class PagedContinuousBatchingEngine:
                spec_tree=None) -> int:
         """Queue one request, prompt_ids (1, Tp); returns its id.
         temperature 0 is greedy; ``seed`` reproduces a sampled stream.
-        A request whose worst-case page need exceeds the whole pool can
-        never be admitted and is shed at once with
-        :class:`~mxtpu_torch.base.LoadShedError`."""
+        ``speculative=False`` opts the request out of the engine's
+        speculation; ``spec_tree`` is None (the engine's default), False
+        (linear drafting) or the request's own tree config.  The output
+        is the same in every mode.  A request whose worst-case page need
+        exceeds the whole pool can never be admitted and is shed at once
+        with :class:`~mxtpu_torch.base.LoadShedError`."""
         for knob, value, default in (
                 ("deadline_s", deadline_s, None), ("retries", retries, 0),
-                ("speculative", speculative, None),
-                ("session", session, None), ("spec_tree", spec_tree, None)):
+                ("session", session, None)):
             if value != default:
                 raise NotImplementedError(
                     "submit(%s=...) is not ported to mxtpu_torch yet" % knob)
+        if spec_tree is not None and spec_tree is not False:
+            spec_tree = _parse_spec_tree(spec_tree)
+            if not self._spec_on:
+                raise ValueError(
+                    "submit(spec_tree=...) needs a speculation-enabled "
+                    "engine (spec_k > 0 or spec_tree= at construction)")
         prompt = np.asarray(torch.as_tensor(prompt_ids).cpu(),
                             dtype=np.int32)
         if prompt.ndim != 2 or prompt.shape[0] != 1:
@@ -287,7 +449,7 @@ class PagedContinuousBatchingEngine:
         self._next_rid += 1
         self._queue.append(Request(rid, prompt, max_new_tokens, temperature,
                                    top_k, top_p, repetition_penalty, seed,
-                                   eos_id))
+                                   eos_id, speculative, spec_tree))
         self._status[rid] = "queued"
         return rid
 
@@ -373,6 +535,10 @@ class PagedContinuousBatchingEngine:
         slot.pos = slot.Tp
         slot.emitted = [lt]
         slot.n_emitted = 1
+        if self._speculates(req):
+            # the drafters' history: prompt and first token (one small
+            # host read per admission)
+            slot.history = [int(t) for t in req.prompt[0]] + [int(tok[0])]
         # prompt pages fully below Tp are now immutable
         self._prefix.register(req.prompt[0],
                               self._slot_pages[row][:slot.Tp // self._bs])
@@ -384,7 +550,10 @@ class PagedContinuousBatchingEngine:
         if slot.n_emitted >= slot.req.max_new_tokens:
             return True
         if slot.req.eos_id is not None:
-            return int(slot.emitted[-1][slot.row]) == slot.req.eos_id
+            last = slot.emitted[-1]
+            if isinstance(last, _SpecTokens):
+                return int(last.toks[-1]) == slot.req.eos_id
+            return int(last[slot.row]) == slot.req.eos_id
         return False
 
     def _finish(self, row):
@@ -393,31 +562,61 @@ class PagedContinuousBatchingEngine:
         prefix-index entry)."""
         slot = self._slots[row]
         req = slot.req
-        toks = torch.stack(slot.emitted)[:, row].cpu().numpy().astype(
-            np.int32).reshape(1, -1)
-        self._results[req.rid] = torch.from_numpy(
-            np.concatenate([req.prompt, toks], axis=1))
+        pooled = [e for e in slot.emitted if not isinstance(e, _SpecTokens)]
+        col = iter(torch.stack(pooled)[:, row].cpu().numpy()
+                   if pooled else ())
+        toks = []
+        for e in slot.emitted:
+            if isinstance(e, _SpecTokens):
+                toks.extend(int(t) for t in e.toks)
+            else:
+                toks.append(int(next(col)))
+        self._results[req.rid] = torch.from_numpy(np.concatenate(
+            [req.prompt, np.asarray(toks, np.int32).reshape(1, -1)], axis=1))
         self._status[req.rid] = "ok"
         self._slots[row] = None
         pages, self._slot_pages[row] = self._slot_pages[row], None
         for bid in pages:
             self._bp.release(bid)
 
-    def _decode(self, active):
-        """ONE pooled decode step over every decoding slot: dead lanes
+    def _decode_state(self, active):
+        """pos (B,) and tables (B, M) int32 on the device: dead lanes
         carry all-null tables and position 0."""
         pos = np.zeros((self._num_slots,), np.int32)
         tables = np.zeros((self._num_slots, self._M), np.int32)
         for i in active:
             pos[i] = self._slots[i].pos
             tables[i] = self._table_row(i)
+        return (torch.from_numpy(pos).to(self._device),
+                torch.from_numpy(tables).to(self._device))
+
+    def _decode_active(self, active):
+        """Draft, then ONE plain pooled step or ONE pooled verify call
+        for every decoding slot: a tree verify when any slot drafted a
+        tree (linear windows ride it as chains), else a linear one."""
+        drafts = self._draft_phase(active)
+        if not drafts:
+            self._decode_plain(active)
+        elif any(isinstance(d, _TreeDraft) for d in drafts.values()):
+            self._decode_verify_tree(active, drafts)
+        else:
+            self._decode_verify(active, drafts)
+
+    def _decode_plain(self, active):
+        """ONE pooled decode step over every decoding slot; speculating
+        slots mirror their token into the host history."""
+        pos, tables = self._decode_state(active)
         logits = self._model.step_pages(
-            self._last_tokens.reshape(-1, 1), self._pools,
-            torch.from_numpy(tables).to(self._device),
-            torch.from_numpy(pos).to(self._device))
+            self._last_tokens.reshape(-1, 1), self._pools, tables, pos)
         self._sample_pool(logits[:, 0], active)
         self._steps += 1
         self._tokens_generated += len(active)
+        self._slot_iterations += len(active)
+        hist = [i for i in active if self._slots[i].history is not None]
+        if hist:
+            toks = self._last_tokens.cpu().numpy()
+            for i in hist:
+                self._slots[i].history.append(int(toks[i]))
         for i in active:
             s = self._slots[i]
             s.pos += 1
@@ -425,6 +624,287 @@ class PagedContinuousBatchingEngine:
             s.emitted.append(self._last_tokens)
             if self._slot_done(s):
                 self._finish(i)
+
+    # -- speculative decoding ----------------------------------------------
+    def _speculates(self, req):
+        """Whether a request self-drafts: speculation on and not opted
+        out, and more than one token to generate."""
+        return (self._spec_on and req.speculative is not False
+                and req.max_new_tokens > 1)
+
+    def _spec_extent(self, slot):
+        """Token capacity of the slot's pages: a drafted window clamps
+        here, so a verify write never needs a page the slot lacks."""
+        return len(self._slot_pages[slot.row]) * self._bs
+
+    def _spec_budget(self, slot):
+        """Draft tokens one slot may propose this iteration: never past
+        the request's remaining tokens nor its pages."""
+        return min(self._spec_k,
+                   slot.req.max_new_tokens - slot.n_emitted - 1,
+                   self._spec_extent(slot) - 1 - slot.pos)
+
+    def _tree_cfg_for(self, req):
+        """The request's (max_nodes, branch) tree config, or None for
+        linear drafting."""
+        if not self._spec_on or req.spec_tree is False:
+            return None
+        if req.spec_tree is not None:
+            return req.spec_tree        # validated at submit
+        return self._spec_tree
+
+    def _tree_drafter_for(self, cfg):
+        """The TreeDrafter of one config (drafters are stateless)."""
+        d = self._tree_drafters.get(cfg)
+        if d is None:
+            d = sampler.TreeDrafter(max_nodes=cfg[0], branch=cfg[1],
+                                    max_ngram=self._spec_ngram)
+            self._tree_drafters[cfg] = d
+        return d
+
+    def _tree_budget(self, slot, nodes):
+        """Tree nodes one slot may propose this iteration: the clamps of
+        ``_spec_budget`` (the deepest path emits at most nodes + 1
+        tokens; the last lane writes at pos + nodes)."""
+        return min(nodes, slot.req.max_new_tokens - slot.n_emitted - 1,
+                   self._spec_extent(slot) - 1 - slot.pos)
+
+    def _draft_phase(self, active):
+        """Draft proposals of every speculating slot: {row: token list
+        or _TreeDraft}, empty drafts left out."""
+        if not self._spec_on:
+            return {}
+        out = {}
+        for i in active:
+            s = self._slots[i]
+            if s.history is None:
+                continue
+            cfg = self._tree_cfg_for(s.req)
+            if cfg is not None:
+                n = self._tree_budget(s, cfg[0])
+                if n <= 0:
+                    continue
+                toks, par, _ = self._tree_drafter_for(cfg).propose_tree(
+                    s.history, n, n)
+                if toks:
+                    d = _TreeDraft(toks, par)
+                    self._tree_nodes_drafted += len(toks)
+                    # leaves: nodes no other node names as parent
+                    self._tree_paths += len(toks) - len(
+                        {p for p in d.parent if p > 0})
+                    out[i] = d
+                continue
+            k = self._spec_budget(s)
+            d = self._drafter.propose(s.history, k) if k > 0 else []
+            if d:
+                out[i] = d
+        return out
+
+    def _window(self, drafts_tokens, W):
+        """The (B, W) verify window on the device: each row's last
+        sampled token, then its drafted tokens (zeros past them)."""
+        dr = torch.from_numpy(drafts_tokens).to(self._device)
+        return torch.cat([self._last_tokens.reshape(-1, 1), dr], dim=1)
+
+    def _decode_verify(self, active, drafts):
+        """Linear speculative iteration: ONE pooled verify call scores
+        every row's window (last token + drafts), the candidate draw at
+        each window position uses the rule and the draw sequential
+        decode would use there, and each row emits its accepted prefix
+        plus one."""
+        B = self._num_slots
+        W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
+        pos, tables = self._decode_state(active)
+        dr = np.zeros((B, W - 1), np.int64)
+        vl = np.zeros((B,), np.int32)
+        nreal = 0
+        for i in active:
+            d = drafts.get(i, ())[:W - 1]
+            vl[i] = 1 + len(d)
+            dr[i, :len(d)] = d
+            nreal += len(d)
+        window = self._window(dr, W)
+        logits = self._model.verify_pages(
+            window, self._pools, tables, pos,
+            torch.from_numpy(vl).to(self._device))
+        M, states = self._sample_window(logits, active, window, W)
+        # ONE host sync: the candidates and the window
+        M_h, win_h = torch.stack([M, window]).cpu().numpy()
+        match = (M_h[:, :W - 1] == win_h[:, 1:]) & \
+            (np.arange(W - 1)[None, :] < (vl - 1)[:, None])
+        counts = 1 + np.cumprod(match, axis=1).sum(axis=1)
+        for i in self._commit(active, M_h, counts, states, nreal):
+            self._finish(i)
+
+    def _decode_verify_tree(self, active, drafts):
+        """Tree speculative iteration: ONE pooled verify call scores
+        every row's draft tree — the root token on window lane 0, node j
+        on lane j+1, each lane attending only its root-to-node path
+        through the kernel's ancestor mask.  Lane w's candidate uses the
+        draw and penalty state sequential decode would use at its depth
+        along its path; a lane is accepted when its whole path matched,
+        and a row emits its deepest accepted path plus one.  Sibling
+        tokens are distinct, so the accepted lanes form one chain.  A
+        row whose path took a side branch has that path's K/V moved
+        into depth order (``permute_pool_span``)."""
+        B = self._num_slots
+        W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
+        pos, tables = self._decode_state(active)
+        dr = np.zeros((B, W - 1), np.int64)
+        vl = np.zeros((B,), np.int32)
+        # padding lanes continue a chain off the previous lane, so every
+        # row's tree is well formed; they are never accepted
+        parent = np.maximum(np.arange(W) - 1, 0)[None, :].repeat(B, 0)
+        nreal = 0
+        for i in active:
+            d = drafts.get(i)
+            if d is None:
+                vl[i] = 1
+                continue
+            if isinstance(d, _TreeDraft):
+                toks, par = d.toks, d.parent
+            else:                       # a linear draft is a chain
+                toks, par = list(d), list(range(len(d)))
+            n = min(len(toks), W - 1)
+            vl[i] = 1 + n
+            dr[i, :n] = toks[:n]
+            parent[i, 1:n + 1] = par[:n]
+            nreal += n
+        depth, anc, perm = _tree_paths(parent)
+        window = self._window(dr, W)
+        dev = self._device
+        logits = self._model.verify_pages(
+            window, self._pools, tables, pos,
+            torch.from_numpy(vl).to(dev),
+            tree=(torch.from_numpy(depth).to(dev),
+                  torch.from_numpy(anc).to(dev)))
+        M, states = self._sample_window(logits, active, window, W,
+                                        perm=perm, depth=depth)
+        M_h, win_h = torch.stack([M, window]).cpu().numpy()
+        lane = np.arange(W)
+        matched = (win_h == np.take_along_axis(M_h, parent, axis=1)) & \
+            (lane[None, :] < vl[:, None])
+        matched[:, 0] = True
+        accepted = np.take_along_axis(
+            matched, perm.reshape(B, -1), axis=1).reshape(B, W, W).all(2)
+        counts = ((depth + 1) * accepted).max(axis=1)
+        # the accepted lane at each depth (one per depth: siblings differ)
+        path_lane = (((depth[:, :, None] == lane[None, None, :])
+                      & accepted[:, :, None]) * lane[None, :, None]).sum(1)
+        path_M = np.take_along_axis(M_h, path_lane, axis=1)
+        finished = self._commit(active, path_M, counts, states, nreal)
+        src = np.full((B, W), -1, np.int64)
+        for i in active:
+            m = int(counts[i])
+            if i not in finished and (path_lane[i, :m] != lane[:m]).any():
+                # pos + j must hold lane path[j]'s K/V before the next
+                # step reads it (finished rows release their pages)
+                src[i, :m] = path_lane[i, :m]
+        if (src >= 0).any():
+            self._model.permute_pool_span(self._pools, tables, pos,
+                                          torch.from_numpy(src).to(dev))
+        for i in finished:
+            self._finish(i)
+
+    def _commit(self, active, M_h, counts, states, nreal):
+        """Emit each row's first counts[b] candidates M_h[b] (cut at
+        eos): advance its position, draw stream, history and penalty
+        row.  Returns the rows that are done, for the caller to finish
+        (after the tree fix-up, which reads their tables)."""
+        W = M_h.shape[1]
+        rows = np.arange(len(counts))
+        last = M_h[rows, np.clip(counts - 1, 0, W - 1)]
+        self._last_tokens = torch.from_numpy(last.astype(np.int64)).to(
+            self._device)
+        self._steps += 1
+        self._verify_calls += 1
+        self._drafted_tokens += nreal
+        self._slot_iterations += len(active)
+        finished = []
+        for i in active:
+            s = self._slots[i]
+            m = int(counts[i])
+            if s.req.penalized:
+                self._seen[i, torch.from_numpy(M_h[i, :m]).to(
+                    self._device)] = True
+            toks = M_h[i, :m].astype(np.int32)
+            if s.req.eos_id is not None:
+                hits = np.nonzero(toks == s.req.eos_id)[0]
+                if hits.size:           # stop AT eos, as sequential does
+                    m = int(hits[0]) + 1
+                    toks = toks[:m]
+            self._accepted_tokens += m - 1
+            self._tokens_generated += m
+            s.pos += m
+            s.n_emitted += m
+            if s.gen is not None:
+                s.gen.set_state(states[i][m])   # exactly m draws used
+            if s.history is not None:
+                s.history.extend(int(t) for t in toks)
+            s.emitted.append(_SpecTokens(toks.copy()))
+            if self._slot_done(s):
+                finished.append(i)
+        return finished
+
+    def _sample_window(self, logits, active, window, W, perm=None,
+                       depth=None):
+        """Candidate draws for every window lane: lane w of row b is
+        drawn from logits[b, w] with the draw and penalty state
+        sequential decode would use there.  Linear (no ``perm``): the
+        slot's w-th future draw, its seen tokens plus window lanes
+        1..w.  Tree: the depth[b, w]-th future draw, its seen tokens
+        plus the lanes of w's path (``perm[b, w]``).  Returns (M (B, W)
+        int64 on the device, {row: generator states after 0..W draws}
+        for the sampled rows)."""
+        B = self._num_slots
+        V = logits.shape[-1]
+        dev = self._device
+        groups: Dict[tuple, List[int]] = {}
+        for i in active:
+            groups.setdefault(self._slots[i].req.sample_config,
+                              []).append(i)
+        seen_w = [self._seen] * W
+        pen = [i for i in active if self._slots[i].req.penalized]
+        if pen:
+            pr = torch.zeros(B, dtype=torch.bool)
+            pr[pen] = True
+            pr = pr.to(dev)[:, None]
+            rows = torch.arange(B, device=dev)[:, None]
+            if perm is None:
+                seen_w, cur = [self._seen], self._seen
+                for w in range(1, W):
+                    upd = cur.clone()
+                    upd[rows[:, 0], window[:, w]] = True
+                    cur = torch.where(pr, upd, cur)
+                    seen_w.append(cur)
+            else:
+                perm_d = torch.from_numpy(perm).to(dev)
+                seen_w = []
+                for w in range(W):
+                    upd = self._seen.clone()
+                    upd[rows, torch.gather(window, 1, perm_d[:, w])] = True
+                    seen_w.append(torch.where(pr, upd, self._seen))
+        states = {i: sampler.future_states(self._slots[i].gen, W, V, dev)
+                  for i in active if self._slots[i].gen is not None}
+        ahead = (np.arange(W)[None, :].repeat(B, 0) if depth is None
+                 else depth)
+        cols: List[Optional[torch.Tensor]] = [None] * W
+        for (temp, top_k, top_p, rep), members in groups.items():
+            mask = torch.zeros(B, dtype=torch.bool)
+            mask[members] = True
+            mask = mask.to(dev)
+            for w in range(W):
+                gens = None
+                if temp > 0.0:
+                    gens = [sampler.generator_at(states[i][ahead[i, w]], dev)
+                            if i in members else None for i in range(B)]
+                out = sampler.sample_next_token(
+                    logits[:, w], gens, temp, top_k, top_p, rep,
+                    seen_mask=seen_w[w] if rep != 1.0 else None,
+                    active_mask=mask)
+                cols[w] = out if cols[w] is None \
+                    else torch.where(mask, out, cols[w])
+        return torch.stack(cols, dim=1), states
 
     def _sample_pool(self, last, active):
         """Pooled sampling: slots sharing a sampling config draw in ONE
@@ -485,7 +965,7 @@ class PagedContinuousBatchingEngine:
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
         if active:
-            self._decode(active)
+            self._decode_active(active)
         return [r for r in self._results if r not in finished_before]
 
     def take_result(self, rid):

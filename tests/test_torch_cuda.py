@@ -2,7 +2,10 @@
 card.  The paged kernels (K1, K2) over geometries the main path does not
 reach: head_dim 16 to 256, block sizes 8 to 64, GQA rep 1 to 16, a
 single-buffered tile (float32 at head_dim 256), long tables, dead lanes,
-pages out of order and chunks starting mid-page.  The flash-attention
+pages out of order and chunks starting mid-page; K1's verify window and
+tree mask at W = 2 to 32 with its two bit-exact invariants (a chain
+``anc`` gives the bits of no ``anc``; lane w of a window equals a W = 1
+call at pos + w, checked with ``torch.equal``).  The flash-attention
 kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
 and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
 plus head_dim 72 and 256.  The conv backward kernel (K6) over
@@ -35,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tree_anc
 from mxtpu_torch import base
 from mxtpu_torch.ops import conv_bwd as cb
 from mxtpu_torch.ops import flash_attention as fa
@@ -152,6 +156,54 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         with pytest.raises(base.MXTPUError):
             pa.paged_decode_attention(*args)
     assert base.count(pa.KERNEL_NAME) == 0
+    q4 = q.expand(-1, -1, 4, -1).contiguous()
+    with pytest.raises(base.MXTPUError):                       # anc dtype
+        pa.paged_decode_attention(q4, pk, pv, tables, pos,
+                                  anc=torch.zeros(q.shape[0], 4,
+                                                  dtype=torch.int64,
+                                                  device="cuda"))
+    with pytest.raises(NotImplementedError):                   # int8
+        pa.paged_decode_attention(q, pk, pv, tables, pos,
+                                  k_scales=pk[..., 0], v_scales=pv[..., 0])
+
+
+@pytest.mark.parametrize("W", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMETRIES[:5], ids=lambda g: "D%d-bs%d-rep%d"
+                         % (g[0], g[1], g[3]))
+def test_verify_window_and_tree_kernels_match_plain(cuda, geom, dtype, W):
+    """K1's verify window and tree mask against the plain version, up to
+    W = 32 lanes (more lanes than one block holds from rep*W > 32), and
+    its bit-exact invariants: (a) a degenerate-chain anc gives the bits
+    of no anc; (b) lane w of a W-lane linear call equals a W = 1 call at
+    pos + w."""
+    D, bs, KV, rep = geom[:4]
+    q1, pk, pv, tables, pos = _decode_case(geom[:6] + (geom[6] + W,), dtype,
+                                           seed=D + W)
+    B = q1.shape[0]
+    pos = torch.clamp(pos - W, min=0)
+    pos[B // 2] = 0
+    g = torch.Generator(device="cuda").manual_seed(W)
+    q = torch.randn(B, KV * rep, W, D, generator=g, device="cuda",
+                    dtype=dtype)
+    rng = np.random.RandomState(W)
+    base.reset_counts()
+    lin = pa.paged_decode_attention(q, pk, pv, tables, pos)
+    assert _err(lin, pa.paged_decode_attention_plain(q, pk, pv, tables,
+                                                     pos)) <= TOL[dtype]
+    tree = torch.from_numpy(tree_anc(rng, B, W)).cuda()
+    got = pa.paged_decode_attention(q, pk, pv, tables, pos, anc=tree)
+    assert _err(got, pa.paged_decode_attention_plain(
+        q, pk, pv, tables, pos, anc=tree)) <= TOL[dtype]
+    chain = pa.paged_decode_attention(
+        q, pk, pv, tables, pos,
+        anc=torch.from_numpy(tree_anc(rng, B, W, chain=True)).cuda())
+    assert torch.equal(chain, lin)
+    for w in range(W):
+        one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk, pv,
+                                        tables, pos + w)
+        assert torch.equal(one, lin[:, :, w:w + 1]), w
+    assert base.count(pa.KERNEL_NAME) == 3 + W
 
 
 # (B, H, T, D) of the flash kernels

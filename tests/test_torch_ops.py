@@ -115,3 +115,73 @@ def test_paged_block_copy_matches_reference(src, dst):
     got = _t(pool)
     tensor.paged_block_copy(got, src, dst)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rope_absolute_offsets_match_reference():
+    """(B, T) offsets: element (b, t) rotated at offset[b, t] (a tree
+    window's lanes sit at their depths)."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(3, 4, 5, 16).astype(np.float32)
+    off = rng.randint(0, 200, (3, 5)).astype(np.int32)
+    want = np.asarray(jcontrib.rope(jnp.asarray(x), offset=jnp.asarray(off)))
+    got = contrib.rope(_t(x), offset=_t(off)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 6, 16), (3, 6, 16)])
+def test_rope_absolute_offsets_are_the_per_row_form_on_consecutive_lanes(
+        shape):
+    """Where offset[b, t] == offset[b] + t the (B, T) form gives the (B,)
+    form's bits (a linear window's rotation equals the tree path's)."""
+    rng = np.random.RandomState(8)
+    x = _t(rng.randn(*shape).astype(np.float32))
+    pos = torch.tensor([0, 17, 1000], dtype=torch.int32)
+    off = pos[:, None] + torch.arange(6, dtype=torch.int32)[None, :]
+    assert torch.equal(contrib.rope(x, offset=off),
+                       contrib.rope(x, offset=pos))
+
+
+def _span_case(seed, W=5):
+    """Two live rows, the second's window crossing from its last page
+    onto the table's null padding, and a dead row."""
+    rng = np.random.RandomState(seed)
+    pool = _pool(rng, N=8)
+    tables = np.array([[2, 6, 3], [5, 1, 0], [0, 0, 0]], np.int32)
+    pos = np.array([2, 5, 0], np.int32)
+    return rng, pool, tables, pos
+
+
+def test_paged_cache_write_span_matches_reference():
+    rng, pool, tables, pos = _span_case(9)
+    new = rng.randn(3, 2, 5, 8).astype(np.float32)
+    valid_len = np.array([4, 5, 0], np.int32)
+    want = np.asarray(jtensor._paged_cache_write_span(
+        jnp.asarray(pool), jnp.asarray(new), jnp.asarray(tables),
+        jnp.asarray(pos), jnp.asarray(valid_len)))
+    got = _t(pool)
+    out = tensor.paged_cache_write_span(got, _t(new), _t(tables), _t(pos),
+                                        _t(valid_len))
+    assert out is got                         # in place
+    # page 0 absorbs the invalid lanes: which of them lands is unspecified
+    np.testing.assert_array_equal(got.numpy()[1:], want[1:])
+    untouched = [4, 7]
+    np.testing.assert_array_equal(got.numpy()[untouched], pool[untouched])
+
+
+@pytest.mark.parametrize("src_lane", [
+    [[0, 3, 4, -1, -1], [0, 1, 2, 3, 4], [-1] * 5],   # a side branch
+    [[2, 0, 1, 4, 3], [4, 3, 2, 1, 0], [0] * 5],       # overlapping moves
+])
+def test_paged_cache_permute_span_matches_reference(src_lane):
+    """Sources are read before any destination is written, so moves
+    whose sources and destinations overlap in one slot land as the
+    reference's functional gather-then-scatter does."""
+    _, pool, tables, pos = _span_case(10)
+    sl = np.array(src_lane, np.int32)
+    want = np.asarray(jtensor._paged_cache_permute_span(
+        jnp.asarray(pool), jnp.asarray(tables), jnp.asarray(pos),
+        jnp.asarray(sl)))
+    got = _t(pool)
+    out = tensor.paged_cache_permute_span(got, _t(tables), _t(pos), _t(sl))
+    assert out is got
+    np.testing.assert_array_equal(got.numpy()[1:], want[1:])

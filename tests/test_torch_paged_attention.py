@@ -3,7 +3,9 @@ against the JAX reference's Pallas kernels (run in interpret mode on the
 CPU, as the reference's own tests run them) and against the reference's
 ``xla_reference``, on the same seeded numpy inputs: ragged block tables
 padded with the null page, pages out of order, GQA rep 2, a dead pool
-lane, a chunk starting mid-page and a padded chunk.
+lane, a chunk starting mid-page and a padded chunk; and K1's speculative
+verify window (W = 2, 4, 8) and tree ancestor mask (branchy trees and the
+degenerate chain).
 
 Tolerance 1e-5 absolute and relative: all four compute in float32 and
 differ only in the order of their sums.
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 
 from mxtpu.ops.pallas import paged_attention as jpa
 from mxtpu.ops.pallas import prefill_attention as jpf
+from chip_smoke import tree_anc
 from mxtpu_torch import base
 from mxtpu_torch.ops import paged_attention, prefill_attention
 
@@ -113,21 +116,86 @@ def test_prefill_wrapper_on_cpu_counts_and_runs_the_plain_version():
         rtol=0, atol=0)
 
 
+def _window_case(seed, W):
+    """The decode case with a W-lane query window per slot; slot 3's
+    window crosses from its last page onto null-padded table entries."""
+    q, pk, pv, tables, pos = _decode_case(seed)
+    rng = np.random.RandomState(seed + 100)
+    q = rng.randn(4, KV * REP, W, D).astype(np.float32)
+    pos = np.array([12 - W // 2, 0, 29 - W, 3], np.int32)
+    return q, pk, pv, tables, pos
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+@pytest.mark.parametrize("tree", [None, "branchy", "chain"])
+def test_plain_verify_window_matches_reference_kernel_and_xla(W, tree):
+    """Lane w of a linear window attends positions <= pos + w; a tree
+    lane attends the history, itself and its ancestors."""
+    q, pk, pv, tables, pos = _window_case(W, W)
+    anc = None if tree is None else tree_anc(np.random.RandomState(W), 4,
+                                              W, chain=tree == "chain")
+    args = [jnp.asarray(a) for a in (q, pk, pv, tables, pos)]
+    janc = None if anc is None else jnp.asarray(anc)
+    want_kernel = np.asarray(jpa.paged_decode_attention(*args, anc=janc))
+    want_xla = np.asarray(jpa.xla_reference(*args, anc=janc))
+    got = paged_attention.paged_decode_attention_plain(
+        *[torch.from_numpy(a) for a in (q, pk, pv, tables, pos)],
+        anc=None if anc is None else torch.from_numpy(anc)).numpy()
+    live = [0, 2, 3]
+    np.testing.assert_allclose(got[live], want_kernel[live], **TOL)
+    np.testing.assert_allclose(got, want_xla, **TOL)
+
+
+def test_plain_chain_tree_equals_linear_window():
+    """A degenerate chain's ancestor mask is the linear window's
+    triangle: the plain version gives the same bits."""
+    q, pk, pv, tables, pos = [torch.from_numpy(a)
+                              for a in _window_case(0, 8)]
+    anc = torch.from_numpy(tree_anc(None, 4, 8, chain=True))
+    lin = paged_attention.paged_decode_attention_plain(q, pk, pv, tables, pos)
+    chain = paged_attention.paged_decode_attention_plain(q, pk, pv, tables,
+                                                         pos, anc=anc)
+    assert torch.equal(lin, chain)
+
+
 @pytest.mark.parametrize("variant", ["window", "tree", "int8"])
 def test_decode_wrapper_rejects_variants_not_ported(variant):
+    """What the wrapper still rejects: the int8 pools.  The verify window
+    and the tree mask are ported: on a CPU tensor they run the plain
+    version, counted once."""
     q, pk, pv, tables, pos = [torch.from_numpy(a) for a in _decode_case(0)]
     kw = {}
     if variant == "window":
         q = q.expand(-1, -1, 2, -1).contiguous()
     elif variant == "tree":
-        kw["anc"] = torch.zeros(4, 1, dtype=torch.int32)
+        q = q.expand(-1, -1, 4, -1).contiguous()
+        kw["anc"] = torch.from_numpy(
+            tree_anc(np.random.RandomState(0), 4, 4))
     else:
         kw["k_scales"] = torch.ones(N, KV, BS)
         kw["v_scales"] = torch.ones(N, KV, BS)
     base.reset_counts()
-    with pytest.raises(NotImplementedError):
-        paged_attention.paged_decode_attention(q, pk, pv, tables, pos, **kw)
-    assert base.count(paged_attention.KERNEL_NAME) == 0
+    if variant == "int8":
+        with pytest.raises(NotImplementedError):
+            paged_attention.paged_decode_attention(q, pk, pv, tables, pos,
+                                                   **kw)
+        assert base.count(paged_attention.KERNEL_NAME) == 0
+        return
+    out = paged_attention.paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert base.count(paged_attention.KERNEL_NAME) == 1
+    torch.testing.assert_close(
+        out, paged_attention.paged_decode_attention_plain(
+            q, pk, pv, tables, pos, **kw), rtol=0, atol=0)
+
+
+def test_decode_wrapper_rejects_a_tree_wider_than_the_bitmask():
+    """K004: a tree window past 32 lanes does not fit the int32 ancestor
+    bitmask (the reference raises the same ValueError)."""
+    q, pk, pv, tables, pos = [torch.from_numpy(a) for a in _decode_case(0)]
+    q = q.expand(-1, -1, 33, -1).contiguous()
+    with pytest.raises(ValueError, match="K004"):
+        paged_attention.paged_decode_attention(
+            q, pk, pv, tables, pos, anc=torch.zeros(4, 33, dtype=torch.int32))
 
 
 def test_prefill_wrapper_rejects_int8_pools():

@@ -200,11 +200,18 @@ def test_request_edge_cases(models, eng):
         eng.submit(p, MAXLEN)
     with pytest.raises(ValueError):         # one request at a time
         eng.submit(np.zeros((2, 3), np.int32), 2)
-    for knob in (dict(deadline_s=1.0), dict(retries=1),
-                 dict(speculative=True), dict(session="s"),
-                 dict(spec_tree=(4, 2))):
+    for knob in (dict(deadline_s=1.0), dict(retries=1), dict(session="s")):
         with pytest.raises(NotImplementedError):
             eng.submit(p, 2, **knob)
+    # the speculative knobs follow the reference: speculative= is a
+    # request's opt-in/out of the engine's speculation (none here, so the
+    # stream is the plain one); a tree config needs a speculating engine
+    with pytest.raises(ValueError, match="spec_tree"):
+        eng.submit(p, 2, spec_tree=(4, 2))
+    r = eng.submit(p, 3, speculative=True)
+    np.testing.assert_array_equal(
+        eng.run()[r].numpy(),
+        models[1].generate(torch.from_numpy(p), 3).numpy())
     eos = int(models[1].generate(torch.from_numpy(p), 3)[0, -1])
     r = eng.submit(p, 3, eos_id=eos)
     out = eng.run()[r].numpy()
