@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. build the CUDA kernels from ``mxtpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into ``mxtpu_torch/_build``;
 3. each kernel against its plain PyTorch version on the card, at the
-   test geometry (head_dim 16, block 8, 2 kv heads, rep 2) and the
+   test geometry (head_dim 16, block 8, 2 kv heads, rep 2; and head_dim
+   8, the small speculative model's) and the
    Llama-3-8B one (head_dim 128, block 16, 8 kv heads, rep 4, 8 slots,
    64-token chunks), in float32 and bfloat16, with ragged tables, null
    padding, pages out of order and a chunk starting mid-page; kernel,
@@ -22,6 +23,17 @@ Phases, in order; any failure exits non-zero:
    W = 16), with its two bit-exact invariants (``torch.equal``): a
    degenerate-chain ``anc`` gives the bits of no ``anc``, and lane w of
    a W-lane window equals a W = 1 call at pos + w;
+3c. phases 3 and 3b again over int8 pools and their float32 scales (the
+   random pools quantized by the cache's own quantizer): K1 int8 at
+   W = 1, windows W = 2..32 and trees, invariants (a) and (b) with
+   ``torch.equal``, and K2 int8 with a chunk starting mid-page; then G1,
+   the row-invariant projection, against its plain version (F.linear)
+   at small ragged shapes in float32 and bfloat16 and at the six 8B
+   projections in bfloat16, M = 8 and 128, with its guarantee held by
+   ``torch.equal`` (a row of an 8-row call, and of a call on the rows
+   reversed, equals that row of the full call), and its time against
+   F.linear and torch.matmul; and G2, the row-invariant RMSNorm, the
+   same way against the port's rms_norm and F.rms_norm;
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
 4b. a 1-layer float32 model (vocab 20, numpy-seeded weights) served by
@@ -30,28 +42,43 @@ Phases, in order; any failure exits non-zero:
    prefill in play: every stream equals the same settings' stream with
    speculation off and ``generate``; drafts are accepted, a tree
    side-branch fix-up runs, no page leaks;
+4c. phase 4b with an int8 cache, every stream equal to the same settings'
+   stream without speculation and to int8 ``generate``;
 5. the main path: the full-width 32-layer Llama-3-8B in bfloat16 with
    seeded random weights, serving 12 requests (prompts of 64-640
    tokens, 6 sharing a 256-token prefix, 32 new tokens each, 2 of them
    sampled) through ``PagedContinuousBatchingEngine``; the kernel
    launch counts are zeroed just before and read just after, and must
-   equal 32 per decode step and 32 per prefill chunk;
-6. torch.profiler over four more decode steps of the same engine: the
-   device time by kernel and the device's idle share;
+   equal 32 per decode step and 32 per prefill chunk for K1 and K2, 161
+   per decode step for G1 (5 projections a layer and the head) and 65
+   for G2 (2 norms a layer and the final one);
+5b. the main path again with an int8 cache: K1 int8 32 per decode step,
+   K2 int8 32 per chunk, no float K1/K2 launch; the pool bytes, and how
+   many streams equal the bf16 run's (a reading: random weights tie
+   often in bf16);
+6. torch.profiler over four more decode steps of the same engine (of
+   phase 5's and of 5b's): the device time by kernel and the device's
+   idle share;
 6b. the speculative main path: the same model serves 12 motif requests
    (``motif_traffic``: 6 tree, 5 linear, 1 not speculating; 2 sampled,
    1 penalized; 32 new tokens each) twice on the main path's engine
    settings, with speculation off and with spec_k = 4, spec_tree =
    (15, 2); K1's launches must be 32 per step or verify call, by W and
-   tree; streams are held identical up to the first bf16 tie that the
-   window's other GEMM rounding may break (``TIE_GAP``), K1 to
-   invariant (b) on the captured window, and which ops round a window
-   lane otherwise is logged (``window_op_bits``);
+   tree, and G1's 161 per step or verify call; every speculative
+   stream must be token-identical to its plain stream, K1 must hold
+   invariant (b) on the captured window, and ``window_op_bits`` must
+   find no op of the step (norms, projections, rope, SwiGLU, residual
+   adds) that rounds a window lane otherwise at W = 8 or W = 16;
+6c. phase 6b's traffic and engines with an int8 cache: every speculative
+   stream token-identical to the int8 plain stream, K1 int8's launches
+   by (W, tree);
 7. layer 0's kernel inputs captured from the main runs (one prefill
-   chunk, one decode step, one linear verify window and one tree): kernel
-   against plain version on them, and the kernel, plain and library
-   times (device time of a CUDA-graph replay, L2 flushed before each)
-   at the main path's shapes;
+   chunk, one decode step, one linear verify window and one tree, over
+   the bf16 pools and over the int8 ones): kernel against plain version
+   on them, and the kernel, plain and library times (device time of a
+   CUDA-graph replay, L2 flushed before each) at the main path's shapes;
+   the library is a gather (and dequantize) then
+   scaled_dot_product_attention;
 8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
    their plain versions, causal and not, at T = 128, 100 and 150
    (head_dim 16) and at (1, 32, 2048, 128), in float32 and bfloat16;
@@ -81,14 +108,20 @@ Phases, in order; any failure exits non-zero:
 
 The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
-``paged_attention[tree,W=16]``); the last line is
+``paged_attention[tree,W=16]``, the int8 forms as
+``paged_attention[int8]``, ``paged_attention[int8,W=8]``,
+``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, and G1
+as one row per projection at M = 8, ``rows_linear[qkv,M=8]`` ..., and
+G2 as ``rows_rms_norm[M=8]``); the last line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
 
 Tolerances (kernel against plain version, max absolute error): 2e-5 in
 float32, where the two differ only in the order of their sums; 2e-2 in
 bfloat16, where each rounds its float32 result to bfloat16 (one bf16
-ulp is 2**-7 relative) after sums taken in other orders.  The flash
+ulp is 2**-7 relative) after sums taken in other orders.  G1 is held
+relative to its largest output (``GRAD_TOL``): its outputs reach |y| of
+several units, where one bf16 ulp exceeds 2e-2.  The flash
 gradients (dq, dk, dv) and K6's are held relative to their largest
 element (``GRAD_TOL``), since their size follows dO's, which the training
 loss makes tiny; K6's float32 dW to 1e-4 of it (``DW_TOL``), since each
@@ -127,6 +160,14 @@ KERNEL_SOURCES = {
                         "mxtpu/ops/pallas/paged_attention.py:117"),
     "paged_prefill": ("mxtpu_torch/csrc/prefill_attention.cu",
                       "mxtpu/ops/pallas/prefill_attention.py:113"),
+    "rows_linear": ("mxtpu_torch/csrc/rows_linear.cu",
+                    "none: no pallas_call (XLA's dot in "
+                    "mxtpu/models/transformer.py); repairs the port's "
+                    "row-count-dependent rounding"),
+    "rows_rms_norm": ("mxtpu_torch/csrc/rows_linear.cu",
+                      "none: no pallas_call (XLA's rms_norm in "
+                      "mxtpu/ops/contrib.py); repairs the port's "
+                      "row-count-dependent rounding"),
     "flash_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
                   "mxtpu/ops/pallas/flash_attention.py:107"),
     "flash_dq": ("mxtpu_torch/csrc/flash_attention.cu",
@@ -223,16 +264,25 @@ def attended_keys(pos, W, anc=None):
     return p + pop + 1
 
 
+def key_bytes(pool_k):
+    """Bytes one key (or value) row of one kv head costs in the pool: D
+    elements of the pool's own type, plus a 4-byte scale for int8."""
+    D = pool_k.shape[-1]
+    return D * pool_k.element_size() + (4 if pool_k.dtype == torch.int8
+                                        else 0)
+
+
 def decode_work(q, pool_k, tables, pos, anc=None):
     """Bytes and operations a decode or verify call needs on these
     inputs: q (and anc) read and out written once, each slot's keys and
-    values 0..pos[b]+W-1 read once, 4 operations per (lane, attended
-    key, d) for the scores and the sum."""
+    values 0..pos[b]+W-1 read once (at the pool's bytes per row, scales
+    included), 4 operations per (lane, attended key, d) for the scores
+    and the sum."""
     B, H, W, D = q.shape
     KV = pool_k.shape[1]
-    elt = q.element_size()
     keys = int((pos.long() + W).sum())
-    nbytes = (2 * q.numel() * elt + keys * KV * D * 2 * elt
+    nbytes = (2 * q.numel() * q.element_size()
+              + keys * KV * 2 * key_bytes(pool_k)
               + 4 * (tables.numel() + pos.numel())
               + (0 if anc is None else 4 * anc.numel()))
     attended = int(attended_keys(pos, W, anc).sum())
@@ -244,8 +294,8 @@ def prefill_work(q, pool_k, table, start):
     t of the chunk attending start+t+1 keys."""
     _, H, T, D = q.shape
     KV = pool_k.shape[1]
-    elt = q.element_size()
-    nbytes = (2 * q.numel() * elt + (start + T) * KV * D * 2 * elt
+    nbytes = (2 * q.numel() * q.element_size()
+              + (start + T) * KV * 2 * key_bytes(pool_k)
               + 4 * table.numel())
     attended = T * (start + 1) + T * (T - 1) // 2
     return nbytes, 4 * attended * H * D
@@ -265,24 +315,33 @@ def verify_mask(pos, W, T, anc=None):
             | ((rel >= 0) & (rel < W) & (bit == 1)))[:, None]
 
 
-def library_decode(q, pool_k, pool_v, tables, pos, anc=None):
-    """The yardstick: gather each slot's pages, then PyTorch's
-    scaled_dot_product_attention over them with K1's boolean mask
-    (never called by the port)."""
-    from mxtpu_torch.ops.tensor import paged_cache_gather
+def library_pages(pool, scales, tables, dtype):
+    """A table's pages in sequence order for the yardstick: gathered,
+    and for an int8 pool dequantized, in ``dtype``."""
+    from mxtpu_torch.ops.tensor import (paged_cache_gather,
+                                        paged_cache_gather_q8)
 
-    k = paged_cache_gather(pool_k, tables)           # (B, KV, M*bs, D)
-    v = paged_cache_gather(pool_v, tables)
+    if scales is None:
+        return paged_cache_gather(pool, tables)
+    return paged_cache_gather_q8(pool, scales, tables).to(dtype)
+
+
+def library_decode(q, pool_k, pool_v, tables, pos, anc=None, k_scales=None,
+                   v_scales=None):
+    """The yardstick: gather each slot's pages (and dequantize an int8
+    pool), then PyTorch's scaled_dot_product_attention over them with
+    K1's boolean mask (never called by the port)."""
+    k = library_pages(pool_k, k_scales, tables, q.dtype)  # (B, KV, M*bs, D)
+    v = library_pages(pool_v, v_scales, tables, q.dtype)
     mask = verify_mask(pos, q.shape[2], k.shape[2], anc)
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def library_prefill(q, pool_k, pool_v, table, start):
-    from mxtpu_torch.ops.tensor import paged_cache_gather
-
-    k = paged_cache_gather(pool_k, table)[None]      # (1, KV, M*bs, D)
-    v = paged_cache_gather(pool_v, table)[None]
+def library_prefill(q, pool_k, pool_v, table, start, k_scales=None,
+                    v_scales=None):
+    k = library_pages(pool_k, k_scales, table, q.dtype)[None]
+    v = library_pages(pool_v, v_scales, table, q.dtype)[None]
     qpos = start + torch.arange(q.shape[2], device=q.device)
     mask = torch.arange(k.shape[2], device=q.device)[None, :] <= qpos[:, None]
     return torch.nn.functional.scaled_dot_product_attention(
@@ -416,26 +475,38 @@ def prefill_case(geom, dtype, seed):
             torch.from_numpy(table).cuda(), start)
 
 
-def measure(name, args, flush, timed=True):
-    """Kernel against plain version on ``args``; with ``timed`` also the
-    kernel, plain and library times and the bound.  K1's args may end
-    with a tree's ``anc``."""
+def q8_case(args):
+    """A float kernel case's pools quantized per row into int8 payloads
+    and scales (the cache's own quantizer): (args, scale keywords)."""
+    from mxtpu_torch.ops.tensor import _q8_quantize
+
+    (pk, ks), (pv, vs) = _q8_quantize(args[1]), _q8_quantize(args[2])
+    return ((args[0], pk, pv) + tuple(args[3:]),
+            dict(k_scales=ks, v_scales=vs))
+
+
+def measure(name, args, flush, timed=True, kw=None):
+    """Kernel against plain version on ``args`` and the keywords ``kw``
+    (K1's tree ``anc``, an int8 pool's scales); with ``timed`` also the
+    kernel, plain and library times and the bound."""
     from mxtpu_torch.ops import paged_attention as pa
     from mxtpu_torch.ops import prefill_attention as pf
 
+    kw = kw or {}
+    args = tuple(args)
     if name.startswith("paged_attention"):
-        anc = args[5] if len(args) > 5 else None
-        args = tuple(args[:5])
-        kernel, plain, library = (
-            lambda *a: pa.paged_decode_attention(*a, anc=anc),
-            lambda *a: pa.paged_decode_attention_plain(*a, anc=anc),
-            lambda *a: library_decode(*a, anc=anc))
-        work = decode_work(args[0], args[1], args[3], args[4], anc)
+        kernel, plain, library = (pa.paged_decode_attention,
+                                  pa.paged_decode_attention_plain,
+                                  library_decode)
+        work = decode_work(args[0], args[1], args[3], args[4],
+                           kw.get("anc"))
     else:
         kernel, plain, library = (pf.paged_prefill_attention,
                                   pf.paged_prefill_attention_plain,
                                   library_prefill)
         work = prefill_work(args[0], args[1], args[3], args[4])
+    kernel, plain, library = (
+        (lambda *a, f=f: f(*a, **kw)) for f in (kernel, plain, library))
     dtype = args[0].dtype
     got = kernel(*args)
     want = plain(*args)
@@ -477,10 +548,11 @@ def tree_anc(rng, B, W, chain=False):
     return anc.astype(np.int32)
 
 
-def verify_kernels_against_plain():
+def verify_kernels_against_plain(quant=False):
     """K1's verify window (W = 2..32) and tree mask against the plain
-    version, float32 and bfloat16, and its two bit-exact invariants:
-    (a) a degenerate-chain anc gives the bits of no anc; (b) lane w of a
+    version, float32 and bfloat16 queries (over int8 pools and their
+    scales with ``quant``), and its two bit-exact invariants: (a) a
+    degenerate-chain anc gives the bits of no anc; (b) lane w of a
     W-lane linear call equals a W = 1 call at pos + w."""
     from mxtpu_torch.ops import paged_attention as pa
 
@@ -498,8 +570,12 @@ def verify_kernels_against_plain():
                 q = torch.randn(B, H, W, q.shape[-1], device="cuda",
                                 dtype=dtype, generator=torch.Generator(
                                     device="cuda").manual_seed(W))
+                kw = {}
+                if quant:
+                    (q, pk, pv, tables, pos), kw = q8_case(
+                        (q, pk, pv, tables, pos))
                 errs = {}
-                lin = pa.paged_decode_attention(q, pk, pv, tables, pos)
+                lin = pa.paged_decode_attention(q, pk, pv, tables, pos, **kw)
                 for kind, anc in (("linear", None),
                                   ("tree", tree_anc(rng, B, W)),
                                   ("chain", tree_anc(rng, B, W, True))):
@@ -507,9 +583,9 @@ def verify_kernels_against_plain():
                         anc = torch.from_numpy(anc).cuda()
                     got = lin if anc is None else \
                         pa.paged_decode_attention(q, pk, pv, tables, pos,
-                                                  anc=anc)
+                                                  anc=anc, **kw)
                     want = pa.paged_decode_attention_plain(
-                        q, pk, pv, tables, pos, anc=anc)
+                        q, pk, pv, tables, pos, anc=anc, **kw)
                     torch.cuda.synchronize()
                     errs[kind] = float((got.float() - want.float())
                                        .abs().max())
@@ -525,7 +601,7 @@ def verify_kernels_against_plain():
                 for w in range(W):
                     one = pa.paged_decode_attention(
                         q[:, :, w:w + 1].contiguous(), pk, pv, tables,
-                        pos + w)
+                        pos + w, **kw)
                     if not torch.equal(one, lin[:, :, w:w + 1]):
                         raise AssertionError(
                             "K1 invariant (b): lane %d of a W=%d window "
@@ -535,22 +611,175 @@ def verify_kernels_against_plain():
                                        for e in errs.values()))
                 log(phase="verify_vs_plain", geometry=gname,
                     dtype=str(dtype).split(".")[1], W=W,
+                    pools="int8" if quant else "float",
                     lanes=H // pk.shape[1] * W, max_abs_err=errs,
                     invariants="a,b bit-exact")
     return worst
 
 
-def kernels_against_plain(flush):
-    for gname, geom in (("tiny", TINY), ("llama_3_8b", LLAMA_8B)):
+def kernels_against_plain(flush, quant=False):
+    """K1 (W = 1) and K2 against their plain versions at the test and
+    the 8B geometry, float32 and bfloat16 queries, over float pools or
+    (``quant``) int8 pools with their scales."""
+    for gname, geom in (("tiny", TINY), ("D8", dict(TINY, D=8)),
+                        ("llama_3_8b", LLAMA_8B)):
         for dtype in (torch.float32, torch.bfloat16):
             for seed in (0, 1):
                 for name, case in (("paged_attention", decode_case),
                                    ("paged_prefill", prefill_case)):
-                    args = case(geom, dtype, seed)
-                    res = measure(name, args, flush, timed=seed == 0)
+                    args, kw = case(geom, dtype, seed), {}
+                    if quant:
+                        args, kw = q8_case(args)
+                        name += "[int8]"
+                    res = measure(name, args, flush, timed=seed == 0, kw=kw)
                     log(phase="kernel_vs_plain", kernel=name,
                         geometry=gname, dtype=str(dtype).split(".")[1],
                         shape=list(args[0].shape), seed=seed, **res)
+
+
+#: the decode step's six projections of llama_3_8b, as (name, N, K)
+PROJECTIONS = [("qkv", 6144, 4096), ("out_proj", 4096, 4096),
+               ("gate_proj", 14336, 4096), ("up_proj", 14336, 4096),
+               ("down_proj", 4096, 14336), ("lm_head", 128256, 4096)]
+
+
+def linear_err(x, w):
+    """G1 against its plain version on (x, w): the max abs error and
+    that error over its bound, ``GRAD_TOL`` times max |plain| (two
+    roundings of float32 sums taken in other orders differ by at most
+    one ulp of the output's type at the largest output)."""
+    from mxtpu_torch.ops import linear
+
+    got = linear.rows_linear(x, w)
+    want = linear.rows_linear_plain(x, w)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = GRAD_TOL[x.dtype] * float(want.float().abs().max())
+    if not err <= tol:
+        raise AssertionError("rows_linear disagrees with its plain version: "
+                             "max abs error %g > %g (%s, x %s, w %s)"
+                             % (err, tol, x.dtype, tuple(x.shape),
+                                tuple(w.shape)))
+    return got, err, err / tol
+
+
+def rows_invariant(x, w, got):
+    """G1's guarantee on (x, w) and its output ``got``: each row of an
+    8-row call, and of a call on the rows in reverse order, is
+    bit-identical to that row of the full call."""
+    from mxtpu_torch.ops import linear
+
+    part = linear.rows_linear(x[:8].contiguous(), w)
+    rev = linear.rows_linear(x.flip(0).contiguous(), w)
+    if not (torch.equal(part, got[:8]) and torch.equal(rev.flip(0), got)):
+        raise AssertionError("rows_linear rounds a row by the row count or "
+                             "position (x %s, w %s, %s)"
+                             % (tuple(x.shape), tuple(w.shape), x.dtype))
+
+
+def linear_against_plain(flush):
+    """G1 at the 8B projections, bfloat16, M = 8 (the decode step) and
+    M = 128 (an 8-slot W = 16 window) with its rows invariant; ragged M
+    and float32 at small shapes.  Returns {projection: timed result at
+    M = 8} for the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for M, N, K, dtype in ((1, 96, 64, torch.float32),
+                           (17, 200, 32, torch.float32),
+                           (9, 64, 172, torch.float32),
+                           (7, 130, 72, torch.bfloat16),
+                           (33, 4096, 512, torch.bfloat16)):
+        x = torch.randn(M, K, device="cuda", dtype=dtype, generator=g)
+        w = torch.randn(N, K, device="cuda", dtype=dtype, generator=g)
+        got, err, ratio = linear_err(x, w)
+        rows_invariant(x, w, got)
+        log(phase="linear_vs_plain", M=M, N=N, K=K,
+            dtype=str(dtype).split(".")[1], max_abs_err=err,
+            err_over_tol=ratio)
+    results = {}
+    for name, N, K in PROJECTIONS:
+        w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16,
+                        generator=g) * 0.02
+        x = torch.randn(128, K, device="cuda", dtype=torch.bfloat16,
+                        generator=g)
+        full, err, ratio = linear_err(x, w)
+        rows_invariant(x, w, full)
+        for M in (8, 128):
+            xm = x[:M].contiguous()
+            res = measure_linear(xm, w, flush)
+            log(phase="linear_vs_plain", projection=name, M=M, N=N, K=K,
+                dtype="bfloat16", **res)
+            if M == 8:
+                results[name] = res
+        del w, x
+    return results
+
+
+def norm_against_plain(flush):
+    """G2, the row-invariant RMSNorm, against its plain version (the
+    port's rms_norm) at the small models' widths and the 8B's, float32
+    and bfloat16, held relative to its largest output (``GRAD_TOL``), and
+    its guarantee by ``torch.equal``: a row of an 8-row call, and of a
+    call on the rows reversed, equals that row of a 128-row call.
+    Returns the 8B bf16 norm's timed result at M = 8."""
+    from mxtpu_torch.ops import contrib
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    res = None
+    for C in (32, 64, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(128, C, device="cuda", dtype=dtype, generator=g)
+            gamma = 1 + 0.1 * torch.randn(C, device="cuda", dtype=dtype,
+                                          generator=g)
+            full = contrib.rows_rms_norm(x, gamma)
+            want = contrib.rms_norm(x, gamma)
+            torch.cuda.synchronize()
+            err = float((full.float() - want.float()).abs().max())
+            tol = GRAD_TOL[dtype] * float(want.float().abs().max())
+            if not err <= tol:
+                raise AssertionError("rows_rms_norm disagrees with its plain "
+                                     "version: %g > %g (C=%d, %s)"
+                                     % (err, tol, C, dtype))
+            part = contrib.rows_rms_norm(x[:8].contiguous(), gamma)
+            rev = contrib.rows_rms_norm(x.flip(0).contiguous(), gamma)
+            if not (torch.equal(part, full[:8])
+                    and torch.equal(rev.flip(0), full)):
+                raise AssertionError("rows_rms_norm rounds a row by the row "
+                                     "count or position (C=%d, %s)"
+                                     % (C, dtype))
+            out = dict(max_abs_err=err, err_over_tol=err / tol)
+            if C == 4096 and dtype == torch.bfloat16:
+                x8 = x[:8].contiguous()
+                out["ms"] = cuda_ms(lambda: contrib.rows_rms_norm(x8, gamma),
+                                    flush)
+                out["plain_ms"] = cuda_ms(
+                    lambda: contrib.rms_norm(x8, gamma), flush)
+                out["library_ms"] = cuda_ms(
+                    lambda: torch.nn.functional.rms_norm(x8, (C,), gamma,
+                                                         1e-6), flush)
+                nbytes = 2 * x8.numel() * 2 + C * 2
+                out["bound_ms"], out["bound_by"] = bound(
+                    nbytes, 4 * x8.numel(), dtype)
+                res = out
+            log(phase="norm_vs_plain", C=C, dtype=str(dtype).split(".")[1],
+                **out)
+    return res
+
+
+def measure_linear(x, w, flush):
+    """G1 on (x, w): kernel against plain version, and the kernel, plain
+    (F.linear) and library (torch.matmul) times with the bound."""
+    from mxtpu_torch.ops import linear
+
+    _, err, ratio = linear_err(x, w)
+    M, K = x.shape
+    N = w.shape[0]
+    res = dict(max_abs_err=err, err_over_tol=ratio)
+    res["ms"] = cuda_ms(lambda: linear.rows_linear(x, w), flush)
+    res["plain_ms"] = cuda_ms(lambda: linear.rows_linear_plain(x, w), flush)
+    res["library_ms"] = cuda_ms(lambda: torch.matmul(x, w.t()), flush)
+    nbytes = (x.numel() + w.numel() + M * N) * x.element_size()
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N * K, x.dtype)
+    return res
 
 
 # -- phase 4: a small model against its isolated reference ------------------
@@ -704,23 +933,54 @@ class Timed:
         delattr(self.model, self.attr)
 
 
-def serve_llama_3_8b():
-    from mxtpu_torch import base
-    from mxtpu_torch.models import sampler
+def llama_3_8b_model():
+    """The main path's model: llama_3_8b at full width and depth, bf16,
+    Normal(0, 0.02) weights from seed 0."""
     from mxtpu_torch.models.transformer import llama_3_8b
-    from mxtpu_torch.ops import paged_attention as pa
-    from mxtpu_torch.ops import prefill_attention as pf
-    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
 
     t0 = time.perf_counter()
     model = llama_3_8b(device="cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(0), 0.02)
     torch.cuda.synchronize()
-    n_layers = len(model.layers)
-    log(phase="model", layers=n_layers, dtype="bfloat16",
+    log(phase="model", layers=len(model.layers), dtype="bfloat16",
         params=sum(p.numel() for p in model.parameters()),
         seconds=time.perf_counter() - t0)
-    eng = PagedContinuousBatchingEngine(model, **SERVE)
+    return model
+
+
+def k_names(cache_dtype):
+    """K1's and K2's launch counter names for a cache dtype."""
+    tag = "[int8]" if cache_dtype == "int8" else ""
+    return "paged_attention" + tag, "paged_prefill" + tag
+
+
+def pool_bytes(eng):
+    """Bytes of an engine's KV pools, payloads and scales."""
+    return sum(t.numel() * t.element_size() for pair in eng._pools
+               for leaf in pair
+               for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+
+
+def serve_llama_3_8b(model, cache_dtype=None):
+    """The main path: ``traffic`` through the paged engine on SERVE's
+    settings (pools of the model's dtype, or int8 with ``cache_dtype``),
+    every kernel's launch count zeroed just before and read just after
+    the run and held exact: K1 32 per decode step, K2 32 per chunk (the
+    int8 forms on an int8 cache, no float launch), G1 161 and G2 65 per
+    step.
+    Returns the launches (with G1's by projection), layer 0's captured
+    K1 and K2 inputs as (args, keywords), and the streams."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models import sampler
+    from mxtpu_torch.models import transformer
+    from mxtpu_torch.ops import paged_attention as pa
+    from mxtpu_torch.ops import prefill_attention as pf
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    n_layers = len(model.layers)
+    k1, k2 = k_names(cache_dtype)
+    eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype,
+                                        **SERVE)
     # warm-up request: cuBLAS handles and the allocator, outside the count
     eng.submit(np.arange(64)[None], 2)
     eng.run()
@@ -731,7 +991,17 @@ def serve_llama_3_8b():
                          and n % n_layers == 0)
     prefill_cap = Capture(pf, "paged_prefill_attention",
                           lambda n, a, kw: a[4] >= 256)
+    proj = {layer.weight.data_ptr(): name for block in model.layers
+            for name, layer in (("qkv", block.attn.qkv),
+                                ("out_proj", block.attn.out_proj),
+                                ("gate_proj", block.gate_proj),
+                                ("up_proj", block.up_proj),
+                                ("down_proj", block.down_proj))}
+    proj[model.lm_head.weight.data_ptr()] = "lm_head"
+    torch.cuda.reset_peak_memory_stats()
     with decode_cap, prefill_cap, FiniteLogits(sampler) as finite, \
+            Counted(transformer, "rows_linear",
+                    lambda a, kw: proj[a[1].data_ptr()]) as g1, \
             Timed(model, "prefill_pages") as t_pre, \
             Timed(model, "step_pages") as t_dec:
         torch.cuda.synchronize()
@@ -756,16 +1026,17 @@ def serve_llama_3_8b():
         raise AssertionError("pages leaked: %r" % after)
     if after["prefix_hit_requests"] - before["prefix_hit_requests"] <= 0:
         raise AssertionError("no request shared the prefix: %r" % after)
-    want = {"paged_attention": n_layers * steps,
-            "paged_prefill": n_layers * chunks}
-    for name, n in want.items():
-        if launches.get(name, 0) != n or n == 0:
-            raise AssertionError("%s launched %d times, wanted %d"
-                                 % (name, launches.get(name, 0), n))
+    want = {k1: n_layers * steps, k2: n_layers * chunks,
+            "rows_linear": (5 * n_layers + 1) * steps,
+            "rows_rms_norm": (2 * n_layers + 1) * steps}
+    if launches != want or not steps or not chunks:
+        raise AssertionError("launches %r, wanted exactly %r" % (launches,
+                                                                 want))
     gen_tokens = after["generated_tokens"] - before["generated_tokens"]
     pre_tokens = after["prefill_tokens"] - before["prefill_tokens"]
-    log(phase="serve", requests=len(rids), decode_steps=steps,
-        prefill_chunks=chunks, launches=launches,
+    log(phase="serve", cache_dtype=str(eng._cache_dtype), requests=len(rids),
+        decode_steps=steps, prefill_chunks=chunks, launches=launches,
+        rows_linear_by_projection=g1.counts,
         prefix_hit_requests=after["prefix_hit_requests"]
         - before["prefix_hit_requests"],
         cow_copied_blocks=after["cow_copied_blocks"]
@@ -775,12 +1046,28 @@ def serve_llama_3_8b():
         prefill_tokens_per_s=pre_tokens / (t_pre.ms() / 1e3),
         decode_tokens_per_s=gen_tokens / (t_dec.ms() / 1e3),
         mean_ms_per_decode_step=t_dec.ms() / steps, wall_s=wall,
+        pool_bytes=pool_bytes(eng),
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     if decode_cap.args is None or prefill_cap.args is None:
         raise AssertionError("no kernel inputs were captured")
     profile_decode_steps(eng, model.vocab_size)
-    return model, launches, {"paged_attention": decode_cap.args,
-                             "paged_prefill": prefill_cap.args}
+    launches.update({"rows_linear(%s)" % k: n for k, n in g1.counts.items()})
+    caps = {k1: (decode_cap.args, decode_cap.kwargs),
+            k2: (prefill_cap.args, prefill_cap.kwargs)}
+    return launches, caps, [res[r].numpy() for r in rids]
+
+
+def compare_streams(name, reqs, a, b):
+    """How many of two runs' streams are token-identical, and where the
+    first of the others parts (a reading, not a gate)."""
+    parted = []
+    for j, ((p, kw), x, y) in enumerate(zip(reqs, a, b)):
+        diff = np.nonzero(x[0] != y[0])[0]
+        if diff.size:
+            parted.append(dict(request=j, sampled="temperature" in kw,
+                               token=int(diff[0]) - p.shape[1]))
+    log(phase=name, requests=len(reqs), identical=len(reqs) - len(parted),
+        parted=parted)
 
 
 def profile_device(run, steps):
@@ -828,7 +1115,7 @@ def profile_decode_steps(eng, vocab, steps=4):
         eng.step()                     # every slot prefilled, decoding
     res = profile_device(eng.step, steps)
     eng.run()
-    log(phase="profile_decode", **res)
+    log(phase="profile_decode", cache_dtype=str(eng._cache_dtype), **res)
 
 
 # -- speculative serving: a small model, then the 8B main path --------------
@@ -897,13 +1184,14 @@ P_FORK2 = [5, 6, 7, 5, 6, 8, 5, 6, 7, 5, 6]
 P_FORK3 = [9, 3, 2, 9, 3, 5, 9, 3, 2, 9, 3]
 
 
-def fork_prompts(model, n, rng, tries=60):
+def fork_prompts(model, n, rng, tries=60, cache_dtype=None):
     """``n`` prompts s + y + s + [z] + s[:2] whose greedy continuation on
     ``model`` is s[2], y: after the first token the history ends with s,
     whose most recent occurrence continues with z (the tree drafter's
     primary chain) and whose earlier one with y (a side branch), so the
     accepted path takes the side branch and the fix-up runs.  Found by
-    a fixed-point search on the model itself."""
+    a fixed-point search on the model itself (with its ``cache_dtype``
+    cache)."""
     V = model.vocab_size
     out = []
     for _ in range(tries):
@@ -911,7 +1199,8 @@ def fork_prompts(model, n, rng, tries=60):
         y = [int(t) for t in rng.randint(0, V, 2)]
         for _ in range(4):
             p = s + y + s + [(y[0] + 1) % V] + s[:2]
-            c = model.generate(torch.tensor([p]), 3)[0, len(p):].tolist()
+            c = model.generate(torch.tensor([p]), 3, cache_dtype=cache_dtype)[
+                0, len(p):].tolist()
             if c == [s[2]] + y:
                 out.append(p)
                 break
@@ -921,9 +1210,10 @@ def fork_prompts(model, n, rng, tries=60):
     raise AssertionError("no prompt of the model forks onto a side branch")
 
 
-def small_model_speculative_check(device="cuda"):
-    """A 1-layer float32 model on ``device``, numpy-seeded weights,
-    served by one engine with spec_k = 3 and spec_tree = (6, 2) over a
+def small_model_speculative_check(device="cuda", cache_dtype=None):
+    """A 1-layer float32 model on ``device``, numpy-seeded weights, its
+    cache float32 or (``cache_dtype="int8"``) int8, served by one engine
+    with spec_k = 3 and spec_tree = (6, 2) over a
     mixed pool (one request drafts linearly, spec_tree=False), prefix
     sharing and 2-chunk prefills in play: every greedy, seeded-sampled
     and penalized stream equals the same engine settings' stream with
@@ -938,10 +1228,10 @@ def small_model_speculative_check(device="cuda"):
                           c["heads"], c["kv"], device=device)
     init_weights_numpy(model, c["seed"], c["std"])
     cfg = dict(num_slots=3, max_length=64, block_size=8, prefill_chunk=8,
-               device=device)
+               device=device, cache_dtype=cache_dtype)
     shared = P_FORK + P_FORK2
-    reqs = [(p, 16, {}) for p in fork_prompts(model, 2,
-                                               np.random.RandomState(0))]
+    reqs = [(p, 16, {}) for p in fork_prompts(
+        model, 2, np.random.RandomState(0), cache_dtype=cache_dtype)]
     reqs += [(P_FORK, 20, {}),
              (P_FORK2, 20, dict(temperature=0.8, seed=7)),
              (P_FORK3, 18, dict(temperature=0.6, seed=9,
@@ -966,7 +1256,8 @@ def small_model_speculative_check(device="cuda"):
         st = eng.stats
     for j, (p, n, kw) in enumerate(reqs):
         kw = {k: v for k, v in kw.items() if k != "spec_tree"}
-        want = model.generate(torch.tensor([p]), n, **kw).cpu().numpy()
+        want = model.generate(torch.tensor([p]), n, cache_dtype=cache_dtype,
+                              **kw).cpu().numpy()
         for spec in (False, True):
             if not np.array_equal(outs[spec][j], want):
                 raise AssertionError(
@@ -981,7 +1272,7 @@ def small_model_speculative_check(device="cuda"):
                              "tree, no fix-up, no prefix hit or leaked "
                              "pages: %r, %d fix-ups" % (st, fixups))
     log(phase="small_model_speculative", device=str(device),
-        requests=len(reqs), fixups=fixups,
+        cache_dtype=str(eng._cache_dtype), requests=len(reqs), fixups=fixups,
         **{k: st[k] for k in ("drafted_tokens", "accepted_tokens",
                               "tree_nodes_drafted", "tree_paths",
                               "verify_calls", "slot_iterations",
@@ -990,12 +1281,6 @@ def small_model_speculative_check(device="cuda"):
 
 #: the speculative main path's engine: SERVE plus speculation
 SPEC_SERVE = dict(SERVE, spec_k=4, spec_tree=(15, 2))
-#: a divergence between the speculative and the plain stream is allowed
-#: only where the plain run's two best decision scores (logits; for a
-#: sampled draw, the tempered logits plus its Gumbel draw, times the
-#: temperature) were this close: bf16 logits of |x| < 16 are spaced
-#: 2**-4 at most, two steps of that
-TIE_GAP = 2 * 2.0 ** -4
 
 
 #: speculative traffic: a MOTIF_LEN-token motif prompt, continued by the
@@ -1079,40 +1364,17 @@ def motif_traffic(model, seed=0):
     return reqs, sum(ok)
 
 
-def serve_speculative(model, eng, reqs, record_scores=False):
+def serve_speculative(model, eng, reqs):
     """One run of ``reqs`` through ``eng`` with the K1 calls and the
     model's step/verify calls counted by (W, tree), the decode calls
-    timed, the sampled logits checked finite, and (``record_scores``) the
-    decision scores of every plain-step draw kept by (rid, token
-    index).  The first linear and the first tree K1 call are
-    captured."""
+    timed and the sampled logits checked finite.  The first linear and
+    the first tree K1 call are captured."""
     from mxtpu_torch import base
     from mxtpu_torch.models import sampler
     from mxtpu_torch.ops import paged_attention as pa
 
     n_layers = len(model.layers)
-    scores = {}
-    if record_scores:
-        inner = eng._sample_pool
-
-        def sample_pool(last, active):
-            # the scores each row's draw takes its argmax over, the
-            # sampled rows' Gumbel draw taken from a copy of their
-            # generator; kept on the logit scale (times the temperature)
-            for row in active:
-                s = eng._slots[row]
-                r = s.req
-                gen = None if s.gen is None else \
-                    sampler.generator_at(s.gen.get_state(), last.device)
-                x = sampler.sampling_scores(
-                    last[row:row + 1], gen, r.temperature, r.top_k, r.top_p,
-                    r.repetition_penalty,
-                    seen_mask=(eng._seen[row:row + 1] if r.penalized
-                               else None))[0]
-                scores[(r.rid, s.n_emitted)] = (x * r.temperature
-                                              if r.sampled else x)
-            return inner(last, active)
-        eng._sample_pool = sample_pool
+    k1_name = k_names(eng._cache_dtype)[0]
     lin_cap = Capture(pa, "paged_decode_attention",
                       lambda n, a, kw: a[0].shape[2] > 1
                       and kw.get("anc") is None)
@@ -1135,8 +1397,6 @@ def serve_speculative(model, eng, reqs, record_scores=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         launches = base.counts()
-    if record_scores:
-        del eng._sample_pool
     after = eng.stats
     d = {k: after[k] - before[k] for k in (
         "steps", "generated_tokens", "prefill_tokens", "verify_calls",
@@ -1153,11 +1413,15 @@ def serve_speculative(model, eng, reqs, record_scores=False):
     if (set(k1.counts) != set(calls)
             or sum(verifies.counts.values()) != d["verify_calls"]
             or sum(calls.values()) != d["steps"]
-            or launches.get("paged_attention", 0)
-            != n_layers * d["steps"]):
-        raise AssertionError("K1 launches %r do not equal %d x (plain steps "
-                             "+ verify calls) %r, stats %r"
-                             % (k1.counts, n_layers, calls, d))
+            or launches.get(k1_name, 0) != n_layers * d["steps"]
+            or launches.get("rows_linear", 0)
+            != (5 * n_layers + 1) * d["steps"]
+            or launches.get("rows_rms_norm", 0)
+            != (2 * n_layers + 1) * d["steps"]):
+        raise AssertionError("K1 (%s), G1 or G2 launches %r do not equal "
+                             "%d x (plain steps + verify calls) %r, stats "
+                             "%r"
+                             % (k1_name, launches, n_layers, calls, d))
     if finite.ok is None or not bool(finite.ok):
         raise AssertionError("a sampled logit row was not finite")
     if after["blocks_in_use"] != 0:
@@ -1187,42 +1451,41 @@ def serve_speculative(model, eng, reqs, record_scores=False):
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)
     streams = [res[r].numpy() for r in rids]
-    caps = {"linear": lin_cap.args and (lin_cap.args[:5]),
-            "tree": tree_cap.args and (tree_cap.args[:5]
-                                       + [tree_cap.kwargs["anc"]])}
-    return out, streams, rids, scores, k1.counts, caps
+    caps = {"linear": lin_cap.args and (lin_cap.args[:5], lin_cap.kwargs),
+            "tree": tree_cap.args and (tree_cap.args[:5], tree_cap.kwargs)}
+    return out, streams, k1.counts, caps
 
 
-def serve_llama_3_8b_speculative(model):
-    """The 8B model served the motif traffic twice on the main path's
-    engine settings: once with speculation off, once with spec_k = 4
-    and spec_tree = (15, 2).  K1's launches must be 32 per model call by
-    (W, tree).  The streams must be identical, except where the plain
-    run's best decision scores tied within TIE_GAP: a slot in a verify
-    call gets its logits from products over 8W rows where a step's run
-    over 8, and cuBLAS may round those otherwise (``window_op_bits``
-    says which ops do), so there the streams may part.  They are held
-    identical up to that token, where the token the speculative run took
-    must have scored within TIE_GAP of the plain run's best; and K1
-    itself to invariant (b) on the main path's window."""
+def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
+    """The 8B model served the motif traffic (``reqs``, made when None)
+    twice on the main path's engine settings and ``cache_dtype``: once
+    with speculation off, once with spec_k = 4 and spec_tree = (15, 2).
+    K1's launches must be 32 per model call by (W, tree) and G1's 161.
+    Every speculative stream must be token-identical to its plain
+    stream: G1 rounds a verify window's rows as the step rounds them,
+    K1 gives a window's lane the bits of a step at its position
+    (invariant (b), held here on the main path's captured window), and
+    ``window_op_bits`` must find no op of the step whose bits a window
+    lane changes.  Returns K1's launch counts by (W, tree), the first
+    linear and tree K1 inputs as (args, keywords), and the traffic."""
     from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
 
-    t0 = time.perf_counter()
-    reqs, matched = motif_traffic(model)
-    log(phase="speculative_traffic", requests=len(reqs),
-        prompt_tokens=[int(p.shape[1]) for p, _ in reqs],
-        confirmed_matches=matched, seconds=time.perf_counter() - t0)
+    if reqs is None:
+        t0 = time.perf_counter()
+        reqs, matched = motif_traffic(model)
+        log(phase="speculative_traffic", requests=len(reqs),
+            prompt_tokens=[int(p.shape[1]) for p, _ in reqs],
+            confirmed_matches=matched, seconds=time.perf_counter() - t0)
     runs = {}
     for spec in (False, True):
-        eng = PagedContinuousBatchingEngine(
-            model, **(SPEC_SERVE if spec else SERVE))
+        cfg = dict(SPEC_SERVE if spec else SERVE, cache_dtype=cache_dtype)
+        eng = PagedContinuousBatchingEngine(model, **cfg)
         eng.submit(np.arange(64)[None], 2)      # warm-up, outside counts
         eng.run()
-        runs[spec] = serve_speculative(model, eng, reqs,
-                                       record_scores=not spec)
+        runs[spec] = serve_speculative(model, eng, reqs)
         log(phase="serve_speculative", speculative=spec,
-            engine={k: v for k, v in (SPEC_SERVE if spec
-                                      else SERVE).items()},
+            cache_dtype=str(eng._cache_dtype),
+            engine={k: v for k, v in cfg.items() if k != "cache_dtype"},
             **runs[spec][0])
         del eng
         torch.cuda.empty_cache()
@@ -1230,85 +1493,122 @@ def serve_llama_3_8b_speculative(model):
     if spec[0]["verify_calls"] <= 0 or spec[0]["tree_nodes_drafted"] <= 0:
         raise AssertionError("no verify call or no tree drafted: %r"
                              % spec[0])
-    parted = []
-    for j, (a, b) in enumerate(zip(plain[1], spec[1])):
-        if a.shape != b.shape:
-            raise AssertionError("request %d: %s vs %s tokens"
-                                 % (j, a.shape, b.shape))
-        diff = np.nonzero(a[0] != b[0])[0]
-        if not diff.size:
-            continue
-        at = int(diff[0]) - reqs[j][0].shape[1]    # token index
-        scores = plain[3].get((plain[2][j], at))
-        if scores is None:
-            raise AssertionError("request %d parts at token %d, which no "
-                                 "plain step drew" % (j, at))
-        tok_p = int(a[0, reqs[j][0].shape[1] + at])
-        tok_s = int(b[0, reqs[j][0].shape[1] + at])
-        gap = float(scores.max() - scores[tok_s])
-        second = float(scores.max() - torch.topk(scores, 2).values[1])
-        parted.append(dict(request=j, token=at, plain=tok_p, spec=tok_s,
-                           spec_gap=gap, top2_gap=second))
-        if not gap <= TIE_GAP or float(scores[tok_p]) != float(
-                scores.max()):
-            raise AssertionError("request %d: the speculative stream "
-                                 "parts from the plain one at token %d, "
-                                 "where the speculative token scored %g "
-                                 "below the plain run's best (> %g): %r"
-                                 % (j, at, gap, TIE_GAP, parted[-1]))
-    log(phase="speculative_identity", requests=len(reqs),
-        identical=len(reqs) - len(parted), parted=parted)
-    caps = spec[5]
+    parted = [j for j, (a, b) in enumerate(zip(plain[1], spec[1]))
+              if not np.array_equal(a, b)]
+    log(phase="speculative_identity", cache_dtype=str(cache_dtype),
+        requests=len(reqs), identical=len(reqs) - len(parted),
+        parted=parted)
+    if parted:
+        raise AssertionError("speculative streams %r differ from the plain "
+                             "streams" % parted)
+    caps = spec[3]
     if caps["tree"] is None:
         raise AssertionError("no tree verify call was captured")
     derived = caps["linear"] is None
     if derived:
         # no iteration drafted linearly alone: the tree call's inputs as
         # an 8-lane linear window
-        t = caps["tree"]
-        caps["linear"] = [t[0][:, :, :8].contiguous()] + list(t[1:5])
-    log(phase="verify_capture", linear_W=int(caps["linear"][0].shape[2]),
-        tree_W=int(caps["tree"][0].shape[2]), linear_derived=derived)
-    lane_invariant(caps["linear"])
-    log(phase="window_op_bits", **window_op_bits(model))
-    return spec[4], caps
+        t_args, t_kw = caps["tree"]
+        caps["linear"] = ([t_args[0][:, :, :8].contiguous()] + list(
+            t_args[1:5]), {k: v for k, v in t_kw.items() if k != "anc"})
+    log(phase="verify_capture", cache_dtype=str(cache_dtype),
+        linear_W=int(caps["linear"][0][0].shape[2]),
+        tree_W=int(caps["tree"][0][0].shape[2]), linear_derived=derived)
+    lane_invariant(*caps["linear"])
+    if cache_dtype is None:
+        bits = window_op_bits(model)
+        log(phase="window_op_bits", **bits)
+        if bits["bits_differ"]:
+            raise AssertionError("a verify window's lane rounds %r otherwise "
+                                 "than the step" % bits["bits_differ"])
+    return spec[2], caps, reqs
 
 
-def lane_invariant(args):
-    """K1 invariant (b) on a captured main-path window: lane w equals a
-    W = 1 call at pos + w, bit for bit."""
+def lane_invariant(args, kw):
+    """K1 invariant (b) on a captured main-path window (``kw``: an int8
+    pool's scales): lane w equals a W = 1 call at pos + w, bit for
+    bit."""
     from mxtpu_torch.ops import paged_attention as pa
 
     q, pk, pv, tables, pos = args
-    lin = pa.paged_decode_attention(q, pk, pv, tables, pos)
+    lin = pa.paged_decode_attention(q, pk, pv, tables, pos, **kw)
     for w in range(q.shape[2]):
         one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk,
-                                        pv, tables, pos + w)
+                                        pv, tables, pos + w, **kw)
         if not torch.equal(one, lin[:, :, w:w + 1]):
             raise AssertionError("K1 invariant (b) fails on the main "
                                  "path's window at lane %d" % w)
 
 
-def window_op_bits(model, W=16):
-    """Which of the model's ops give a verify window's lane 0 other bits
-    than the sequential step's row on the same input row: each op once
-    on (8, 1, in) and once on (8, W, in) whose lane 0 is that row."""
-    layer = model.layers[0]
-    ops = [("attn_norm", layer.attn_norm), ("qkv", layer.attn.qkv),
-           ("out_proj", layer.attn.out_proj), ("ffn_norm", layer.ffn_norm),
-           ("gate_proj", layer.gate_proj), ("up_proj", layer.up_proj),
-           ("down_proj", layer.down_proj), ("lm_head", model.lm_head)]
-    g = torch.Generator(device=model.device).manual_seed(3)
-    same, differ = [], []
+def window_op_bits(model, widths=(8, 16)):
+    """Which ops of the decode step give a verify window's lane other
+    bits than the step gives the same row: each op of layer 0 and the
+    head once on (8, W, n) and once on the (8, 1, n) rows of lanes 0,
+    W // 2 and W - 1, as the step and the verify call run it (the six
+    projections through rows_linear; the norms through rows_rms_norm,
+    in bf16 and in float32; rope at the lanes' positions, linear and
+    tree; the SwiGLU product; the residual adds).  Returns the ops
+    whose bits differ (an empty list is C1's gate) and those that
+    agree."""
+    from torch.nn import functional as F
+
+    from mxtpu_torch.ops.contrib import rope, rows_rms_norm
+    from mxtpu_torch.ops.linear import rows_linear
+
+    layer, attn = model.layers[0], model.layers[0].attn
+    dev, dt = model.device, model.dtype
+    C, H, D = layer.attn_norm.weight.shape[0], attn.heads, attn.head_dim
+    hidden = layer.gate_proj.weight.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def proj(mod):
+        return lambda x: rows_linear(x, mod.weight)
+
+    def norm(mod, dtype=None):
+        # in float32 too: a reduction whose order moves with the row
+        # count shows in float32 bits, while bf16 rounding hides most of it
+        return lambda x: rows_rms_norm(x if dtype is None else x.to(dtype),
+                                       mod.weight)
+
+    def heads(fn):
+        # (8, T, H*D) rows <-> (8, H, T, D) heads, as _project does
+        return lambda x, pos: fn(x.reshape(8, -1, H, D).transpose(1, 2),
+                                 pos).transpose(1, 2).reshape(x.shape)
+
+    ops = [("attn_norm", C, norm(layer.attn_norm)),
+           ("attn_norm[float32]", C, norm(layer.attn_norm, torch.float32)),
+           ("qkv", C, proj(attn.qkv)),
+           ("rope", H * D, heads(lambda q, pos: rope(q, offset=pos))),
+           ("rope_tree", H * D, heads(lambda q, pos: rope(
+               q, offset=pos[:, None] + torch.arange(
+                   q.shape[2], device=dev, dtype=pos.dtype)[None, :]))),
+           ("out_proj", C, proj(attn.out_proj)),
+           ("residual_add", 2 * C, lambda x: x[..., :C] + x[..., C:]),
+           ("ffn_norm", C, norm(layer.ffn_norm)),
+           ("gate_proj", C, proj(layer.gate_proj)),
+           ("up_proj", C, proj(layer.up_proj)),
+           ("swiglu", 2 * hidden,
+            lambda x: F.silu(x[..., :hidden]) * x[..., hidden:]),
+           ("down_proj", hidden, proj(layer.down_proj)),
+           ("norm", C, norm(model.norm)),
+           ("norm[float32]", C, norm(model.norm, torch.float32)),
+           ("lm_head", C, proj(model.lm_head))]
+    differ, same = set(), set()
+    pos = torch.arange(8, device=dev, dtype=torch.int32) * 37 + 200
     with torch.no_grad():
-        for name, op in ops:
-            n = op.weight.shape[-1]
-            xw = torch.randn(8, W, n, generator=g, device=model.device,
-                             dtype=model.dtype)
-            one = op(xw[:, :1].contiguous())
-            (same if torch.equal(op(xw)[:, :1], one) else differ).append(
-                name)
-    return dict(W=W, bit_identical=same, bits_differ=differ)
+        for W in widths:
+            for name, n, op in ops:
+                xw = torch.randn(8, W, n, generator=g, device=dev, dtype=dt)
+                rope_op = name.startswith("rope")
+                full = op(xw, pos) if rope_op else op(xw)
+                ok = True
+                for j in sorted({0, W // 2, W - 1}):
+                    row = xw[:, j:j + 1].contiguous()
+                    one = op(row, pos + j) if rope_op else op(row)
+                    ok = ok and torch.equal(full[:, j:j + 1], one)
+                (same if ok else differ).add(name)
+    return dict(widths=list(widths), bits_differ=sorted(differ),
+                bit_identical=sorted(same - differ))
 
 
 # -- phase 8: the flash kernels against their plain versions ----------------
@@ -1823,29 +2123,53 @@ def main():
     flush = _L2Flush()
     kernels_against_plain(flush)
     verify_kernels_against_plain()
+    kernels_against_plain(flush, quant=True)
+    verify_kernels_against_plain(quant=True)
+    g1 = linear_against_plain(flush)
+    g2 = norm_against_plain(flush)
     small_model_reference_check()
     small_model_speculative_check()
-    model, launches, served = serve_llama_3_8b()
-    k1_counts, verify_caps = serve_llama_3_8b_speculative(model)
+    small_model_speculative_check(cache_dtype="int8")
+    model = llama_3_8b_model()
+    launches, served, streams = serve_llama_3_8b(model)
+    launches_q8, served_q8, streams_q8 = serve_llama_3_8b(model, "int8")
+    compare_streams("int8_vs_bf16_streams", traffic(model.vocab_size),
+                    streams, streams_q8)
+    # G1's launches on the main path are the bf16 run's
+    launches.update({k: n for k, n in launches_q8.items()
+                     if not k.startswith("rows_linear")})
+    served.update(served_q8)
+    k1_counts, verify_caps, reqs = serve_llama_3_8b_speculative(model)
+    k1_counts_q8, verify_caps_q8, _ = serve_llama_3_8b_speculative(
+        model, "int8", reqs)
     del model
     gc.collect()
     results = {}
-    for name, args in served.items():
-        results[name] = measure(name, args, flush)
+    for name, (args, kw) in served.items():
+        results[name] = measure(name, args, flush, kw=kw)
         log(phase="served_inputs", kernel=name, shape=list(args[0].shape),
             **results[name])
-    for kind, args in verify_caps.items():
-        W = int(args[0].shape[2])
-        name = "paged_attention[%sW=%d]" % ("tree," if kind == "tree" else "",
-                                            W)
-        results[name] = measure(name, args, flush)
-        launches[name] = k1_counts.get((W, kind == "tree"), 0)
-        if not launches[name]:
-            raise AssertionError("the speculative main path never launched "
-                                 "K1 as %s" % name)
-        log(phase="verify_inputs", kernel=name, shape=list(args[0].shape),
-            launches=launches[name], **results[name])
-    del served, verify_caps
+    for tag, counts, caps in (("", k1_counts, verify_caps),
+                              ("int8,", k1_counts_q8, verify_caps_q8)):
+        for kind, (args, kw) in caps.items():
+            W = int(args[0].shape[2])
+            name = "paged_attention[%s%sW=%d]" % (
+                tag, "tree," if kind == "tree" else "", W)
+            results[name] = measure(name, args, flush, kw=kw)
+            launches[name] = counts.get((W, kind == "tree"), 0)
+            if not launches[name]:
+                raise AssertionError("the speculative main path never "
+                                     "launched K1 as %s" % name)
+            log(phase="verify_inputs", kernel=name,
+                shape=list(args[0].shape), launches=launches[name],
+                **results[name])
+    for pname, N, K in PROJECTIONS:
+        name = "rows_linear[%s,M=8]" % pname
+        results[name] = g1[pname]
+        launches[name] = launches["rows_linear(%s)" % pname]
+    results["rows_rms_norm[M=8]"] = g2
+    launches["rows_rms_norm[M=8]"] = launches["rows_rms_norm"]
+    del served, verify_caps, verify_caps_q8
     torch.cuda.empty_cache()
     flash_kernels_against_plain()
     small_training_check()

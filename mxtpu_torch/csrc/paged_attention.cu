@@ -1,10 +1,12 @@
 // Ragged paged decode and verify attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel mxtpu/ops/pallas/paged_attention.py
-// (_kernel, launched by _call_local / paged_decode_attention) for float
-// pools: the plain decode step (W = 1), the speculative verify window
-// (W > 1) and the tree-verify ancestor mask (anc, W <= 32).  The int8
-// pools are not ported yet.
+// (_kernel, launched by _call_local / paged_decode_attention): the plain
+// decode step (W = 1), the speculative verify window (W > 1) and the
+// tree-verify ancestor mask (anc, W <= 32), over float32 or bfloat16
+// pools of q's dtype, or over int8 pools with float32 scales (the
+// kernel's `quant` form, dequantized where a value leaves shared memory;
+// paged_common.cuh).
 //
 // The rep*W query lanes of one (slot b, kv head) are lane l = r*W + w
 // (the kv-major GQA fold).  They are cut into tiles of at most
@@ -48,10 +50,12 @@ __host__ __device__ inline int tile_lanes(int lanes, int bs) {
   return lanes < cap ? lanes : cap;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                        const T* __restrict__ pool_v,
+    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k,
+                        const P* __restrict__ pool_v,
+                        const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales,
                         const int* __restrict__ tables,
                         const int* __restrict__ pos,
                         const int* __restrict__ nv,
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kv = head - b * KV;
   const int lane0 = (blockIdx.x - head * tiles) * tile;
   const int nl = min(tile, lanes - lane0);
-  mxtpu_port::AttendSmem<T> sm(smem, nl, D, bs, stages);
+  mxtpu_port::AttendSmem<P> sm(smem, nl, D, bs, stages);
   // q and out are (B, KV*rep, W, D): the lanes of (b, kv) are one
   // contiguous run of lanes*D elements, this tile a slice of it
   const size_t base = ((size_t)head * lanes + lane0) * D;
@@ -88,29 +92,31 @@ __global__ void __launch_bounds__(kThreads)
   const int max_w = (nl >= W || w0 + nl > W) ? W - 1 : w0 + nl - 1;
   const int walk = min(nv[b], (p + max_w) / bs + 1);
   __syncthreads();
-  mxtpu_port::attend_pages(sm, stages, nl, pool_k, pool_v,
-                           tables + (size_t)b * M, walk, p, kv, KV, bs, D,
-                           out + base);
+  mxtpu_port::attend_pages(sm, stages, nl, pool_k, pool_v, k_scales,
+                           v_scales, tables + (size_t)b * M, walk, p, kv, KV,
+                           bs, D, out + base);
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* tables, const void* pos, const void* nv,
-           const void* anc, void* out, int B, int KV, int lanes, int W,
-           int D, int bs, int M, float sm_scale, void* stream) {
+           const void* k_scales, const void* v_scales, const void* tables,
+           const void* pos, const void* nv, const void* anc, void* out,
+           int B, int KV, int lanes, int W, int D, int bs, int M,
+           float sm_scale, void* stream) {
   if (anc != nullptr && W > 32) return (int)cudaErrorInvalidValue;
   const int tile = tile_lanes(lanes, bs);
   const int tiles = (lanes + tile - 1) / tile;
   const int stages =
-      mxtpu_port::attend_stages(tile, D, bs, M, (int)sizeof(T));
+      mxtpu_port::attend_stages(tile, D, bs, M, (int)sizeof(P));
   if (stages == 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      mxtpu_port::attend_smem_bytes(tile, D, bs, M, (int)sizeof(T), stages);
-  cudaError_t err = mxtpu_port::allow_smem(paged_decode_kernel<T>, smem);
+      mxtpu_port::attend_smem_bytes(tile, D, bs, M, (int)sizeof(P), stages);
+  cudaError_t err = mxtpu_port::allow_smem(paged_decode_kernel<T, P>, smem);
   if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel<T><<<B * KV * tiles, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)pool_k, (const T*)pool_v, (const int*)tables,
+  paged_decode_kernel<T, P><<<B * KV * tiles, kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      (const T*)q, (const P*)pool_k, (const P*)pool_v,
+      (const float*)k_scales, (const float*)v_scales, (const int*)tables,
       (const int*)pos, (const int*)nv, (const int*)anc, (T*)out, KV, lanes,
       W, D, bs, M, stages, sm_scale);
   return (int)cudaGetLastError();
@@ -124,23 +130,28 @@ int mxtpu_paged_decode_stages(int lanes, int D, int bs, int M, int elt) {
   return mxtpu_port::attend_stages(tile_lanes(lanes, bs), D, bs, M, elt);
 }
 
-int mxtpu_paged_decode_f32(const void* q, const void* pool_k,
-                           const void* pool_v, const void* tables,
-                           const void* pos, const void* nv, const void* anc,
-                           void* out, int B, int KV, int lanes, int W, int D,
-                           int bs, int M, float sm_scale, void* stream) {
-  return launch<float>(q, pool_k, pool_v, tables, pos, nv, anc, out, B, KV,
-                       lanes, W, D, bs, M, sm_scale, stream);
-}
+#define MXTPU_DECODE_ENTRIES(SUFFIX, T)                                      \
+  int mxtpu_paged_decode_##SUFFIX(                                           \
+      const void* q, const void* pool_k, const void* pool_v,                 \
+      const void* tables, const void* pos, const void* nv, const void* anc,  \
+      void* out, int B, int KV, int lanes, int W, int D, int bs, int M,      \
+      float sm_scale, void* stream) {                                        \
+    return launch<T, T>(q, pool_k, pool_v, nullptr, nullptr, tables, pos,    \
+                        nv, anc, out, B, KV, lanes, W, D, bs, M, sm_scale,   \
+                        stream);                                             \
+  }                                                                          \
+  int mxtpu_paged_decode_##SUFFIX##_q8(                                      \
+      const void* q, const void* pool_k, const void* pool_v,                 \
+      const void* k_scales, const void* v_scales, const void* tables,        \
+      const void* pos, const void* nv, const void* anc, void* out, int B,    \
+      int KV, int lanes, int W, int D, int bs, int M, float sm_scale,        \
+      void* stream) {                                                        \
+    return launch<T, int8_t>(q, pool_k, pool_v, k_scales, v_scales, tables, \
+                             pos, nv, anc, out, B, KV, lanes, W, D, bs, M,   \
+                             sm_scale, stream);                              \
+  }
 
-int mxtpu_paged_decode_bf16(const void* q, const void* pool_k,
-                            const void* pool_v, const void* tables,
-                            const void* pos, const void* nv, const void* anc,
-                            void* out, int B, int KV, int lanes, int W,
-                            int D, int bs, int M, float sm_scale,
-                            void* stream) {
-  return launch<__nv_bfloat16>(q, pool_k, pool_v, tables, pos, nv, anc, out,
-                               B, KV, lanes, W, D, bs, M, sm_scale, stream);
-}
+MXTPU_DECODE_ENTRIES(f32, float)
+MXTPU_DECODE_ENTRIES(bf16, __nv_bfloat16)
 
 }  // extern "C"

@@ -27,16 +27,28 @@
 // Layout: pools are (N, KV, bs, D) row-major, so one page of one kv
 // head is a contiguous bs*D run.  Page 0 is the null page.
 //
+// Two element types: T for the queries and the output (float32 or
+// bfloat16), P for the pools (float32, bfloat16, or int8).  An int8 pool
+// comes with float32 scales (N, KV, bs), one per head and position, so
+// a page's bs scales are contiguous at scales[(page * KV + kv) * bs].
+// Each tile's key and value scales are staged with its payload, in the
+// same cp.async group, and a value is dequantized where it is read from
+// shared memory: (float)payload * scale, the reference's float32
+// product k * ks[:, None].  From there on the float32 math is the float
+// pools' own, so every invariant of the walk holds on int8 pools bit for
+// bit.
+//
 // The walk goes a TILE of up to kTileKeys keys (a whole number of pages)
 // at a time.  Tiles are copied into shared memory with cp.async, 16
-// bytes per copy, double-buffered where the block's shared memory allows
+// bytes per copy (8 for an int8 pool), double-buffered where the block's shared memory allows
 // (every bf16 shape up to head_dim 256 does): the copies of tile j+1
 // are in flight while the block computes on tile j, so a slot's walk
 // waits on memory about once rather than once per page.  The block
 // stages its table row's page ids in shared memory first.  Pages past
 // the walk's end land as zeros and their keys are masked.  Rows are
-// padded by 16 bytes so the threads of a warp, each on its own key row
-// at the same column, read different banks.  The dot products run on
+// padded (8 elements of a float pool, 16 bytes of an int8 one; each
+// row starts aligned for its copies) so the threads of a warp, each on
+// its own key row at the same column, read different banks.  The dot products run on
 // the CUDA cores in float32 (tensor cores are later work).
 
 #pragma once
@@ -53,6 +65,9 @@ constexpr int kTileKeys = 64;        // keys staged per step of the walk
 constexpr int kLanesPerThread = 8;   // score accumulators per thread
 constexpr size_t kMaxSmem = 232448;  // shared memory one block may use
 
+template <typename P>
+constexpr bool kQuant = sizeof(P) == 1;  // an int8 pool, with scales
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -67,7 +82,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 8 consecutive elements (16- or 32-byte aligned) as float32
+// 8 consecutive elements (8-, 16- or 32-byte aligned) as float32
 __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -85,6 +100,15 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+// int8 payload values, not yet scaled
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = (float)(signed char)(u.x >> (8 * i));
+    f[4 + i] = (float)(signed char)(u.y >> (8 * i));
+  }
+}
 
 // 2 consecutive elements as float32
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -95,6 +119,11 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return make_float2(__uint_as_float(w << 16),
                      __uint_as_float(w & 0xffff0000u));
 }
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const unsigned short h = *reinterpret_cast<const unsigned short*>(p);
+  return make_float2((float)(signed char)(h & 0xffu),
+                     (float)(signed char)(h >> 8));
+}
 
 // 16-byte asynchronous copy global -> shared; with valid == false the
 // 16 shared bytes are zero-filled and nothing is read.
@@ -103,6 +132,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+// the same for 8 bytes (8 int8 values) and for 4 (a scale)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -128,13 +172,30 @@ __host__ __device__ inline int max_lanes(int threads, int bs) {
   return kLanesPerThread * (threads / tile_keys(bs));
 }
 
+// Elements of one staged key or value row: D plus padding, so that the
+// row is a whole number of copies (16 bytes for a float pool, 8 for an
+// int8 one, so that head_dim 8 works too; elt = the pool's element
+// size, 1 for int8).
+__host__ __device__ inline int row_elems(int D, int elt) {
+  return D + (elt == 1 ? 16 : 8);
+}
+
+// Floats of one block's scale buffers (an int8 pool's key and value
+// scales per tile buffer), rounded up to keep what follows 16-byte
+// aligned; 0 for a float pool.
+__host__ __device__ inline size_t scale_floats(int bs, int elt, int stages) {
+  return elt == 1 ? (2 * (size_t)stages * tile_keys(bs) + 3) / 4 * 4 : 0;
+}
+
 // Shared memory one block needs, in bytes, with `stages` tile buffers,
-// for a table row of M pages.
+// for a table row of M pages (elt = the pool's element size).
 __host__ __device__ inline size_t attend_smem_bytes(int lanes, int D, int bs,
                                                     int M, int elt,
                                                     int stages) {
-  const size_t kv = 2 * (size_t)stages * tile_keys(bs) * (D + 8) * elt;
-  const size_t floats = (size_t)lanes * D                       // q
+  const size_t kv =
+      2 * (size_t)stages * tile_keys(bs) * row_elems(D, elt) * elt;
+  const size_t floats = scale_floats(bs, elt, stages)            // scales
+                        + (size_t)lanes * D                      // q
                         + (size_t)lanes * tile_keys(bs)          // scores
                         + 3 * (size_t)lanes                      // m, l, corr
                         + (size_t)lanes * D;                     // acc
@@ -149,11 +210,14 @@ __host__ __device__ inline int attend_stages(int lanes, int D, int bs, int M,
   return attend_smem_bytes(lanes, D, bs, M, elt, 1) <= kMaxSmem ? 1 : 0;
 }
 
-// Pointers into one block's dynamic shared memory.
-template <typename T>
+// Pointers into one block's dynamic shared memory (P: the pool's
+// element type).
+template <typename P>
 struct AttendSmem {
-  T* k[2];      // key tiles, tile_keys x (D+8) each (one buffer, twice,
-  T* v[2];      //   when single-buffered); value tiles, the same
+  P* k[2];      // key tiles, tile_keys x row_elems each (one buffer,
+  P* v[2];      //   twice, when single-buffered); value tiles, the same
+  float* ks[2]; // an int8 pool's key and value scales, tile_keys each
+  float* vs[2]; //   (null for a float pool)
   float* q;     // lanes x D, pre-scaled queries
   float* s;     // lanes x tile_keys, scores then probabilities
   float* m;     // lanes, running max
@@ -165,15 +229,23 @@ struct AttendSmem {
   int* pages;   // the walked table row's page ids
 
   __device__ AttendSmem(void* base, int lanes, int D, int bs, int stages) {
-    const size_t tile = (size_t)tile_keys(bs) * (D + 8);
-    T* t = reinterpret_cast<T*>(base);
+    const int elt = (int)sizeof(P);
+    const int kt = tile_keys(bs);
+    const size_t tile = (size_t)kt * row_elems(D, elt);
+    P* t = reinterpret_cast<P*>(base);
     k[0] = t;
     v[0] = t + tile;
     k[1] = stages == 2 ? t + 2 * tile : k[0];
     v[1] = stages == 2 ? t + 3 * tile : v[0];
-    q = reinterpret_cast<float*>(t + 2 * stages * tile);
+    float* sc = reinterpret_cast<float*>(t + 2 * stages * tile);
+    const bool quant = kQuant<P>;
+    ks[0] = quant ? sc : nullptr;
+    vs[0] = quant ? sc + kt : nullptr;
+    ks[1] = quant && stages == 2 ? sc + 2 * kt : ks[0];
+    vs[1] = quant && stages == 2 ? sc + 3 * kt : vs[0];
+    q = sc + scale_floats(bs, elt, stages);
     s = q + lanes * D;
-    m = s + lanes * tile_keys(bs);
+    m = s + lanes * kt;
     l = m + lanes;
     corr = l + lanes;
     acc = corr + lanes;
@@ -194,14 +266,22 @@ __device__ void load_rows(float* dst, const T* src, int rows, int D,
 }
 
 // Start the copies of the pages [p0, p0 + kt/bs) of one table row into
-// a key and a value tile; pages at or past nv land as zeros.
-template <typename T>
-__device__ void issue_tile(T* kdst, T* vdst, const T* __restrict__ pool_k,
-                           const T* __restrict__ pool_v, const int* table,
-                           int p0, int nv, int kv, int KV, int bs, int D) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte copy
+// a key and a value tile (and, for an int8 pool, their scales into
+// kscale and vscale); pages at or past nv land as zeros.
+template <typename P>
+__device__ void issue_tile(P* kdst, P* vdst, float* kscale, float* vscale,
+                           const P* __restrict__ pool_k,
+                           const P* __restrict__ pool_v,
+                           const float* __restrict__ k_scales,
+                           const float* __restrict__ v_scales,
+                           const int* table, int p0, int nv, int kv, int KV,
+                           int bs, int D) {
+  // elements per copy: 16 bytes of a float pool, 8 int8 values
+  constexpr int E = kQuant<P> ? 8 : 16 / sizeof(P);
   const int per_row = D / E;
-  const int total = tile_keys(bs) * per_row;
+  const int ld = row_elems(D, (int)sizeof(P));
+  const int kt = tile_keys(bs);
+  const int total = kt * per_row;
   for (int c = threadIdx.x; c < total; c += blockDim.x) {
     const int r = c / per_row;
     const int col = (c - r * per_row) * E;
@@ -209,8 +289,23 @@ __device__ void issue_tile(T* kdst, T* vdst, const T* __restrict__ pool_k,
     const bool valid = page < nv;
     const size_t off =
         valid ? (((size_t)table[page] * KV + kv) * bs + r % bs) * D + col : 0;
-    cp_async16(kdst + r * (D + 8) + col, pool_k + off, valid);
-    cp_async16(vdst + r * (D + 8) + col, pool_v + off, valid);
+    if constexpr (kQuant<P>) {
+      cp_async8(kdst + r * ld + col, pool_k + off, valid);
+      cp_async8(vdst + r * ld + col, pool_v + off, valid);
+    } else {
+      cp_async16(kdst + r * ld + col, pool_k + off, valid);
+      cp_async16(vdst + r * ld + col, pool_v + off, valid);
+    }
+  }
+  if constexpr (kQuant<P>) {
+    for (int r = threadIdx.x; r < kt; r += blockDim.x) {
+      const int page = p0 + r / bs;
+      const bool valid = page < nv;
+      const size_t off =
+          valid ? ((size_t)table[page] * KV + kv) * bs + r % bs : 0;
+      cp_async4(kscale + r, k_scales + off, valid);
+      cp_async4(vscale + r, v_scales + off, valid);
+    }
   }
 }
 
@@ -220,11 +315,14 @@ __device__ void issue_tile(T* kdst, T* vdst, const T* __restrict__ pool_k,
 // are walked (the caller trims it to the last page any lane attends).
 // Writes the lanes' outputs to `out` (lanes x D, contiguous).
 // blockDim.x must be a multiple of 32 and at least tile_keys(bs), and
-// lanes at most max_lanes(blockDim.x, bs).
-template <typename T>
-__device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
-                             const T* __restrict__ pool_k,
-                             const T* __restrict__ pool_v,
+// lanes at most max_lanes(blockDim.x, bs).  k_scales and v_scales are
+// an int8 pool's scales (unused for a float pool).
+template <typename T, typename P>
+__device__ void attend_pages(const AttendSmem<P>& sm, int stages, int lanes,
+                             const P* __restrict__ pool_k,
+                             const P* __restrict__ pool_v,
+                             const float* __restrict__ k_scales,
+                             const float* __restrict__ v_scales,
                              const int* table, int nv, int win_lo,
                              int kv, int KV, int bs, int D,
                              T* __restrict__ out) {
@@ -233,7 +331,7 @@ __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
   const int kt = tile_keys(bs);
   const int per_tile = kt / bs;
   const int ntiles = (nv + per_tile - 1) / per_tile;
-  const int ld = D + 8;
+  const int ld = row_elems(D, (int)sizeof(P));
   // scores: thread (t, g) owns key t of the tile for lanes g, g+G, ...
   const int G = nthreads / kt;
   const int t = tid % kt;
@@ -254,19 +352,20 @@ __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
   table = sm.pages;
 
   if (stages == 2) {
-    issue_tile(sm.k[0], sm.v[0], pool_k, pool_v, table, 0, nv, kv, KV, bs,
-               D);
+    issue_tile(sm.k[0], sm.v[0], sm.ks[0], sm.vs[0], pool_k, pool_v,
+               k_scales, v_scales, table, 0, nv, kv, KV, bs, D);
     cp_async_commit();
   }
   for (int j = 0; j < ntiles; ++j) {
     const int st = j & 1;
     if (stages == 1) {
-      issue_tile(sm.k[0], sm.v[0], pool_k, pool_v, table, j * per_tile, nv,
-                 kv, KV, bs, D);
+      issue_tile(sm.k[0], sm.v[0], sm.ks[0], sm.vs[0], pool_k, pool_v,
+                 k_scales, v_scales, table, j * per_tile, nv, kv, KV, bs, D);
       cp_async_commit();
       cp_async_wait_all();
     } else if (j + 1 < ntiles) {
-      issue_tile(sm.k[st ^ 1], sm.v[st ^ 1], pool_k, pool_v, table,
+      issue_tile(sm.k[st ^ 1], sm.v[st ^ 1], sm.ks[st ^ 1], sm.vs[st ^ 1],
+                 pool_k, pool_v, k_scales, v_scales, table,
                  (j + 1) * per_tile, nv, kv, KV, bs, D);
       cp_async_commit();
       cp_async_wait_one();
@@ -274,17 +373,25 @@ __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
       cp_async_wait_all();
     }
     __syncthreads();
-    const T* kb = sm.k[st];
-    const T* vb = sm.v[st];
+    const P* kb = sm.k[st];
+    const P* vb = sm.v[st];
+    const float* ksb = sm.ks[st];
+    const float* vsb = sm.vs[st];
 
     // scores, masked past each lane's limit
     if (g < G) {
       float dot[kLanesPerThread];
 #pragma unroll
       for (int u = 0; u < kLanesPerThread; ++u) dot[u] = 0.f;
+      float key_scale = 1.f;
+      if constexpr (kQuant<P>) key_scale = ksb[t];
       for (int d = 0; d < D; d += 8) {
         float kf[8];
         load8(kb + t * ld + d, kf);
+        if constexpr (kQuant<P>) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kf[i] *= key_scale;
+        }
 #pragma unroll
         for (int u = 0; u < kLanesPerThread; ++u) {
           const int ln = g + u * G;
@@ -347,7 +454,11 @@ __device__ void attend_pages(const AttendSmem<T>& sm, int stages, int lanes,
       float a1 = sm.acc[ln * D + d + 1] * c;
 #pragma unroll 4
       for (int k = 0; k < kt; ++k) {
-        const float2 v = load2(vb + k * ld + d);
+        float2 v = load2(vb + k * ld + d);
+        if constexpr (kQuant<P>) {
+          v.x *= vsb[k];
+          v.y *= vsb[k];
+        }
         a0 += p[k] * v.x;
         a1 += p[k] * v.y;
       }

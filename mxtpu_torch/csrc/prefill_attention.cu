@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel mxtpu/ops/pallas/prefill_attention.py
-// (_kernel, launched by _call_local / paged_prefill_attention) for float
-// pools; the int8 pools are not ported yet.
+// (_kernel, launched by _call_local / paged_prefill_attention), over
+// float pools of q's dtype or int8 pools with float32 scales (the
+// kernel's `quant` form; paged_common.cuh).
 //
 // The chunk's queries q (1, H, T, D) fold kv-major into rep*T lanes per
 // kv head, lane L = r*T + t.  One CUDA block of 512 threads per (kv
@@ -32,10 +33,12 @@ constexpr int kThreads = 512;
 constexpr int kQTile = 32;  // query lanes per block (<= max_lanes for
                             // every bs <= 64 at kThreads)
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                         const T* __restrict__ pool_v,
+    paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ pool_k,
+                         const P* __restrict__ pool_v,
+                         const float* __restrict__ k_scales,
+                         const float* __restrict__ v_scales,
                          const int* __restrict__ table,
                          const int* __restrict__ start,
                          const int* __restrict__ nv, T* __restrict__ out,
@@ -47,7 +50,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kv = blockIdx.x / tiles;
   const int lane0 = (blockIdx.x - kv * tiles) * kQTile;
   const int lanes = min(kQTile, fold - lane0);
-  mxtpu_port::AttendSmem<T> sm(smem, lanes, D, bs, stages);
+  mxtpu_port::AttendSmem<P> sm(smem, lanes, D, bs, stages);
   // q and out are (1, KV*rep, T, D): kv head kv's fold is one
   // contiguous run of rep*T rows, this tile a slice of it
   const size_t base = ((size_t)kv * fold + lane0) * D;
@@ -63,28 +66,30 @@ __global__ void __launch_bounds__(kThreads)
   const int max_t = t0 + lanes - 1 < T_len ? t0 + lanes - 1 : T_len - 1;
   const int walk = min(nv[0], (st + max_t) / bs + 1);
   __syncthreads();
-  mxtpu_port::attend_pages(sm, stages, lanes, pool_k, pool_v, table, walk,
-                           st, kv, KV, bs, D, out + base);
+  mxtpu_port::attend_pages(sm, stages, lanes, pool_k, pool_v, k_scales,
+                           v_scales, table, walk, st, kv, KV, bs, D,
+                           out + base);
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* table, const void* start, const void* nv, void* out,
-           int KV, int rep, int T_len, int D, int bs, int M, float sm_scale,
-           void* stream) {
+           const void* k_scales, const void* v_scales, const void* table,
+           const void* start, const void* nv, void* out, int KV, int rep,
+           int T_len, int D, int bs, int M, float sm_scale, void* stream) {
   const int fold = rep * T_len;
   const int tiles = (fold + kQTile - 1) / kQTile;
   const int lanes = fold < kQTile ? fold : kQTile;
   const int stages =
-      mxtpu_port::attend_stages(lanes, D, bs, M, (int)sizeof(T));
+      mxtpu_port::attend_stages(lanes, D, bs, M, (int)sizeof(P));
   if (stages == 0) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      mxtpu_port::attend_smem_bytes(lanes, D, bs, M, (int)sizeof(T), stages);
-  cudaError_t err = mxtpu_port::allow_smem(paged_prefill_kernel<T>, smem);
+      mxtpu_port::attend_smem_bytes(lanes, D, bs, M, (int)sizeof(P), stages);
+  cudaError_t err = mxtpu_port::allow_smem(paged_prefill_kernel<T, P>, smem);
   if (err != cudaSuccess) return (int)err;
-  paged_prefill_kernel<T><<<KV * tiles, kThreads, smem,
-                            (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)pool_k, (const T*)pool_v, (const int*)table,
+  paged_prefill_kernel<T, P><<<KV * tiles, kThreads, smem,
+                               (cudaStream_t)stream>>>(
+      (const T*)q, (const P*)pool_k, (const P*)pool_v,
+      (const float*)k_scales, (const float*)v_scales, (const int*)table,
       (const int*)start, (const int*)nv, (T*)out, KV, rep, T_len, D, bs, M,
       stages, sm_scale);
   return (int)cudaGetLastError();
@@ -99,22 +104,27 @@ int mxtpu_paged_prefill_stages(int fold, int D, int bs, int M, int elt) {
                                    elt);
 }
 
-int mxtpu_paged_prefill_f32(const void* q, const void* pool_k,
-                            const void* pool_v, const void* table,
-                            const void* start, const void* nv, void* out,
-                            int KV, int rep, int T_len, int D, int bs, int M,
-                            float sm_scale, void* stream) {
-  return launch<float>(q, pool_k, pool_v, table, start, nv, out, KV, rep,
-                       T_len, D, bs, M, sm_scale, stream);
-}
+#define MXTPU_PREFILL_ENTRIES(SUFFIX, T)                                     \
+  int mxtpu_paged_prefill_##SUFFIX(                                          \
+      const void* q, const void* pool_k, const void* pool_v,                 \
+      const void* table, const void* start, const void* nv, void* out,       \
+      int KV, int rep, int T_len, int D, int bs, int M, float sm_scale,      \
+      void* stream) {                                                        \
+    return launch<T, T>(q, pool_k, pool_v, nullptr, nullptr, table, start,   \
+                        nv, out, KV, rep, T_len, D, bs, M, sm_scale,         \
+                        stream);                                             \
+  }                                                                          \
+  int mxtpu_paged_prefill_##SUFFIX##_q8(                                     \
+      const void* q, const void* pool_k, const void* pool_v,                 \
+      const void* k_scales, const void* v_scales, const void* table,         \
+      const void* start, const void* nv, void* out, int KV, int rep,         \
+      int T_len, int D, int bs, int M, float sm_scale, void* stream) {       \
+    return launch<T, int8_t>(q, pool_k, pool_v, k_scales, v_scales, table,   \
+                             start, nv, out, KV, rep, T_len, D, bs, M,       \
+                             sm_scale, stream);                              \
+  }
 
-int mxtpu_paged_prefill_bf16(const void* q, const void* pool_k,
-                             const void* pool_v, const void* table,
-                             const void* start, const void* nv, void* out,
-                             int KV, int rep, int T_len, int D, int bs,
-                             int M, float sm_scale, void* stream) {
-  return launch<__nv_bfloat16>(q, pool_k, pool_v, table, start, nv, out, KV,
-                               rep, T_len, D, bs, M, sm_scale, stream);
-}
+MXTPU_PREFILL_ENTRIES(f32, float)
+MXTPU_PREFILL_ENTRIES(bf16, __nv_bfloat16)
 
 }  // extern "C"

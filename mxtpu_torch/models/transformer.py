@@ -25,6 +25,19 @@ Two cache forms, both under ``torch.no_grad``:
   ``step`` and ``generate``), the isolated reference inside the port: a
   plain masked softmax over the whole cache, no kernel.
 
+Either form holds float leaves or, with the dtype ``"int8"``, int8
+payloads with one float32 scale per head and position (see the leaf
+helpers below).
+
+The decode step and the verify window (``step_pages``,
+``verify_pages``) run their six projections (qkv, out_proj, gate, up,
+down, lm_head) through ``ops.linear.rows_linear`` (G1) and their three
+norms through ``ops.contrib.rows_rms_norm`` (G2), whose result for a
+row does not depend on how many rows the call has: a verify window's
+lane rounds as the step at its position would, so a speculative stream
+equals its plain stream in bfloat16 too.  Prefill and the training
+forward keep ``nn.Linear`` and ``RMSNorm``.
+
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
 """
@@ -41,10 +54,14 @@ from torch.nn import functional as F
 from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.contrib import rms_norm, rope
-from ..ops.tensor import (paged_block_copy, paged_cache_permute_span,
-                          paged_cache_write, paged_cache_write_rows,
-                          paged_cache_write_span)
+from ..ops.contrib import rms_norm, rope, rows_rms_norm
+from ..ops.linear import rows_linear
+from ..ops.tensor import (cache_dequant, cache_write_q8, paged_block_copy,
+                          paged_cache_permute_span,
+                          paged_cache_permute_span_q8, paged_cache_write,
+                          paged_cache_write_q8, paged_cache_write_rows,
+                          paged_cache_write_rows_q8, paged_cache_write_span,
+                          paged_cache_write_span_q8, resolve_cache_dtype)
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
@@ -59,6 +76,60 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight)
+
+
+# -- KV-cache leaves ---------------------------------------------------------
+# A cache leaf is either one float tensor or, with dtype "int8", an
+# (int8 payload, float32 scales) PAIR: the payload has the float leaf's
+# shape, the scales that shape without its trailing D axis (one scale
+# per head and position).  The helpers below dispatch every cache write
+# and read on the leaf's form, so each attention method stays written
+# once (the reference's _q8cache / _payload, mxtpu/models/transformer.py).
+
+def _q8(leaf):
+    """True when a cache leaf is the int8 (payload, scales) pair."""
+    return isinstance(leaf, tuple)
+
+
+def _new_leaf(shape, device, dtype):
+    """A zero cache leaf of ``shape``: float of ``dtype`` (a torch dtype
+    or its name), or the int8 pair for ``"int8"``."""
+    if str(dtype) == "int8":
+        return (torch.zeros(shape, device=device, dtype=torch.int8),
+                torch.zeros(shape[:-1], device=device, dtype=torch.float32))
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.zeros(shape, device=device, dtype=dtype)
+
+
+def _write(leaf, new, float_op, q8_op, *args):
+    """Write K or V rows ``new`` into a cache leaf with ``float_op`` or,
+    on an int8 leaf, its quantizing twin ``q8_op``."""
+    if _q8(leaf):
+        q8_op(leaf[0], leaf[1], new, *args)
+    else:
+        float_op(leaf, new, *args)
+
+
+def _kernel_pools(pool_k, pool_v):
+    """A layer's pools as the kernel wrappers take them: (pool_k,
+    pool_v, {} or the int8 scales as keywords)."""
+    if _q8(pool_k):
+        return pool_k[0], pool_v[0], dict(k_scales=pool_k[1],
+                                          v_scales=pool_v[1])
+    return pool_k, pool_v, {}
+
+
+def _linear(layer, x, rows):
+    """``layer(x)`` for a bias-free ``nn.Linear``; with ``rows`` through
+    :func:`rows_linear`."""
+    return rows_linear(x, layer.weight) if rows else layer(x)
+
+
+def _norm(norm, x, rows):
+    """``norm(x)`` for an :class:`RMSNorm`; with ``rows`` through
+    :func:`rows_rms_norm`."""
+    return rows_rms_norm(x, norm.weight) if rows else norm(x)
 
 
 def _masked_softmax(scores, valid):
@@ -88,21 +159,25 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(units, units, bias=False, device=device,
                                   dtype=dtype)
 
-    def _project(self, x, offset):
+    def _project(self, x, offset, rows=False):
         """x (B, T, C) → q (B, H, T, D), k and v (B, KV, T, D), rope
-        applied at ``offset`` (python int, (B,) or (B, T) tensor)."""
+        applied at ``offset`` (python int, (B,) or (B, T) tensor).
+        ``rows`` routes the projection through ``rows_linear``, whose
+        rounding of a row does not depend on the row count (the decode
+        step and the verify window)."""
         B, T, _ = x.shape
         H, KV, D = self.heads, self.kv_heads, self.head_dim
-        qkv = self.qkv(x)
+        qkv = _linear(self.qkv, x, rows)
         q = qkv[..., :H * D].reshape(B, T, H, D).transpose(1, 2)
         k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D).transpose(1, 2)
         v = qkv[..., (H + KV) * D:].reshape(B, T, KV, D).transpose(1, 2)
         return rope(q, offset=offset), rope(k, offset=offset), v
 
-    def _merge(self, out):
+    def _merge(self, out, rows=False):
         """(B, H, T, D) attention output → (B, T, C) projected."""
         B, H, T, D = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, H * D))
+        return _linear(self.out_proj, out.transpose(1, 2).reshape(B, T, H * D),
+                       rows)
 
     def forward(self, x):
         """x (B, T, C) → (B, T, C): rope at offset 0, each kv head
@@ -116,27 +191,37 @@ class MultiHeadAttention(nn.Module):
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
-        """(k, v) caches of (B, KV, max_length, D), zeros."""
+        """(k, v) caches of (B, KV, max_length, D), zeros, of ``dtype``
+        (the weights' by default); ``"int8"`` makes each an (int8
+        payload, float32 (B, KV, max_length) scales) pair."""
         w = self.qkv.weight
         shape = (batch_size, self.kv_heads, max_length, self.head_dim)
         dt = dtype or w.dtype
-        return (torch.zeros(shape, device=w.device, dtype=dt),
-                torch.zeros(shape, device=w.device, dtype=dt))
+        return (_new_leaf(shape, w.device, dt), _new_leaf(shape, w.device, dt))
 
     def prefill(self, x, cache_k, cache_v, start_pos=0):
         """T tokens at positions [start_pos, start_pos+T) in one pass:
         their K/V are written into the caches in place and each query
-        attends the cache up to its own position."""
+        attends the cache up to its own position.  An int8 cache is
+        read dequantized, the chunk's own rows included, as the
+        reference reads it."""
         B, T, _ = x.shape
         H, KV, D = self.heads, self.kv_heads, self.head_dim
-        Tmax = cache_k.shape[2]
         q, k, v = self._project(x, start_pos)
-        cache_k[:, :, start_pos:start_pos + T] = k.to(cache_k.dtype)
-        cache_v[:, :, start_pos:start_pos + T] = v.to(cache_v.dtype)
+        views = []
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            if _q8(cache):
+                cache_write_q8(*cache, new, start_pos)
+                views.append(cache_dequant(*cache))
+            else:
+                cache[:, :, start_pos:start_pos + T] = new.to(cache.dtype)
+                views.append(cache)
+        keys, values = views
+        Tmax = keys.shape[2]
         rep = H // KV
-        q_r = q.reshape(B * KV, rep * T, D)
-        keys = cache_k.reshape(B * KV, Tmax, D)
-        values = cache_v.reshape(B * KV, Tmax, D)
+        q_r = q.reshape(B * KV, rep * T, D).to(keys.dtype)
+        keys = keys.reshape(B * KV, Tmax, D)
+        values = values.reshape(B * KV, Tmax, D)
         scores = torch.bmm(q_r, keys.transpose(1, 2)) / math.sqrt(D)
         dev = x.device
         valid = (torch.arange(Tmax, device=dev)[None, :]
@@ -144,29 +229,33 @@ class MultiHeadAttention(nn.Module):
         attn = _masked_softmax(scores.reshape(B * KV, rep, T, Tmax), valid)
         out = torch.bmm(attn.reshape(B * KV, rep * T, Tmax), values)
         out = out.reshape(B, KV, rep, T, D).reshape(B, H, T, D)
-        return self._merge(out)
+        return self._merge(out.to(x.dtype))
 
     # -- paged pool: the serving path --------------------------------------
     def init_block_pool(self, num_blocks, block_size, dtype=None):
-        """(k, v) page pools of (num_blocks, KV, block_size, D), zeros;
-        page 0 is the null page."""
+        """(k, v) page pools of (num_blocks, KV, block_size, D), zeros,
+        of ``dtype`` (the weights' by default); ``"int8"`` makes each an
+        (int8 payload, float32 (num_blocks, KV, block_size) scales)
+        pair.  Page 0 is the null page."""
         w = self.qkv.weight
         shape = (num_blocks, self.kv_heads, block_size, self.head_dim)
         dt = dtype or w.dtype
-        return (torch.zeros(shape, device=w.device, dtype=dt),
-                torch.zeros(shape, device=w.device, dtype=dt))
+        return (_new_leaf(shape, w.device, dt), _new_leaf(shape, w.device, dt))
 
     def step_pages(self, x, pool_k, pool_v, tables, pos):
         """One decode token per slot: x (B, 1, C), ``tables`` (B, M)
         int32, ``pos`` (B,) int32.  Row b writes its K/V at position
         pos[b] through its table, then the ragged paged decode kernel
         reads [0, pos[b]]."""
-        q, k, v = self._project(x, pos)
-        paged_cache_write_rows(pool_k, k, tables, pos)
-        paged_cache_write_rows(pool_v, v, tables, pos)
+        q, k, v = self._project(x, pos, rows=True)
+        _write(pool_k, k, paged_cache_write_rows, paged_cache_write_rows_q8,
+               tables, pos)
+        _write(pool_v, v, paged_cache_write_rows, paged_cache_write_rows_q8,
+               tables, pos)
+        pk, pv, scales = _kernel_pools(pool_k, pool_v)
         out = paged_attention.paged_decode_attention(
-            q.contiguous(), pool_k, pool_v, tables, pos)
-        return self._merge(out)
+            q.contiguous(), pk, pv, tables, pos, **scales)
+        return self._merge(out, rows=True)
 
     def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
                      tree=None):
@@ -182,13 +271,16 @@ class MultiHeadAttention(nn.Module):
         as its ancestors.  Rejected lanes stay in the pool past the
         slot's position, behind every later mask."""
         off = pos if tree is None else pos.reshape(-1, 1) + tree[0]
-        q, k, v = self._project(x, off)
-        paged_cache_write_span(pool_k, k, tables, pos, valid_len)
-        paged_cache_write_span(pool_v, v, tables, pos, valid_len)
+        q, k, v = self._project(x, off, rows=True)
+        _write(pool_k, k, paged_cache_write_span, paged_cache_write_span_q8,
+               tables, pos, valid_len)
+        _write(pool_v, v, paged_cache_write_span, paged_cache_write_span_q8,
+               tables, pos, valid_len)
+        pk, pv, scales = _kernel_pools(pool_k, pool_v)
         out = paged_attention.paged_decode_attention(
-            q.contiguous(), pool_k, pool_v, tables, pos,
-            anc=None if tree is None else tree[1])
-        return self._merge(out)
+            q.contiguous(), pk, pv, tables, pos,
+            anc=None if tree is None else tree[1], **scales)
+        return self._merge(out, rows=True)
 
     def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
         """One prompt chunk x (1, T, C) at positions [start_pos,
@@ -196,10 +288,13 @@ class MultiHeadAttention(nn.Module):
         the chunked-prefill kernel attends shared prefix pages, earlier
         chunks and the chunk itself."""
         q, k, v = self._project(x, start_pos)
-        paged_cache_write(pool_k, k, table, start_pos)
-        paged_cache_write(pool_v, v, table, start_pos)
+        _write(pool_k, k, paged_cache_write, paged_cache_write_q8, table,
+               start_pos)
+        _write(pool_v, v, paged_cache_write, paged_cache_write_q8, table,
+               start_pos)
+        pk, pv, scales = _kernel_pools(pool_k, pool_v)
         out = prefill_attention.paged_prefill_attention(
-            q.contiguous(), pool_k, pool_v, table, start_pos)
+            q.contiguous(), pk, pv, table, start_pos, **scales)
         return self._merge(out)
 
 
@@ -217,10 +312,11 @@ class LlamaDecoderLayer(nn.Module):
         self.up_proj = nn.Linear(units, hidden_size, bias=False, **fk)
         self.down_proj = nn.Linear(hidden_size, units, bias=False, **fk)
 
-    def _ffn(self, x):
-        h = self.ffn_norm(x)
-        return x + self.down_proj(F.silu(self.gate_proj(h))
-                                  * self.up_proj(h))
+    def _ffn(self, x, rows=False):
+        h = _norm(self.ffn_norm, x, rows)
+        return x + _linear(self.down_proj,
+                           F.silu(_linear(self.gate_proj, h, rows))
+                           * _linear(self.up_proj, h, rows), rows)
 
     def forward(self, x):
         return self._ffn(x + self.attn(self.attn_norm(x)))
@@ -230,14 +326,15 @@ class LlamaDecoderLayer(nn.Module):
                                                cache_v, start_pos))
 
     def step_pages(self, x, pool_k, pool_v, tables, pos):
-        return self._ffn(x + self.attn.step_pages(self.attn_norm(x), pool_k,
-                                                  pool_v, tables, pos))
+        return self._ffn(x + self.attn.step_pages(
+            _norm(self.attn_norm, x, True), pool_k, pool_v, tables, pos),
+            rows=True)
 
     def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
                      tree=None):
         return self._ffn(x + self.attn.verify_pages(
-            self.attn_norm(x), pool_k, pool_v, tables, pos, valid_len,
-            tree))
+            _norm(self.attn_norm, x, True), pool_k, pool_v, tables, pos,
+            valid_len, tree), rows=True)
 
     def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
         return self._ffn(x + self.attn.prefill_pages(
@@ -272,8 +369,8 @@ class TransformerLM(nn.Module):
     def dtype(self):
         return self.embed.weight.dtype
 
-    def _logits(self, x):
-        return self.lm_head(self.norm(x))
+    def _logits(self, x, rows=False):
+        return _linear(self.lm_head, _norm(self.norm, x, rows), rows)
 
     def forward(self, token_ids):
         """token_ids (B, T) → logits (B, T, V), differentiable: the
@@ -285,7 +382,8 @@ class TransformerLM(nn.Module):
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
-        """Per-layer (k, v) caches of (B, KV, max_length, D)."""
+        """Per-layer (k, v) caches of (B, KV, max_length, D) (int8
+        pairs for ``"int8"``)."""
         return [layer.attn.init_cache(batch_size, max_length, dtype)
                 for layer in self.layers]
 
@@ -305,7 +403,8 @@ class TransformerLM(nn.Module):
 
     # -- paged pool: the serving path --------------------------------------
     def init_block_pool(self, num_blocks, block_size, dtype=None):
-        """Per-layer (k, v) page pools of (num_blocks, KV, bs, D)."""
+        """Per-layer (k, v) page pools of (num_blocks, KV, bs, D) (int8
+        pairs for ``"int8"``)."""
         return [layer.attn.init_block_pool(num_blocks, block_size, dtype)
                 for layer in self.layers]
 
@@ -317,7 +416,7 @@ class TransformerLM(nn.Module):
         x = self.embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.step_pages(x, pk, pv, tables, pos)
-        return self._logits(x)
+        return self._logits(x, rows=True)
 
     @torch.no_grad()
     def verify_pages(self, token_ids, pools, tables, pos, valid_len,
@@ -333,7 +432,7 @@ class TransformerLM(nn.Module):
         x = self.embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.verify_pages(x, pk, pv, tables, pos, valid_len, tree)
-        return self._logits(x)
+        return self._logits(x, rows=True)
 
     @torch.no_grad()
     def permute_pool_span(self, pools, tables, pos, src_lane):
@@ -341,9 +440,11 @@ class TransformerLM(nn.Module):
         entry at position pos[b] + src_lane[b, j] moves to pos[b] + j,
         so an accepted side-branch path lands where sequential decode
         would have written it (lanes marked -1 stay as they are)."""
-        for pk, pv in pools:
-            paged_cache_permute_span(pk, tables, pos, src_lane)
-            paged_cache_permute_span(pv, tables, pos, src_lane)
+        for leaf in (leaf for pair in pools for leaf in pair):
+            if _q8(leaf):
+                paged_cache_permute_span_q8(*leaf, tables, pos, src_lane)
+            else:
+                paged_cache_permute_span(leaf, tables, pos, src_lane)
 
     @torch.no_grad()
     def prefill_pages(self, token_ids, pools, table, start_pos=0):
@@ -360,14 +461,14 @@ class TransformerLM(nn.Module):
         """Copy page ``src`` onto page ``dst`` in every layer's pools —
         the copy-on-write of prefix sharing; ``src == dst`` does
         nothing."""
-        for pk, pv in pools:
-            paged_block_copy(pk, src, dst)
-            paged_block_copy(pv, src, dst)
+        for leaf in (leaf for pair in pools for leaf in pair):
+            for t in (leaf if _q8(leaf) else (leaf,)):
+                paged_block_copy(t, src, dst)
 
     @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens, max_length=None,
                  temperature=0.0, top_k=0, top_p=0.0, repetition_penalty=1.0,
-                 seed=None):
+                 seed=None, cache_dtype=None):
         """Greedy (temperature 0) or sampled decode with the contiguous
         cache: the prompt in ONE prefill, then one ``step`` per token.
         prompt_ids (B, Tp) → (B, Tp + max_new_tokens), in the prompt's
@@ -376,7 +477,10 @@ class TransformerLM(nn.Module):
         Sampled draws come from one ``torch.Generator`` seeded with
         ``seed`` (a random seed when None), so an engine request with
         the same seed draws the same tokens.  repetition_penalty != 1
-        applies in greedy mode too."""
+        applies in greedy mode too.  ``cache_dtype`` is the cache's
+        element type (:func:`~mxtpu_torch.ops.tensor.resolve_cache_dtype`;
+        the model's dtype by default, ``"int8"``
+        for the quantized cache)."""
         prompt_ids = torch.as_tensor(prompt_ids, device=self.device)
         B, Tp = prompt_ids.shape
         total = Tp + max_new_tokens
@@ -385,7 +489,8 @@ class TransformerLM(nn.Module):
             raise ValueError("max_length %d < prompt+new %d"
                              % (max_length, total))
         ids = prompt_ids.long()
-        caches = self.init_cache(B, max_length)
+        caches = self.init_cache(
+            B, max_length, resolve_cache_dtype(cache_dtype, self.dtype))
         logits = self.prefill(ids, caches)
         sampled = bool(temperature and temperature > 0.0)
         penalized = bool(repetition_penalty and repetition_penalty != 1.0)

@@ -9,9 +9,10 @@ there is no fallback from the card to the plain version.  Each call
 adds one to the ``paged_attention`` launch counter (``mxtpu_torch.base``).
 
 Ported: the plain decode read (W = 1), the speculative verify window
-(W > 1) and the tree ancestor mask (``anc``, W <= 32), float32 and
-bfloat16 pools.  Not yet: the int8 pools (``k_scales``/``v_scales``
-raise ``NotImplementedError``).
+(W > 1) and the tree ancestor mask (``anc``, W <= 32), over float32 and
+bfloat16 pools and over int8 pools with their float32 scales
+(``k_scales``/``v_scales``, (N, KV, bs)), for float32 or bfloat16
+queries.  Calls over int8 pools count under ``paged_attention[int8]``.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ import torch
 
 from ..base import MXTPUError, bump
 from . import _build
-from .tensor import paged_cache_gather
+from .tensor import paged_cache_gather, paged_cache_gather_q8
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "KERNEL_NAME", "check_kernel_geometry"]
+           "KERNEL_NAME", "KERNEL_NAME_Q8", "check_kernel_geometry"]
 
 KERNEL_NAME = "paged_attention"
+KERNEL_NAME_Q8 = "paged_attention[int8]"
 _NEG_INF = -1e30
 #: shared memory one block may use on an H100 (227 KB; kMaxSmem in
 #: csrc/paged_common.cuh)
@@ -37,11 +39,21 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _FNS: dict = {}
 
 
-def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos, anc=None):
-    """The kernel's plain version: gather every table entry, then a
-    masked float32 softmax (the math of the reference's
-    ``xla_reference``).  q (B, H, W, D), pools (N, KV, bs, D), tables
-    (B, M), pos (B,) → (B, H, W, D) in q's dtype.  Without ``anc`` lane
+def gather_pages(pool, scales, tables):
+    """A table's pages in sequence order as float32: (..., KV, M*bs,
+    D), an int8 pool dequantized with its ``scales``."""
+    if scales is None:
+        return paged_cache_gather(pool, tables).float()
+    return paged_cache_gather_q8(pool, scales, tables)
+
+
+def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos, anc=None,
+                                 k_scales=None, v_scales=None):
+    """The kernel's plain version: gather every table entry (and
+    dequantize an int8 pool, payload times scale), then a masked
+    float32 softmax (the math of the reference's ``xla_reference``).
+    q (B, H, W, D), pools (N, KV, bs, D), tables (B, M), pos (B,) →
+    (B, H, W, D) in q's dtype.  Without ``anc`` lane
     w of slot b attends positions <= pos[b] + w.  With ``anc`` (B, W)
     int32 (tree verify: bit j of anc[b, w] marks window lane j a strict
     ancestor of lane w) lane w attends the committed history
@@ -49,8 +61,8 @@ def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos, anc=None):
     B, H, W, D = q.shape
     KV = pool_k.shape[1]
     rep = H // KV
-    keys = paged_cache_gather(pool_k, tables).float()    # (B, KV, M*bs, D)
-    values = paged_cache_gather(pool_v, tables).float()
+    keys = gather_pages(pool_k, k_scales, tables)        # (B, KV, M*bs, D)
+    values = gather_pages(pool_v, v_scales, tables)
     qr = q.reshape(B, KV, rep * W, D).float() * (1.0 / math.sqrt(D))
     s = torch.einsum("bkld,bktd->bklt", qr, keys)
     k_pos = torch.arange(keys.shape[2], device=q.device)
@@ -71,21 +83,33 @@ def paged_decode_attention_plain(q, pool_k, pool_v, tables, pos, anc=None):
     return o.reshape(B, H, W, D).to(q.dtype)
 
 
-def check_kernel_geometry(q, pool_k, pool_v):
-    """Raise for operands the CUDA kernels do not take: both pools and
-    q on one CUDA device, one dtype (float32 or bfloat16), contiguous,
-    pools (N, KV, bs, D) with D <= 256, D % 8 == 0, bs <= 64, and a
-    head count that folds onto the kv heads."""
+def check_kernel_geometry(q, pool_k, pool_v, k_scales=None, v_scales=None):
+    """Raise for operands the CUDA kernels do not take: q float32 or
+    bfloat16; pools and q on one CUDA device, contiguous and 16-byte
+    aligned; pools (N, KV, bs, D) of q's dtype, or int8 with float32
+    scales (N, KV, bs); D <= 256, D % 8 == 0 (the kernels copy rows 16
+    bytes, or 8 int8 values, at a time), bs <= 64, and a head count
+    that folds onto the kv heads."""
     if q.dtype not in _DTYPES:
         raise MXTPUError("paged attention kernel: q dtype %s is not "
                          "float32 or bfloat16" % q.dtype)
-    for name, x in (("pool_k", pool_k), ("pool_v", pool_v)):
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise MXTPUError("paged attention kernel: int8 pools need both "
+                         "k_scales and v_scales")
+    pool_dtype = torch.int8 if quant else q.dtype
+    operands = [("pool_k", pool_k, pool_dtype), ("pool_v", pool_v,
+                                                 pool_dtype)]
+    if quant:
+        operands += [("k_scales", k_scales, torch.float32),
+                     ("v_scales", v_scales, torch.float32)]
+    for name, x, dtype in operands:
         if x.device != q.device:
             raise MXTPUError("paged attention kernel: %s is on %s, q on %s"
                              % (name, x.device, q.device))
-        if x.dtype != q.dtype:
-            raise MXTPUError("paged attention kernel: %s dtype %s differs "
-                             "from q's %s" % (name, x.dtype, q.dtype))
+        if x.dtype != dtype:
+            raise MXTPUError("paged attention kernel: %s dtype %s is not "
+                             "%s" % (name, x.dtype, dtype))
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise MXTPUError("paged attention kernel: %s is not contiguous "
                              "and 16-byte aligned" % name)
@@ -93,6 +117,12 @@ def check_kernel_geometry(q, pool_k, pool_v):
         raise MXTPUError("paged attention kernel: pools must both be "
                          "(N, KV, bs, D), got %s and %s"
                          % (tuple(pool_k.shape), tuple(pool_v.shape)))
+    if quant and not (k_scales.shape == v_scales.shape
+                      == pool_k.shape[:3]):
+        raise MXTPUError("paged attention kernel: scales must both be "
+                         "(N, KV, bs) = %s, got %s and %s"
+                         % (tuple(pool_k.shape[:3]), tuple(k_scales.shape),
+                            tuple(v_scales.shape)))
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise MXTPUError("paged attention kernel: q is not contiguous and "
                          "16-byte aligned")
@@ -120,20 +150,23 @@ def check_index(name, x, shape, device):
                x.device))
 
 
-def _decode_fn(dtype):
-    fn = _FNS.get(dtype)
-    if fn is None:
-        lib = _build.load("paged_attention")
-        fn = getattr(lib, "mxtpu_paged_decode_" + _DTYPES[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+def kernel_fn(source, prefix, q_dtype, quant, n_ptrs, n_ints, cache):
+    """The (launch, stages) C functions of a paged kernel library for q's
+    dtype and the pool's (float or int8), loaded once into ``cache``."""
+    key = (q_dtype, quant)
+    fns = cache.get(key)
+    if fns is None:
+        lib = _build.load(source)
+        fn = getattr(lib, "%s_%s%s" % (prefix, _DTYPES[q_dtype],
+                                       "_q8" if quant else ""))
+        fn.argtypes = [ctypes.c_void_p] * (n_ptrs + 2 * quant) + [
+            ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        stages = lib.mxtpu_paged_decode_stages
+        stages = getattr(lib, prefix + "_stages")
         stages.argtypes = [ctypes.c_int] * 5
         stages.restype = ctypes.c_int
-        fn = (fn, stages)
-        _FNS[dtype] = fn
-    return fn
+        fns = cache[key] = (fn, stages)
+    return fns
 
 
 def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
@@ -142,30 +175,32 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     speculative verify window of W tokens, per slot.
 
     q : (B, H, W, D) queries, rope applied; head h = kv*rep + r.
-    pool_k / pool_v : (N, KV, bs, D) page pools (page 0 = null page).
+    pool_k / pool_v : (N, KV, bs, D) page pools (page 0 = null page):
+        float of q's dtype, or int8 payloads with ``k_scales`` /
+        ``v_scales`` (N, KV, bs) float32, one scale per head and
+        position.
     tables : (B, M) int32 block tables.
     pos : (B,) int32 positions (the position window lane 0 wrote).
     anc : optional (B, W) int32 tree ancestor bitmask (W <= 32; see
         :func:`paged_decode_attention_plain`).
 
     Returns (B, H, W, D) in q's dtype."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "paged_decode_attention: int8 pools are not ported yet")
     B, H, W, D = q.shape
+    quant = k_scales is not None
+    name = KERNEL_NAME_Q8 if quant else KERNEL_NAME
     if anc is not None and W > 32:
         raise ValueError(
             "paged_decode_attention: K004: tree verify window W=%d exceeds "
             "the 32-lane int32 ancestor bitmask — cap spec_tree at 31 "
             "draft nodes (+ root)" % W)
     if q.device.type == "cpu":
-        bump(KERNEL_NAME)
+        bump(name)
         return paged_decode_attention_plain(q, pool_k, pool_v, tables, pos,
-                                            anc)
+                                            anc, k_scales, v_scales)
     if q.device.type != "cuda":
         raise MXTPUError("paged_decode_attention: no kernel for device %s"
                          % q.device)
-    check_kernel_geometry(q, pool_k, pool_v)
+    check_kernel_geometry(q, pool_k, pool_v, k_scales, v_scales)
     _, KV, bs, _ = pool_k.shape
     M = tables.shape[-1]
     check_index("tables", tables, (B, M), q.device)
@@ -173,8 +208,9 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     if anc is not None:
         check_index("anc", anc, (B, W), q.device)
     lanes = (H // KV) * W
-    fn, stages = _decode_fn(q.dtype)
-    if not stages(lanes, D, bs, M, q.element_size()):
+    fn, stages = kernel_fn("paged_attention", "mxtpu_paged_decode", q.dtype,
+                           quant, 8, 7, _FNS)
+    if not stages(lanes, D, bs, M, pool_k.element_size()):
         raise MXTPUError("paged_decode_attention: D=%d, bs=%d, M=%d need "
                          "more than %d bytes of shared memory"
                          % (D, bs, M, MAX_SMEM_BYTES))
@@ -183,12 +219,13 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
                      + 1, 1, M).to(torch.int32)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+    scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quant else []
+    rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
             tables.data_ptr(), pos.data_ptr(), nv.data_ptr(),
             0 if anc is None else anc.data_ptr(), out.data_ptr(),
             B, KV, lanes, W, D, bs, M, sm_scale, stream)
     if rc != 0:
         raise MXTPUError("paged_decode_attention: CUDA launch failed "
                          "(cudaError %d)" % rc)
-    bump(KERNEL_NAME)
+    bump(name)
     return out

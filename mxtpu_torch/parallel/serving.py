@@ -45,11 +45,17 @@ later mask; rollback is a host position fix-up.  A tree whose accepted
 path took a side branch moves that path's K/V into depth order
 (``permute_pool_span``) before the next step reads it.
 
+``cache_dtype="int8"`` (or ``MXTPU_CACHE_DTYPE=int8``) stores the pools
+as int8 payloads with one float32 scale per head and position; every
+write quantizes per row, so the streams are those of the model's
+isolated ``generate(cache_dtype="int8")``.  The engine keeps the status
+of the last ``max(history, 2 * num_slots)`` finished requests.
+
 Not in this slice: draft-model speculation (``draft_block``), the
-``MXTPU_SPEC_TREE`` default, the int8 cache, the hierarchical cache and
-sessions, fault sites, tracing, quarantine and retries, deadlines,
-bounded admission, weight hot-swap, tensor parallelism.  ``submit`` and
-the constructor raise ``NotImplementedError`` for their knobs.
+``MXTPU_SPEC_TREE`` default, the hierarchical cache and sessions, fault
+sites, tracing, quarantine and retries, deadlines, bounded admission,
+weight hot-swap, tensor parallelism.  ``submit`` and the constructor
+raise ``NotImplementedError`` for their knobs.
 """
 
 from __future__ import annotations
@@ -61,9 +67,10 @@ import torch
 
 from ..base import LoadShedError, MXTPUError, resolve_device
 from ..models import sampler
+from ..ops.tensor import resolve_cache_dtype
 from .paging import NULL_PAGE, BlockPool, PrefixIndex
 
-__all__ = ["Request", "PagedContinuousBatchingEngine"]
+__all__ = ["Request", "PagedContinuousBatchingEngine", "resolve_cache_dtype"]
 
 
 def _bucket(n, base=8):
@@ -264,6 +271,15 @@ class PagedContinuousBatchingEngine:
         opt out with ``submit(spec_tree=False)`` (linear drafting) or
         name their own; linear windows ride the tree verify call as
         chains.  None: no tree drafting.
+    history : terminal requests whose status the engine remembers: the
+        records of all but the last ``max(history, 2 * num_slots)``
+        finished requests are dropped (``status`` then answers
+        ``unknown``), so a long-lived engine does not grow without
+        bound.
+    cache_dtype : the KV pools' element type: None (the ambient
+        ``MXTPU_CACHE_DTYPE``, else float32), a float dtype, or
+        ``"int8"`` for int8 payloads with one float32 scale per head
+        and position (:func:`resolve_cache_dtype`).
     device : where the engine runs; the CUDA card unless named.  With no
         device named and no CUDA present the constructor raises.
     """
@@ -272,7 +288,7 @@ class PagedContinuousBatchingEngine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 64, spec_k: int = 0,
                  spec_ngram: int = 3, spec_tree=None, draft_block=None,
-                 device=None):
+                 history: int = 1024, cache_dtype=None, device=None):
         if draft_block is not None:
             raise NotImplementedError(
                 "draft-model speculation (draft_block=) is not ported to "
@@ -303,12 +319,18 @@ class PagedContinuousBatchingEngine:
             num_blocks = self._num_slots * (-(-self._max_length // bs))
         self._prefix = PrefixIndex(bs)
         self._bp = BlockPool(int(num_blocks), bs, on_free=self._prefix.evict)
-        self._pools = model.init_block_pool(self._bp.capacity + 1, bs)
+        self._cache_dtype = resolve_cache_dtype(cache_dtype, model.dtype)
+        self._pools = model.init_block_pool(self._bp.capacity + 1, bs,
+                                            self._cache_dtype)
         self._slot_pages: List[Optional[List[int]]] = [None] * self._num_slots
         self._slots: List[Optional[_Slot]] = [None] * self._num_slots
         self._queue: List[Request] = []
         self._results: Dict[int, torch.Tensor] = {}
         self._status: Dict[int, str] = {}
+        # the status records of terminal requests, oldest first; only
+        # the last self._history are kept
+        self._history = max(int(history), 2 * self._num_slots)
+        self._done: List[int] = []
         self._next_rid = 0
         self._last_tokens = torch.zeros(self._num_slots, dtype=torch.long,
                                         device=self._device)
@@ -573,11 +595,21 @@ class PagedContinuousBatchingEngine:
                 toks.append(int(next(col)))
         self._results[req.rid] = torch.from_numpy(np.concatenate(
             [req.prompt, np.asarray(toks, np.int32).reshape(1, -1)], axis=1))
-        self._status[req.rid] = "ok"
+        self._terminal(req.rid)
         self._slots[row] = None
         pages, self._slot_pages[row] = self._slot_pages[row], None
         for bid in pages:
             self._bp.release(bid)
+
+    def _terminal(self, rid):
+        """Mark a request ``ok``, dropping the status records of the
+        oldest terminal requests past ``history``."""
+        self._status[rid] = "ok"
+        self._done.append(rid)
+        if len(self._done) > self._history:
+            for old in self._done[:-self._history]:
+                self._status.pop(old, None)
+            del self._done[:-self._history]
 
     def _decode_state(self, active):
         """pos (B,) and tables (B, M) int32 on the device: dead lanes
@@ -955,7 +987,7 @@ class PagedContinuousBatchingEngine:
             req = self._queue.pop(0)
             if req.max_new_tokens <= 0:
                 self._results[req.rid] = torch.from_numpy(req.prompt.copy())
-                self._status[req.rid] = "ok"
+                self._terminal(req.rid)
                 continue
             try:
                 self._admit(req, i)

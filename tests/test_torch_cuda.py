@@ -11,7 +11,15 @@ and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
 plus head_dim 72 and 256.  The conv backward kernel (K6) over
 geometries the main path does not reach: Ci != Co, H != W, N = 1,
 channel counts that are not multiples of its 64-wide tiles, and one
-ResNet-50 stage shape.  Also what the wrappers reject on the card.
+ResNet-50 stage shape.  K1 and K2 over int8 pools with their float32
+scales (the float cases quantized per row by the cache's quantizer): the
+decode read, the prefill chunk, and K1's window and tree with its two
+invariants.  G1 (``rows_linear``) against its plain version over ragged
+row counts and Llama-3-8B's six projection shapes, every row
+``torch.equal`` across the row counts (held relative to its largest
+output, ``GRAD_TOL``: its outputs reach several units, where one
+bfloat16 ulp exceeds 2e-2), and G2 (``rows_rms_norm``) the same way.
+Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
 where there is none.  On the card:
@@ -42,6 +50,7 @@ from chip_smoke import tree_anc
 from mxtpu_torch import base
 from mxtpu_torch.ops import conv_bwd as cb
 from mxtpu_torch.ops import flash_attention as fa
+from mxtpu_torch.ops import linear
 from mxtpu_torch.ops import paged_attention as pa
 from mxtpu_torch.ops import prefill_attention as pf
 
@@ -162,7 +171,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                   anc=torch.zeros(q.shape[0], 4,
                                                   dtype=torch.int64,
                                                   device="cuda"))
-    with pytest.raises(NotImplementedError):                   # int8
+    with pytest.raises(base.MXTPUError):              # scales, float pools
         pa.paged_decode_attention(q, pk, pv, tables, pos,
                                   k_scales=pk[..., 0], v_scales=pv[..., 0])
 
@@ -204,6 +213,144 @@ def test_verify_window_and_tree_kernels_match_plain(cuda, geom, dtype, W):
                                         tables, pos + w)
         assert torch.equal(one, lin[:, :, w:w + 1]), w
     assert base.count(pa.KERNEL_NAME) == 3 + W
+
+
+def _q8(pool):
+    from mxtpu_torch.ops.tensor import _q8_quantize
+
+    return _q8_quantize(pool)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "D%d-bs%d-rep%d"
+                         % (g[0], g[1], g[3]))
+def test_int8_decode_and_prefill_kernels_match_plain(cuda, geom, dtype):
+    q, pk, pv, tables, pos = _decode_case(geom, dtype, seed=geom[0] + 1)
+    (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+    kw = dict(k_scales=ks, v_scales=vs)
+    base.reset_counts()
+    got = pa.paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert base.counts() == {pa.KERNEL_NAME_Q8: 1}
+    assert got.dtype == dtype
+    assert _err(got, pa.paged_decode_attention_plain(
+        q, pk, pv, tables, pos, **kw)) <= TOL[dtype]
+    bs = geom[1]
+    for start in (0, 3 * bs + bs // 2 + 1):
+        q, pk, pv, table, _ = _prefill_case(geom, dtype, seed=start,
+                                            start=start)
+        (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+        kw = dict(k_scales=ks, v_scales=vs)
+        got = pf.paged_prefill_attention(q, pk, pv, table, start, **kw)
+        want = pf.paged_prefill_attention_plain(q, pk, pv, table, start,
+                                                **kw)
+        assert _err(got, want) <= TOL[dtype], start
+    assert base.count(pf.KERNEL_NAME_Q8) == 2
+
+
+@pytest.mark.parametrize("W", [2, 8, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", GEOMETRIES[2:5], ids=lambda g:
+                         "D%d-bs%d-rep%d" % (g[0], g[1], g[3]))
+def test_int8_verify_window_and_tree_kernels_match_plain(cuda, geom, dtype,
+                                                         W):
+    """K1's window and tree over int8 pools, with invariants (a) and (b)
+    bit for bit."""
+    D, bs, KV, rep = geom[:4]
+    q1, pk, pv, tables, pos = _decode_case(geom[:6] + (geom[6] + W,), dtype,
+                                           seed=D + W)
+    (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+    kw = dict(k_scales=ks, v_scales=vs)
+    B = q1.shape[0]
+    pos = torch.clamp(pos - W, min=0)
+    pos[B // 2] = 0
+    g = torch.Generator(device="cuda").manual_seed(W)
+    q = torch.randn(B, KV * rep, W, D, generator=g, device="cuda",
+                    dtype=dtype)
+    rng = np.random.RandomState(W)
+    lin = pa.paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    assert _err(lin, pa.paged_decode_attention_plain(
+        q, pk, pv, tables, pos, **kw)) <= TOL[dtype]
+    tree = torch.from_numpy(tree_anc(rng, B, W)).cuda()
+    got = pa.paged_decode_attention(q, pk, pv, tables, pos, anc=tree, **kw)
+    assert _err(got, pa.paged_decode_attention_plain(
+        q, pk, pv, tables, pos, anc=tree, **kw)) <= TOL[dtype]
+    chain = pa.paged_decode_attention(
+        q, pk, pv, tables, pos,
+        anc=torch.from_numpy(tree_anc(rng, B, W, chain=True)).cuda(), **kw)
+    assert torch.equal(chain, lin)
+    for w in range(W):
+        one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk, pv,
+                                        tables, pos + w, **kw)
+        assert torch.equal(one, lin[:, :, w:w + 1]), w
+
+
+#: Llama-3-8B's decode-step projections (N, K)
+PROJECTIONS = [(6144, 4096), (4096, 4096), (14336, 4096), (4096, 14336),
+               (128256, 4096)]
+
+
+#: G1's cases: small shapes in both dtypes (float32 is the small
+#: models' path), the 8B projections in bfloat16
+LINEAR_CASES = [(nk, dt) for nk in ((96, 64), (200, 40)) for dt in DTYPES] \
+    + [((64, 172), torch.float32)] \
+    + [(nk, torch.bfloat16) for nk in [(4096, 512)] + PROJECTIONS]
+
+
+@pytest.mark.parametrize("NK,dtype", LINEAR_CASES, ids=[
+    "%dx%d-%s" % (nk + (str(dt)[6:],)) for nk, dt in LINEAR_CASES])
+def test_rows_linear_matches_plain_and_each_row_ignores_the_row_count(
+        cuda, NK, dtype):
+    N, K = NK
+    g = torch.Generator(device="cuda").manual_seed(N + K)
+    w = torch.randn(N, K, generator=g, device="cuda", dtype=dtype) * 0.02
+    x = torch.randn(128, K, generator=g, device="cuda", dtype=dtype)
+    base.reset_counts()
+    full = linear.rows_linear(x, w)
+    want = linear.rows_linear_plain(x, w)
+    assert full.dtype == dtype and full.shape == (128, N)
+    assert _err(full, want) <= GRAD_TOL[dtype] * float(
+        want.float().abs().max())
+    for M in (1, 7, 8, 17):
+        assert torch.equal(linear.rows_linear(x[:M], w), full[:M]), M
+    perm = torch.randperm(128, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(linear.rows_linear(x[perm.cuda()], w),
+                       full[perm.cuda()])
+    assert base.counts() == {linear.KERNEL_NAME: 6}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [8, 64, 172, 4096])
+def test_rows_rms_norm_matches_plain_and_each_row_ignores_the_row_count(
+        cuda, C, dtype):
+    from mxtpu_torch.ops import contrib
+
+    g = torch.Generator(device="cuda").manual_seed(C)
+    x = torch.randn(128, C, generator=g, device="cuda", dtype=dtype)
+    gamma = 1 + 0.1 * torch.randn(C, generator=g, device="cuda", dtype=dtype)
+    base.reset_counts()
+    full = contrib.rows_rms_norm(x, gamma)
+    want = contrib.rms_norm(x, gamma)
+    assert full.dtype == dtype
+    assert _err(full, want) <= GRAD_TOL[dtype] * float(
+        want.float().abs().max())
+    for M in (1, 7, 8, 17):
+        assert torch.equal(contrib.rows_rms_norm(x[:M], gamma), full[:M]), M
+    assert torch.equal(contrib.rows_rms_norm(x.flip(0), gamma).flip(0), full)
+    assert base.counts() == {contrib.NORM_KERNEL_NAME: 6}
+
+
+def test_rows_linear_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.randn(32, 64, device="cuda")
+    base.reset_counts()
+    xb, wb = x.bfloat16(), w.bfloat16()
+    bad = [(x.double(), w.double()), (x, wb), (x, w.cpu()),
+           (xb[:, :60].contiguous(), wb[:, :60].contiguous()),  # K % 8
+           (x, w[:, :32]), (x, w.t().contiguous().t())]        # K, layout
+    for args in bad:
+        with pytest.raises(base.MXTPUError):
+            linear.rows_linear(*args)
+    assert base.counts() == {}
 
 
 # (B, H, T, D) of the flash kernels

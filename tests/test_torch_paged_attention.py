@@ -5,7 +5,8 @@ CPU, as the reference's own tests run them) and against the reference's
 padded with the null page, pages out of order, GQA rep 2, a dead pool
 lane, a chunk starting mid-page and a padded chunk; and K1's speculative
 verify window (W = 2, 4, 8) and tree ancestor mask (branchy trees and the
-degenerate chain).
+degenerate chain).  The int8 forms of both are held in
+tests/test_torch_q8.py.
 
 Tolerance 1e-5 absolute and relative: all four compute in float32 and
 differ only in the order of their sums.
@@ -160,11 +161,12 @@ def test_plain_chain_tree_equals_linear_window():
 
 @pytest.mark.parametrize("variant", ["window", "tree", "int8"])
 def test_decode_wrapper_rejects_variants_not_ported(variant):
-    """What the wrapper still rejects: the int8 pools.  The verify window
-    and the tree mask are ported: on a CPU tensor they run the plain
-    version, counted once."""
+    """Every variant is ported now: the verify window, the tree mask and
+    the int8 pools run the plain version on a CPU tensor, counted once
+    (int8 pools under their own counter)."""
     q, pk, pv, tables, pos = [torch.from_numpy(a) for a in _decode_case(0)]
     kw = {}
+    name = paged_attention.KERNEL_NAME
     if variant == "window":
         q = q.expand(-1, -1, 2, -1).contiguous()
     elif variant == "tree":
@@ -172,17 +174,13 @@ def test_decode_wrapper_rejects_variants_not_ported(variant):
         kw["anc"] = torch.from_numpy(
             tree_anc(np.random.RandomState(0), 4, 4))
     else:
-        kw["k_scales"] = torch.ones(N, KV, BS)
-        kw["v_scales"] = torch.ones(N, KV, BS)
+        pk, pv = pk.mul(40).to(torch.int8), pv.mul(40).to(torch.int8)
+        kw["k_scales"] = torch.full((N, KV, BS), 0.025)
+        kw["v_scales"] = torch.full((N, KV, BS), 0.02)
+        name = paged_attention.KERNEL_NAME_Q8
     base.reset_counts()
-    if variant == "int8":
-        with pytest.raises(NotImplementedError):
-            paged_attention.paged_decode_attention(q, pk, pv, tables, pos,
-                                                   **kw)
-        assert base.count(paged_attention.KERNEL_NAME) == 0
-        return
     out = paged_attention.paged_decode_attention(q, pk, pv, tables, pos, **kw)
-    assert base.count(paged_attention.KERNEL_NAME) == 1
+    assert base.counts() == {name: 1}
     torch.testing.assert_close(
         out, paged_attention.paged_decode_attention_plain(
             q, pk, pv, tables, pos, **kw), rtol=0, atol=0)
@@ -199,14 +197,22 @@ def test_decode_wrapper_rejects_a_tree_wider_than_the_bitmask():
 
 
 def test_prefill_wrapper_rejects_int8_pools():
+    """It no longer does: int8 pools run the plain version on a CPU
+    tensor, counted under ``paged_prefill[int8]``."""
     rng = np.random.RandomState(5)
     pk, pv = _pools(rng)
     q = torch.randn(1, KV * REP, 8, D)
-    with pytest.raises(NotImplementedError):
-        prefill_attention.paged_prefill_attention(
-            q, torch.from_numpy(pk), torch.from_numpy(pv),
-            torch.zeros(6, dtype=torch.int32), 0,
-            k_scales=torch.ones(N, KV, BS), v_scales=torch.ones(N, KV, BS))
+    args = (q, torch.from_numpy(pk).mul(40).to(torch.int8),
+            torch.from_numpy(pv).mul(40).to(torch.int8),
+            torch.tensor([4, 9, 1, 6, 0, 0], dtype=torch.int32), 5)
+    kw = dict(k_scales=torch.full((N, KV, BS), 0.025),
+              v_scales=torch.full((N, KV, BS), 0.02))
+    base.reset_counts()
+    out = prefill_attention.paged_prefill_attention(*args, **kw)
+    assert base.counts() == {prefill_attention.KERNEL_NAME_Q8: 1}
+    torch.testing.assert_close(
+        out, prefill_attention.paged_prefill_attention_plain(*args, **kw),
+        rtol=0, atol=0)
 
 
 def test_kernel_geometry_check_rejects_what_the_kernels_do_not_take():

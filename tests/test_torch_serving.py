@@ -225,3 +225,25 @@ def test_engine_needs_a_device_where_there_is_no_cuda(models):
         PagedContinuousBatchingEngine(models[1], **ENGINE)
     with pytest.raises(MXTPUError, match="model is on"):
         PagedContinuousBatchingEngine(models[1], device="meta", **ENGINE)
+
+
+@pytest.mark.parametrize("framework", ["port", "reference"])
+def test_terminal_status_records_are_bounded_by_history(models, framework):
+    """Both engines keep the status of only the last max(history,
+    2 * num_slots) terminal requests: with one slot and history=2, after
+    three completions the first rid is ``unknown`` and the last two
+    ``ok``."""
+    ref, port = models
+    kw = dict(ENGINE, num_slots=1, history=2)
+    if framework == "port":
+        e = PagedContinuousBatchingEngine(port, device="cpu", **kw)
+        wrap = lambda p: p                                  # noqa: E731
+    else:
+        e = JaxEngine(ref, make_mesh(dp=1, tp=2),
+                      transformer_lm_sharding_rules(), **kw)
+        wrap = lambda p: nd.array(p, dtype="int32")         # noqa: E731
+    rids = [e.submit(wrap(np.array([[4, 8, 15, t]], np.int32)), 2)
+            for t in range(3)]
+    assert [e.status(r) for r in rids] == ["queued"] * 3
+    e.run()
+    assert [e.status(r) for r in rids] == ["unknown", "ok", "ok"]
