@@ -81,7 +81,9 @@ Phases, in order; any failure exits non-zero:
    scaled_dot_product_attention;
 8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
    their plain versions, causal and not, at T = 128, 100 and 150
-   (head_dim 16) and at (1, 32, 2048, 128), in float32 and bfloat16;
+   (head_dim 16), (1, 3, 70, 72), (1, 2, 96, 256) and (1, 32, 2048,
+   128), in float32 and bfloat16 (K4 and K5 not at head_dim 256 in
+   float32, where one block cannot hold their tiles);
 9. a small float32 model trained 3 Adam steps by ``SPMDTrainer`` on the
    card and on the CPU: the losses agree within 1e-4 relative;
 10. the training main path: the full-width Llama-3-8B cut to 4 layers,
@@ -89,7 +91,10 @@ Phases, in order; any failure exits non-zero:
    launch counts must be 20 each and the dense rule must not fire;
    torch.profiler over one more step;
 11. layer 0's flash inputs captured from the first counted step: kernel
-   against plain version, and the kernel, plain and library times;
+   against plain version, and the kernel, plain and library times; K3's
+   row also carries ``bound_tc_ms``, the bound of its 3xTF32 route on
+   the tensor cores (three TF32 products at 495 TFLOP/s) beside
+   ``bound_ms``, that of the same function in float32 on the CUDA cores;
 12. the conv backward kernel (K6) against its plain version at the test
    geometries and ResNet-50's three stage shapes at batch 128, in
    float32 and bfloat16;
@@ -143,6 +148,8 @@ import torch
 #: by input type (bf16 on the tensor cores, float32 on the CUDA cores)
 H100_BYTES_PER_S = 3.35e12
 H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: dense TF32 on the tensor cores: a 3xTF32 product is three TF32 products
+H100_TF32_OPS = 495e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: flash gradients, max abs error over max |plain|: float32 sums in other
 #: orders stay within a few ulps of the largest element (2**-23 each);
@@ -177,9 +184,10 @@ KERNEL_SOURCES = {
     "conv_bwd": ("mxtpu_torch/csrc/conv_bwd.cu",
                  "mxtpu/ops/pallas/conv_bwd.py:101"),
 }
-#: flash kernels against plain versions: (B, H, T, D)
+#: flash kernels against plain versions: (B, H, T, D), one shape of each
+#: head_dim class of the kernels (up to 64, 128 and 256)
 FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
-                (1, 32, 2048, 128)]
+                (1, 3, 70, 72), (1, 2, 96, 256), (1, 32, 2048, 128)]
 #: the training main path: Llama-3-8B at full width, 4 of 32 layers
 TRAIN = dict(depth_factor=0.125, batch=1, seq=2048, lr=3e-4, warmup=1,
              steps=5)
@@ -420,7 +428,8 @@ def build():
         per_source={k: v["seconds"] for k, v in built.items()})
     for name, res in built.items():
         for line in res["log"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "smem", "spill")):
                 print("ptxas[%s] %s" % (name, line.strip()), flush=True)
 
 
@@ -1663,12 +1672,18 @@ def flash_case(shape, dtype, seed):
 
 
 def flash_kernels_against_plain():
+    """Each flash kernel against its plain version at ``FLASH_SHAPES``,
+    float32 and bfloat16, causal and not; K4 and K5 where one block
+    holds their tiles (not at head_dim 256 in float32)."""
+    from mxtpu_torch.ops import flash_attention as fa
+
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = flash_case(shape, dtype, seed=shape[2])
             for causal in (True, False):
                 errs = {kind: flash_err(kind, args) for kind, args in
-                        flash_args(q, k, v, do, causal).items()}
+                        flash_args(q, k, v, do, causal).items()
+                        if fa.fits(kind[len("flash_"):], shape[3], dtype)}
                 log(phase="flash_vs_plain", shape=list(shape),
                     dtype=str(dtype).split(".")[1], causal=causal,
                     max_abs_err={k: e[0] for k, e in errs.items()},
@@ -1854,6 +1869,10 @@ def measure_flash(kind, args, flush):
             out, (lq, lk, lv), args[3], retain_graph=True), flush)
     work = flash_work(kind, q, causal)
     res["bound_ms"], res["bound_by"] = bound(work[0], work[1], q.dtype)
+    if kind == "flash_fwd" and q.dtype == torch.float32:
+        # K3's route: both products in 3xTF32 on the tensor cores
+        res["bound_tc_ms"] = max(work[0] / H100_BYTES_PER_S,
+                                 3 * work[1] / H100_TF32_OPS) * 1e3
     return res
 
 
@@ -2203,6 +2222,8 @@ def main():
                          plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
+        if "bound_tc_ms" in res:
+            rows[-1]["bound_tc_ms"] = res["bound_tc_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

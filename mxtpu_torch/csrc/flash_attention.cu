@@ -2,9 +2,9 @@
 // (sm_90a): three kernels, one per Pallas TPU kernel of
 // mxtpu/ops/pallas/flash_attention.py.
 //
-//   flash_fwd_kernel  replaces _fwd_kernel (K3): o = softmax(q.k^T*scale).v
-//                     with the online softmax, plus the per-row
-//                     logsumexp lse;
+//   flash_fwd_kernel  replaces _fwd_kernel (K3, flash_attention.py:107,
+//                     pallas_call :185): o = softmax(q.k^T*scale).v with
+//                     the online softmax, plus the per-row logsumexp lse;
 //   flash_dq_kernel   replaces _dq_kernel (K4): dq = scale * sum_k ds.k,
 //                     ds = p*(dO.v^T - delta), p = exp(s - lse);
 //   flash_dkv_kernel  replaces _dkv_kernel (K5): dv = sum_q p^T.dO and
@@ -14,41 +14,102 @@
 // delta = rowsum(dO*O) comes from the caller, as the reference computes
 // it in XLA outside the kernels.
 //
-// Design.  On the TPU a grid step carried the online-softmax state (or a
+// On the TPU a grid step carried the online-softmax state (or a
 // gradient sum) in VMEM scratch to the next step of the sequential grid
 // axis.  Blocks on the card run in parallel and in no order, so the
-// sequential axis is a loop inside one block: K3 and K4 run one block of
-// 256 threads per (b*h, 64-row query tile) and walk 64-key K/V tiles;
-// K5 runs one block per (b*h, 64-key tile) and walks 64-row Q/dO tiles,
-// from the diagonal on when causal.  No block writes what another reads,
-// so nothing needs atomics.  The block's resident tile is converted to
-// float32 once (queries pre-scaled in K3, as the Pallas forward does);
-// the walked tiles are copied 16 bytes a thread with cp.async, double-
-// buffered where shared memory allows (every float32 and bfloat16 shape
-// up to head_dim 128), so the copies of tile j+1 run while the block
-// computes on tile j.  Each thread owns a 4x4 patch of the 64x64 score
-// tile (4 rows, keys tx + 16j) and 4 rows by ceil(D/64) float4 columns of
-// the output; the probabilities (or ds) go through shared memory between
-// the two products.  Each kernel masks the ragged edge itself (rows and
-// keys at or past T) instead of padding in the wrapper.
+// sequential axis is a loop inside one block.  No block writes what
+// another reads, so nothing needs atomics.  The walked tiles are copied
+// 16 bytes a thread with cp.async, double-buffered where shared memory
+// allows, so the copies of tile j+1 run while the block computes on
+// tile j.  Each kernel masks the ragged edge itself (rows and keys at or
+// past T; K/V rows past T land as zeros) instead of padding in the
+// wrapper.  Arithmetic: the Pallas kernels' in float32 — masked scores
+// at -1e30, p = exp(s - m) in the forward with l = l*corr + sum p, the
+// output acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)); in the
+// backward s = scale * (q.k), p = exp(s - lse), ds = p*(dp - delta), dq
+// and dk scaled by `scale` once at the end.
 //
-// Arithmetic: the Pallas kernels' in float32 — masked scores at -1e30,
-// p = exp(s - m) in the forward with l = l*corr + sum p, the output
-// acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)); in the backward
-// s = scale * (q.k), p = exp(s - lse), ds = p*(dp - delta), dq and dk
-// scaled by `scale` once at the end.  Products run as true float32 FMAs
-// on the CUDA cores (no TF32), as the reference's HIGHEST precision
-// asks; bfloat16 operands are read as float32 and the results rounded
-// once.
+// K3 runs both of its products on the tensor cores, as warp-level
+// mma.sync.m16n8k8 TF32 at float32 accuracy (3xTF32).  The reference
+// runs the kernel at Precision.HIGHEST for float32, and the port holds
+// K3 to 2e-5 of its plain version.  TF32 keeps 10 mantissa bits, so
+// each operand x is split as big = cvt.rna.tf32(x), small =
+// cvt.rna.tf32(x - big) (the same rounding done by integer ops, see
+// split()), and a product is small*big + big*small + big*big, three
+// MMAs (CUTLASS's OpMultiplyAddFastF32 order; the small*small term,
+// about 2^-22 of the product, is dropped).  Raw float32 bits are never
+// fed to an MMA: it truncates them.  Emulated on the CPU at (1, 4,
+// 1024, 128), causal, the max abs error of o against float64 is 8.4e-7
+// in float32, 1.5e-6 in 3xTF32 and 9.7e-4 in plain TF32, 50x the
+// tolerance (tests/test_torch_flash_attention.py holds the split's
+// arithmetic).  The emulation sums with rounding to nearest; an MMA
+// adds into its accumulator with truncation toward zero, so a long
+// chain of MMAs into one accumulator drifts by up to an ulp of the
+// running sum a link, all one way.  Chained through, S's 48 links at
+// D = 128 and O's 768 over 2048 keys put o 7.5e-5 off on the training
+// path's inputs, where |o| reaches several units (chip_smoke.py phase
+// 11 on the H100).  So each product step runs its three MMAs into a
+// fresh zero accumulator and adds the result in float32, rounded to
+// nearest: once a depth step for S, and once a key tile for O, where
+// acc = acc * corr + (P.V of the tile) is one fused multiply-add.
+// A bfloat16 K or V element is exactly a TF32 value, so its small part
+// is zero and that MMA is skipped.
+//
+// K3's tiling is FlashAttention-2's split-Q: one block per (b*h, query
+// tile); each warp owns 16 query rows and walks K/V tiles of 16 keys (32
+// up to head_dim 64).  Lane (g, t) = (lane/4, lane%4) holds score rows
+// g and g+8 at keys 2t and 2t+1 of each 8-key group (the MMA's C
+// fragment), so a row's max and sum stay in the quad of 4 lanes (two
+// __shfl_xor_sync).  P never goes through shared memory: the A fragment
+// of O += P.V wants keys t and t+4 of an 8-key step where the C
+// fragment has 2t and 2t+1, and since P.V sums over keys the k index is
+// relabelled (k = t is key 2t, k = t+4 is key 2t+1) and V's B fragment
+// is read from keys 2t and 2t+1.  S = Q.K^T relabels its depth the same
+// way (k = t is dim 2t).
+//
+// Splitting costs more instructions than the MMAs it feeds, so each
+// K/V tile is split once by the whole block, not once by each warp: the
+// tile is staged with 16-byte cp.async copies, then split into two
+// planes of (big, big, small, small) words, K's by key and dim pair
+// (2t, 2t+1), V's by key pair (2t, 2t+1) and dim, so that a lane's whole
+// B fragment, big and small, is one 16-byte load.  Plane rows are 16
+// (K) and 8 (V) words mod 32 apart, which keeps each quarter-warp's
+// loads on distinct banks.  The next tile's copies are issued as soon as
+// the split has read the staged one and land while the warps multiply.
+// The pre-scaled queries stay in shared memory as float32 (Q rows 8
+// words mod 32 apart: a half-warp's 8-byte loads on banks 8g + 2t) and
+// are split as the A fragments are read.  The causal mask runs on
+// diagonal tiles only, and a warp skips a tile that none of its rows
+// attends (its p would be exactly 0).
+//
+// What bounds it on the card is latency, not a pipe: the MMAs feed on
+// shared-memory loads and on each other (three into one accumulator),
+// and the block's two barriers a tile keep its warps in step, so the
+// more warps an SM holds the faster K3 runs.  Hence 16 warps (256
+// query rows, 123 registers a thread, 190 KB of shared memory at
+// D = 128 in float32) on 16-key tiles, and the grid's x dimension is
+// the head: blocks start in order of their linear index, so all heads'
+// last (heaviest causal) query tiles start first and the light ones
+// fill the tail.  The staging copies and the split walk each
+// row at the class's widest head_dim, so that their indices are shifts.
 //
 // Bound on the H100 at the training path's shape (B*H = 32, T = 2048,
-// D = 128, causal, float32): operations.  Counting the causal half of the
-// score tile, K3 does 4*D flops per attended (row, key) pair (34.4
-// GFLOP), K4 6*D (51.5 GFLOP) and K5 8*D (68.7 GFLOP): 0.51, 0.77 and
-// 1.03 ms at the 67 TFLOP/s float32 peak, against ~0.04 ms to move K3's
-// 134 MB.  This version stays on the CUDA cores and on one block per SM
-// (its shared memory); tensor-core tiles (wgmma on bf16, or 3xTF32 for
-// float32) and TMA loads are the next steps.
+// D = 128, causal, float32): operations.  Counting the causal half of
+// the score tile, K3 does 4*D flops per attended (row, key) pair (34.4
+// GFLOP): 0.513 ms at the 67 TFLOP/s float32 CUDA-core peak, the bound
+// of the same function in true float32; in 3xTF32 on the tensor cores
+// it is three times the flops at 495 TFLOP/s, 0.208 ms, against ~0.04
+// ms to move its 134 MB.  K4 does 6*D flops a pair (51.5 GFLOP) and K5
+// 8*D (68.7 GFLOP): 0.77 and 1.03 ms at the float32 peak.
+//
+// K4 and K5 stay on the CUDA cores, one block of 256 threads per
+// (b*h, 64-row query tile) (K4) or 64-key tile (K5, from the diagonal
+// on when causal).  The block's resident tile is converted to float32
+// once; each thread owns a 4x4 patch of the 64x64 score tile (4 rows,
+// keys tx + 16j) and 4 rows by ceil(D/64) float4 columns of the output;
+// p (or ds) goes through shared memory between the two products, which
+// run as true float32 FMAs; bfloat16 operands are read as float32 and
+// the results rounded once.
 
 #include "paged_common.cuh"
 
@@ -61,10 +122,11 @@ using mxtpu_port::cp_async_wait_one;
 using mxtpu_port::from_float;
 using mxtpu_port::kMaxSmem;
 using mxtpu_port::kNegInf;
+using mxtpu_port::load2;
 using mxtpu_port::to_float;
 
-constexpr int kThreads = 256;  // 16 x 16: tx = tid % 16, ty = tid / 16
-constexpr int kTile = 64;      // query rows and keys per tile
+constexpr int kThreads = 256;  // K4, K5: 16 x 16: tx = tid % 16, ty = tid / 16
+constexpr int kTile = 64;      // query rows and keys per tile (K3: keys)
 constexpr int kLdP = kTile + 4;  // row stride of the p / ds tile
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -75,13 +137,30 @@ __host__ __device__ inline int ld_t(int D, int elt) { return D + 16 / elt; }
 // row stride of a float32 resident tile
 __host__ __device__ inline int ld_f(int D) { return D + 4; }
 
+// K3's strides (see the note): float32 Q rows, in floats; the K plane's
+// key rows and the V plane's key-pair rows, in 32-bit words
+__host__ __device__ inline int fwd_ld_q(int D) { return D + ((8 - D) & 31); }
+__host__ __device__ inline int fwd_ld_kp(int D) {
+  return 2 * D + ((16 - 2 * D) & 31);
+}
+__host__ __device__ inline int fwd_ld_vp(int D) { return 4 * D + 8; }
+// K3's tiling by head_dim class (chosen on the H100 at head_dim 64, 128
+// and 256): keys per K/V tile, 32 up to head_dim 64 and 16 above (where
+// 16 warps' queries fill shared memory); the most warps a block, 12 up
+// to head_dim 64, 16 (registers capped at 128 a thread) up to 128, and
+// 8 above, where the output accumulator alone is 128 registers a thread
+__host__ __device__ constexpr int fwd_keys(int D) { return D > 64 ? 16 : 32; }
+__host__ __device__ constexpr int fwd_max_warps(int D) {
+  return D > 128 ? 8 : D > 64 ? 16 : 12;
+}
+
+// K4's and K5's shared memory with `stages` tile buffers
 __host__ __device__ inline size_t smem_bytes(int kind, int D, int elt,
                                              int stages) {
   const size_t tile_t = (size_t)kTile * ld_t(D, elt) * elt;
   const size_t tile_f = (size_t)kTile * ld_f(D) * sizeof(float);
   const size_t p = (size_t)kTile * kLdP * sizeof(float);
   const size_t rows = (size_t)kTile * sizeof(float);
-  if (kind == kFwd) return tile_f + 2 * stages * tile_t + p;
   if (kind == kDq) return 2 * tile_f + 2 * rows + 2 * stages * tile_t + p;
   return 2 * tile_f + stages * (2 * tile_t + 2 * rows) + p;
 }
@@ -89,6 +168,25 @@ __host__ __device__ inline size_t smem_bytes(int kind, int D, int elt,
 __host__ __device__ inline int stages_for(int kind, int D, int elt) {
   if (smem_bytes(kind, D, elt, 2) <= kMaxSmem) return 2;
   return smem_bytes(kind, D, elt, 1) <= kMaxSmem ? 1 : 0;
+}
+
+// K3's shared memory for a block of `warps` warps (16 query rows each):
+// the pre-scaled queries, the split K and V planes, and one staged
+// K/V tile
+__host__ __device__ inline size_t fwd_smem_bytes(int D, int elt,
+                                                 int warps) {
+  const int kt = fwd_keys(D);
+  return ((size_t)16 * warps * fwd_ld_q(D) + (size_t)kt * fwd_ld_kp(D) +
+          (size_t)kt / 2 * fwd_ld_vp(D)) * 4 +
+         (size_t)2 * kt * ld_t(D, elt) * elt;
+}
+
+// K3's warps a block: the most of 16, 12, 8 or 4 (up to fwd_max_warps)
+// that fit (0 when none do)
+__host__ __device__ inline int fwd_warps(int D, int elt) {
+  for (int w = fwd_max_warps(D); w > 0; w -= 4)
+    if (fwd_smem_bytes(D, elt, w) <= kMaxSmem) return w;
+  return 0;
 }
 
 // 4 consecutive elements as float32 (16 bytes for float, 8 for bf16)
@@ -121,13 +219,15 @@ __device__ void issue_rows(T* dst, const T* __restrict__ src, int r0,
   }
 }
 
-// Rows [r0, r0 + kTile) of one (T, D) matrix into a float32 tile of
-// row stride ld_f(D), times `scale`; rows at or past T as zeros.
+// Rows [r0, r0 + n) of one (T, D) matrix into a float32 tile of row
+// stride ld (ld_f(D) and n = kTile by default), times `scale`; rows at
+// or past T as zeros.
 template <typename T>
 __device__ void load_rows_f(float* dst, const T* __restrict__ src, int r0,
-                            int T_len, int D, float scale) {
-  const int ld = ld_f(D);
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
+                            int T_len, int D, float scale,
+                            int ld = -1, int n = kTile) {
+  if (ld < 0) ld = ld_f(D);
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
     const int r = i / D;
     const int d = i - r * D;
     dst[r * ld + d] =
@@ -166,17 +266,6 @@ __device__ __forceinline__ int await_tile(int j, int first, int n,
   }
   __syncthreads();
   return buf;
-}
-
-// sum / max over the 16 threads that share a row (one half-warp)
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // acc[i][c][:] += sum_k P[r0 + i][k] * X[k][(tx + 16c)*4 + :] over the 64
@@ -262,102 +351,260 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const TA* A,
 
 // -- K3 ------------------------------------------------------------------
 
-template <typename T, int CG>
-__global__ void __launch_bounds__(kThreads)
+// x = big + small to float32 accuracy, both TF32 (10 mantissa bits) as
+// cvt.rna.tf32.f32 rounds, to nearest with ties away from zero: half a
+// TF32 unit (bit 12) is added to the magnitude and the 13 low bits are
+// dropped.  big drops them here, since x - big needs its value; small
+// keeps them and the MMA, which reads a TF32 operand's top 19 bits
+// only, drops them.  Three integer ops and one float op against the ~8
+// of two cvt.rna (ptxas guards each against inf and NaN, which the
+// inputs and p = exp(s - m) never hold).
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a.b, one m16n8k8 TF32 product with float32 sums.  Lane (g, t)
+// holds a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g],
+// B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in 3xTF32: a = ab + as, b = (big0, big1, small0, small1)
+// from a plane; the big*small product is skipped where b's small part
+// is zero (a bfloat16 b is exactly TF32)
+template <typename T>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint4 b) {
+  mma(d, as, b.x, b.y);
+  if (sizeof(T) == 4) mma(d, ab, b.z, b.w);
+  mma(d, ab, b.x, b.y);
+}
+
+// the A fragment (rows g, g+8; k = t, t+4) from four float32 values
+__device__ __forceinline__ void split_a(float a0, float a1, float a2,
+                                        float a3, uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  split(a0, big[0], small[0]);
+  split(a1, big[1], small[1]);
+  split(a2, big[2], small[2]);
+  split(a3, big[3], small[3]);
+}
+
+// Start the copies of K/V tile j (KT keys from key j*KT, row stride ld)
+// into the staging buffers; keys at or past T land as zeros.  A row is
+// walked as 8*DT / E 16-byte chunks, the class's widest, so that the
+// indices are shifts; chunks past D are skipped.
+template <typename T, int DT, int KT>
+__device__ void issue_tile(T* Kr, T* Vr, const T* __restrict__ k,
+                           const T* __restrict__ v, int j, int T_len, int D,
+                           int ld) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = 8 * DT / E;  // chunks a row
+  for (int c = threadIdx.x; c < 2 * KT * CPR; c += blockDim.x) {
+    const int r = (c / CPR) % KT, col = (c % CPR) * E;
+    if (col >= D) continue;
+    const bool is_v = c >= KT * CPR, valid = j * KT + r < T_len;
+    const size_t at = valid ? (size_t)(j * KT + r) * D + col : 0;
+    cp_async16((is_v ? Vr : Kr) + r * ld + col, (is_v ? v : k) + at, valid);
+  }
+  cp_async_commit();
+}
+
+// Split one staged K/V tile of KT keys (row stride ld) into the planes
+// the warps' B fragments read with one 16-byte load each:
+//   Kp[key][p]  = big, big, small, small of dims 2p, 2p+1 (the depth
+//                 step's k = t, t+4 for p = 4*step + t);
+//   Vp[i][d]    = big, big, small, small of keys 2i, 2i+1 at dim d
+//                 (the key step's k = t, t+4 for i = 4*step + t).
+// Rows are walked as 4*DT dim pairs, the class's widest (shifts, not
+// divisions); pairs past D are skipped.
+template <typename T, int DT, int KT>
+__device__ void split_tile(uint32_t* Kp, uint32_t* Vp, const T* Kr,
+                           const T* Vr, int D, int ld) {
+  constexpr int P = 4 * DT;  // dim pairs a row
+  const int ldkp = fwd_ld_kp(D), ldvp = fwd_ld_vp(D);
+  for (int c = threadIdx.x; c < KT * P; c += blockDim.x) {
+    const int key = c / P, p = c % P;
+    if (2 * p >= D) continue;
+    const float2 x = load2(Kr + key * ld + 2 * p);
+    uint4 w;
+    split(x.x, w.x, w.z);
+    split(x.y, w.y, w.w);
+    *reinterpret_cast<uint4*>(Kp + key * ldkp + 4 * p) = w;
+  }
+  for (int c = threadIdx.x; c < KT / 2 * P; c += blockDim.x) {
+    const int i = c / P, p = c % P;
+    if (2 * p >= D) continue;
+    const float2 x0 = load2(Vr + 2 * i * ld + 2 * p);  // key 2i
+    const float2 x1 = load2(Vr + (2 * i + 1) * ld + 2 * p);
+    uint4 w0, w1;  // dims 2p and 2p+1
+    split(x0.x, w0.x, w0.z);
+    split(x1.x, w0.y, w0.w);
+    split(x0.y, w1.x, w1.z);
+    split(x1.y, w1.y, w1.w);
+    uint4* dst = reinterpret_cast<uint4*>(Vp + i * ldvp + 8 * p);
+    dst[0] = w0;
+    dst[1] = w1;
+  }
+}
+
+// DT: 8-wide column tiles of the widest head_dim of the launch's class
+template <typename T, int DT>
+__global__ void __launch_bounds__(32 * fwd_max_warps(8 * DT))
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int T_len, int D, int causal,
-                     float scale, int stages) {
+                     float scale) {
+  constexpr int KT = fwd_keys(8 * DT);  // keys per K/V tile
+  constexpr int NT = KT / 8;            // 8-key groups of a tile
   extern __shared__ uint4 smem[];
-  const int ldt = ld_t(D, sizeof(T));
-  const int ldf = ld_f(D);
-  const size_t tile_t = (size_t)kTile * ldt;
+  const int rows = blockDim.x / 2;  // 16 query rows a warp
+  const int ldq = fwd_ld_q(D), ldkp = fwd_ld_kp(D), ldvp = fwd_ld_vp(D);
+  const int ldr = ld_t(D, sizeof(T));
   float* Qs = reinterpret_cast<float*>(smem);
-  T* kv = reinterpret_cast<T*>(Qs + kTile * ldf);
-  T* Ks[2] = {kv, kv + 2 * tile_t};
-  T* Vs[2] = {kv + tile_t, kv + 3 * tile_t};
-  float* Ps = reinterpret_cast<float*>(kv + 2 * stages * tile_t);
+  uint32_t* Kp = reinterpret_cast<uint32_t*>(Qs + rows * ldq);
+  uint32_t* Vp = Kp + KT * ldkp;
+  T* Kr = reinterpret_cast<T*>(Vp + KT / 2 * ldvp);  // the staged tile
+  T* Vr = Kr + KT * ldr;
 
-  const int tid = threadIdx.x, tx = tid & 15, r0 = (tid >> 4) * 4;
-  // heaviest (last) query tiles first: a causal walk grows with the tile
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
-  const size_t base = (size_t)blockIdx.y * T_len * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // blocks start in order of their linear index, x fastest: all heads'
+  // last query tiles first, so the heaviest causal walks start first
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * rows;
+  const int r0 = q0 + 16 * warp;  // the warp's first query row
+  const size_t base = (size_t)blockIdx.x * T_len * D;
+  int nk = (T_len + KT - 1) / KT;
+  if (causal) nk = min(nk, (q0 + rows - 1) / KT + 1);
   const T* kg = k + base;
   const T* vg = v + base;
-  int nk = (T_len + kTile - 1) / kTile;
-  if (causal) nk = min(nk, qt + 1);
-  auto issue = [&](int j, int b) {
-    issue_rows(Ks[b], kg, j * kTile, T_len, D);
-    issue_rows(Vs[b], vg, j * kTile, T_len, D);
-  };
-  if (stages == 2) {
-    issue(0, 0);
-    cp_async_commit();
-  }
-  load_rows_f(Qs, q + base, q0, T_len, D, scale);
+  issue_tile<T, DT, KT>(Kr, Vr, kg, vg, 0, T_len, D, ldr);
+  load_rows_f(Qs, q + base, q0, T_len, D, scale, ldq, rows);
 
-  float m[4], l[4], acc[4][CG][4];
+  // rows g (h = 0) and g + 8 (h = 1) of the warp's 16
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int dn = 0; dn < DT; ++dn)
 #pragma unroll
-    for (int c = 0; c < CG; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  const float* qrow = Qs + (16 * warp + g) * ldq + 2 * t;
+  const uint32_t* kp = Kp + g * ldkp + 4 * t;
+  const uint32_t* vp = Vp + t * ldvp + 4 * g;
   for (int j = 0; j < nk; ++j) {
-    const int b = await_tile(j, 0, nk, stages, issue);
-    float s[4][4];
-    scores(s, Qs, ldf, r0, Ks[b], ldt, tx, D);
+    // tile j has landed, and no warp still reads the planes of tile j-1
+    cp_async_wait_all();
+    __syncthreads();
+    split_tile<T, DT, KT>(Kp, Vp, Kr, Vr, D, ldr);
+    __syncthreads();
+    if (j + 1 < nk)  // lands while the warps compute
+      issue_tile<T, DT, KT>(Kr, Vr, kg, vg, j + 1, T_len, D, ldr);
+    const int key0 = j * KT;
+    // a warp whose rows all lie past T, or before this tile's first key
+    // when causal, attends none of it
+    if (r0 >= T_len || (causal && key0 > r0 + 15)) continue;
+    // S = Q.K^T: k = t, t+4 of a depth step are dims 2t, 2t+1
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + r0 + i;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DT; ++ks) {
+      if (ks * 8 < D) {
+        const float2 x0 = load2(qrow + ks * 8);
+        const float2 x1 = load2(qrow + 8 * ldq + ks * 8);
+        uint32_t ab[4], as[4];
+        split_a(x0.x, x1.x, x0.y, x1.y, ab, as);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3<T>(c, ab, as,
+                  *reinterpret_cast<const uint4*>(kp + nt * 8 * ldkp +
+                                                  ks * 16));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += c[e];
+        }
+      }
+    }
+    // the mask, on tiles that reach past T or past the warp's first row
+    if (key0 + KT > T_len || (causal && key0 + KT - 1 > r0)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + nt * 8 + 2 * t + (e & 1);
+          const int row = r0 + g + 8 * (e >> 1);
+          if (key >= T_len || (causal && key > row)) s[nt][e] = kNegInf;
+        }
+    }
+    // the online softmax; a row's scores lie in one quad of lanes
+    float cr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       float mx = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int key = j * kTile + tx + 16 * jj;
-        if (key >= T_len || (causal && key > row)) s[i][jj] = kNegInf;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - m_new);
-        Ps[(r0 + i) * kLdP + tx + 16 * jj] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < CG; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr;
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = expf(s[nt][e] - m_new);
+          sum += s[nt][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float corr = expf(m[h] - m_new);
+      l[h] = l[h] * corr + sum;
+      m[h] = m_new;
+      cr[h] = corr;  // the rescale of O, applied with the tile's P.V
     }
-    __syncthreads();
-    accumulate_pv<T, CG>(acc, Ps, r0, Vs[b], ldt, D, tx);
-    __syncthreads();
+    // O += P.V with P straight from S's fragment: k = t is key 2t,
+    // k = t+4 key 2t+1, the pair the V plane holds together
+    uint32_t pb[NT][4], ps[NT][4];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk)
+      split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3], pb[kk], ps[kk]);
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn)
+      if (dn * 8 < D) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NT; ++kk)
+          mma3<T>(c, pb[kk], ps[kk],
+                  *reinterpret_cast<const uint4*>(vp + kk * 4 * ldvp +
+                                                  dn * 32));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[dn][e] = fmaf(acc[dn][e], cr[e >> 1], c[e]);
+      }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r0 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
     if (row >= T_len) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* out = o + base + (size_t)row * D;
+    const float den = fmaxf(l[h], 1e-30f);
+    T* out = o + base + (size_t)row * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < CG; ++c) {
-      const int col = (tx + 16 * c) * 4;
-      if (col < D)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          out[col + e] = from_float<T>(acc[i][c][e] / den);
-    }
-    if (tx == 0)
-      lse[(size_t)blockIdx.y * T_len + row] = m[i] + logf(den);
+    for (int dn = 0; dn < DT; ++dn)
+      if (dn * 8 < D) {
+        out[dn * 8] = from_float<T>(acc[dn][2 * h] / den);
+        out[dn * 8 + 1] = from_float<T>(acc[dn][2 * h + 1] / den);
+      }
+    if (t == 0) lse[(size_t)blockIdx.x * T_len + row] = m[h] + logf(den);
   }
 }
 
@@ -568,19 +815,25 @@ struct Args {
 
 template <typename T, int CG>
 int launch(int kind, const Args& a) {
+  const cudaStream_t st = (cudaStream_t)a.stream;
+  cudaError_t err;
+  if (kind == kFwd) {
+    const int warps = fwd_warps(a.D, sizeof(T));
+    if (warps == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = fwd_smem_bytes(a.D, sizeof(T), warps);
+    const dim3 grid(a.BH, (a.T_len + 16 * warps - 1) / (16 * warps));
+    err = mxtpu_port::allow_smem(flash_fwd_kernel<T, 8 * CG>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_kernel<T, 8 * CG><<<grid, 32 * warps, smem, st>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out,
+        (float*)a.lse_out, a.T_len, a.D, a.causal, a.scale);
+    return (int)cudaGetLastError();
+  }
   const int stages = stages_for(kind, a.D, sizeof(T));
   if (stages == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(kind, a.D, sizeof(T), stages);
   const dim3 grid((a.T_len + kTile - 1) / kTile, a.BH);
-  const cudaStream_t st = (cudaStream_t)a.stream;
-  cudaError_t err;
-  if (kind == kFwd) {
-    err = mxtpu_port::allow_smem(flash_fwd_kernel<T, CG>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<T, CG><<<grid, kThreads, smem, st>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out,
-        (float*)a.lse_out, a.T_len, a.D, a.causal, a.scale, stages);
-  } else if (kind == kDq) {
+  if (kind == kDq) {
     err = mxtpu_port::allow_smem(flash_dq_kernel<T, CG>, smem);
     if (err != cudaSuccess) return (int)err;
     flash_dq_kernel<T, CG><<<grid, kThreads, smem, st>>>(
@@ -598,7 +851,8 @@ int launch(int kind, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// float4 column groups per thread: ceil(D / 64)
+// float4 column groups per thread of K4 and K5: ceil(D / 64) (K3: 8x as
+// many 8-wide column tiles)
 template <typename T>
 int dispatch(int kind, const Args& a) {
   if (a.D % 8 || a.D > 256 || a.T_len < 1) return (int)cudaErrorInvalidValue;
@@ -611,10 +865,12 @@ int dispatch(int kind, const Args& a) {
 
 extern "C" {
 
-// tile buffers a launch of `kind` (0 fwd, 1 dq, 2 dkv) uses at head_dim
-// D and element size elt: 2, 1, or 0 when one block's shared memory
-// cannot hold the tiles
+// Staged tile buffers a launch of `kind` (0 fwd, 1 dq, 2 dkv) uses at
+// head_dim D and element size elt: 2 or 1 (K3 always 1: its copies run
+// under the warps' products), or 0 when one block's shared memory cannot
+// hold the tiles
 int mxtpu_flash_stages(int kind, int D, int elt) {
+  if (kind == kFwd) return fwd_warps(D, elt) ? 1 : 0;
   return stages_for(kind, D, elt);
 }
 

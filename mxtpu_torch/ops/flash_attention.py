@@ -35,7 +35,7 @@ from .paged_attention import _DTYPES, _NEG_INF
 
 __all__ = ["flash_attention", "dense_attention", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_plain", "flash_dq_plain",
-           "flash_dkv_plain", "DENSE_NAME"]
+           "flash_dkv_plain", "fits", "DENSE_NAME"]
 
 DENSE_NAME = "flash_attention_dense"
 _FNS: dict = {}
@@ -135,6 +135,14 @@ def _lib():
     return lib
 
 
+def fits(kind, D, dtype):
+    """Whether one block's shared memory holds the tiles of kernel
+    ``kind`` ("fwd", "dq" or "dkv") at head_dim D in ``dtype`` (loads
+    the kernel library)."""
+    return bool(_lib().mxtpu_flash_stages(_KINDS[kind][0], D,
+                                          dtype.itemsize))
+
+
 def _check(name, kind, tensors, floats=()):
     """Raise for operands the kernels do not take: (B, H, T, D) tensors
     of one shape and dtype (float32 or bfloat16) on one CUDA device,
@@ -170,7 +178,7 @@ def _check(name, kind, tensors, floats=()):
                          "most 256" % (name, D))
     if T < 1:
         raise MXTPUError("%s: empty sequence" % name)
-    if not _lib().mxtpu_flash_stages(_KINDS[kind][0], D, q.element_size()):
+    if not fits(kind, D, q.dtype):
         raise MXTPUError("%s: head_dim %d needs more shared memory than one "
                          "block has" % (name, D))
 

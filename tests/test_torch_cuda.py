@@ -8,15 +8,16 @@ tree mask at W = 2 to 32 with its two bit-exact invariants (a chain
 call at pos + w, checked with ``torch.equal``).  The flash-attention
 kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
 and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
-plus head_dim 72 and 256.  The conv backward kernel (K6) over
-geometries the main path does not reach: Ci != Co, H != W, N = 1,
-channel counts that are not multiples of its 64-wide tiles, and one
-ResNet-50 stage shape.  K1 and K2 over int8 pools with their float32
-scales (the float cases quantized per row by the cache's quantizer): the
-decode read, the prefill chunk, and K1's window and tree with its two
-invariants.  G1 (``rows_linear``) against its plain version over ragged
-row counts and Llama-3-8B's six projection shapes, every row
-``torch.equal`` across the row counts (held relative to its largest
+plus head_dim 8, 72 and 256 and K3's tiling edges (T = 1, below and
+one past a query tile), K3's lse held on every row.  The conv backward
+kernel (K6) over geometries the main path does not reach: Ci != Co,
+H != W, N = 1, channel counts that are not multiples of its 64-wide
+tiles, and one ResNet-50 stage shape.  K1 and K2 over int8 pools with
+their float32 scales (the float cases quantized per row by the cache's
+quantizer): the decode read, the prefill chunk, and K1's window and
+tree with its two invariants.  G1 (``rows_linear``) against its plain
+version over ragged row counts and Llama-3-8B's six projection shapes,
+every row ``torch.equal`` across the row counts (held relative to its largest
 output, ``GRAD_TOL``: its outputs reach several units, where one
 bfloat16 ulp exceeds 2e-2), and G2 (``rows_rms_norm``) the same way.
 Also what the wrappers reject on the card.
@@ -353,9 +354,14 @@ def test_rows_linear_rejects_what_the_kernel_does_not_take(cuda):
     assert base.counts() == {}
 
 
-# (B, H, T, D) of the flash kernels
+# (B, H, T, D) of the flash kernels; then K3's tiling edges: T below one
+# 128-row query tile, one past it, one past a 64-row tile (head_dim 256
+# in float32), a causal T not a multiple of the 64-key tile, and
+# head_dim 8, one depth step
 FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
-                (1, 3, 70, 72), (1, 2, 96, 256), (1, 32, 2048, 128)]
+                (1, 3, 70, 72), (1, 2, 96, 256), (1, 32, 2048, 128),
+                (1, 2, 40, 64), (1, 2, 129, 128), (1, 2, 65, 256),
+                (2, 2, 200, 32), (2, 3, 77, 8)]
 
 
 def _flash_case(shape, dtype, seed):
@@ -395,6 +401,48 @@ def test_flash_kernels_match_plain(cuda, shape, dtype, causal):
         bound = GRAD_TOL[dtype] * float(ref.float().abs().max())
         assert _err(got, ref) <= bound, name
     assert base.counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+#: K3's lse at its tiling edges: T = 1, one past a 128-row query tile,
+#: one past a 64-row one (head_dim 256), a ragged causal tail at head_dim 8
+LSE_SHAPES = [(1, 2, 1, 64), (1, 3, 129, 128), (1, 2, 65, 256),
+              (2, 2, 200, 8)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", LSE_SHAPES,
+                         ids=lambda s: "T%d-D%d" % (s[2], s[3]))
+def test_flash_fwd_lse_matches_plain_on_every_row(cuda, shape, dtype,
+                                                  causal):
+    """K3's logsumexp within 2e-5 of the plain version's on every row,
+    the rows of a partial last query tile included; lse is float32 and
+    finite everywhere."""
+    q, k, v, _ = _flash_case(shape, dtype, seed=shape[2] + 3 * shape[3])
+    scale = 1.0 / shape[3] ** 0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    assert lse.dtype == torch.float32 and bool(torch.isfinite(lse).all())
+    row_err = (lse - want_lse).abs().amax(dim=(0, 1))
+    bad = (row_err > TOL[torch.float32]).nonzero().flatten().tolist()
+    assert not bad, "rows %s off by up to %g" % (bad, float(row_err.max()))
+    assert _err(o, want_o) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_fwd_holds_the_tolerance_on_large_outputs(cuda, causal):
+    """K3 within 2e-5 of its plain version over a 2048-key walk where
+    |o| reaches several units, as on the training path: the tensor cores
+    truncate each sum into an accumulator, so a long chain of products
+    into one accumulator drifts one way (7.5e-5 on the training path's
+    captured inputs on an H100, where |o| reaches several units)."""
+    q, k, v = _flash_case((1, 4, 2048, 128), torch.float32, seed=5)[:3]
+    v = v + 3
+    o, lse = fa.flash_fwd(q, k, v, 128 ** -0.5, causal)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, 128 ** -0.5, causal)
+    assert float(want_o.abs().max()) > 3
+    assert _err(o, want_o) <= TOL[torch.float32]
+    assert _err(lse, want_lse) <= TOL[torch.float32]
 
 
 def test_flash_autograd_on_the_card_matches_the_cpu(cuda):

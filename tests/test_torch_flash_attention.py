@@ -9,7 +9,14 @@ D = 16) with ``q_block=64, kv_block=128`` on the reference side (its
 own cases in ``tests/test_flash_attention.py``), and the reference's
 dense rule (T < 16 or D % 8 != 0).  Tolerance rtol 1e-4 / atol 1e-5, as
 the reference's own tests use: both sides compute in float32 and differ
-only in the order of their sums."""
+only in the order of their sums.
+
+K3's arithmetic on the card (3xTF32 on the tensor cores) is emulated
+here: each operand of both products split into TF32 big and small parts
+rounded as ``cvt.rna.tf32.f32`` rounds, the product small*big +
+big*small + big*big in float32, over K3's 64-key walk.  It stays within
+the card's float32 tolerance (2e-5 max abs error, ``chip_smoke.TOL``)
+of the plain version; one TF32 product does not."""
 
 import math
 
@@ -145,3 +152,88 @@ def test_wrappers_raise_off_the_cpu_and_the_card():
     with pytest.raises(MXTPUError, match="no kernel"):
         fa.flash_dkv(x, x, x, x, lse, lse, 0.25, True)
     assert base.counts() == {}
+
+
+# -- K3's 3xTF32 arithmetic, emulated ----------------------------------------
+
+CARD_TOL = 2e-5   # chip_smoke.TOL[float32]: kernel against plain version
+
+
+def _tf32(x):
+    """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, by integer ops on the float32 bits
+    (add half of the 13 dropped bits' unit to the magnitude, then clear
+    them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as K3 forms it: a = ab + as, b = bb + bs in TF32, and
+    small*big + big*small + big*big with float32 sums."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _mm_tf32(a, b):
+    """a @ b as one TF32 product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_fwd(q, k, v, scale, causal, mm, tile=64):
+    """K3's walk over 64-key tiles with the online softmax, its two
+    products formed by ``mm``."""
+    T = q.shape[-2]
+    qs = q * scale
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros_like(q)
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, T, tile):
+        kt, vt = k[..., k0:k0 + tile, :], v[..., k0:k0 + tile, :]
+        s = mm(qs, kt.transpose(-1, -2))
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+            s = s.masked_fill(keys > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm(p, vt)
+        m = m_new
+    den = l.clamp_min(1e-30)
+    return acc / den, (m + torch.log(den))[..., 0]
+
+
+def test_tf32_rounding_is_to_nearest_with_ties_away_from_zero():
+    one = 1.0
+    ulp = 2.0 ** -10                      # TF32's unit at 1.0
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2),
+                      one + ulp / 2 - 2 ** -23, one + 3 * ulp / 2, 1e-40,
+                      0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         1e-40, 0.0], dtype=torch.float32)
+    got = _tf32(x)
+    assert torch.equal(got[:4], want[:4])
+    assert got[5] == 0.0
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    # a bfloat16 value is exactly TF32, so its small part is zero
+    b = torch.randn(64).bfloat16().float()
+    assert torch.equal(_tf32(b), b)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_3xtf32_forward_holds_the_card_tolerance(causal):
+    """K3's 3xTF32 arithmetic within 2e-5 of the plain version on o and
+    lse at (1, 2, 256, 128), where one TF32 product misses it."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 256, 128).astype("float32"))
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(128)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    o, lse = _emulated_fwd(q, k, v, scale, causal, _mm_3xtf32)
+    assert float((o - want_o).abs().max()) <= CARD_TOL
+    assert float((lse - want_lse).abs().max()) <= CARD_TOL
+    o1, _ = _emulated_fwd(q, k, v, scale, causal, _mm_tf32)
+    assert float((o1 - want_o).abs().max()) > 10 * CARD_TOL
