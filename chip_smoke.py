@@ -97,7 +97,10 @@ Phases, in order; any failure exits non-zero:
    ``bound_ms``, that of the same function in float32 on the CUDA cores;
 12. the conv backward kernel (K6) against its plain version at the test
    geometries and ResNet-50's three stage shapes at batch 128, in
-   float32 and bfloat16;
+   float32 and bfloat16, and on one-signed float32 inputs (x = |randn|
+   + 1, dY = |randn|, as ResNet's post-ReLU activations are) at (128,
+   16, 16, 56, 56), where each dW element sums 401,408 products of one
+   sign: a tensor-core sum that drifts one way would show there;
 13. a narrow ResNet-v1 trained 3 SGD steps by ``gluon.Trainer`` on the
    card and on the CPU, the card's net taking the CPU's weights before
    each step: each step's loss within 1e-4 relative, its gradients
@@ -109,15 +112,20 @@ Phases, in order; any failure exits non-zero:
    must fall; torch.profiler over one more step;
 15. one K6 call per stage shape captured from the first counted step:
    kernel against plain version, and the kernel, plain and library
-   (cuDNN's convolution backward) times.
+   (cuDNN's convolution backward) times; each stage shape is a row of the
+   ``kernels`` line (``conv_bwd[64x56x56]``, ``conv_bwd[128x28x28]``,
+   ``conv_bwd[256x14x14]``) with its launches in phase 14 (3, 4 and 6 a
+   step) and ``bound_tc_ms``, the bound of K6's 3xTF32 route on the
+   tensor cores, beside ``bound_ms``.
 
 The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
 ``paged_attention[tree,W=16]``, the int8 forms as
 ``paged_attention[int8]``, ``paged_attention[int8,W=8]``,
-``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, and G1
-as one row per projection at M = 8, ``rows_linear[qkv,M=8]`` ..., and
-G2 as ``rows_rms_norm[M=8]``); the last line is
+``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, G1
+as one row per projection at M = 8, ``rows_linear[qkv,M=8]`` ..., G2
+as ``rows_rms_norm[M=8]``, and K6 as one row per stage shape); the last
+line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
 
@@ -196,6 +204,8 @@ TRAIN = dict(depth_factor=0.125, batch=1, seq=2048, lr=3e-4, warmup=1,
 CONV_SHAPES = [(2, 16, 32, 8, 8), (1, 32, 32, 14, 14), (2, 8, 24, 7, 9),
                (128, 64, 64, 56, 56), (128, 128, 128, 28, 28),
                (128, 256, 256, 14, 14)]
+#: K6 on one-signed float32 inputs at stage 1's pixel count
+CONV_ONE_SIGNED = (128, 16, 16, 56, 56)
 #: the example's optimizer (examples/gluon/image_classification.py)
 SGD_PARAMS = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 #: the narrow ResNet-v1 of tests/test_torch_resnet.py
@@ -1913,6 +1923,15 @@ def conv_kernel_against_plain():
             log(phase="conv_vs_plain", shape=[N, Ci, Co, H, W],
                 dtype=str(dtype).split(".")[1], max_abs_err=err,
                 err_over_tol=ratio)
+    N, Ci, Co, H, W = CONV_ONE_SIGNED
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dev = dict(device="cuda", generator=g)
+    args = (torch.randn(N, Ci, H, W, **dev).abs() + 1,
+            torch.randn(Co, Ci, 3, 3, **dev),
+            torch.randn(N, Co, H, W, **dev).abs())
+    err, ratio = conv_err(args)
+    log(phase="conv_vs_plain", shape=[N, Ci, Co, H, W], dtype="float32",
+        inputs="one-signed", max_abs_err=err, err_over_tol=ratio)
 
 
 def resnet_step(net, loss_fn, trainer, x, y):
@@ -2031,7 +2050,9 @@ def train_resnet50():
     0.9, wd 1e-4) on one batch of 128 synthetic 224x224 images of 1000
     classes: one warm-up step, then 5 steps with the launch counts zeroed
     just before and read just after.  One K6 call per stage shape is
-    captured from the first counted step."""
+    captured from the first counted step, and K6's calls are counted by
+    stage shape.  Returns the launches, by kernel and by K6 row name,
+    and the captured inputs by row name."""
     from mxtpu_torch import base
     from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -2063,8 +2084,10 @@ def train_resnet50():
     caps = [Capture(cb, "conv3x3_s1_backward",
                     lambda n, a, kw, s=s: tuple(a[0].shape) == s)
             for s in shapes]
+    by_shape = Counted(cb, "conv3x3_s1_backward",
+                       lambda a, kw: tuple(a[0].shape))
     events = []
-    with caps[0], caps[1], caps[2]:
+    with caps[0], caps[1], caps[2], by_shape:
         base.reset_counts()
         t_run = time.perf_counter()
         for _ in range(cfg["steps"]):
@@ -2097,7 +2120,18 @@ def train_resnet50():
         lambda: resnet_step(net, loss_fn, trainer, x, y), 1))
     if any(c.args is None for c in caps):
         raise AssertionError("no K6 inputs were captured")
-    return launches, [c.args for c in caps]
+    names = [conv_row(s[1], s[2]) for s in shapes]
+    for name, s in zip(names, shapes):
+        launches[name] = by_shape.counts.get(s, 0)
+    if sum(launches[n] for n in names) != want["conv_bwd"]:
+        raise AssertionError("K6's launches by stage shape %r do not add up "
+                             "to %d" % (by_shape.counts, want["conv_bwd"]))
+    return launches, dict(zip(names, (c.args for c in caps)))
+
+
+def conv_row(Ci, H):
+    """A K6 row's name in the kernels line: its stage shape."""
+    return "conv_bwd[%dx%dx%d]" % (Ci, H, H)
 
 
 def conv_work(x, w):
@@ -2126,7 +2160,12 @@ def measure_conv(args, flush):
     res["library_ms"] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
         dy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
         [True, True, False]), flush)
-    res["bound_ms"], res["bound_by"] = bound(*conv_work(x, w), x.dtype)
+    work = conv_work(x, w)
+    res["bound_ms"], res["bound_by"] = bound(work[0], work[1], x.dtype)
+    if x.dtype == torch.float32:
+        # K6's route: both products in 3xTF32 on the tensor cores
+        res["bound_tc_ms"] = max(work[0] / H100_BYTES_PER_S,
+                                 3 * work[1] / H100_TF32_OPS) * 1e3
     return res
 
 
@@ -2206,12 +2245,10 @@ def main():
     trained, captured = train_resnet50()
     torch.cuda.empty_cache()
     launches.update(trained)
-    for i, args in enumerate(captured):
-        res = measure_conv(args, flush)
-        log(phase="resnet_inputs", kernel="conv_bwd",
-            shape=list(args[0].shape), cout=args[1].shape[0], **res)
-        if i == 0:                     # the kernels line: stage 1's shape
-            results["conv_bwd"] = res
+    for name, args in captured.items():
+        results[name] = measure_conv(args, flush)
+        log(phase="resnet_inputs", kernel=name, shape=list(args[0].shape),
+            cout=args[1].shape[0], launches=launches[name], **results[name])
     rows = []
     for name, res in results.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]

@@ -112,6 +112,7 @@
 // the results rounded once.
 
 #include "paged_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -123,6 +124,10 @@ using mxtpu_port::from_float;
 using mxtpu_port::kMaxSmem;
 using mxtpu_port::kNegInf;
 using mxtpu_port::load2;
+using mxtpu_port::mma;
+using mxtpu_port::mma3;
+using mxtpu_port::split;
+using mxtpu_port::split_a;
 using mxtpu_port::to_float;
 
 constexpr int kThreads = 256;  // K4, K5: 16 x 16: tx = tid % 16, ty = tid / 16
@@ -350,52 +355,6 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const TA* A,
 }
 
 // -- K3 ------------------------------------------------------------------
-
-// x = big + small to float32 accuracy, both TF32 (10 mantissa bits) as
-// cvt.rna.tf32.f32 rounds, to nearest with ties away from zero: half a
-// TF32 unit (bit 12) is added to the magnitude and the 13 low bits are
-// dropped.  big drops them here, since x - big needs its value; small
-// keeps them and the MMA, which reads a TF32 operand's top 19 bits
-// only, drops them.  Three integer ops and one float op against the ~8
-// of two cvt.rna (ptxas guards each against inf and NaN, which the
-// inputs and p = exp(s - m) never hold).
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// d += a.b, one m16n8k8 TF32 product with float32 sums.  Lane (g, t)
-// holds a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g],
-// B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a.b in 3xTF32: a = ab + as, b = (big0, big1, small0, small1)
-// from a plane; the big*small product is skipped where b's small part
-// is zero (a bfloat16 b is exactly TF32)
-template <typename T>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint4 b) {
-  mma(d, as, b.x, b.y);
-  if (sizeof(T) == 4) mma(d, ab, b.z, b.w);
-  mma(d, ab, b.x, b.y);
-}
-
-// the A fragment (rows g, g+8; k = t, t+4) from four float32 values
-__device__ __forceinline__ void split_a(float a0, float a1, float a2,
-                                        float a3, uint32_t (&big)[4],
-                                        uint32_t (&small)[4]) {
-  split(a0, big[0], small[0]);
-  split(a1, big[1], small[1]);
-  split(a2, big[2], small[2]);
-  split(a3, big[3], small[3]);
-}
 
 // Start the copies of K/V tile j (KT keys from key j*KT, row stride ld)
 // into the staging buffers; keys at or past T land as zeros.  A row is

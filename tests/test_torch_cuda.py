@@ -11,8 +11,9 @@ and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
 plus head_dim 8, 72 and 256 and K3's tiling edges (T = 1, below and
 one past a query tile), K3's lse held on every row.  The conv backward
 kernel (K6) over geometries the main path does not reach: Ci != Co,
-H != W, N = 1, channel counts that are not multiples of its 64-wide
-tiles, and one ResNet-50 stage shape.  K1 and K2 over int8 pools with
+H != W, N = 1, channel counts that are not multiples of its tiles,
+ResNet-50's three stage shapes at batch 4, and one-signed inputs at
+stage 1's pixel count.  K1 and K2 over int8 pools with
 their float32 scales (the float cases quantized per row by the cache's
 quantizer): the decode read, the prefill chunk, and K1's window and
 tree with its two invariants.  G1 (``rows_linear``) against its plain
@@ -481,9 +482,11 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert base.counts() == {}
 
 
-#: K6 geometries (N, Ci, Co, H, W)
+#: K6 geometries (N, Ci, Co, H, W): the test shapes, odd sizes, and
+#: ResNet-50's three stage shapes at a small batch
 CONV_GEOMETRIES = [(2, 16, 32, 8, 8), (1, 32, 32, 14, 14), (2, 8, 24, 7, 9),
-                   (3, 70, 66, 12, 10), (1, 130, 7, 5, 6), (4, 64, 64, 56, 56)]
+                   (3, 70, 66, 12, 10), (1, 130, 7, 5, 6), (4, 64, 64, 56, 56),
+                   (4, 128, 128, 28, 28), (4, 256, 256, 14, 14)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -505,6 +508,25 @@ def test_conv_bwd_kernel_matches_plain(cuda, geom, dtype):
         want_dx.float().abs().max())
     assert _err(dw, want_dw) <= DW_TOL[dtype] * float(
         want_dw.float().abs().max())
+
+
+def test_conv_bwd_holds_the_tolerance_on_one_signed_inputs(cuda):
+    """One-signed float32 inputs (x = |randn| + 1, dY = |randn|, as
+    ResNet's post-ReLU activations are) at stage 1's pixel count: each
+    dW element sums 401,408 products of one sign, where a tensor-core
+    sum chained through one accumulator would drift one way."""
+    N, Ci, Co, H, W = 128, 16, 16, 56, 56
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(N, Ci, H, W, generator=g, device="cuda").abs() + 1
+    dy = torch.randn(N, Co, H, W, generator=g, device="cuda").abs()
+    w = torch.randn(Co, Ci, 3, 3, generator=g, device="cuda")
+    dx, dw = cb.conv3x3_s1_backward(x, w, dy)
+    want_dx, want_dw = cb.conv_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    assert _err(dx, want_dx) <= GRAD_TOL[torch.float32] * float(
+        want_dx.abs().max())
+    assert _err(dw, want_dw) <= DW_TOL[torch.float32] * float(
+        want_dw.abs().max())
 
 
 def test_conv_bwd_autograd_on_the_card_matches_the_cpu(cuda):
