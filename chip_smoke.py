@@ -32,7 +32,8 @@ Phases, in order; any failure exits non-zero:
    projections in bfloat16, M = 8 and 128, with its guarantee held by
    ``torch.equal`` (a row of an 8-row call, and of a call on the rows
    reversed, equals that row of the full call), and its time against
-   F.linear and torch.matmul; and G2, the row-invariant RMSNorm, the
+   F.linear and torch.matmul at M = 8, 64 and 128 (the decode step and
+   the W = 8 and W = 16 windows of 8 slots); and G2, the row-invariant RMSNorm, the
    same way against the port's rms_norm and F.rms_norm;
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
@@ -51,7 +52,8 @@ Phases, in order; any failure exits non-zero:
    launch counts are zeroed just before and read just after, and must
    equal 32 per decode step and 32 per prefill chunk for K1 and K2, 161
    per decode step for G1 (5 projections a layer and the head) and 65
-   for G2 (2 norms a layer and the final one);
+   for G2 (2 norms a layer and the final one); every K2 call must take
+   the tensor-core route (``prefill_attention.route``: bf16 queries);
 5b. the main path again with an int8 cache: K1 int8 32 per decode step,
    K2 int8 32 per chunk, no float K1/K2 launch; the pool bytes, and how
    many streams equal the bf16 run's (a reading: random weights tie
@@ -64,21 +66,25 @@ Phases, in order; any failure exits non-zero:
    1 penalized; 32 new tokens each) twice on the main path's engine
    settings, with speculation off and with spec_k = 4, spec_tree =
    (15, 2); K1's launches must be 32 per step or verify call, by W and
-   tree, and G1's 161 per step or verify call; every speculative
-   stream must be token-identical to its plain stream, K1 must hold
+   tree, and G1's 161 per step or verify call (its calls counted by
+   row count M); every K2 call on the tensor-core route; every
+   speculative stream must be token-identical to its plain stream, K1 must hold
    invariant (b) on the captured window, and ``window_op_bits`` must
    find no op of the step (norms, projections, rope, SwiGLU, residual
    adds) that rounds a window lane otherwise at W = 8 or W = 16;
 6c. phase 6b's traffic and engines with an int8 cache: every speculative
    stream token-identical to the int8 plain stream, K1 int8's launches
    by (W, tree);
-7. layer 0's kernel inputs captured from the main runs (one prefill
-   chunk, one decode step, one linear verify window and one tree, over
-   the bf16 pools and over the int8 ones): kernel against plain version
-   on them, and the kernel, plain and library times (device time of a
-   CUDA-graph replay, L2 flushed before each) at the main path's shapes;
-   the library is a gather (and dequantize) then
-   scaled_dot_product_attention;
+7. layer 0's kernel inputs captured from the main runs (two prefill
+   chunks, the first at position 256 or later and the last chunk of the
+   longest prompt, at 576; one decode step, one linear verify window
+   and one tree; over the bf16 pools and over the int8 ones): kernel
+   against plain version on them, and the kernel, plain and library
+   times (device time of a CUDA-graph replay, L2 flushed before each)
+   at the main path's shapes; the library is a gather (and dequantize)
+   then scaled_dot_product_attention.  K2's tensor-core route must give
+   the same bits on a second call, and its rows carry ``bound_tc_ms``,
+   its operations alone at the bf16 tensor-core peak;
 8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
    their plain versions, causal and not, at T = 128, 100 and 150
    (head_dim 16), (1, 3, 70, 72), (1, 2, 96, 256) and (1, 32, 2048,
@@ -122,7 +128,9 @@ The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
 ``paged_attention[tree,W=16]``, the int8 forms as
 ``paged_attention[int8]``, ``paged_attention[int8,W=8]``,
-``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, G1
+``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, K2 at
+the long chunk as ``paged_prefill[long]`` and ``paged_prefill[int8,long]``
+(launches: the main runs' K2 calls at 512 or later), G1
 as one row per projection at M = 8, ``rows_linear[qkv,M=8]`` ..., G2
 as ``rows_rms_norm[M=8]``, and K6 as one row per stage shape); the last
 line is
@@ -537,11 +545,22 @@ def measure(name, args, flush, timed=True, kw=None):
                                  name, err, TOL[dtype], dtype,
                                  tuple(args[0].shape)))
     res = dict(max_abs_err=err, err_over_tol=err / TOL[dtype])
+    tc = (name.startswith("paged_prefill")
+          and pf.route(args[0]) == pf.TENSOR_CORES)
+    if tc:
+        # K2's tensor-core route: the same inputs give the same bits
+        res["route"] = pf.TENSOR_CORES
+        if not torch.equal(kernel(*args), got):
+            raise AssertionError("%s gave other bits on a second call (%s)"
+                                 % (name, tuple(args[0].shape)))
     if timed:
         res["ms"] = cuda_ms(lambda: kernel(*args), flush)
         res["plain_ms"] = cuda_ms(lambda: plain(*args), flush)
         res["library_ms"] = cuda_ms(lambda: library(*args), flush)
         res["bound_ms"], res["bound_by"] = bound(work[0], work[1], dtype)
+        if tc:
+            # its operations alone at the bf16 tensor-core peak
+            res["bound_tc_ms"] = work[1] / H100_PEAK_OPS[torch.bfloat16] * 1e3
     return res
 
 
@@ -697,10 +716,10 @@ def rows_invariant(x, w, got):
 
 
 def linear_against_plain(flush):
-    """G1 at the 8B projections, bfloat16, M = 8 (the decode step) and
-    M = 128 (an 8-slot W = 16 window) with its rows invariant; ragged M
-    and float32 at small shapes.  Returns {projection: timed result at
-    M = 8} for the kernels line."""
+    """G1 at the 8B projections, bfloat16, M = 8 (the decode step), 64
+    and 128 (an 8-slot W = 8 and W = 16 window) with its rows invariant;
+    ragged M and float32 at small shapes.  Returns {projection: timed
+    result at M = 8} for the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
     for M, N, K, dtype in ((1, 96, 64, torch.float32),
                            (17, 200, 32, torch.float32),
@@ -722,7 +741,7 @@ def linear_against_plain(flush):
                         generator=g)
         full, err, ratio = linear_err(x, w)
         rows_invariant(x, w, full)
-        for M in (8, 128):
+        for M in (8, 64, 128):
             xm = x[:M].contiguous()
             res = measure_linear(xm, w, flush)
             log(phase="linear_vs_plain", projection=name, M=M, N=N, K=K,
@@ -973,6 +992,45 @@ def k_names(cache_dtype):
     return "paged_attention" + tag, "paged_prefill" + tag
 
 
+def long_chunk_start(reqs):
+    """The first position of the longest prompt's last chunk (576 on
+    ``traffic``'s 611-token prompt): K2's longest walk on the main
+    path."""
+    chunk = SERVE["prefill_chunk"]
+    start = (max(p.shape[1] for p, _ in reqs) - 1) // chunk * chunk
+    if start < 512:
+        raise AssertionError("the traffic has no chunk at 512 or later")
+    return start
+
+
+def long_row(name):
+    """The kernels-line row of K2 at the long chunk: ``paged_prefill``
+    gives ``paged_prefill[long]``, ``paged_prefill[int8]`` gives
+    ``paged_prefill[int8,long]``."""
+    return name[:-1] + ",long]" if name.endswith("]") else name + "[long]"
+
+
+def k2_key(args, kw):
+    """A K2 call's route on the card and whether its chunk starts at 512
+    or later."""
+    from mxtpu_torch.ops import prefill_attention as pf
+
+    return pf.route(args[0]), args[4] >= 512
+
+
+def k2_routes(counts, want):
+    """Every K2 call of a bf16 main-path run (``counts`` by ``k2_key``)
+    took the tensor-core route, ``want`` of them."""
+    from mxtpu_torch.ops import prefill_attention as pf
+
+    routes = {}
+    for (route, _), n in counts.items():
+        routes[route] = routes.get(route, 0) + n
+    if routes != {pf.TENSOR_CORES: want}:
+        raise AssertionError("K2's calls by route %r, wanted all %d on %s"
+                             % (routes, want, pf.TENSOR_CORES))
+
+
 def pool_bytes(eng):
     """Bytes of an engine's KV pools, payloads and scales."""
     return sum(t.numel() * t.element_size() for pair in eng._pools
@@ -1005,11 +1063,14 @@ def serve_llama_3_8b(model, cache_dtype=None):
     eng.run()
     before = eng.stats
     reqs = traffic(model.vocab_size)
+    long_start = long_chunk_start(reqs)
     decode_cap = Capture(pa, "paged_decode_attention",
                          lambda n, a, kw: n >= 20 * n_layers
                          and n % n_layers == 0)
     prefill_cap = Capture(pf, "paged_prefill_attention",
                           lambda n, a, kw: a[4] >= 256)
+    long_cap = Capture(pf, "paged_prefill_attention",
+                       lambda n, a, kw: a[4] == long_start)
     proj = {layer.weight.data_ptr(): name for block in model.layers
             for name, layer in (("qkv", block.attn.qkv),
                                 ("out_proj", block.attn.out_proj),
@@ -1018,7 +1079,9 @@ def serve_llama_3_8b(model, cache_dtype=None):
                                 ("down_proj", block.down_proj))}
     proj[model.lm_head.weight.data_ptr()] = "lm_head"
     torch.cuda.reset_peak_memory_stats()
-    with decode_cap, prefill_cap, FiniteLogits(sampler) as finite, \
+    with decode_cap, prefill_cap, long_cap, \
+            Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
+            FiniteLogits(sampler) as finite, \
             Counted(transformer, "rows_linear",
                     lambda a, kw: proj[a[1].data_ptr()]) as g1, \
             Timed(model, "prefill_pages") as t_pre, \
@@ -1051,6 +1114,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
     if launches != want or not steps or not chunks:
         raise AssertionError("launches %r, wanted exactly %r" % (launches,
                                                                  want))
+    k2_routes(k2_calls.counts, n_layers * chunks)
     gen_tokens = after["generated_tokens"] - before["generated_tokens"]
     pre_tokens = after["prefill_tokens"] - before["prefill_tokens"]
     log(phase="serve", cache_dtype=str(eng._cache_dtype), requests=len(rids),
@@ -1060,6 +1124,8 @@ def serve_llama_3_8b(model, cache_dtype=None):
         - before["prefix_hit_requests"],
         cow_copied_blocks=after["cow_copied_blocks"]
         - before["cow_copied_blocks"],
+        k2_calls_by_route={"%s,start>=512" % r if long else r: n
+                           for (r, long), n in k2_calls.counts.items()},
         prefill_tokens=pre_tokens, decode_tokens=gen_tokens,
         prefill_ms=t_pre.ms(), decode_ms=t_dec.ms(),
         prefill_tokens_per_s=pre_tokens / (t_pre.ms() / 1e3),
@@ -1067,12 +1133,17 @@ def serve_llama_3_8b(model, cache_dtype=None):
         mean_ms_per_decode_step=t_dec.ms() / steps, wall_s=wall,
         pool_bytes=pool_bytes(eng),
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if decode_cap.args is None or prefill_cap.args is None:
+    if (decode_cap.args is None or prefill_cap.args is None
+            or long_cap.args is None):
         raise AssertionError("no kernel inputs were captured")
     profile_decode_steps(eng, model.vocab_size)
     launches.update({"rows_linear(%s)" % k: n for k, n in g1.counts.items()})
+    k2_long = long_row(k2)
+    launches[k2_long] = sum(n for (_, long), n in k2_calls.counts.items()
+                            if long)
     caps = {k1: (decode_cap.args, decode_cap.kwargs),
-            k2: (prefill_cap.args, prefill_cap.kwargs)}
+            k2: (prefill_cap.args, prefill_cap.kwargs),
+            k2_long: (long_cap.args, long_cap.kwargs)}
     return launches, caps, [res[r].numpy() for r in rids]
 
 
@@ -1389,8 +1460,9 @@ def serve_speculative(model, eng, reqs):
     timed and the sampled logits checked finite.  The first linear and
     the first tree K1 call are captured."""
     from mxtpu_torch import base
-    from mxtpu_torch.models import sampler
+    from mxtpu_torch.models import sampler, transformer
     from mxtpu_torch.ops import paged_attention as pa
+    from mxtpu_torch.ops import prefill_attention as pf
 
     n_layers = len(model.layers)
     k1_name = k_names(eng._cache_dtype)[0]
@@ -1405,6 +1477,9 @@ def serve_speculative(model, eng, reqs):
                                     k1_key) as k1, \
             Counted(model, "step_pages", model_key) as steps, \
             Counted(model, "verify_pages", model_key) as verifies, \
+            Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
+            Counted(transformer, "rows_linear",
+                    lambda a, kw: a[0].numel() // a[0].shape[-1]) as g1, \
             FiniteLogits(sampler) as finite, \
             Timed(model, "step_pages") as t_step, \
             Timed(model, "verify_pages") as t_ver:
@@ -1418,9 +1493,10 @@ def serve_speculative(model, eng, reqs):
         launches = base.counts()
     after = eng.stats
     d = {k: after[k] - before[k] for k in (
-        "steps", "generated_tokens", "prefill_tokens", "verify_calls",
-        "drafted_tokens", "accepted_tokens", "tree_nodes_drafted",
-        "tree_paths", "slot_iterations")}
+        "steps", "generated_tokens", "prefill_tokens", "prefill_chunks",
+        "verify_calls", "drafted_tokens", "accepted_tokens",
+        "tree_nodes_drafted", "tree_paths", "slot_iterations")}
+    k2_routes(k2_calls.counts, n_layers * d["prefill_chunks"])
     calls = dict(steps.counts)
     calls.update(verifies.counts)
     for key, n in calls.items():
@@ -1466,6 +1542,8 @@ def serve_speculative(model, eng, reqs):
                / max(1, d["slot_iterations"]),
                draft_hit_rate=(d["accepted_tokens"] / d["drafted_tokens"]
                                if d["drafted_tokens"] else 0.0),
+               rows_linear_by_M={"M=%d" % m: n
+                                 for m, n in sorted(g1.counts.items())},
                wall_s=wall,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)

@@ -5,7 +5,12 @@ single-buffered tile (float32 at head_dim 256), long tables, dead lanes,
 pages out of order and chunks starting mid-page; K1's verify window and
 tree mask at W = 2 to 32 with its two bit-exact invariants (a chain
 ``anc`` gives the bits of no ``anc``; lane w of a window equals a W = 1
-call at pos + w, checked with ``torch.equal``).  The flash-attention
+call at pos + w, checked with ``torch.equal``); K2's tensor-core route
+(bf16 queries over bf16 or int8 pools) at its edges: folds that are not a
+multiple of 16 or hold fewer than 16 lanes, head_dim 8, 16, 32, 72 and
+256, block 64, a 4096-token context, chunks from position 0, mid-page
+and at the context's end, each also ``torch.equal`` on a second call.
+The flash-attention
 kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
 and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
 plus head_dim 8, 72 and 256 and K3's tiling edges (T = 1, below and
@@ -151,6 +156,52 @@ def test_prefill_kernel_matches_plain(cuda, geom, dtype):
                                   device="cuda")
         again = pf.paged_prefill_attention(*args[:4], tensor_start)
         assert _err(again, got) == 0.0
+
+
+#: K2's tensor-core route at its edges: (head_dim, block, kv heads, rep,
+#: chunk T, context): a fold of 24 and of 8 lanes (not a multiple of 16,
+#: and rep*T < 16), head_dim 8, 16, 32, 72 (not a multiple of 16) and
+#: 256, block 64, and a 4096-token context
+TC_EDGES = [
+    (64, 16, 2, 3, 8, 100),
+    (32, 8, 2, 1, 8, 60),
+    (8, 8, 2, 2, 8, 40),
+    (16, 8, 2, 2, 8, 40),
+    (32, 16, 4, 2, 24, 150),
+    (72, 16, 2, 4, 16, 100),
+    (256, 16, 2, 4, 16, 300),
+    (128, 64, 1, 8, 32, 500),
+    (128, 16, 2, 4, 64, 4096),
+]
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("edge", TC_EDGES, ids=lambda e: "D%d-bs%d-fold%d-"
+                         "ctx%d" % (e[0], e[1], e[3] * e[4], e[5]))
+def test_prefill_tensor_core_route_at_its_edges(cuda, edge, pools):
+    """bf16 queries over bf16 or int8 pools: chunks from position 0, from
+    mid-page and ending at the context's end, each within TOL of the
+    plain version and bit for bit the same on a second call."""
+    D, bs, KV, rep, T, ctx = edge
+    geom = (D, bs, KV, rep, 1, T, ctx)
+    for start in (0, 3 * bs + bs // 2 + 1, ctx - T - bs // 2):
+        q, pk, pv, table, _ = _prefill_case(geom, torch.bfloat16,
+                                            seed=start + D, start=start)
+        kw = {}
+        if pools == "int8":
+            (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+            kw = dict(k_scales=ks, v_scales=vs)
+        assert pf.route(q) == pf.TENSOR_CORES
+        base.reset_counts()
+        got = pf.paged_prefill_attention(q, pk, pv, table, start, **kw)
+        again = pf.paged_prefill_attention(q, pk, pv, table, start, **kw)
+        assert base.counts() == {pf.KERNEL_NAME_Q8 if kw
+                                 else pf.KERNEL_NAME: 2}
+        want = pf.paged_prefill_attention_plain(q, pk, pv, table, start,
+                                                **kw)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert _err(got, want) <= TOL[torch.bfloat16], start
+        assert torch.equal(got, again), start
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -196,9 +196,9 @@ def test_decode_wrapper_rejects_a_tree_wider_than_the_bitmask():
             q, pk, pv, tables, pos, anc=torch.zeros(4, 33, dtype=torch.int32))
 
 
-def test_prefill_wrapper_rejects_int8_pools():
-    """It no longer does: int8 pools run the plain version on a CPU
-    tensor, counted under ``paged_prefill[int8]``."""
+def test_prefill_wrapper_on_cpu_runs_int8_pools_through_the_plain_version():
+    """Int8 pools and their scales on a CPU tensor: the wrapper runs the
+    plain version, counted under ``paged_prefill[int8]``."""
     rng = np.random.RandomState(5)
     pk, pv = _pools(rng)
     q = torch.randn(1, KV * REP, 8, D)
