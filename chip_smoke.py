@@ -8,7 +8,12 @@ Phases, in order; any failure exits non-zero:
 1. the card: its name and power limit as ``nvidia-smi`` gives them, the
    torch and CUDA versions; TF32 is switched off for float32 products;
 2. build the CUDA kernels from ``mxtpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) into ``mxtpu_torch/_build``;
+   source, all at once) into ``mxtpu_torch/_build``; then the timing
+   floor on a line of its own (``timing_floor``): an empty captured
+   graph and G2 on 8 x 4096 bf16 values, timed as every kernel is
+   (``cuda_ms``) under a flush that writes 64 MB and leaves dirty lines
+   in L2 (``_L2FlushByWrite``, the script's earlier flush) and under
+   ``_L2Flush``, which reads 64 MB and leaves clean ones;
 3. each kernel against its plain PyTorch version on the card, at the
    test geometry (head_dim 16, block 8, 2 kv heads, rep 2; and head_dim
    8, the small speculative model's) and the
@@ -28,10 +33,11 @@ Phases, in order; any failure exits non-zero:
    W = 1, windows W = 2..32 and trees, invariants (a) and (b) with
    ``torch.equal``, and K2 int8 with a chunk starting mid-page; then G1,
    the row-invariant projection, against its plain version (F.linear)
-   at small ragged shapes in float32 and bfloat16 and at the six 8B
-   projections in bfloat16, M = 8 and 128, with its guarantee held by
-   ``torch.equal`` (a row of an 8-row call, and of a call on the rows
-   reversed, equals that row of the full call), and its time against
+   at small ragged shapes in float32 and bfloat16 (M up to 200, two
+   128-row chunks) and at the six 8B projections in bfloat16, M = 8 and
+   128, with its guarantee held by ``torch.equal`` (a row of an 8-row
+   and a 64-row call, and of a call on the rows reversed, equals that
+   row of the full call), and its time against
    F.linear and torch.matmul at M = 8, 64 and 128 (the decode step and
    the W = 8 and W = 16 windows of 8 slots); and G2, the row-invariant RMSNorm, the
    same way against the port's rms_norm and F.rms_norm;
@@ -131,7 +137,9 @@ inputs as rows of their own, ``paged_attention[W=8]`` and
 ``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, K2 at
 the long chunk as ``paged_prefill[long]`` and ``paged_prefill[int8,long]``
 (launches: the main runs' K2 calls at 512 or later), G1
-as one row per projection at M = 8, ``rows_linear[qkv,M=8]`` ..., G2
+as one row per projection and row count, ``rows_linear[qkv,M=8]``,
+``rows_linear[qkv,M=64]``, ``rows_linear[qkv,M=128]`` ... (launches: at
+M = 8 phase 5's, at 64 and 128 phase 6b's windows and trees), G2
 as ``rows_rms_norm[M=8]``, and K6 as one row per stage shape); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
@@ -232,22 +240,51 @@ def log(**fields):
 # -- timing and work accounting ---------------------------------------------
 
 class _L2Flush:
-    """Writes 64 MB between timed launches, more than the H100's 50 MB
+    """Reads 64 MB between timed launches, more than the H100's 50 MB
     L2, so each launch finds its inputs in device memory as it does on
-    the serving path (the next layer's pages are another pool)."""
+    the serving path (the next layer's pages are another pool).  A read
+    leaves L2 holding clean lines only: a flush that writes (the
+    script's earlier flush zeroed the buffer) leaves up to 50 MB of
+    dirty lines, whose write-back then falls inside the timed window."""
 
     def __init__(self):
-        self.buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.buf = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+
+    def __call__(self):
+        self.buf.sum()
+
+
+class _L2FlushByWrite(_L2Flush):
+    """The script's earlier flush, kept only to show its floor
+    (``timing_floor``): it writes the 64 MB."""
 
     def __call__(self):
         self.buf.zero_()
 
 
+def timing_floor():
+    """The timing floor under each flush: an empty captured graph, and
+    G2 on 8 rows of 4096 bf16 values (64 KB read), in milliseconds."""
+    from mxtpu_torch.ops import contrib
+
+    x = torch.randn(8, 4096, device="cuda", dtype=torch.bfloat16)
+    gamma = torch.ones(4096, device="cuda")
+    out = {}
+    for name, flush in (("write_flush", _L2FlushByWrite()),
+                        ("read_flush", _L2Flush())):
+        out[name] = dict(
+            empty_graph_ms=cuda_ms(lambda: None, flush),
+            rows_rms_norm_8x4096_ms=cuda_ms(
+                lambda: contrib.rows_rms_norm(x, gamma), flush))
+        del flush
+    log(phase="timing_floor", **out)
+
+
 def cuda_ms(fn, flush, iters=20):
     """Mean device milliseconds of ``fn``: its launches are captured once
     in a CUDA graph, so the host's launch gaps do not count, and the
-    graph is replayed between CUDA events, the L2 flushed before each
-    replay."""
+    graph is replayed between CUDA events, the L2 flushed (``_L2Flush``)
+    before each replay."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -703,13 +740,14 @@ def linear_err(x, w):
 
 def rows_invariant(x, w, got):
     """G1's guarantee on (x, w) and its output ``got``: each row of an
-    8-row call, and of a call on the rows in reverse order, is
-    bit-identical to that row of the full call."""
+    8-row and a 64-row call, and of a call on the rows in reverse order,
+    is bit-identical to that row of the full call."""
     from mxtpu_torch.ops import linear
 
-    part = linear.rows_linear(x[:8].contiguous(), w)
+    part = [linear.rows_linear(x[:m].contiguous(), w) for m in (8, 64)]
     rev = linear.rows_linear(x.flip(0).contiguous(), w)
-    if not (torch.equal(part, got[:8]) and torch.equal(rev.flip(0), got)):
+    if not (all(torch.equal(p, got[:p.shape[0]]) for p in part)
+            and torch.equal(rev.flip(0), got)):
         raise AssertionError("rows_linear rounds a row by the row count or "
                              "position (x %s, w %s, %s)"
                              % (tuple(x.shape), tuple(w.shape), x.dtype))
@@ -718,14 +756,15 @@ def rows_invariant(x, w, got):
 def linear_against_plain(flush):
     """G1 at the 8B projections, bfloat16, M = 8 (the decode step), 64
     and 128 (an 8-slot W = 8 and W = 16 window) with its rows invariant;
-    ragged M and float32 at small shapes.  Returns {projection: timed
-    result at M = 8} for the kernels line."""
+    ragged M and float32 at small shapes.  Returns {(projection, M):
+    timed result} for the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
     for M, N, K, dtype in ((1, 96, 64, torch.float32),
                            (17, 200, 32, torch.float32),
                            (9, 64, 172, torch.float32),
                            (7, 130, 72, torch.bfloat16),
-                           (33, 4096, 512, torch.bfloat16)):
+                           (33, 4096, 512, torch.bfloat16),
+                           (200, 4096, 520, torch.bfloat16)):
         x = torch.randn(M, K, device="cuda", dtype=dtype, generator=g)
         w = torch.randn(N, K, device="cuda", dtype=dtype, generator=g)
         got, err, ratio = linear_err(x, w)
@@ -746,8 +785,7 @@ def linear_against_plain(flush):
             res = measure_linear(xm, w, flush)
             log(phase="linear_vs_plain", projection=name, M=M, N=N, K=K,
                 dtype="bfloat16", **res)
-            if M == 8:
-                results[name] = res
+            results[name, M] = res
         del w, x
     return results
 
@@ -1071,13 +1109,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
                           lambda n, a, kw: a[4] >= 256)
     long_cap = Capture(pf, "paged_prefill_attention",
                        lambda n, a, kw: a[4] == long_start)
-    proj = {layer.weight.data_ptr(): name for block in model.layers
-            for name, layer in (("qkv", block.attn.qkv),
-                                ("out_proj", block.attn.out_proj),
-                                ("gate_proj", block.gate_proj),
-                                ("up_proj", block.up_proj),
-                                ("down_proj", block.down_proj))}
-    proj[model.lm_head.weight.data_ptr()] = "lm_head"
+    proj = projection_names(model)
     torch.cuda.reset_peak_memory_stats()
     with decode_cap, prefill_cap, long_cap, \
             Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
@@ -1147,6 +1179,18 @@ def serve_llama_3_8b(model, cache_dtype=None):
     return launches, caps, [res[r].numpy() for r in rids]
 
 
+def projection_names(model):
+    """{weight's data_ptr: projection name} of the model's G1 calls."""
+    proj = {layer.weight.data_ptr(): name for block in model.layers
+            for name, layer in (("qkv", block.attn.qkv),
+                                ("out_proj", block.attn.out_proj),
+                                ("gate_proj", block.gate_proj),
+                                ("up_proj", block.up_proj),
+                                ("down_proj", block.down_proj))}
+    proj[model.lm_head.weight.data_ptr()] = "lm_head"
+    return proj
+
+
 def compare_streams(name, reqs, a, b):
     """How many of two runs' streams are token-identical, and where the
     first of the others parts (a reading, not a gate)."""
@@ -1188,6 +1232,8 @@ def profile_device(run, steps):
     device = sum(r[0] for r in rows)
     return dict(steps=steps, wall_ms_per_step=wall,
                 kernels_per_step=sum(r[2] for r in rows),
+                rows_linear_ms_per_step=sum(r[0] for r in rows
+                                            if "rows_linear" in r[1]),
                 device_ms_per_step=device if rows else "not measured",
                 device_idle_share=1.0 - device / wall if rows
                 else "not measured",
@@ -1466,6 +1512,7 @@ def serve_speculative(model, eng, reqs):
 
     n_layers = len(model.layers)
     k1_name = k_names(eng._cache_dtype)[0]
+    proj = projection_names(model)
     lin_cap = Capture(pa, "paged_decode_attention",
                       lambda n, a, kw: a[0].shape[2] > 1
                       and kw.get("anc") is None)
@@ -1479,7 +1526,8 @@ def serve_speculative(model, eng, reqs):
             Counted(model, "verify_pages", model_key) as verifies, \
             Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
             Counted(transformer, "rows_linear",
-                    lambda a, kw: a[0].numel() // a[0].shape[-1]) as g1, \
+                    lambda a, kw: (proj[a[1].data_ptr()],
+                                   a[0].numel() // a[0].shape[-1])) as g1, \
             FiniteLogits(sampler) as finite, \
             Timed(model, "step_pages") as t_step, \
             Timed(model, "verify_pages") as t_ver:
@@ -1542,8 +1590,11 @@ def serve_speculative(model, eng, reqs):
                / max(1, d["slot_iterations"]),
                draft_hit_rate=(d["accepted_tokens"] / d["drafted_tokens"]
                                if d["drafted_tokens"] else 0.0),
-               rows_linear_by_M={"M=%d" % m: n
-                                 for m, n in sorted(g1.counts.items())},
+               rows_linear_by_M={"M=%d" % m: sum(
+                   n for (_, mm), n in g1.counts.items() if mm == m)
+                   for m in sorted({m for _, m in g1.counts})},
+               rows_linear_by_projection_and_M={
+                   "%s,M=%d" % k: n for k, n in sorted(g1.counts.items())},
                wall_s=wall,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)
@@ -1564,7 +1615,8 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
     (invariant (b), held here on the main path's captured window), and
     ``window_op_bits`` must find no op of the step whose bits a window
     lane changes.  Returns K1's launch counts by (W, tree), the first
-    linear and tree K1 inputs as (args, keywords), and the traffic."""
+    linear and tree K1 inputs as (args, keywords), the traffic, and the
+    speculative run's G1 calls by "projection,M=rows"."""
     from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
 
     if reqs is None:
@@ -1618,7 +1670,7 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
         if bits["bits_differ"]:
             raise AssertionError("a verify window's lane rounds %r otherwise "
                                  "than the step" % bits["bits_differ"])
-    return spec[2], caps, reqs
+    return spec[2], caps, reqs, spec[0]["rows_linear_by_projection_and_M"]
 
 
 def lane_invariant(args, kw):
@@ -2256,6 +2308,7 @@ def main():
 
     card()
     build()
+    timing_floor()
     flush = _L2Flush()
     kernels_against_plain(flush)
     verify_kernels_against_plain()
@@ -2275,8 +2328,9 @@ def main():
     launches.update({k: n for k, n in launches_q8.items()
                      if not k.startswith("rows_linear")})
     served.update(served_q8)
-    k1_counts, verify_caps, reqs = serve_llama_3_8b_speculative(model)
-    k1_counts_q8, verify_caps_q8, _ = serve_llama_3_8b_speculative(
+    k1_counts, verify_caps, reqs, g1_by_m = serve_llama_3_8b_speculative(
+        model)
+    k1_counts_q8, verify_caps_q8, _, _ = serve_llama_3_8b_speculative(
         model, "int8", reqs)
     del model
     gc.collect()
@@ -2300,9 +2354,16 @@ def main():
                 shape=list(args[0].shape), launches=launches[name],
                 **results[name])
     for pname, N, K in PROJECTIONS:
-        name = "rows_linear[%s,M=8]" % pname
-        results[name] = g1[pname]
-        launches[name] = launches["rows_linear(%s)" % pname]
+        for M in (8, 64, 128):
+            name = "rows_linear[%s,M=%d]" % (pname, M)
+            results[name] = g1[pname, M]
+            # M = 8: the decode steps of phase 5; 64 and 128: phase 6b's
+            # W = 8 windows and W = 16 trees of 8 slots
+            launches[name] = (launches["rows_linear(%s)" % pname] if M == 8
+                              else g1_by_m.get("%s,M=%d" % (pname, M), 0))
+            if not launches[name]:
+                raise AssertionError("the main path never launched %s"
+                                     % name)
     results["rows_rms_norm[M=8]"] = g2
     launches["rows_rms_norm[M=8]"] = launches["rows_rms_norm"]
     del served, verify_caps, verify_caps_q8

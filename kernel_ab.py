@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time a kernel of two trees on the same captured inputs.
+"""Time a kernel of two trees on the same captured or seeded inputs.
 
     python3 kernel_ab.py capture k6 INPUTS.pt
     python3 kernel_ab.py capture k2 INPUTS.pt
     python3 kernel_ab.py measure ROOT INPUTS.pt
+    python3 kernel_ab.py g1 ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
 (this tree's port) and saves the first counted step's K6 inputs, one
@@ -17,13 +18,105 @@ with ``git archive``), and prints one JSON line per captured call: that
 tree's ``chip_smoke.measure_conv`` (K6) or ``chip_smoke.measure`` (K2)
 on the saved inputs (kernel against plain version, kernel, plain and
 library times, bounds).  Compare two trees in one session on one card,
-in turns: capture, then measure A, B, B, A.  Needs one CUDA card.
+in turns: capture, then measure A, B, B, A.
+
+``g1`` times G1 (``rows_linear``) of the checkouts at ROOT_A and ROOT_B
+in turns, A, B, B, A, each turn a process of its own that imports that
+tree's ``mxtpu_torch``: seeded bfloat16 x and w at Llama-3-8B's six
+projections and M = 8, 64 and 128 rows (the decode step, an 8-slot
+W = 8 window and W = 16 tree), each timed by this file's own
+``device_ms`` (not the trees' ``chip_smoke.cuda_ms``, whose L2 flush
+may differ), beside ``torch.matmul`` on the same inputs.  It prints one
+JSON line per (turn, projection, M), then one line with each row's four
+turns.  Needs one CUDA card.
 """
 
 import json
+import os
+import subprocess
 import sys
 
 import torch
+
+#: Llama-3-8B's decode-step projections (name, N, K) and G1's row counts
+G1_PROJECTIONS = [("qkv", 6144, 4096), ("out_proj", 4096, 4096),
+                  ("gate_proj", 14336, 4096), ("up_proj", 14336, 4096),
+                  ("down_proj", 4096, 14336), ("lm_head", 128256, 4096)]
+G1_ROWS = (8, 64, 128)
+
+
+def device_ms(fn, iters=50):
+    """Mean device milliseconds of ``fn``: captured once in a CUDA graph,
+    replayed between CUDA events, and before each replay the L2 flushed
+    by reading 64 MB (more than the H100's 50 MB), which leaves only
+    clean lines in L2, so no write-back of the flush lands in the timed
+    window."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.sum()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def g1_tree(root, turn):
+    """One turn of ``g1``: the tree at ``root``'s G1 on seeded inputs."""
+    sys.path.insert(0, root)
+    from mxtpu_torch.ops import linear
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, N, K in G1_PROJECTIONS:
+        w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16,
+                        generator=g) * 0.02
+        x = torch.randn(max(G1_ROWS), K, device="cuda", dtype=torch.bfloat16,
+                        generator=g)
+        for M in G1_ROWS:
+            xm = x[:M].contiguous()
+            print(json.dumps(dict(
+                turn=turn, tree=root, projection=name, M=M, N=N, K=K,
+                ms=device_ms(lambda: linear.rows_linear(xm, w)),
+                library_ms=device_ms(lambda: torch.matmul(xm, w.t())))),
+                flush=True)
+        del w, x
+
+
+def g1(root_a, root_b):
+    """``g1``'s turns, A, B, B, A, one process each, and their summary."""
+    print(json.dumps(dict(card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip())), flush=True)
+    rows = {}
+    for turn, root in enumerate((root_a, root_b, root_b, root_a)):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "g1-tree",
+             os.path.abspath(root), str(turn)], capture_output=True,
+            text=True)
+        sys.stdout.write(out.stdout)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr)
+            return out.returncode
+        for line in out.stdout.splitlines():
+            r = json.loads(line)
+            rows.setdefault("%s,M=%d" % (r["projection"], r["M"]), []).append(
+                (r["ms"], r["library_ms"]))
+    print(json.dumps({"g1_turns_A_B_B_A": rows}), flush=True)
+    return 0
 
 
 def _cpu(x):
@@ -59,6 +152,11 @@ def main(argv):
     if not torch.cuda.is_available():
         print("kernel_ab.py: no CUDA device", file=sys.stderr)
         return 1
+    if len(argv) == 3 and argv[0] == "g1":
+        return g1(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "g1-tree":
+        g1_tree(argv[1], int(argv[2]))
+        return 0
     if len(argv) == 3 and argv[0] == "capture" and argv[1] in ("k6", "k2"):
         torch.save(capture(argv[1]), argv[2])
         return 0

@@ -15,11 +15,17 @@ On a CPU tensor the wrapper runs :func:`rows_linear_plain`
 (``F.linear``); on a CUDA tensor it launches the kernel, or raises for
 what the kernel does not take.  Each call adds one to the
 ``rows_linear`` launch counter (``mxtpu_torch.base``).
+
+A bfloat16 call is one launch on :func:`plan`: every weight byte is read
+once at any M <= 128 rows, and the K splits (:func:`splits`,
+:func:`k_ranges`, functions of N and K alone) are added in split order
+inside a thread-block cluster, so the wrapper allocates nothing but y.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.nn import functional as F
@@ -27,10 +33,85 @@ from torch.nn import functional as F
 from ..base import MXTPUError, bump
 from . import _build
 
-__all__ = ["rows_linear", "rows_linear_plain", "KERNEL_NAME"]
+__all__ = ["rows_linear", "rows_linear_plain", "plan", "splits", "k_ranges",
+           "KERNEL_NAME"]
 
 KERNEL_NAME = "rows_linear"
 _FNS: dict = {}
+
+# the bf16 kernel's tiling (csrc/rows_linear.cu): x rows a block holds,
+# the splits' limits and aim, the K slice, the head of the shared memory
+# (mbarriers and the ring's 1024-byte alignment), the partial tile's row
+# padding, and one block's shared-memory limit on the H100
+_CHUNK = 128
+_MAX_SPLITS = 4
+_SPLIT_TARGET = 264
+_MIN_SPLIT_STEPS = 16
+_BK = 64
+_HEAD = 2048
+_PART_PAD = 4
+MAX_SMEM_BYTES = 232448
+#: row classes (the kernel's kClasses): (rows a block holds, 16-column A
+#: tiles a computing warp, 8-row B groups a computing warp, computing
+#: warps across the rows, ring stages); 4 computing warps across the N
+#: tile of 64 * (A tiles a warp) columns, and one producer warp.  128
+#: rows take 256-column tiles, or 192 (the last class) where that grid
+#: fits one wave: _ONE_WAVE blocks, 30 clusters of 4 at one block an SM
+#: on the H100
+_CLASSES = ((8, 1, 1, 1, 4), (32, 1, 4, 1, 4), (64, 2, 8, 1, 3),
+            (128, 4, 8, 2, 4), (128, 3, 8, 2, 5))
+_ONE_WAVE = 120
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def splits(N, K):
+    """K splits of a bfloat16 (N, K) weight, from N and K alone: doubled
+    while the grid of 64-column tiles holds fewer than 264 blocks (two
+    an SM on the H100's 132) and each split keeps 16 k16 steps, at most
+    4 (one thread-block cluster: clusters of 8 fit 15 or 30 at a time on
+    the H100, and a grid a few clusters past that ran a second wave)."""
+    tiles, steps = _cdiv(N, 64), _cdiv(K, 16)
+    s = 1
+    while s < _MAX_SPLITS and tiles * s < _SPLIT_TARGET \
+            and steps >= 2 * s * _MIN_SPLIT_STEPS:
+        s *= 2
+    return s
+
+
+def k_ranges(N, K):
+    """[(k0, k1), ...]: the K range each split walks, in split order (the
+    kernel's ``k_range``, whole k16 steps but the last)."""
+    S, steps = splits(N, K), _cdiv(K, 16)
+    return [(min(16 * (s * steps // S), K), min(16 * ((s + 1) * steps // S), K))
+            for s in range(S)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M, N, K):
+    """The bfloat16 launch for M >= 1 rows (the C launcher recomputes it
+    and refuses a plan that disagrees): the row class ``rows`` (8, 32,
+    64 or 128: the x rows one block holds; ``chunks`` of them cover M),
+    the N tile ``bn`` (wider as the rows grow, so x's re-reads from L2
+    stay under the weights' bytes; at 128 rows 192 columns where that
+    grid fits one wave, else 256), ``splits`` (a function of N and K
+    alone), the K slice ``bk``, the ring's ``stages``, the ``threads``
+    (the computing warps and one producer warp) and the shared memory
+    ``smem`` in bytes.  Only the N tile and the
+    ring depend on M; no element's arithmetic does.  Callers must not
+    modify the returned dict."""
+    c = next(i for i, c in enumerate(_CLASSES) if c[0] >= min(M, _CHUNK))
+    if c == 3 and _cdiv(N, 192) * splits(N, K) <= _ONE_WAVE:
+        c = 4
+    rows, cw, _, warp_rows, stages = _CLASSES[c]
+    bn = 64 * cw
+    smem = _HEAD + max(stages * (bn + rows) * _BK * 2,
+                       rows * (bn + _PART_PAD) * 4)
+    return dict(rows=rows, chunks=_cdiv(M, rows), bn=bn, tiles=_cdiv(N, bn),
+                splits=splits(N, K), bk=_BK, stages=stages,
+                threads=32 * (4 * warp_rows + 1), smem=smem)
 
 
 def rows_linear_plain(x, weight):
@@ -42,17 +123,29 @@ def _fns():
     if not _FNS:
         lib = _build.load("rows_linear")
         bf16 = lib.mxtpu_rows_linear_bf16
-        bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         f32 = lib.mxtpu_rows_linear_f32
         f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
-        splits = lib.mxtpu_rows_linear_splits
-        splits.argtypes = [ctypes.c_int] * 2
-        for fn in (bf16, f32, splits):
+        for fn in (bf16, f32):
             fn.restype = ctypes.c_int
-        _FNS.update(bf16=bf16, f32=f32, splits=splits)
+        _FNS.update(bf16=bf16, f32=f32)
     return _FNS
+
+
+def _launch_bf16(x2, weight, y, p):
+    """The bf16 kernel on (M, K) rows x2 into y (M, N) by plan ``p``;
+    raises MXTPUError where the launcher refuses the plan or the
+    launch."""
+    (M, K), N = x2.shape, weight.shape[0]
+    rc = _fns()["bf16"](
+        x2.data_ptr(), weight.data_ptr(), y.data_ptr(), M, N, K, p["bn"],
+        p["splits"], p["stages"], p["smem"],
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise MXTPUError("rows_linear: CUDA launch failed (cudaError %d; "
+                         "plan %r)" % (rc, p))
 
 
 def rows_linear(x, weight):
@@ -86,19 +179,14 @@ def rows_linear(x, weight):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(x.shape[:-1] + (N,))
-    fns = _fns()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
-        S = fns["splits"](N, K)
-        ws = torch.empty((S, M, N), dtype=torch.float32, device=x.device) \
-            if S > 1 else None
-        rc = fns["bf16"](x2.data_ptr(), weight.data_ptr(), y.data_ptr(),
-                         0 if ws is None else ws.data_ptr(), M, N, K, stream)
+        _launch_bf16(x2, weight, y, plan(M, N, K))
     else:
-        rc = fns["f32"](x2.data_ptr(), weight.data_ptr(), y.data_ptr(), M, N,
-                        K, stream)
-    if rc != 0:
-        raise MXTPUError("rows_linear: CUDA launch failed (cudaError %d)"
-                         % rc)
+        rc = _fns()["f32"](x2.data_ptr(), weight.data_ptr(), y.data_ptr(), M,
+                           N, K, torch.cuda.current_stream(
+                               x.device).cuda_stream)
+        if rc != 0:
+            raise MXTPUError("rows_linear: CUDA launch failed (cudaError %d)"
+                             % rc)
     bump(KERNEL_NAME)
     return y.reshape(x.shape[:-1] + (N,))

@@ -22,10 +22,13 @@ stage 1's pixel count.  K1 and K2 over int8 pools with
 their float32 scales (the float cases quantized per row by the cache's
 quantizer): the decode read, the prefill chunk, and K1's window and
 tree with its two invariants.  G1 (``rows_linear``) against its plain
-version over ragged row counts and Llama-3-8B's six projection shapes,
-every row ``torch.equal`` across the row counts (held relative to its largest
-output, ``GRAD_TOL``: its outputs reach several units, where one
-bfloat16 ulp exceeds 2e-2), and G2 (``rows_rms_norm``) the same way.
+version over ragged shapes and Llama-3-8B's six projection shapes,
+every row ``torch.equal`` across row counts from 1 to 200 (every row
+class, two 128-row chunks) and under a permutation of the rows (held
+relative to its largest output, ``GRAD_TOL``: its outputs reach several
+units, where one bfloat16 ulp exceeds 2e-2); a bfloat16 call allocating
+only its output, and its launcher refusing a plan that disagrees with
+its own; and G2 (``rows_rms_norm``) the same way.
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -343,32 +346,76 @@ PROJECTIONS = [(6144, 4096), (4096, 4096), (14336, 4096), (4096, 14336),
 
 
 #: G1's cases: small shapes in both dtypes (float32 is the small
-#: models' path), the 8B projections in bfloat16
+#: models' path), the 8B projections in bfloat16; (130, 72) has N not a
+#: multiple of 4 and (4096, 520) a 2-block cluster whose last split ends
+#: mid-k16 (K % 16 == 8)
 LINEAR_CASES = [(nk, dt) for nk in ((96, 64), (200, 40)) for dt in DTYPES] \
     + [((64, 172), torch.float32)] \
-    + [(nk, torch.bfloat16) for nk in [(4096, 512)] + PROJECTIONS]
+    + [(nk, torch.bfloat16) for nk in [(130, 72), (4096, 520), (4096, 512)]
+       + PROJECTIONS]
 
 
 @pytest.mark.parametrize("NK,dtype", LINEAR_CASES, ids=[
     "%dx%d-%s" % (nk + (str(dt)[6:],)) for nk, dt in LINEAR_CASES])
 def test_rows_linear_matches_plain_and_each_row_ignores_the_row_count(
         cuda, NK, dtype):
+    """M = 200 (two 128-row chunks) against the plain version; every
+    prefix of 1 to 128 rows (each row class) and a permutation of 128
+    and of 200 rows give each row the full call's bits."""
     N, K = NK
     g = torch.Generator(device="cuda").manual_seed(N + K)
     w = torch.randn(N, K, generator=g, device="cuda", dtype=dtype) * 0.02
-    x = torch.randn(128, K, generator=g, device="cuda", dtype=dtype)
+    x = torch.randn(200, K, generator=g, device="cuda", dtype=dtype)
     base.reset_counts()
     full = linear.rows_linear(x, w)
     want = linear.rows_linear_plain(x, w)
-    assert full.dtype == dtype and full.shape == (128, N)
+    assert full.dtype == dtype and full.shape == (200, N)
     assert _err(full, want) <= GRAD_TOL[dtype] * float(
         want.float().abs().max())
-    for M in (1, 7, 8, 17):
+    for M in (1, 7, 8, 17, 64, 100, 128):
         assert torch.equal(linear.rows_linear(x[:M], w), full[:M]), M
-    perm = torch.randperm(128, generator=torch.Generator().manual_seed(0))
-    assert torch.equal(linear.rows_linear(x[perm.cuda()], w),
-                       full[perm.cuda()])
-    assert base.counts() == {linear.KERNEL_NAME: 6}
+    for M in (128, 200):
+        perm = torch.randperm(
+            M, generator=torch.Generator().manual_seed(M)).cuda()
+        assert torch.equal(linear.rows_linear(x[:M][perm], w),
+                           full[:M][perm]), M
+    assert base.counts() == {linear.KERNEL_NAME: 10}
+
+
+@pytest.mark.parametrize("M", [8, 64, 128])
+@pytest.mark.parametrize("NK", [(4096, 4096), (4096, 14336), (128256, 4096)],
+                         ids=["out_proj", "down_proj", "lm_head"])
+def test_rows_linear_bf16_is_one_launch_that_allocates_only_y(cuda, NK, M):
+    """A bfloat16 call allocates its output and nothing else (no split-K
+    workspace), at 8-split and 1-split shapes."""
+    N, K = NK
+    w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(M, K, device="cuda", dtype=torch.bfloat16)
+    linear.rows_linear(x, w)              # built and loaded
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = linear.rows_linear(x, w)
+    grew = torch.cuda.memory_allocated() - before
+    nbytes = y.numel() * y.element_size()
+    assert nbytes <= grew < nbytes + 512, (grew, nbytes)
+
+
+def test_rows_linear_launcher_refuses_a_plan_that_disagrees(cuda):
+    """The C launcher recomputes the plan and refuses one whose N tile,
+    splits, stages or shared memory disagree with it."""
+    N, K = 4096, 4096
+    w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16)
+    for M in (8, 128):
+        x = torch.randn(M, K, device="cuda", dtype=torch.bfloat16)
+        y = torch.empty(M, N, device="cuda", dtype=torch.bfloat16)
+        p = linear.plan(M, N, K)
+        linear._launch_bf16(x, w, y, p)
+        assert torch.equal(y, linear.rows_linear(x, w))
+        for bad in (dict(p, bn=2 * p["bn"]), dict(p, splits=p["splits"] // 2),
+                    dict(p, stages=1), dict(p, smem=p["smem"] + 16),
+                    dict(p, stages=p["stages"] - 1)):
+            with pytest.raises(base.MXTPUError, match="cudaError"):
+                linear._launch_bf16(x, w, y, bad)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
