@@ -58,8 +58,9 @@ Phases, in order; any failure exits non-zero:
    launch counts are zeroed just before and read just after, and must
    equal 32 per decode step and 32 per prefill chunk for K1 and K2, 161
    per decode step for G1 (5 projections a layer and the head) and 65
-   for G2 (2 norms a layer and the final one); every K2 call must take
-   the tensor-core route (``prefill_attention.route``: bf16 queries);
+   for G2 (2 norms a layer and the final one); every K1 and K2 call
+   must take the tensor-core route (``paged_attention.route`` and
+   ``prefill_attention.route``: bf16 queries);
 5b. the main path again with an int8 cache: K1 int8 32 per decode step,
    K2 int8 32 per chunk, no float K1/K2 launch; the pool bytes, and how
    many streams equal the bf16 run's (a reading: random weights tie
@@ -73,7 +74,7 @@ Phases, in order; any failure exits non-zero:
    settings, with speculation off and with spec_k = 4, spec_tree =
    (15, 2); K1's launches must be 32 per step or verify call, by W and
    tree, and G1's 161 per step or verify call (its calls counted by
-   row count M); every K2 call on the tensor-core route; every
+   row count M); every K1 and K2 call on the tensor-core route; every
    speculative stream must be token-identical to its plain stream, K1 must hold
    invariant (b) on the captured window, and ``window_op_bits`` must
    find no op of the step (norms, projections, rope, SwiGLU, residual
@@ -88,9 +89,11 @@ Phases, in order; any failure exits non-zero:
    against plain version on them, and the kernel, plain and library
    times (device time of a CUDA-graph replay, L2 flushed before each)
    at the main path's shapes; the library is a gather (and dequantize)
-   then scaled_dot_product_attention.  K2's tensor-core route must give
-   the same bits on a second call, and its rows carry ``bound_tc_ms``,
-   its operations alone at the bf16 tensor-core peak;
+   then scaled_dot_product_attention.  K1's and K2's tensor-core routes
+   (bf16 queries: ``mma.sync`` bf16, each key walk split over a
+   thread-block cluster) must give the same bits on a second call, and
+   their rows carry ``route`` and ``bound_tc_ms``, their operations alone
+   at the bf16 tensor-core peak;
 8. the flash-attention kernels (K3 forward, K4 dq, K5 dk/dv) against
    their plain versions, causal and not, at T = 128, 100 and 150
    (head_dim 16), (1, 3, 70, 72), (1, 2, 96, 256) and (1, 32, 2048,
@@ -582,11 +585,12 @@ def measure(name, args, flush, timed=True, kw=None):
                                  name, err, TOL[dtype], dtype,
                                  tuple(args[0].shape)))
     res = dict(max_abs_err=err, err_over_tol=err / TOL[dtype])
-    tc = (name.startswith("paged_prefill")
-          and pf.route(args[0]) == pf.TENSOR_CORES)
+    tc = (pa if name.startswith("paged_attention")
+          else pf).route(args[0]) == pa.TENSOR_CORES
     if tc:
-        # K2's tensor-core route: the same inputs give the same bits
-        res["route"] = pf.TENSOR_CORES
+        # K1's and K2's tensor-core routes: the same inputs give the same
+        # bits
+        res["route"] = pa.TENSOR_CORES
         if not torch.equal(kernel(*args), got):
             raise AssertionError("%s gave other bits on a second call (%s)"
                                  % (name, tuple(args[0].shape)))
@@ -1056,17 +1060,31 @@ def k2_key(args, kw):
     return pf.route(args[0]), args[4] >= 512
 
 
+def k1_route(args, kw):
+    """A K1 call's route on the card."""
+    from mxtpu_torch.ops import paged_attention as pa
+
+    return pa.route(args[0])
+
+
+def tensor_core_routes(kernel, routes, want):
+    """Every call of ``kernel`` (K1 or K2) in a bf16 main-path run took
+    the tensor-core route, ``want`` of them (``routes``: calls by
+    route)."""
+    from mxtpu_torch.ops import paged_attention as pa
+
+    if routes != {pa.TENSOR_CORES: want}:
+        raise AssertionError("%s's calls by route %r, wanted all %d on %s"
+                             % (kernel, routes, want, pa.TENSOR_CORES))
+
+
 def k2_routes(counts, want):
     """Every K2 call of a bf16 main-path run (``counts`` by ``k2_key``)
     took the tensor-core route, ``want`` of them."""
-    from mxtpu_torch.ops import prefill_attention as pf
-
     routes = {}
     for (route, _), n in counts.items():
         routes[route] = routes.get(route, 0) + n
-    if routes != {pf.TENSOR_CORES: want}:
-        raise AssertionError("K2's calls by route %r, wanted all %d on %s"
-                             % (routes, want, pf.TENSOR_CORES))
+    tensor_core_routes("K2", routes, want)
 
 
 def pool_bytes(eng):
@@ -1112,6 +1130,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
     proj = projection_names(model)
     torch.cuda.reset_peak_memory_stats()
     with decode_cap, prefill_cap, long_cap, \
+            Counted(pa, "paged_decode_attention", k1_route) as k1_calls, \
             Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
             FiniteLogits(sampler) as finite, \
             Counted(transformer, "rows_linear",
@@ -1146,6 +1165,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
     if launches != want or not steps or not chunks:
         raise AssertionError("launches %r, wanted exactly %r" % (launches,
                                                                  want))
+    tensor_core_routes("K1", k1_calls.counts, n_layers * steps)
     k2_routes(k2_calls.counts, n_layers * chunks)
     gen_tokens = after["generated_tokens"] - before["generated_tokens"]
     pre_tokens = after["prefill_tokens"] - before["prefill_tokens"]
@@ -1156,6 +1176,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
         - before["prefix_hit_requests"],
         cow_copied_blocks=after["cow_copied_blocks"]
         - before["cow_copied_blocks"],
+        k1_calls_by_route=k1_calls.counts,
         k2_calls_by_route={"%s,start>=512" % r if long else r: n
                            for (r, long), n in k2_calls.counts.items()},
         prefill_tokens=pre_tokens, decode_tokens=gen_tokens,
@@ -1522,6 +1543,7 @@ def serve_speculative(model, eng, reqs):
     torch.cuda.reset_peak_memory_stats()
     with lin_cap, tree_cap, Counted(pa, "paged_decode_attention",
                                     k1_key) as k1, \
+            Counted(pa, "paged_decode_attention", k1_route) as k1_routes, \
             Counted(model, "step_pages", model_key) as steps, \
             Counted(model, "verify_pages", model_key) as verifies, \
             Counted(pf, "paged_prefill_attention", k2_key) as k2_calls, \
@@ -1545,6 +1567,7 @@ def serve_speculative(model, eng, reqs):
         "verify_calls", "drafted_tokens", "accepted_tokens",
         "tree_nodes_drafted", "tree_paths", "slot_iterations")}
     k2_routes(k2_calls.counts, n_layers * d["prefill_chunks"])
+    tensor_core_routes("K1", k1_routes.counts, n_layers * d["steps"])
     calls = dict(steps.counts)
     calls.update(verifies.counts)
     for key, n in calls.items():

@@ -3,6 +3,7 @@
 
     python3 kernel_ab.py capture k6 INPUTS.pt
     python3 kernel_ab.py capture k2 INPUTS.pt
+    python3 kernel_ab.py capture k1 INPUTS.pt
     python3 kernel_ab.py measure ROOT INPUTS.pt
     python3 kernel_ab.py g1 ROOT_A ROOT_B
 
@@ -12,13 +13,18 @@ call per stage shape.  ``capture k2`` serves ``chip_smoke.py`` phase 5's
 traffic through the 32-layer Llama-3-8B, over bf16 pools and over int8
 pools, and saves layer 0's K2 inputs at two chunks of each: the first
 at position 256 or later and the last chunk of the longest prompt.
-``measure`` imports the ``chip_smoke`` and ``mxtpu_torch`` of the
-checkout at ROOT (this tree or another, such as its parent unpacked
-with ``git archive``), and prints one JSON line per captured call: that
-tree's ``chip_smoke.measure_conv`` (K6) or ``chip_smoke.measure`` (K2)
-on the saved inputs (kernel against plain version, kernel, plain and
-library times, bounds).  Compare two trees in one session on one card,
-in turns: capture, then measure A, B, B, A.
+``capture k1`` saves layer 0's K1 inputs over bf16 and over int8 pools:
+a decode step of phase 5's traffic (phases 5 and 5b), and the W = 8
+window and W = 16 tree of phase 6b's speculative serve (phase 6c's over
+int8 pools).  ``measure`` imports the ``chip_smoke`` and ``mxtpu_torch``
+of the checkout at ROOT (this tree or another, such as its parent
+unpacked with ``git archive``), and prints one JSON line per captured
+call: that tree's ``chip_smoke.measure_conv`` (K6) or
+``chip_smoke.measure`` (K1, K2) on the saved inputs (kernel against
+plain version, kernel, plain and library times, bounds; on a
+tensor-core route also the same bits on a second call).  Compare two
+trees on one card in one run, in turns: capture, then measure A, B, B,
+A.
 
 ``g1`` times G1 (``rows_linear``) of the checkouts at ROOT_A and ROOT_B
 in turns, A, B, B, A, each turn a process of its own that imports that
@@ -136,6 +142,20 @@ def capture(kind):
     if kind == "k6":
         _, captured = chip_smoke.train_resnet50()
         calls = {name: (args, {}) for name, args in captured.items()}
+    elif kind == "k1":
+        model = chip_smoke.llama_3_8b_model()
+        calls, reqs = {}, None
+        for cache_dtype in (None, "int8"):
+            _, caps, _ = chip_smoke.serve_llama_3_8b(model, cache_dtype)
+            calls.update({name: cap for name, cap in caps.items()
+                          if name.startswith("paged_attention")})
+            _, verify, reqs, _ = chip_smoke.serve_llama_3_8b_speculative(
+                model, cache_dtype, reqs)
+            for vkind, (args, kw) in verify.items():
+                calls["paged_attention[%s%sW=%d]" % (
+                    "int8," if cache_dtype else "",
+                    "tree," if vkind == "tree" else "",
+                    args[0].shape[2])] = (args, kw)
     else:
         model = chip_smoke.llama_3_8b_model()
         calls = {}
@@ -157,7 +177,8 @@ def main(argv):
     if len(argv) == 3 and argv[0] == "g1-tree":
         g1_tree(argv[1], int(argv[2]))
         return 0
-    if len(argv) == 3 and argv[0] == "capture" and argv[1] in ("k6", "k2"):
+    if len(argv) == 3 and argv[0] == "capture" and argv[1] in ("k6", "k2",
+                                                                 "k1"):
         torch.save(capture(argv[1]), argv[2])
         return 0
     if len(argv) == 3 and argv[0] == "measure":
@@ -175,7 +196,8 @@ def main(argv):
             else:
                 res = chip_smoke.measure(
                     name, args, flush, kw={k: _cuda(v) for k, v in kw.items()})
-                extra = dict(start=args[4])
+                extra = (dict(pos=args[4].tolist())
+                         if saved["kind"] == "k1" else dict(start=args[4]))
             print(json.dumps(dict(tree=argv[1], kernel=name,
                                   shape=list(args[0].shape), **extra, **res)),
                   flush=True)

@@ -27,8 +27,8 @@
 // Layout: pools are (N, KV, bs, D) row-major, so one page of one kv
 // head is a contiguous bs*D run.  Page 0 is the null page.
 //
-// Two element types: T for the queries and the output (float32 or
-// bfloat16), P for the pools (float32, bfloat16, or int8).  An int8 pool
+// Two element types: T for the queries and the output (float32), P for
+// the pools (float32, or int8).  An int8 pool
 // comes with float32 scales (N, KV, bs), one per head and position, so
 // a page's bs scales are contiguous at scales[(page * KV + kv) * bs].
 // Each tile's key and value scales are staged with its payload, in the
@@ -40,16 +40,19 @@
 //
 // The walk goes a TILE of up to kTileKeys keys (a whole number of pages)
 // at a time.  Tiles are copied into shared memory with cp.async, 16
-// bytes per copy (8 for an int8 pool), double-buffered where the block's shared memory allows
-// (every bf16 shape up to head_dim 256 does): the copies of tile j+1
+// bytes per copy (8 for an int8 pool), double-buffered where the block's
+// shared memory allows: the copies of tile j+1
 // are in flight while the block computes on tile j, so a slot's walk
 // waits on memory about once rather than once per page.  The block
 // stages its table row's page ids in shared memory first.  Pages past
 // the walk's end land as zeros and their keys are masked.  Rows are
 // padded (8 elements of a float pool, 16 bytes of an int8 one; each
 // row starts aligned for its copies) so the threads of a warp, each on
-// its own key row at the same column, read different banks.  The dot products run on
-// the CUDA cores in float32 (tensor cores are later work).
+// its own key row at the same column, read different banks.  The dot
+// products run on the CUDA cores in float32: this walk is the float32
+// route of both kernels (float32 queries).  Their bfloat16 queries take
+// the tensor cores (paged_attention.cu, prefill_attention.cu), with the
+// mma.sync helpers at the end of this file.
 
 #pragma once
 
@@ -88,17 +91,6 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-// (a bf16 is the high half of a float32: shift, no address-taking, so
-// the words stay in registers)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 // int8 payload values, not yet scaled
 __device__ __forceinline__ void load8(const int8_t* p, float* f) {
@@ -515,6 +507,91 @@ __device__ void attend_pages(const AttendSmem<P>& sm, int stages, int lanes,
     const int ln = i / D;
     out[i] = from_float<T>(sm.acc[i] / fmaxf(sm.l[ln], 1e-30f));
   }
+}
+
+// -- bf16 tensor-core helpers (K1's and K2's tensor-core routes) --------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// two 8x8 bf16 matrices: lanes 0-15 give the row addresses (lane i of
+// matrix i/8, row i%8); lane (g, t) receives row g, columns 2t and 2t+1
+// of each
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+// four 8x8 bf16 matrices: lane i gives the row address of matrix i/8,
+// row i%8; lane (g, t) receives row g, columns 2t and 2t+1 of each
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+// the same, each matrix transposed: lane (g, t) receives rows 2t and
+// 2t+1 of column g
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a.b, one m16n8k16 bf16 product with float32 sums.  Lane (g, t)
+// holds a = A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
+// b = B[2t..2t+1][g], B[2t+8..2t+9][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an 8x8 bf16 matrix held as a fragment (lane (g, t): row g, columns 2t
+// and 2t+1) transposed in registers: lane (g, t) receives rows 2t and
+// 2t+1 of column g
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x0, x1) as two packed bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// wait until at most n (0..2) cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
 // Raise the block's dynamic shared-memory limit when it needs more than

@@ -86,8 +86,14 @@ using mxtpu_port::cp_async4;
 using mxtpu_port::cp_async8;
 using mxtpu_port::cp_async_commit;
 using mxtpu_port::cp_async_wait_all;
+using mxtpu_port::cp_async_wait_n;
 using mxtpu_port::kMaxSmem;
 using mxtpu_port::kNegInf;
+using mxtpu_port::ldsm_x4;
+using mxtpu_port::ldsm_x4_t;
+using mxtpu_port::mma_bf16;
+using mxtpu_port::pack_bf16;
+using mxtpu_port::split_bf16;
 
 // -- the float32 route --------------------------------------------------
 
@@ -190,67 +196,6 @@ __host__ __device__ inline size_t tc_smem_bytes(int rows, int DP, int M,
   if (quant) walk += 2 * (size_t)kTcKeys * tc_ld(DP) * 2;
   const size_t combine = (size_t)rows * (DP + 2) * 4;
   return pages + q + (walk > combine ? walk : combine);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices: lane i gives the row address of matrix i/8,
-// row i%8; lane (g, t) receives row g, columns 2t and 2t+1 of each
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-// the same, each matrix transposed: lane (g, t) receives rows 2t and
-// 2t+1 of column g
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a.b, one m16n8k16 bf16 product with float32 sums.  Lane (g, t)
-// holds a = A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
-// b = B[2t..2t+1][g], B[2t+8..2t+9][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// (x0, x1) as two packed bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// wait until at most n (0..2) cp.async groups are in flight
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (n == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
 // The block's shared memory, carved as tc_smem_bytes counts it.

@@ -13,11 +13,19 @@ Ported: the plain decode read (W = 1), the speculative verify window
 bfloat16 pools and over int8 pools with their float32 scales
 (``k_scales``/``v_scales``, (N, KV, bs)), for float32 or bfloat16
 queries.  Calls over int8 pools count under ``paged_attention[int8]``.
+
+Two routes on the card, chosen by :func:`route` from q's dtype alone:
+bfloat16 queries (over bfloat16 pools, or int8 pools with their scales)
+run the tensor-core kernel (``mma.sync`` bf16 with float32 sums, each
+key walk split over a thread-block cluster; its launch plan is
+:func:`tc_plan`); float32 queries (over float32 or int8 pools) run the
+float32 walk on the CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -27,7 +35,8 @@ from . import _build
 from .tensor import paged_cache_gather, paged_cache_gather_q8
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "KERNEL_NAME", "KERNEL_NAME_Q8", "check_kernel_geometry"]
+           "KERNEL_NAME", "KERNEL_NAME_Q8", "check_kernel_geometry", "route",
+           "tc_plan", "TENSOR_CORES", "CUDA_CORES"]
 
 KERNEL_NAME = "paged_attention"
 KERNEL_NAME_Q8 = "paged_attention[int8]"
@@ -37,6 +46,114 @@ _NEG_INF = -1e30
 MAX_SMEM_BYTES = 232448
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _FNS: dict = {}
+_TC_FNS: dict = {}
+#: the two routes on the card (see :func:`route`)
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+
+# the tensor-core kernel's tiling (csrc/paged_attention.cu): keys a
+# staged tile (16 a warp), warps a block, blocks a cluster (the splits of
+# one key walk) and ring stages; constants, so that no lane's arithmetic
+# depends on W, the lane count, B or pos
+TC_KEYS = 64
+TC_WARPS = 4
+TC_SPLITS = 4
+TC_STAGES = 3
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def route(q):
+    """The kernel a CUDA call runs, from q's dtype alone: bfloat16
+    queries (over bfloat16 or int8 pools) take the tensor cores, float32
+    queries (over float32 or int8 pools) the float32 walk on the CUDA
+    cores."""
+    return TENSOR_CORES if q.dtype == torch.bfloat16 else CUDA_CORES
+
+
+def tc_depth(D):
+    """head_dim's class in the tensor-core kernels: the power of two from
+    16 up to 256 that holds D (the staged depth past D is zero)."""
+    DP = 16
+    while DP < D:
+        DP *= 2
+    return DP
+
+
+def _tc_smem(nt, DP, M, quant):
+    """Shared memory of one tensor-core block, in bytes, as the kernel
+    carves it (``tc_smem_bytes``): the page ids, the group's queries,
+    then the larger of the walk's buffers (the ring, and an int8 pool's
+    converted rows a warp) and the combine's float32 (m, l, O) of every
+    warp and lane and of the block."""
+    ld = DP + 8
+    stage = (2 * TC_KEYS * (DP + 16) + 2 * TC_KEYS * 4 if quant
+             else 2 * TC_KEYS * ld * 2)
+    walk = TC_STAGES * stage + (TC_WARPS * 2 * 16 * ld * 2 if quant else 0)
+    combine = (TC_WARPS + 1) * 8 * nt * (DP + 2) * 4
+    return _cdiv(M, 4) * 16 + 8 * nt * ld * 2 + max(walk, combine)
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(lanes, D, M, quant):
+    """The tensor-core launch for ``lanes`` = rep*W lanes a kv head: the
+    head_dim class ``DP``, ``nt`` n8 lane tiles a group (1, 2 or 4, as
+    few as hold the lanes; at most 2 at DP 256; the lanes are MMA
+    columns), the lane ``groups`` a kv head, the cluster's ``splits``
+    (split s walks key tiles s, s + splits, ...), the ring's ``stages``
+    and the shared memory ``smem`` in bytes.  The C launcher recomputes
+    it and refuses one that disagrees.  Only the group's width depends
+    on the lane count, and it changes no lane's arithmetic.  Callers
+    must not modify the returned dict."""
+    DP = tc_depth(D)
+    tiles = _cdiv(lanes, 8)
+    nt = min(4 if DP <= 128 else 2, 1 if tiles == 1 else 2 if tiles == 2
+             else 4)
+    smem = _tc_smem(nt, DP, M, quant)
+    if smem > MAX_SMEM_BYTES:
+        raise MXTPUError("paged_decode_attention: head_dim %d with a table "
+                         "of %d pages needs more than %d bytes of shared "
+                         "memory" % (D, M, MAX_SMEM_BYTES))
+    return dict(DP=DP, nt=nt, groups=_cdiv(lanes, 8 * nt), splits=TC_SPLITS,
+                stages=TC_STAGES, smem=smem)
+
+
+def _tc_fn(quant):
+    """The tensor-core launch function of the kernel library."""
+    fn = _TC_FNS.get(quant)
+    if fn is None:
+        lib = _build.load("paged_attention")
+        fn = getattr(lib, "mxtpu_paged_decode_tc_bf16" + ("_q8" if quant
+                                                          else ""))
+        fn.argtypes = [ctypes.c_void_p] * (7 + 2 * quant) + [
+            ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _TC_FNS[quant] = fn
+    return fn
+
+
+def launch_tc(q, pool_k, pool_v, tables, pos, out, plan, k_scales=None,
+              v_scales=None, anc=None):
+    """The tensor-core kernel on checked operands into ``out`` by
+    ``plan``; raises MXTPUError where the launcher refuses the plan or
+    the launch."""
+    B, H, W, D = q.shape
+    _, KV, bs, _ = pool_k.shape
+    M = tables.shape[-1]
+    quant = k_scales is not None
+    scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quant else []
+    rc = _tc_fn(quant)(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+        tables.data_ptr(), pos.data_ptr(),
+        None if anc is None else anc.data_ptr(), out.data_ptr(), B, KV,
+        (H // KV) * W, W, D, bs, M, plan["DP"], plan["nt"], plan["groups"],
+        plan["splits"], plan["stages"], plan["smem"], 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise MXTPUError("paged_decode_attention: CUDA launch failed "
+                         "(cudaError %d; plan %r)" % (rc, plan))
 
 
 def gather_pages(pool, scales, tables):
@@ -150,22 +267,21 @@ def check_index(name, x, shape, device):
                x.device))
 
 
-def kernel_fn(source, prefix, q_dtype, quant, n_ptrs, n_ints, cache):
-    """The (launch, stages) C functions of a paged kernel library for q's
-    dtype and the pool's (float or int8), loaded once into ``cache``."""
-    key = (q_dtype, quant)
-    fns = cache.get(key)
+def kernel_fn(source, prefix, quant, n_ptrs, n_ints, cache):
+    """The (launch, stages) C functions of a paged kernel library's
+    float32 route for the pool's type (float32 or int8), loaded once into
+    ``cache``."""
+    fns = cache.get(quant)
     if fns is None:
         lib = _build.load(source)
-        fn = getattr(lib, "%s_%s%s" % (prefix, _DTYPES[q_dtype],
-                                       "_q8" if quant else ""))
+        fn = getattr(lib, "%s_f32%s" % (prefix, "_q8" if quant else ""))
         fn.argtypes = [ctypes.c_void_p] * (n_ptrs + 2 * quant) + [
             ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         stages = getattr(lib, prefix + "_stages")
         stages.argtypes = [ctypes.c_int] * 5
         stages.restype = ctypes.c_int
-        fns = cache[key] = (fn, stages)
+        fns = cache[quant] = (fn, stages)
     return fns
 
 
@@ -208,8 +324,14 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     if anc is not None:
         check_index("anc", anc, (B, W), q.device)
     lanes = (H // KV) * W
-    fn, stages = kernel_fn("paged_attention", "mxtpu_paged_decode", q.dtype,
-                           quant, 8, 7, _FNS)
+    out = torch.empty_like(q)
+    if route(q) == TENSOR_CORES:
+        launch_tc(q, pool_k, pool_v, tables, pos, out,
+                  tc_plan(lanes, D, M, quant), k_scales, v_scales, anc)
+        bump(name)
+        return out
+    fn, stages = kernel_fn("paged_attention", "mxtpu_paged_decode", quant, 8,
+                           7, _FNS)
     if not stages(lanes, D, bs, M, pool_k.element_size()):
         raise MXTPUError("paged_decode_attention: D=%d, bs=%d, M=%d need "
                          "more than %d bytes of shared memory"
@@ -217,7 +339,6 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     sm_scale = 1.0 / math.sqrt(D)
     nv = torch.clamp(torch.div(pos + (W - 1), bs, rounding_mode="floor")
                      + 1, 1, M).to(torch.int32)
-    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quant else []
     rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,

@@ -27,8 +27,9 @@ import torch
 
 from ..base import MXTPUError, bump
 from . import _build
-from .paged_attention import (MAX_SMEM_BYTES, _NEG_INF, check_index,
-                              check_kernel_geometry, gather_pages, kernel_fn)
+from .paged_attention import (CUDA_CORES, MAX_SMEM_BYTES, TENSOR_CORES,
+                              _NEG_INF, check_index, check_kernel_geometry,
+                              gather_pages, kernel_fn, route, tc_depth)
 
 __all__ = ["paged_prefill_attention", "paged_prefill_attention_plain",
            "route", "KERNEL_NAME", "KERNEL_NAME_Q8", "TENSOR_CORES",
@@ -36,9 +37,6 @@ __all__ = ["paged_prefill_attention", "paged_prefill_attention_plain",
 
 KERNEL_NAME = "paged_prefill"
 KERNEL_NAME_Q8 = "paged_prefill[int8]"
-#: the two routes on the card (see :func:`route`)
-TENSOR_CORES = "tensor_cores"
-CUDA_CORES = "cuda_cores"
 _FNS: dict = {}
 _TC_FNS: dict = {}
 
@@ -53,23 +51,6 @@ _SMS = 132
 
 def _cdiv(a, b):
     return -(-a // b)
-
-
-def route(q):
-    """The kernel a CUDA call runs, from q's dtype alone: bfloat16
-    queries (over bfloat16 or int8 pools) take the tensor cores, float32
-    queries (over float32 or int8 pools) the float32 walk on the CUDA
-    cores."""
-    return TENSOR_CORES if q.dtype == torch.bfloat16 else CUDA_CORES
-
-
-def _tc_depth(D):
-    """head_dim's class in the tensor-core kernel: the power of two from
-    16 up to 256 that holds D (the staged depth past D is zero)."""
-    DP = 16
-    while DP < D:
-        DP *= 2
-    return DP
 
 
 def _tc_smem(rows, DP, M, quant, stages):
@@ -91,7 +72,7 @@ def _tc_plan(KV, fold, D, bs, M, quant):
     grid of KV x groups, at most 8 and at most the tiles a table can
     hold), ring ``stages`` (the most of 4, 3, 2 that fit) and the
     shared memory ``smem`` in bytes."""
-    DP = _tc_depth(D)
+    DP = tc_depth(D)
     warps = min(_TC_MAX_WARPS, _cdiv(fold, 16))
     groups = _cdiv(fold, 16 * warps)
     splits = max(1, min(_TC_MAX_SPLITS, _cdiv(M * bs, _TC_KEYS),
@@ -202,7 +183,7 @@ def paged_prefill_attention(q, pool_k, pool_v, table, start_pos,
             plan["smem"], sm_scale, stream)
     else:
         fn, stages = kernel_fn("prefill_attention", "mxtpu_paged_prefill",
-                               q.dtype, quant, 7, 6, _FNS)
+                               quant, 7, 6, _FNS)
         if not stages(rep * T, D, bs, M, pool_k.element_size()):
             raise MXTPUError("paged_prefill_attention: D=%d, bs=%d, M=%d "
                              "need more than %d bytes of shared memory"

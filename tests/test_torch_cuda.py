@@ -21,7 +21,12 @@ ResNet-50's three stage shapes at batch 4, and one-signed inputs at
 stage 1's pixel count.  K1 and K2 over int8 pools with
 their float32 scales (the float cases quantized per row by the cache's
 quantizer): the decode read, the prefill chunk, and K1's window and
-tree with its two invariants.  G1 (``rows_linear``) against its plain
+tree with its two invariants.  K1's tensor-core route (bf16 queries)
+holds invariant (c) too (slot b of a B-slot call equals a 1-slot call
+on its own table row and position, ``torch.equal``), gives the same
+bits on a second call, holds (b) and (c) at its edges (20 and 24 lanes,
+head_dim 8, 40, 72 and 256), and its launcher refuses a plan that
+disagrees with its own.  G1 (``rows_linear``) against its plain
 version over ragged shapes and Llama-3-8B's six projection shapes,
 every row ``torch.equal`` across row counts from 1 to 200 (every row
 class, two 128-row chunks) and under a permutation of the rows (held
@@ -338,6 +343,121 @@ def test_int8_verify_window_and_tree_kernels_match_plain(cuda, geom, dtype,
         one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk, pv,
                                         tables, pos + w, **kw)
         assert torch.equal(one, lin[:, :, w:w + 1]), w
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "D%d-bs%d-rep%d"
+                         % (g[0], g[1], g[3]))
+def test_decode_tensor_core_slots_ignore_the_batch(cuda, geom, pools):
+    """K1's tensor-core route (bf16 queries over bf16 or int8 pools):
+    invariant (c), slot b of a B-slot call equals a 1-slot call on its
+    own table row and position, for W = 1, a W = 4 window and a W = 4
+    tree; and a second call on the same inputs gives the same bits."""
+    D, bs, KV, rep = geom[:4]
+    q1, pk, pv, tables, pos = _decode_case(geom[:6] + (geom[6] + 4,),
+                                           torch.bfloat16, seed=D + bs)
+    kw = {}
+    if pools == "int8":
+        (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+        kw = dict(k_scales=ks, v_scales=vs)
+    B = q1.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(bs)
+    rng = np.random.RandomState(bs)
+    for W, tree in ((1, False), (4, False), (4, True)):
+        p = pos if W == 1 else torch.clamp(pos - W, min=0)
+        q = q1 if W == 1 else torch.randn(B, KV * rep, W, D, generator=g,
+                                          device="cuda",
+                                          dtype=torch.bfloat16)
+        if tree:
+            kw["anc"] = torch.from_numpy(tree_anc(rng, B, W)).cuda()
+        assert pa.route(q) == pa.TENSOR_CORES
+        base.reset_counts()
+        got = pa.paged_decode_attention(q, pk, pv, tables, p, **kw)
+        again = pa.paged_decode_attention(q, pk, pv, tables, p, **kw)
+        assert torch.equal(got, again), (W, tree)
+        assert _err(got, pa.paged_decode_attention_plain(
+            q, pk, pv, tables, p, **kw)) <= TOL[torch.bfloat16], (W, tree)
+        for b in range(B):
+            one = pa.paged_decode_attention(
+                q[b:b + 1].contiguous(), pk, pv, tables[b:b + 1].contiguous(),
+                p[b:b + 1].contiguous(),
+                **{k: v[b:b + 1].contiguous() if k == "anc" else v
+                   for k, v in kw.items()})
+            assert torch.equal(one, got[b:b + 1]), (W, tree, b)
+        assert base.counts() == {pa.KERNEL_NAME_Q8 if pools == "int8"
+                                 else pa.KERNEL_NAME: 2 + B}
+
+
+#: K1's tensor-core route at its edges: (head_dim, block, kv heads, rep,
+#: W, context): 20 and 24 lanes (a group of 4 lane tiles, 3 of them
+#: used), head_dim 72 and 40 (int8 rows of D % 16 == 8 copy 8 bytes),
+#: head_dim 8 with 3 lanes, and head_dim 256 at block 64 (2 lane tiles a
+#: group, so 24 lanes take two groups)
+TC_DECODE_EDGES = [
+    (72, 16, 2, 4, 5, 300),
+    (40, 32, 2, 6, 4, 200),
+    (8, 8, 2, 3, 1, 60),
+    (256, 64, 1, 3, 8, 400),
+]
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("edge", TC_DECODE_EDGES, ids=lambda e: "D%d-bs%d-"
+                         "lanes%d" % (e[0], e[1], e[3] * e[4]))
+def test_decode_tensor_core_route_at_its_edges(cuda, edge, pools):
+    """bf16 queries at the lane counts and depths the card geometries
+    miss: linear and tree windows within TOL of the plain version, lane
+    w equal to a W = 1 call at pos + w and slot b to a 1-slot call."""
+    D, bs, KV, rep, W, ctx = edge
+    q1, pk, pv, tables, pos = _decode_case((D, bs, KV, rep, 3, 8, ctx + W),
+                                           torch.bfloat16, seed=D + W)
+    kw = {}
+    if pools == "int8":
+        (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+        kw = dict(k_scales=ks, v_scales=vs)
+    B = q1.shape[0]
+    pos = torch.clamp(pos - W, min=0)
+    q = torch.randn(B, KV * rep, W, D, device="cuda", dtype=torch.bfloat16,
+                    generator=torch.Generator(device="cuda").manual_seed(W))
+    tree = torch.from_numpy(tree_anc(np.random.RandomState(D), B, W)).cuda()
+    lin = pa.paged_decode_attention(q, pk, pv, tables, pos, **kw)
+    got = pa.paged_decode_attention(q, pk, pv, tables, pos, anc=tree, **kw)
+    for anc, out in ((None, lin), (tree, got)):
+        assert _err(out, pa.paged_decode_attention_plain(
+            q, pk, pv, tables, pos, anc=anc, **kw)) <= TOL[torch.bfloat16]
+    for w in range(W):
+        one = pa.paged_decode_attention(q[:, :, w:w + 1].contiguous(), pk, pv,
+                                        tables, pos + w, **kw)
+        assert torch.equal(one, lin[:, :, w:w + 1]), w
+    for b in range(B):
+        one = pa.paged_decode_attention(
+            q[b:b + 1].contiguous(), pk, pv, tables[b:b + 1].contiguous(),
+            pos[b:b + 1].contiguous(), anc=tree[b:b + 1].contiguous(), **kw)
+        assert torch.equal(one, got[b:b + 1]), b
+
+
+def test_decode_tensor_core_launcher_refuses_a_plan_that_disagrees(cuda):
+    """K1's C launcher recomputes the tensor-core plan and refuses one
+    whose head_dim class, lane tiles, groups, splits, stages or shared
+    memory disagree with it."""
+    geom = GEOMETRIES[3]
+    for quant in (False, True):
+        q, pk, pv, tables, pos = _decode_case(geom, torch.bfloat16, seed=3)
+        kw = {}
+        if quant:
+            (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+            kw = dict(k_scales=ks, v_scales=vs)
+        lanes = q.shape[1] // pk.shape[1]
+        p = pa.tc_plan(lanes, q.shape[-1], tables.shape[1], quant)
+        out = torch.empty_like(q)
+        pa.launch_tc(q, pk, pv, tables, pos, out, p, **kw)
+        assert torch.equal(out, pa.paged_decode_attention(q, pk, pv, tables,
+                                                          pos, **kw))
+        for bad in (dict(p, DP=2 * p["DP"]), dict(p, nt=2 * p["nt"]),
+                    dict(p, groups=p["groups"] + 1), dict(p, splits=2),
+                    dict(p, stages=2), dict(p, smem=p["smem"] + 16)):
+            with pytest.raises(base.MXTPUError, match="cudaError"):
+                pa.launch_tc(q, pk, pv, tables, pos, out, bad, **kw)
 
 
 #: Llama-3-8B's decode-step projections (N, K)
