@@ -98,7 +98,9 @@ Phases, in order; any failure exits non-zero:
    their plain versions, causal and not, at T = 128, 100 and 150
    (head_dim 16), (1, 3, 70, 72), (1, 2, 96, 256) and (1, 32, 2048,
    128), in float32 and bfloat16 (K4 and K5 not at head_dim 256 in
-   float32, where one block cannot hold their tiles);
+   float32, where one block cannot hold their tiles), and K4 and K5 on
+   one-signed dO = |randn| at (1, 32, 2048, 128) float32, causal, where
+   p >= 0 makes every term of dv one sign;
 9. a small float32 model trained 3 Adam steps by ``SPMDTrainer`` on the
    card and on the CPU: the losses agree within 1e-4 relative;
 10. the training main path: the full-width Llama-3-8B cut to 4 layers,
@@ -106,10 +108,14 @@ Phases, in order; any failure exits non-zero:
    launch counts must be 20 each and the dense rule must not fire;
    torch.profiler over one more step;
 11. layer 0's flash inputs captured from the first counted step: kernel
-   against plain version, and the kernel, plain and library times; K3's
+   against plain version, and the kernel, plain and library times; each
    row also carries ``bound_tc_ms``, the bound of its 3xTF32 route on
    the tensor cores (three TF32 products at 495 TFLOP/s) beside
    ``bound_ms``, that of the same function in float32 on the CUDA cores;
+   K4's and K5's rows carry ``bwd_ms``, the port's whole backward
+   (delta, K4 and K5 through ``torch.autograd.grad``), timed as their
+   ``library_ms`` (SDPA's whole backward) is, and K4 and K5 must give
+   the same bits on a second call;
 12. the conv backward kernel (K6) against its plain version at the test
    geometries and ResNet-50's three stage shapes at batch 128, in
    float32 and bfloat16, and on one-signed float32 inputs (x = |randn|
@@ -1828,6 +1834,19 @@ def flash_err(kind, args):
     return err, worst
 
 
+def same_bits(kind, args):
+    """Kernel ``kind`` called twice on ``args``: raise unless both calls
+    give the same bits (no atomics, a fixed order of sums)."""
+    from mxtpu_torch.ops import flash_attention as fa
+
+    a, b = getattr(fa, kind)(*args), getattr(fa, kind)(*args)
+    if kind == "flash_dq":
+        a, b = (a,), (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("%s gave other bits on a second call (%s, %s)"
+                             % (kind, args[0].dtype, tuple(args[0].shape)))
+
+
 def flash_case(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda", dtype=dtype)
@@ -1851,6 +1870,15 @@ def flash_kernels_against_plain():
                     dtype=str(dtype).split(".")[1], causal=causal,
                     max_abs_err={k: e[0] for k, e in errs.items()},
                     err_over_tol={k: e[1] for k, e in errs.items()})
+    shape = FLASH_SHAPES[-1]
+    q, k, v, do = flash_case(shape, torch.float32, seed=shape[2] + 1)
+    args = flash_args(q, k, v, do.abs(), True)
+    errs = {kind: flash_err(kind, args[kind])
+            for kind in ("flash_dq", "flash_dkv")}
+    log(phase="flash_vs_plain", shape=list(shape), dtype="float32",
+        causal=True, one_signed_do=True,
+        max_abs_err={k: e[0] for k, e in errs.items()},
+        err_over_tol={k: e[1] for k, e in errs.items()})
 
 
 # -- phase 9: a small model trained on the card against the CPU -------------
@@ -2010,7 +2038,10 @@ def measure_flash(kind, args, flush):
     """Layer 0's captured flash operands: the kernel against its plain
     version, and the kernel, plain and library times.  The library is
     scaled_dot_product_attention: its forward for K3, its autograd
-    backward (dq, dk and dv together) for K4 and K5."""
+    backward (dq, dk and dv together) for K4 and K5, beside which K4's
+    and K5's rows carry ``bwd_ms``, the port's whole backward (delta, K4
+    and K5) through ``torch.autograd.grad`` and timed the same way; K4
+    and K5 must give the same bits on a second call."""
     from mxtpu_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
@@ -2025,15 +2056,21 @@ def measure_flash(kind, args, flush):
         res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale), flush)
     else:
+        same_bits(kind, args)
         lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
-                                             scale=scale)
-        res["library_ms"] = event_ms(lambda: torch.autograd.grad(
-            out, (lq, lk, lv), args[3], retain_graph=True), flush)
+        for name, fn in (
+                ("library_ms", lambda a, b, c: F.scaled_dot_product_attention(
+                    a, b, c, is_causal=causal, scale=scale)),
+                ("bwd_ms", lambda a, b, c: fa.flash_attention(
+                    a, b, c, causal=causal, scale=scale))):
+            out = fn(lq, lk, lv)
+            res[name] = event_ms(lambda: torch.autograd.grad(
+                out, (lq, lk, lv), args[3], retain_graph=True), flush)
+            del out
     work = flash_work(kind, q, causal)
     res["bound_ms"], res["bound_by"] = bound(work[0], work[1], q.dtype)
-    if kind == "flash_fwd" and q.dtype == torch.float32:
-        # K3's route: both products in 3xTF32 on the tensor cores
+    if q.dtype == torch.float32:
+        # the route: every product in 3xTF32 on the tensor cores
         res["bound_tc_ms"] = max(work[0] / H100_BYTES_PER_S,
                                  3 * work[1] / H100_TF32_OPS) * 1e3
     return res
@@ -2421,8 +2458,9 @@ def main():
                          plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
-        if "bound_tc_ms" in res:
-            rows[-1]["bound_tc_ms"] = res["bound_tc_ms"]
+        for key in ("bound_tc_ms", "bwd_ms"):
+            if key in res:
+                rows[-1][key] = res[key]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

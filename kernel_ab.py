@@ -6,6 +6,7 @@
     python3 kernel_ab.py capture k1 INPUTS.pt
     python3 kernel_ab.py measure ROOT INPUTS.pt
     python3 kernel_ab.py g1 ROOT_A ROOT_B
+    python3 kernel_ab.py flash ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
 (this tree's port) and saves the first counted step's K6 inputs, one
@@ -34,7 +35,17 @@ W = 8 window and W = 16 tree), each timed by this file's own
 ``device_ms`` (not the trees' ``chip_smoke.cuda_ms``, whose L2 flush
 may differ), beside ``torch.matmul`` on the same inputs.  It prints one
 JSON line per (turn, projection, M), then one line with each row's four
-turns.  Needs one CUDA card.
+turns.
+
+``flash`` times K4 (``flash_dq``) and K5 (``flash_dkv``) of the checkouts
+at ROOT_A and ROOT_B the same way, in turns A, B, B, A, one process
+each: seeded (1, 32, 2048, 128) float32 causal q, k, v and dO (the
+training path's shape), with lse and delta from the plain forward; each
+kernel by ``device_ms``, held against its plain version first; beside
+them the tree's whole backward (``torch.autograd.grad`` through its
+``flash_attention``: delta, K4 and K5) and SDPA's, both by
+``events_ms`` (autograd is not captured in a graph).  Needs one CUDA
+card.
 """
 
 import json
@@ -80,6 +91,58 @@ def device_ms(fn, iters=50):
     return total / iters
 
 
+def events_ms(fn, iters=20):
+    """Mean milliseconds of ``fn`` between CUDA events, without a graph,
+    the L2 flushed before each call as in ``device_ms``."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.sum()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def flash_tree(root, turn):
+    """One turn of ``flash``: the tree at ``root``'s K4 and K5 and its
+    whole backward on seeded training-shape inputs, beside SDPA's."""
+    sys.path.insert(0, root)
+    from mxtpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(1, 32, 2048, 128, device="cuda",
+                               generator=g) for _ in range(4))
+    scale = 128 ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    args = (q, k, v, do, lse, (do * o).sum(dim=-1), scale, True)
+    row = dict(turn=turn, tree=root)
+    for kind in ("flash_dq", "flash_dkv"):
+        got, want = getattr(fa, kind)(*args), getattr(fa, kind + "_plain")(
+            *args)
+        pairs = [(got, want)] if kind == "flash_dq" else zip(got, want)
+        row[kind + "_rel_err"] = max(
+            float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+        row[kind + "_ms"] = device_ms(lambda: getattr(fa, kind)(*args))
+    lq, lk, lv = (x.clone().requires_grad_() for x in (q, k, v))
+    for name, fn in (("bwd_ms", lambda: fa.flash_attention(
+            lq, lk, lv, causal=True, scale=scale)),
+                     ("sdpa_bwd_ms", lambda: F.scaled_dot_product_attention(
+                         lq, lk, lv, is_causal=True, scale=scale))):
+        out = fn()
+        row[name] = events_ms(lambda: torch.autograd.grad(
+            out, (lq, lk, lv), do, retain_graph=True))
+        del out
+    print(json.dumps(row), flush=True)
+
+
 def g1_tree(root, turn):
     """One turn of ``g1``: the tree at ``root``'s G1 on seeded inputs."""
     sys.path.insert(0, root)
@@ -101,8 +164,10 @@ def g1_tree(root, turn):
         del w, x
 
 
-def g1(root_a, root_b):
-    """``g1``'s turns, A, B, B, A, one process each, and their summary."""
+def turns(kind, root_a, root_b, collect):
+    """``kind``'s turns, A, B, B, A, one process each (``<kind>-tree``),
+    and their summary: ``collect(rows, line)`` files each printed line
+    into ``rows``."""
     print(json.dumps(dict(card=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -110,7 +175,7 @@ def g1(root_a, root_b):
     rows = {}
     for turn, root in enumerate((root_a, root_b, root_b, root_a)):
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "g1-tree",
+            [sys.executable, os.path.abspath(__file__), kind + "-tree",
              os.path.abspath(root), str(turn)], capture_output=True,
             text=True)
         sys.stdout.write(out.stdout)
@@ -118,11 +183,25 @@ def g1(root_a, root_b):
             sys.stderr.write(out.stderr)
             return out.returncode
         for line in out.stdout.splitlines():
-            r = json.loads(line)
-            rows.setdefault("%s,M=%d" % (r["projection"], r["M"]), []).append(
-                (r["ms"], r["library_ms"]))
-    print(json.dumps({"g1_turns_A_B_B_A": rows}), flush=True)
+            collect(rows, json.loads(line))
+    print(json.dumps({kind + "_turns_A_B_B_A": rows}), flush=True)
     return 0
+
+
+def g1(root_a, root_b):
+    """``g1``'s turns and their summary."""
+    return turns("g1", root_a, root_b, lambda rows, r: rows.setdefault(
+        "%s,M=%d" % (r["projection"], r["M"]), []).append(
+            (r["ms"], r["library_ms"])))
+
+
+def flash(root_a, root_b):
+    """``flash``'s turns and their summary."""
+    def collect(rows, r):
+        for key in ("flash_dq_ms", "flash_dkv_ms", "bwd_ms", "sdpa_bwd_ms"):
+            rows.setdefault(key, []).append(r[key])
+
+    return turns("flash", root_a, root_b, collect)
 
 
 def _cpu(x):
@@ -176,6 +255,11 @@ def main(argv):
         return g1(argv[1], argv[2])
     if len(argv) == 3 and argv[0] == "g1-tree":
         g1_tree(argv[1], int(argv[2]))
+        return 0
+    if len(argv) == 3 and argv[0] == "flash":
+        return flash(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "flash-tree":
+        flash_tree(argv[1], int(argv[2]))
         return 0
     if len(argv) == 3 and argv[0] == "capture" and argv[1] in ("k6", "k2",
                                                                  "k1"):

@@ -1,4 +1,4 @@
-// The 3xTF32 arithmetic of the port's tensor-core kernels (K3 in
+// The 3xTF32 arithmetic of the port's tensor-core kernels (K3-K5 in
 // flash_attention.cu, K6 in conv_bwd.cu): warp-level mma.sync.m16n8k8
 // TF32 products at float32 accuracy.  An operand x is split into two
 // TF32 values, big + small, and a product is small*big + big*small +
@@ -48,14 +48,22 @@ __device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // d += a.b in 3xTF32: a = ab + as, b = (big0, big1, small0, small1)
-// from a plane; the big*small product is skipped where b's small part
-// is zero (a bfloat16 b is exactly TF32)
+// from a plane.  AS (BS) false: a's (b's) small part is zero, as it is
+// for an operand read from bfloat16 (exactly TF32), and the product
+// with it is skipped.
+template <bool AS, bool BS>
+__device__ __forceinline__ void mma3s(float (&d)[4], const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4], uint4 b) {
+  if (AS) mma(d, as, b.x, b.y);
+  if (BS) mma(d, ab, b.z, b.w);
+  mma(d, ab, b.x, b.y);
+}
+
+// the same with a float32 a and b read from T
 template <typename T>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
                                      const uint32_t (&as)[4], uint4 b) {
-  mma(d, as, b.x, b.y);
-  if (sizeof(T) == 4) mma(d, ab, b.z, b.w);
-  mma(d, ab, b.x, b.y);
+  mma3s<true, sizeof(T) == 4>(d, ab, as, b);
 }
 
 // the A fragment (rows g, g+8; k = t, t+4) from four float32 values

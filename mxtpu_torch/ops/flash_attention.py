@@ -17,6 +17,14 @@ or raise :class:`MXTPUError` — there is no fallback from the card to the
 plain version.  Each adds one to its launch counter (``flash_fwd``,
 ``flash_dq``, ``flash_dkv`` in ``mxtpu_torch.base``) per call.
 
+All three run their products on the tensor cores (3xTF32 ``mma.sync``
+at float32 accuracy), except K4 and K5 at head_dim above 128, where the
+C launcher takes their CUDA-core kernels (``flash_dq_cc_kernel``,
+``flash_dkv_cc_kernel``): a K5 warp's dK or dV alone would need 128
+registers a thread there, and K4's resident Q and dO would crowd out
+the warps.  The route follows head_dim alone (:func:`route`), never
+a failure, and counts under the same launch counter.
+
 The reference's ``MXTPU_FLASH_BWD=0`` switch (a recompute backward
 through the dense formulation) is not ported: the backward is always
 the two kernels.
@@ -35,9 +43,11 @@ from .paged_attention import _DTYPES, _NEG_INF
 
 __all__ = ["flash_attention", "dense_attention", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_plain", "flash_dq_plain",
-           "flash_dkv_plain", "fits", "DENSE_NAME"]
+           "flash_dkv_plain", "fits", "route", "DENSE_NAME", "TENSOR_CORES",
+           "CUDA_CORES"]
 
 DENSE_NAME = "flash_attention_dense"
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 _FNS: dict = {}
 
 
@@ -123,8 +133,8 @@ def _lib():
     lib = _FNS.get("lib")
     if lib is None:
         lib = _build.load("flash_attention")
-        lib.mxtpu_flash_stages.argtypes = [ctypes.c_int] * 3
-        lib.mxtpu_flash_stages.restype = ctypes.c_int
+        lib.mxtpu_flash_fits.argtypes = [ctypes.c_int] * 3
+        lib.mxtpu_flash_fits.restype = ctypes.c_int
         for kind, (_, n_ptr) in _KINDS.items():
             for suffix in _DTYPES.values():
                 fn = getattr(lib, "mxtpu_flash_%s_%s" % (kind, suffix))
@@ -139,8 +149,15 @@ def fits(kind, D, dtype):
     """Whether one block's shared memory holds the tiles of kernel
     ``kind`` ("fwd", "dq" or "dkv") at head_dim D in ``dtype`` (loads
     the kernel library)."""
-    return bool(_lib().mxtpu_flash_stages(_KINDS[kind][0], D,
-                                          dtype.itemsize))
+    return bool(_lib().mxtpu_flash_fits(_KINDS[kind][0], D,
+                                        dtype.itemsize))
+
+
+def route(kind, D):
+    """The route kernel ``kind`` ("fwd", "dq" or "dkv") takes at head_dim
+    D: :data:`CUDA_CORES` for K4 and K5 above 128, else
+    :data:`TENSOR_CORES` (the C launcher's ``cc_route``)."""
+    return CUDA_CORES if kind != "fwd" and D > 128 else TENSOR_CORES
 
 
 def _check(name, kind, tensors, floats=()):

@@ -13,8 +13,11 @@ and at the context's end, each also ``torch.equal`` on a second call.
 The flash-attention
 kernels (K3 forward, K4 dq, K5 dk/dv) causal and not, at T = 128, 100
 and 150 (head_dim 16) and at the training path's (1, 32, 2048, 128),
-plus head_dim 8, 72 and 256 and K3's tiling edges (T = 1, below and
-one past a query tile), K3's lse held on every row.  The conv backward
+plus head_dim 8, 72 and 256 and the tiling edges of all three (T = 1,
+below and one past a query, key or walked tile), K3's lse held on every
+row; K4 and K5 over 2048-row walks with dO = randn and one-signed, the
+same bits on a second call, and their route by head_dim (tensor cores
+up to 128, CUDA cores above) read from the launched kernels' names.  The conv backward
 kernel (K6) over geometries the main path does not reach: Ci != Co,
 H != W, N = 1, channel counts that are not multiples of its tiles,
 ResNet-50's three stage shapes at batch 4, and one-signed inputs at
@@ -576,11 +579,16 @@ def test_rows_linear_rejects_what_the_kernel_does_not_take(cuda):
 # (B, H, T, D) of the flash kernels; then K3's tiling edges: T below one
 # 128-row query tile, one past it, one past a 64-row tile (head_dim 256
 # in float32), a causal T not a multiple of the 64-key tile, and
-# head_dim 8, one depth step
+# head_dim 8, one depth step; then K4's and K5's: one past and one below
+# the 16-row walked tile (32 up to head_dim 64), K4's 128-row query tile
+# and K5's 128-key tile (K4's 192 rows up to head_dim 64)
 FLASH_SHAPES = [(2, 2, 128, 16), (2, 2, 100, 16), (2, 2, 150, 16),
                 (1, 3, 70, 72), (1, 2, 96, 256), (1, 32, 2048, 128),
                 (1, 2, 40, 64), (1, 2, 129, 128), (1, 2, 65, 256),
-                (2, 2, 200, 32), (2, 3, 77, 8)]
+                (2, 2, 200, 32), (2, 3, 77, 8),
+                (1, 2, 17, 128), (1, 2, 15, 128), (1, 2, 33, 64),
+                (1, 2, 31, 64), (1, 2, 127, 128), (1, 2, 193, 64),
+                (1, 2, 191, 64)]
 
 
 def _flash_case(shape, dtype, seed):
@@ -662,6 +670,76 @@ def test_flash_fwd_holds_the_tolerance_on_large_outputs(cuda, causal):
     assert float(want_o.abs().max()) > 3
     assert _err(o, want_o) <= TOL[torch.float32]
     assert _err(lse, want_lse) <= TOL[torch.float32]
+
+
+def _flash_bwd_args(shape, dtype, causal, seed, one_signed=False):
+    q, k, v, do = _flash_case(shape, dtype, seed=seed)
+    if one_signed:
+        do = do.abs()
+    scale = 1.0 / shape[3] ** 0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(dim=-1), scale, \
+        causal
+
+
+@pytest.mark.parametrize("one_signed", [False, True], ids=["randn", "abs"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_bwd_holds_the_tolerance_over_long_walks(cuda, causal,
+                                                       one_signed):
+    """K4 and K5 within 2e-5 of their largest element over 2048-row walks
+    in float32, with dO = randn and one-signed dO = |randn|: p >= 0 then
+    makes every term of dv one sign, where a truncating tensor-core
+    accumulator chained over the walk would drift one way."""
+    args = _flash_bwd_args((1, 4, 2048, 128), torch.float32, causal, 9,
+                           one_signed)
+    got = [fa.flash_dq(*args), *fa.flash_dkv(*args)]
+    want = [fa.flash_dq_plain(*args), *fa.flash_dkv_plain(*args)]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _err(g, w) <= GRAD_TOL[torch.float32] * float(
+            w.abs().max()), name
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 3, 300, 128), torch.float32), ((1, 3, 300, 128), torch.bfloat16),
+    ((2, 2, 200, 64), torch.float32), ((2, 2, 200, 64), torch.bfloat16),
+    ((1, 2, 96, 256), torch.bfloat16)],
+    ids=["T300-D128-f32", "T300-D128-bf16", "T200-D64-f32", "T200-D64-bf16",
+         "T96-D256-bf16"])
+def test_flash_bwd_gives_the_same_bits_on_a_second_call(cuda, shape, dtype):
+    """No atomics: each element of dq, dk and dv is written by one block
+    in a fixed order, so a second call gives the same bits (both routes:
+    the CUDA-core one at head_dim 256, in bfloat16, where float32 does
+    not fit)."""
+    args = _flash_bwd_args(shape, dtype, True, 4)
+    first = [fa.flash_dq(*args), *fa.flash_dkv(*args)]
+    second = [fa.flash_dq(*args), *fa.flash_dkv(*args)]
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_bwd_route_follows_head_dim(cuda, D):
+    """K4 and K5 take the tensor cores up to head_dim 128 and their
+    CUDA-core kernels above (bf16 at 256, where float32 does not fit),
+    as ``route`` and the C launcher state: the launched kernels' names,
+    read by torch.profiler, show which."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _flash_bwd_args((1, 2, 96, D), torch.bfloat16, True, 3)
+    base.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_dq(*args)
+        fa.flash_dkv(*args)
+        torch.cuda.synchronize()
+    assert base.counts() == {"flash_dq": 1, "flash_dkv": 1}
+    names = " ".join(e.key for e in prof.key_averages())
+    for kind in ("dq", "dkv"):
+        cc = "flash_%s_cc_kernel" % kind
+        tc = "flash_%s_kernel" % kind
+        if fa.route(kind, D) == fa.CUDA_CORES:
+            assert cc in names, names
+        else:
+            assert tc in names and cc not in names, names
 
 
 def test_flash_autograd_on_the_card_matches_the_cpu(cuda):

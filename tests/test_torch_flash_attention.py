@@ -11,12 +11,16 @@ dense rule (T < 16 or D % 8 != 0).  Tolerance rtol 1e-4 / atol 1e-5, as
 the reference's own tests use: both sides compute in float32 and differ
 only in the order of their sums.
 
-K3's arithmetic on the card (3xTF32 on the tensor cores) is emulated
-here: each operand of both products split into TF32 big and small parts
-rounded as ``cvt.rna.tf32.f32`` rounds, the product small*big +
-big*small + big*big in float32, over K3's 64-key walk.  It stays within
-the card's float32 tolerance (2e-5 max abs error, ``chip_smoke.TOL``)
-of the plain version; one TF32 product does not."""
+K3's, K4's and K5's arithmetic on the card (3xTF32 on the tensor cores)
+is emulated here: each operand of every product split into TF32 big and
+small parts rounded as ``cvt.rna.tf32.f32`` rounds, the product
+small*big + big*small + big*big in float32, over K3's 64-key walk and
+over the walks of K4 (16-key tiles) and K5 (16-query tiles), each tile's
+product added into the float32 sum as the kernels add it.  K3 stays
+within the card's float32 tolerance (2e-5 max abs error,
+``chip_smoke.TOL``) of the plain version, and K4's dq and K5's dk and dv
+within 2e-5 of their largest element (``chip_smoke.GRAD_TOL``); one TF32
+product does not."""
 
 import math
 
@@ -254,3 +258,92 @@ def test_3xtf32_forward_holds_the_card_tolerance(causal):
     assert float((lse - want_lse).abs().max()) <= CARD_TOL
     o1, _ = _emulated_fwd(q, k, v, scale, causal, _mm_tf32)
     assert float((o1 - want_o).abs().max()) > 10 * CARD_TOL
+
+
+def _walk_tile(D):
+    """Rows of the tile K4 (keys) and K5 (queries) walk at head_dim D:
+    16 above 64, 32 up to it (``walk_rows`` in flash_attention.cu)."""
+    return 16 if D > 64 else 32
+
+
+def _emulated_dq(q, k, v, do, lse, delta, scale, causal, mm):
+    """K4's walk over key tiles: s = q.k^T and dp = dO.v^T of the tile,
+    p = exp(scale*s - lse) (masked keys exactly 0), ds = p*(dp - delta),
+    and the tile's ds.k added into dq in float32; dq scaled once at the
+    end.  Each product formed by ``mm``."""
+    T, tile = q.shape[-2], _walk_tile(q.shape[-1])
+    rows = torch.arange(T)[:, None]
+    dq = torch.zeros_like(q)
+    for k0 in range(0, T, tile):
+        kt, vt = k[..., k0:k0 + tile, :], v[..., k0:k0 + tile, :]
+        p = torch.exp(scale * mm(q, kt.transpose(-1, -2)) - lse[..., None])
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+            p = p.masked_fill(keys > rows, 0.0)
+        ds = p * (mm(do, vt.transpose(-1, -2)) - delta[..., None])
+        dq = dq + mm(ds, kt)
+    return scale * dq
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, scale, causal, mm):
+    """K5's walk over query tiles with keys as rows: s^T = k.q^T and
+    dp^T = v.dO^T of the tile, p^T = exp(scale*s^T - lse) (masked
+    entries exactly 0), ds^T = p^T*(dp^T - delta), and the tile's
+    p^T.dO and ds^T.q added into dv and dk in float32; dk scaled once at
+    the end."""
+    T, tile = q.shape[-2], _walk_tile(q.shape[-1])
+    keys = torch.arange(T)[:, None]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, T, tile):
+        qt, dot = q[..., q0:q0 + tile, :], do[..., q0:q0 + tile, :]
+        pt = torch.exp(scale * mm(k, qt.transpose(-1, -2))
+                       - lse[..., None, q0:q0 + tile])
+        if causal:
+            queries = torch.arange(q0, q0 + qt.shape[-2])[None, :]
+            pt = pt.masked_fill(keys > queries, 0.0)
+        dst = pt * (mm(v, dot.transpose(-1, -2))
+                    - delta[..., None, q0:q0 + tile])
+        dv = dv + mm(pt, dot)
+        dk = dk + mm(dst, qt)
+    return scale * dk, dv
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("one_signed", [False, True], ids=["randn", "abs"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_3xtf32_backward_holds_the_card_tolerance(kernel, one_signed,
+                                                  causal):
+    """K4's and K5's 3xTF32 arithmetic within 2e-5 of max |plain| at
+    (1, 2, 256, 128), with dO = randn and one-signed dO = |randn| (p >= 0
+    then makes every term of dv one sign); one TF32 product misses it by
+    more than 10x."""
+    rng = np.random.RandomState(12)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, 256, 128)
+                                    .astype("float32")) for _ in range(4))
+    if one_signed:
+        do = do.abs()
+    scale = 1.0 / math.sqrt(128)
+    o, lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do * o).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, scale, causal)
+    if kernel == "dq":
+        want = (fa.flash_dq_plain(*args),)
+        got = (_emulated_dq(*args, _mm_3xtf32),)
+        one = (_emulated_dq(*args, _mm_tf32),)
+    else:
+        want = fa.flash_dkv_plain(*args)
+        got = _emulated_dkv(*args, _mm_3xtf32)
+        one = _emulated_dkv(*args, _mm_tf32)
+    for g, o1, w in zip(got, one, want):
+        bound = CARD_TOL * float(w.abs().max())
+        assert float((g - w).abs().max()) <= bound
+        assert float((o1 - w).abs().max()) > 10 * bound
+
+
+def test_backward_route_follows_head_dim():
+    """K4 and K5 leave the tensor cores only above head_dim 128; K3
+    never does."""
+    assert fa.route("fwd", 256) == fa.TENSOR_CORES
+    for kind in ("dq", "dkv"):
+        assert fa.route(kind, 8) == fa.route(kind, 128) == fa.TENSOR_CORES
+        assert fa.route(kind, 136) == fa.route(kind, 256) == fa.CUDA_CORES
