@@ -39,8 +39,15 @@ Phases, in order; any failure exits non-zero:
    and a 64-row call, and of a call on the rows reversed, equals that
    row of the full call), and its time against
    F.linear and torch.matmul at M = 8, 64 and 128 (the decode step and
-   the W = 8 and W = 16 windows of 8 slots); and G2, the row-invariant RMSNorm, the
-   same way against the port's rms_norm and F.rms_norm;
+   the W = 8 and W = 16 windows of 8 slots); G2, the row-invariant
+   RMSNorm, the same way against the port's rms_norm and F.rms_norm;
+   and the fused
+   norm (``rows_norm_linear``, G2 inside G1's launch) held bit-identical
+   (``torch.equal``) to G2 then G1 at small ragged shapes in float32
+   and bfloat16 (M up to 200, K % 16 == 8) with a gain of either dtype
+   and at the 8B's four normed projections (qkv, gate, up, lm_head), M =
+   8, 64 and 128, its rows invariant as G1's are, and its time against
+   the pair (the gain's cast, G2, G1) and F.rms_norm then torch.matmul;
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
 4b. a 1-layer float32 model (vocab 20, numpy-seeded weights) served by
@@ -57,8 +64,9 @@ Phases, in order; any failure exits non-zero:
    sampled) through ``PagedContinuousBatchingEngine``; the kernel
    launch counts are zeroed just before and read just after, and must
    equal 32 per decode step and 32 per prefill chunk for K1 and K2, 161
-   per decode step for G1 (5 projections a layer and the head) and 65
-   for G2 (2 norms a layer and the final one); every K1 and K2 call
+   per decode step for G1 (5 projections a layer and the head), 97 of
+   them fused with their norm (``rows_norm_linear``: qkv, gate, up a
+   layer and the head) and none for G2 apart; every K1 and K2 call
    must take the tensor-core route (``paged_attention.route`` and
    ``prefill_attention.route``: bf16 queries);
 5b. the main path again with an int8 cache: K1 int8 32 per decode step,
@@ -73,8 +81,9 @@ Phases, in order; any failure exits non-zero:
    1 penalized; 32 new tokens each) twice on the main path's engine
    settings, with speculation off and with spec_k = 4, spec_tree =
    (15, 2); K1's launches must be 32 per step or verify call, by W and
-   tree, and G1's 161 per step or verify call (its calls counted by
-   row count M); every K1 and K2 call on the tensor-core route; every
+   tree, G1's 161 and the fused norm's 97 per step or verify call (their
+   calls counted by row count M), G2's none; every K1 and K2 call on
+   the tensor-core route; every
    speculative stream must be token-identical to its plain stream, K1 must hold
    invariant (b) on the captured window, and ``window_op_bits`` must
    find no op of the step (norms, projections, rope, SwiGLU, residual
@@ -148,8 +157,11 @@ the long chunk as ``paged_prefill[long]`` and ``paged_prefill[int8,long]``
 (launches: the main runs' K2 calls at 512 or later), G1
 as one row per projection and row count, ``rows_linear[qkv,M=8]``,
 ``rows_linear[qkv,M=64]``, ``rows_linear[qkv,M=128]`` ... (launches: at
-M = 8 phase 5's, at 64 and 128 phase 6b's windows and trees), G2
-as ``rows_rms_norm[M=8]``, and K6 as one row per stage shape); the last
+M = 8 phase 5's, at 64 and 128 phase 6b's windows and trees), the
+fused norm the same way for its four projections,
+``rows_norm_linear[qkv,M=8]`` ..., G2 as ``rows_rms_norm[M=8]`` (no
+launch on the main path since the fused norm took its place), and K6 as
+one row per stage shape); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
@@ -208,6 +220,10 @@ KERNEL_SOURCES = {
                       "none: no pallas_call (XLA's rms_norm in "
                       "mxtpu/ops/contrib.py); repairs the port's "
                       "row-count-dependent rounding"),
+    "rows_norm_linear": ("mxtpu_torch/csrc/rows_linear.cu",
+                         "none: no pallas_call (XLA's rms_norm and dot in "
+                         "mxtpu/models/transformer.py); G2 fused into G1, "
+                         "the port's row-invariant repair"),
     "flash_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
                   "mxtpu/ops/pallas/flash_attention.py:107"),
     "flash_dq": ("mxtpu_torch/csrc/flash_attention.cu",
@@ -851,6 +867,107 @@ def norm_against_plain(flush):
     return res
 
 
+#: the 8B projections that read a norm's output: the fused norm's
+NORMED = ("qkv", "gate_proj", "up_proj", "lm_head")
+
+
+def norm_linear_check(x, gamma, w):
+    """The fused norm on (x, gamma, w) held bit-identical to G2 then G1
+    (``torch.equal``), its rows invariant (a row of an 8-row call and of
+    a call on the rows reversed equals that row of the full call), and
+    against its plain version as G1 is (``linear_err``).  Returns the
+    max abs error against the plain version and that over its bound."""
+    from mxtpu_torch.ops import contrib, linear
+
+    got = linear.rows_norm_linear(x, gamma, w)
+    pair = linear.rows_linear(contrib.rows_rms_norm(x, gamma), w)
+    part = linear.rows_norm_linear(x[:8].contiguous(), gamma, w)
+    rev = linear.rows_norm_linear(x.flip(0).contiguous(), gamma, w)
+    plain = linear.rows_norm_linear_plain(x, gamma, w)
+    torch.cuda.synchronize()
+    what = "(x %s %s, gamma %s, w %s)" % (tuple(x.shape), x.dtype,
+                                          gamma.dtype, tuple(w.shape))
+    if not torch.equal(got, pair):
+        raise AssertionError("rows_norm_linear differs from rows_rms_norm "
+                             "then rows_linear " + what)
+    if not (torch.equal(part, got[:part.shape[0]])
+            and torch.equal(rev.flip(0), got)):
+        raise AssertionError("rows_norm_linear rounds a row by the row "
+                             "count or position " + what)
+    err = float((got.float() - plain.float()).abs().max())
+    tol = GRAD_TOL[x.dtype] * float(plain.float().abs().max())
+    if not err <= tol:
+        raise AssertionError("rows_norm_linear disagrees with its plain "
+                             "version: %g > %g %s" % (err, tol, what))
+    return err, err / tol
+
+
+def norm_linear_against_pair(flush):
+    """The fused norm (``rows_norm_linear``) against G2 then G1
+    (``norm_linear_check``) at small ragged shapes in float32 and
+    bfloat16 (M up to 200, two 128-row chunks; K % 16 == 8; rows of
+    different sizes) with a gain of x's dtype and of float32, and at
+    the 8B's four normed projections, M = 8 (the decode step), 64 and
+    128 (an 8-slot W = 8 window and W = 16 tree), with the model's bf16
+    gain, where it is timed against the pair as the step ran it before
+    (the gain's cast, G2, G1), its plain version, and F.rms_norm then
+    torch.matmul (the library).  Returns {(projection, M): timed
+    result} for the kernels line."""
+    from mxtpu_torch.ops import contrib, linear
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for M, N, K, dtype, gdtype in ((1, 96, 72, f32, f32),
+                                   (17, 200, 40, f32, f32),
+                                   (9, 64, 172, f32, f32),
+                                   (200, 64, 168, f32, f32),
+                                   (7, 130, 72, bf16, bf16),
+                                   (7, 130, 72, bf16, f32),
+                                   (33, 4096, 520, bf16, bf16),
+                                   (200, 4096, 520, bf16, bf16),
+                                   (200, 4096, 520, bf16, f32)):
+        x = (torch.randn(M, K, device="cuda", generator=g) * torch.exp(
+            torch.randn(M, 1, device="cuda", generator=g))).to(dtype)
+        w = (torch.randn(N, K, device="cuda", generator=g) * 0.02).to(dtype)
+        gamma = (1 + 0.3 * torch.randn(K, device="cuda", generator=g)).to(
+            gdtype)
+        err, ratio = norm_linear_check(x, gamma, w)
+        log(phase="norm_linear_vs_pair", M=M, N=N, K=K,
+            dtype=str(dtype).split(".")[1], gain=str(gdtype).split(".")[1],
+            bit_identical_to_pair=True, max_abs_err=err, err_over_tol=ratio)
+    results = {}
+    for name, N, K in PROJECTIONS:
+        if name not in NORMED:
+            continue
+        w = torch.randn(N, K, device="cuda", dtype=bf16, generator=g) * 0.02
+        x = torch.randn(128, K, device="cuda", dtype=bf16, generator=g)
+        gamma = (1 + 0.1 * torch.randn(K, device="cuda", generator=g)).to(
+            bf16)
+        norm_linear_check(x, gamma.float(), w)
+        for M in (8, 64, 128):
+            xm = x[:M].contiguous()
+            err, ratio = norm_linear_check(xm, gamma, w)
+            res = dict(max_abs_err=err, err_over_tol=ratio)
+            res["ms"] = cuda_ms(
+                lambda: linear.rows_norm_linear(xm, gamma, w), flush)
+            res["pair_ms"] = cuda_ms(lambda: linear.rows_linear(
+                contrib.rows_rms_norm(xm, gamma), w), flush)
+            res["plain_ms"] = cuda_ms(
+                lambda: linear.rows_norm_linear_plain(xm, gamma, w), flush)
+            res["library_ms"] = cuda_ms(lambda: torch.matmul(
+                torch.nn.functional.rms_norm(xm, (K,), gamma, 1e-6), w.t()),
+                flush)
+            nbytes = (xm.numel() + K + w.numel() + M * N) * 2
+            res["bound_ms"], res["bound_by"] = bound(
+                nbytes, 2 * M * N * K + 4 * M * K, bf16)
+            log(phase="norm_linear_vs_pair", projection=name, M=M, N=N, K=K,
+                dtype="bfloat16", gain="bfloat16",
+                bit_identical_to_pair=True, **res)
+            results[name, M] = res
+        del w, x
+    return results
+
+
 def measure_linear(x, w, flush):
     """G1 on (x, w): kernel against plain version, and the kernel, plain
     (F.linear) and library (torch.matmul) times with the bound."""
@@ -1105,10 +1222,12 @@ def serve_llama_3_8b(model, cache_dtype=None):
     settings (pools of the model's dtype, or int8 with ``cache_dtype``),
     every kernel's launch count zeroed just before and read just after
     the run and held exact: K1 32 per decode step, K2 32 per chunk (the
-    int8 forms on an int8 cache, no float launch), G1 161 and G2 65 per
-    step.
-    Returns the launches (with G1's by projection), layer 0's captured
-    K1 and K2 inputs as (args, keywords), and the streams."""
+    int8 forms on an int8 cache, no float launch), G1 161 per step, 97
+    of them the fused norm's, and no G2 apart; no norm kernel in the
+    profiled steps.
+    Returns the launches (with G1's and the fused norm's by projection),
+    layer 0's captured K1 and K2 inputs as (args, keywords), and the
+    streams."""
     from mxtpu_torch import base
     from mxtpu_torch.models import sampler
     from mxtpu_torch.models import transformer
@@ -1141,6 +1260,8 @@ def serve_llama_3_8b(model, cache_dtype=None):
             FiniteLogits(sampler) as finite, \
             Counted(transformer, "rows_linear",
                     lambda a, kw: proj[a[1].data_ptr()]) as g1, \
+            Counted(transformer, "rows_norm_linear",
+                    lambda a, kw: proj[a[2].data_ptr()]) as fused, \
             Timed(model, "prefill_pages") as t_pre, \
             Timed(model, "step_pages") as t_dec:
         torch.cuda.synchronize()
@@ -1167,7 +1288,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
         raise AssertionError("no request shared the prefix: %r" % after)
     want = {k1: n_layers * steps, k2: n_layers * chunks,
             "rows_linear": (5 * n_layers + 1) * steps,
-            "rows_rms_norm": (2 * n_layers + 1) * steps}
+            "rows_norm_linear": (3 * n_layers + 1) * steps}
     if launches != want or not steps or not chunks:
         raise AssertionError("launches %r, wanted exactly %r" % (launches,
                                                                  want))
@@ -1175,9 +1296,12 @@ def serve_llama_3_8b(model, cache_dtype=None):
     k2_routes(k2_calls.counts, n_layers * chunks)
     gen_tokens = after["generated_tokens"] - before["generated_tokens"]
     pre_tokens = after["prefill_tokens"] - before["prefill_tokens"]
+    by_proj = {k: g1.counts.get(k, 0) + fused.counts.get(k, 0)
+               for k in set(g1.counts) | set(fused.counts)}
     log(phase="serve", cache_dtype=str(eng._cache_dtype), requests=len(rids),
         decode_steps=steps, prefill_chunks=chunks, launches=launches,
-        rows_linear_by_projection=g1.counts,
+        rows_linear_by_projection=by_proj,
+        rows_norm_linear_by_projection=fused.counts,
         prefix_hit_requests=after["prefix_hit_requests"]
         - before["prefix_hit_requests"],
         cow_copied_blocks=after["cow_copied_blocks"]
@@ -1196,7 +1320,9 @@ def serve_llama_3_8b(model, cache_dtype=None):
             or long_cap.args is None):
         raise AssertionError("no kernel inputs were captured")
     profile_decode_steps(eng, model.vocab_size)
-    launches.update({"rows_linear(%s)" % k: n for k, n in g1.counts.items()})
+    launches.update({"rows_linear(%s)" % k: n for k, n in by_proj.items()})
+    launches.update({"rows_norm_linear(%s)" % k: n
+                     for k, n in fused.counts.items()})
     k2_long = long_row(k2)
     launches[k2_long] = sum(n for (_, long), n in k2_calls.counts.items()
                             if long)
@@ -1261,6 +1387,8 @@ def profile_device(run, steps):
                 kernels_per_step=sum(r[2] for r in rows),
                 rows_linear_ms_per_step=sum(r[0] for r in rows
                                             if "rows_linear" in r[1]),
+                rms_norm_calls_per_step=sum(r[2] for r in rows
+                                            if "rms_norm" in r[1]),
                 device_ms_per_step=device if rows else "not measured",
                 device_idle_share=1.0 - device / wall if rows
                 else "not measured",
@@ -1270,7 +1398,9 @@ def profile_device(run, steps):
 
 def profile_decode_steps(eng, vocab, steps=4):
     """The profile of a few pooled decode steps (8 slots at ~520 tokens
-    of context, after the main run and outside its counts)."""
+    of context, after the main run and outside its counts): its kernels
+    a step, and no norm kernel among them (the fused norm runs inside
+    G1's launches)."""
     rng = np.random.RandomState(5)
     for _ in range(SERVE["num_slots"]):
         eng.submit(rng.randint(0, vocab, (1, 512)), steps + 12)
@@ -1279,6 +1409,9 @@ def profile_decode_steps(eng, vocab, steps=4):
     res = profile_device(eng.step, steps)
     eng.run()
     log(phase="profile_decode", cache_dtype=str(eng._cache_dtype), **res)
+    if res["rms_norm_calls_per_step"]:
+        raise AssertionError("a norm kernel ran in the decode step: %r"
+                             % res)
 
 
 # -- speculative serving: a small model, then the 8B main path --------------
@@ -1556,6 +1689,10 @@ def serve_speculative(model, eng, reqs):
             Counted(transformer, "rows_linear",
                     lambda a, kw: (proj[a[1].data_ptr()],
                                    a[0].numel() // a[0].shape[-1])) as g1, \
+            Counted(transformer, "rows_norm_linear",
+                    lambda a, kw: (proj[a[2].data_ptr()],
+                                   a[0].numel() // a[0].shape[-1])) \
+            as fused, \
             FiniteLogits(sampler) as finite, \
             Timed(model, "step_pages") as t_step, \
             Timed(model, "verify_pages") as t_ver:
@@ -1588,9 +1725,11 @@ def serve_speculative(model, eng, reqs):
             or launches.get(k1_name, 0) != n_layers * d["steps"]
             or launches.get("rows_linear", 0)
             != (5 * n_layers + 1) * d["steps"]
-            or launches.get("rows_rms_norm", 0)
-            != (2 * n_layers + 1) * d["steps"]):
-        raise AssertionError("K1 (%s), G1 or G2 launches %r do not equal "
+            or launches.get("rows_norm_linear", 0)
+            != (3 * n_layers + 1) * d["steps"]
+            or launches.get("rows_rms_norm", 0)):
+        raise AssertionError("K1 (%s), G1, fused norm or G2 launches %r do "
+                             "not equal "
                              "%d x (plain steps + verify calls) %r, stats "
                              "%r"
                              % (k1_name, launches, n_layers, calls, d))
@@ -1598,6 +1737,9 @@ def serve_speculative(model, eng, reqs):
         raise AssertionError("a sampled logit row was not finite")
     if after["blocks_in_use"] != 0:
         raise AssertionError("pages leaked: %r" % after)
+    # G1's calls, the fused norm's among them
+    g1_calls = {k: g1.counts.get(k, 0) + fused.counts.get(k, 0)
+                for k in set(g1.counts) | set(fused.counts)}
     # generated_tokens counts decode tokens (each request's first token
     # comes from its prefill)
     decode_tokens = d["generated_tokens"]
@@ -1620,10 +1762,13 @@ def serve_speculative(model, eng, reqs):
                draft_hit_rate=(d["accepted_tokens"] / d["drafted_tokens"]
                                if d["drafted_tokens"] else 0.0),
                rows_linear_by_M={"M=%d" % m: sum(
-                   n for (_, mm), n in g1.counts.items() if mm == m)
-                   for m in sorted({m for _, m in g1.counts})},
+                   n for (_, mm), n in g1_calls.items() if mm == m)
+                   for m in sorted({m for _, m in g1_calls})},
                rows_linear_by_projection_and_M={
-                   "%s,M=%d" % k: n for k, n in sorted(g1.counts.items())},
+                   "%s,M=%d" % k: n for k, n in sorted(g1_calls.items())},
+               rows_norm_linear_by_projection_and_M={
+                   "%s,M=%d" % k: n
+                   for k, n in sorted(fused.counts.items())},
                wall_s=wall,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)
@@ -1637,7 +1782,8 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
     """The 8B model served the motif traffic (``reqs``, made when None)
     twice on the main path's engine settings and ``cache_dtype``: once
     with speculation off, once with spec_k = 4 and spec_tree = (15, 2).
-    K1's launches must be 32 per model call by (W, tree) and G1's 161.
+    K1's launches must be 32 per model call by (W, tree), G1's 161 and
+    the fused norm's 97.
     Every speculative stream must be token-identical to its plain
     stream: G1 rounds a verify window's rows as the step rounds them,
     K1 gives a window's lane the bits of a step at its position
@@ -1645,7 +1791,8 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
     ``window_op_bits`` must find no op of the step whose bits a window
     lane changes.  Returns K1's launch counts by (W, tree), the first
     linear and tree K1 inputs as (args, keywords), the traffic, and the
-    speculative run's G1 calls by "projection,M=rows"."""
+    speculative run's G1 and fused-norm calls by "projection,M=rows"
+    ({"rows_linear": ..., "rows_norm_linear": ...})."""
     from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
 
     if reqs is None:
@@ -1699,7 +1846,9 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
         if bits["bits_differ"]:
             raise AssertionError("a verify window's lane rounds %r otherwise "
                                  "than the step" % bits["bits_differ"])
-    return spec[2], caps, reqs, spec[0]["rows_linear_by_projection_and_M"]
+    return spec[2], caps, reqs, {
+        k: spec[0][k + "_by_projection_and_M"]
+        for k in ("rows_linear", "rows_norm_linear")}
 
 
 def lane_invariant(args, kw):
@@ -1722,16 +1871,17 @@ def window_op_bits(model, widths=(8, 16)):
     """Which ops of the decode step give a verify window's lane other
     bits than the step gives the same row: each op of layer 0 and the
     head once on (8, W, n) and once on the (8, 1, n) rows of lanes 0,
-    W // 2 and W - 1, as the step and the verify call run it (the six
-    projections through rows_linear; the norms through rows_rms_norm,
-    in bf16 and in float32; rope at the lanes' positions, linear and
-    tree; the SwiGLU product; the residual adds).  Returns the ops
-    whose bits differ (an empty list is C1's gate) and those that
-    agree."""
+    W // 2 and W - 1, as the step and the verify call run it (out_proj
+    and down through rows_linear; each norm with the projections that
+    read it through rows_norm_linear, in bf16 and, for attn_norm + qkv
+    and the final norm + lm_head, in float32; rope at the lanes'
+    positions, linear and tree; the SwiGLU product; the residual adds).
+    Returns the ops whose bits differ (an empty list is C1's gate) and
+    those that agree."""
     from torch.nn import functional as F
 
-    from mxtpu_torch.ops.contrib import rope, rows_rms_norm
-    from mxtpu_torch.ops.linear import rows_linear
+    from mxtpu_torch.ops.contrib import rope
+    from mxtpu_torch.ops.linear import rows_linear, rows_norm_linear
 
     layer, attn = model.layers[0], model.layers[0].attn
     dev, dt = model.device, model.dtype
@@ -1742,35 +1892,37 @@ def window_op_bits(model, widths=(8, 16)):
     def proj(mod):
         return lambda x: rows_linear(x, mod.weight)
 
-    def norm(mod, dtype=None):
+    def normed(norm, mod, dtype=None):
         # in float32 too: a reduction whose order moves with the row
         # count shows in float32 bits, while bf16 rounding hides most of it
-        return lambda x: rows_rms_norm(x if dtype is None else x.to(dtype),
-                                       mod.weight)
+        if dtype is None:
+            return lambda x: rows_norm_linear(x, norm.weight, mod.weight)
+        gamma, w = norm.weight.to(dtype), mod.weight.to(dtype)
+        return lambda x: rows_norm_linear(x.to(dtype), gamma, w)
 
     def heads(fn):
         # (8, T, H*D) rows <-> (8, H, T, D) heads, as _project does
         return lambda x, pos: fn(x.reshape(8, -1, H, D).transpose(1, 2),
                                  pos).transpose(1, 2).reshape(x.shape)
 
-    ops = [("attn_norm", C, norm(layer.attn_norm)),
-           ("attn_norm[float32]", C, norm(layer.attn_norm, torch.float32)),
-           ("qkv", C, proj(attn.qkv)),
+    ops = [("attn_norm+qkv", C, normed(layer.attn_norm, attn.qkv)),
+           ("attn_norm+qkv[float32]", C,
+            normed(layer.attn_norm, attn.qkv, torch.float32)),
            ("rope", H * D, heads(lambda q, pos: rope(q, offset=pos))),
            ("rope_tree", H * D, heads(lambda q, pos: rope(
                q, offset=pos[:, None] + torch.arange(
                    q.shape[2], device=dev, dtype=pos.dtype)[None, :]))),
            ("out_proj", C, proj(attn.out_proj)),
            ("residual_add", 2 * C, lambda x: x[..., :C] + x[..., C:]),
-           ("ffn_norm", C, norm(layer.ffn_norm)),
-           ("gate_proj", C, proj(layer.gate_proj)),
-           ("up_proj", C, proj(layer.up_proj)),
+           ("ffn_norm+gate_proj", C, normed(layer.ffn_norm,
+                                            layer.gate_proj)),
+           ("ffn_norm+up_proj", C, normed(layer.ffn_norm, layer.up_proj)),
            ("swiglu", 2 * hidden,
             lambda x: F.silu(x[..., :hidden]) * x[..., hidden:]),
            ("down_proj", hidden, proj(layer.down_proj)),
-           ("norm", C, norm(model.norm)),
-           ("norm[float32]", C, norm(model.norm, torch.float32)),
-           ("lm_head", C, proj(model.lm_head))]
+           ("norm+lm_head", C, normed(model.norm, model.lm_head)),
+           ("norm+lm_head[float32]", C,
+            normed(model.norm, model.lm_head, torch.float32))]
     differ, same = set(), set()
     pos = torch.arange(8, device=dev, dtype=torch.int32) * 37 + 200
     with torch.no_grad():
@@ -2376,6 +2528,7 @@ def main():
     verify_kernels_against_plain(quant=True)
     g1 = linear_against_plain(flush)
     g2 = norm_against_plain(flush)
+    fused = norm_linear_against_pair(flush)
     small_model_reference_check()
     small_model_speculative_check()
     small_model_speculative_check(cache_dtype="int8")
@@ -2419,13 +2572,21 @@ def main():
             results[name] = g1[pname, M]
             # M = 8: the decode steps of phase 5; 64 and 128: phase 6b's
             # W = 8 windows and W = 16 trees of 8 slots
-            launches[name] = (launches["rows_linear(%s)" % pname] if M == 8
-                              else g1_by_m.get("%s,M=%d" % (pname, M), 0))
-            if not launches[name]:
-                raise AssertionError("the main path never launched %s"
-                                     % name)
+            for kind in ("rows_linear", "rows_norm_linear"):
+                if kind == "rows_norm_linear" and pname not in NORMED:
+                    continue
+                name = "%s[%s,M=%d]" % (kind, pname, M)
+                results[name] = (g1 if kind == "rows_linear"
+                                 else fused)[pname, M]
+                launches[name] = (
+                    launches["%s(%s)" % (kind, pname)] if M == 8
+                    else g1_by_m[kind].get("%s,M=%d" % (pname, M), 0))
+                if not launches[name]:
+                    raise AssertionError("the main path never launched %s"
+                                         % name)
+    # G2 no longer runs apart on the main path: its row keeps its times
     results["rows_rms_norm[M=8]"] = g2
-    launches["rows_rms_norm[M=8]"] = launches["rows_rms_norm"]
+    launches["rows_rms_norm[M=8]"] = launches.get("rows_rms_norm", 0)
     del served, verify_caps, verify_caps_q8
     torch.cuda.empty_cache()
     flash_kernels_against_plain()

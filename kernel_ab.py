@@ -6,6 +6,7 @@
     python3 kernel_ab.py capture k1 INPUTS.pt
     python3 kernel_ab.py measure ROOT INPUTS.pt
     python3 kernel_ab.py g1 ROOT_A ROOT_B
+    python3 kernel_ab.py norm ROOT_A ROOT_B
     python3 kernel_ab.py flash ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
@@ -37,6 +38,17 @@ may differ), beside ``torch.matmul`` on the same inputs.  It prints one
 JSON line per (turn, projection, M), then one line with each row's four
 turns.
 
+``norm`` times the normed projection of the checkouts at ROOT_A and
+ROOT_B the same way, in turns A, B, B, A, one process each: seeded
+bfloat16 x, gain (bf16, the model's) and w at Llama-3-8B's four
+projections that read a norm (qkv, gate, up, lm_head) and M = 8, 64 and
+128 rows, the tree's ``rows_norm_linear`` where it has one, else its
+G2 then G1 (``rows_rms_norm``, then ``rows_linear``), by ``device_ms``,
+beside ``F.rms_norm`` then ``torch.matmul`` on the same inputs; and by
+``kernel_us``, the kernels' own device time of back-to-back calls on
+inputs left in L2, as the decode step runs them (a graph replay counts
+each launch's latency too), beside the tree's G1 alone.
+
 ``flash`` times K4 (``flash_dq``) and K5 (``flash_dkv``) of the checkouts
 at ROOT_A and ROOT_B the same way, in turns A, B, B, A, one process
 each: seeded (1, 32, 2048, 128) float32 causal q, k, v and dO (the
@@ -60,6 +72,8 @@ G1_PROJECTIONS = [("qkv", 6144, 4096), ("out_proj", 4096, 4096),
                   ("gate_proj", 14336, 4096), ("up_proj", 14336, 4096),
                   ("down_proj", 4096, 14336), ("lm_head", 128256, 4096)]
 G1_ROWS = (8, 64, 128)
+#: the projections that read a norm's output
+NORMED = ("qkv", "gate_proj", "up_proj", "lm_head")
 
 
 def device_ms(fn, iters=50):
@@ -164,6 +178,60 @@ def g1_tree(root, turn):
         del w, x
 
 
+def kernel_us(fn, iters=40):
+    """Mean microseconds of device time in the kernels ``fn`` launches
+    (torch.profiler), over back-to-back calls on L2-warm inputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters
+
+
+def norm_tree(root, turn):
+    """One turn of ``norm``: the tree at ``root``'s normed projection
+    on seeded inputs."""
+    sys.path.insert(0, root)
+    from mxtpu_torch.ops import contrib, linear
+
+    F = torch.nn.functional
+    fused = getattr(linear, "rows_norm_linear", None)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, N, K in G1_PROJECTIONS:
+        if name not in NORMED:
+            continue
+        w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16,
+                        generator=g) * 0.02
+        x = torch.randn(max(G1_ROWS), K, device="cuda", dtype=torch.bfloat16,
+                        generator=g)
+        gamma = (1 + 0.1 * torch.randn(K, device="cuda", generator=g)).to(
+            torch.bfloat16)
+        for M in G1_ROWS:
+            xm = x[:M].contiguous()
+            if fused is not None:
+                op, run = "rows_norm_linear", lambda: fused(xm, gamma, w)
+            else:
+                op, run = "rows_rms_norm+rows_linear", lambda: \
+                    linear.rows_linear(contrib.rows_rms_norm(xm, gamma), w)
+            print(json.dumps(dict(
+                turn=turn, tree=root, projection=name, M=M, N=N, K=K, op=op,
+                ms=device_ms(run),
+                library_ms=device_ms(lambda: torch.matmul(
+                    F.rms_norm(xm, (K,), gamma, 1e-6), w.t())),
+                kernel_us=kernel_us(run),
+                g1_kernel_us=kernel_us(lambda: linear.rows_linear(xm, w)))),
+                flush=True)
+        del w, x
+
+
 def turns(kind, root_a, root_b, collect):
     """``kind``'s turns, A, B, B, A, one process each (``<kind>-tree``),
     and their summary: ``collect(rows, line)`` files each printed line
@@ -193,6 +261,13 @@ def g1(root_a, root_b):
     return turns("g1", root_a, root_b, lambda rows, r: rows.setdefault(
         "%s,M=%d" % (r["projection"], r["M"]), []).append(
             (r["ms"], r["library_ms"])))
+
+
+def norm(root_a, root_b):
+    """``norm``'s turns and their summary."""
+    return turns("norm", root_a, root_b, lambda rows, r: rows.setdefault(
+        "%s,M=%d" % (r["projection"], r["M"]), []).append(
+            (r["ms"], r["library_ms"], r["kernel_us"], r["g1_kernel_us"])))
 
 
 def flash(root_a, root_b):
@@ -255,6 +330,11 @@ def main(argv):
         return g1(argv[1], argv[2])
     if len(argv) == 3 and argv[0] == "g1-tree":
         g1_tree(argv[1], int(argv[2]))
+        return 0
+    if len(argv) == 3 and argv[0] == "norm":
+        return norm(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "norm-tree":
+        norm_tree(argv[1], int(argv[2]))
         return 0
     if len(argv) == 3 and argv[0] == "flash":
         return flash(argv[1], argv[2])

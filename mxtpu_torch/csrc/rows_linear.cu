@@ -82,11 +82,39 @@
 // reduction layout by the number of rows (whole warps per row at 8 rows,
 // one warp per row at 128), so a row's mean of squares, and now and then
 // its bf16 output, differed between a step and a window lane.  Here one
-// block of 256 threads normalizes one row: each thread sums the squares
-// of its strided elements in order, the warps reduce by a fixed
-// butterfly, and thread 0 adds the 8 warp sums in order; nothing depends
-// on the row count.  Bound: bytes (each row read twice, from L1/L2 the
-// second time, written once).
+// warp reduces a row in an order fixed by C alone (row_scale), and a
+// block of 256 threads writes the row; nothing depends on the row count.
+// Bound: bytes (each row read twice, from L1/L2 the second time, written
+// once), but a call is far too small for that to show: its time is the
+// launch.
+//
+// The fused norm (rows_norm_linear: the decode step's and the verify
+// window's qkv, gate, up and lm_head, whose x is the output of G2 and
+// nothing else) runs G2 inside G1's launch and gives G2-then-G1's bits:
+//
+//   y = rows_linear(rows_rms_norm(x, gamma, eps), w),
+//
+// so no norm kernel is launched and the normed rows never reach device
+// memory.  The bf16 kernel first computes the scales of the chunk's rows
+// with row_scale, reading x from global memory (it sits in L2), the rows
+// dealt over the blocks of a cluster (every fused launch is clustered,
+// lm_head's single-split tiles too) and shared over distributed shared
+// memory after a cluster barrier, while the producer warp starts the
+// ring.  The producer copies each slice's gains beside it.  Above 8 rows
+// two more warps normalize each landed x slice in place in its stage
+// ((x * r) * gamma[k], rounded once to bf16: G2's expression and
+// rounding), each element once a block, and release it to the computing
+// warps on a third mbarrier, so the MMA loop is G1's; at 8 rows each
+// computing warp normalizes its own B fragments after ldmatrix.
+// Measured on the H100 on the way (kernel_ab.py norm): B fragments
+// normalized in registers at every row count (the 4 column warps
+// repeating it) made a call 1.5-5x slower at 64 and 128 rows; the slice
+// normalized by the computing warps themselves cost 25-40% at 128 rows;
+// the gains read from global memory a slice at a time cost up to 60%.
+// Rows past M and columns past K are left as the zeros the TMA box lands
+// there.  The float32 kernel normalizes x as it fills its tile.  gamma is
+// read in its own dtype (bf16 or float32) and converted in the kernel,
+// exactly: no cast is launched.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -94,12 +122,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "paged_common.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using mxtpu_port::bulk_copy;
 using mxtpu_port::kMaxSmem;
 using mxtpu_port::mbar_expect;
 using mxtpu_port::mbar_init;
@@ -115,6 +146,34 @@ constexpr int kMinSplitSteps = 16; // k16 steps a split walks, at least
 constexpr int kMaxStages = 8;      // ring stages a block may hold
 constexpr int kHead = 2048;        // mbarriers, and the ring's alignment
 constexpr int kPartPad = 4;        // float padding of a partial-sum row
+// The head of the bf16 kernel's shared memory: the stages' mbarriers (a
+// slice landed, normalized, released), the scales of the chunk's rows
+// (the fused norm), then the ring from the next 1024-byte boundary.
+constexpr int kScalesEnd = 3 * kMaxStages * 8 + kChunk * 4;
+static_assert(kScalesEnd + 1023 <= kHead,
+              "the head holds the barriers, the scales and the alignment");
+// Blocks a cluster of the fused norm, which deals the chunk's rows over
+// them: the splits of P / S N tiles.  Four, but two for single-split
+// projections (lm_head), whose blocks need no cluster of their own: on
+// the H100 clusters of 4 there cost 2-3% at 8 rows and 20% at 128 (a
+// wave more at one block an SM), and no cluster at all (every block
+// reducing all its rows) cost more than 2.
+constexpr int kNormCluster = 4;
+static_assert(kNormCluster % kMaxSplits == 0, "S divides the cluster");
+inline int norm_cluster(int S) { return S == 1 ? 2 : kNormCluster; }
+// Warps of a fused block that normalize the landed x slices (8 rows
+// apart a thread, kChunk / 8 rows at most), beside the computing warps
+// and the producer, in the classes of more than 8 rows.  More of them
+// cost more than they gave on the H100: at 64 rows 4 such warps left
+// room for one block an SM, not two.  In the 8-row class (NGW = 1) each
+// computing warp normalizes its own B fragments in registers instead:
+// 2 words a k16 step, where a hand-off to other warps cost 6% of
+// lm_head's call.
+constexpr int kNormWarps = 2;
+constexpr int kNormRows = kChunk / (kNormWarps * 32 / 8);
+// The fused norm's gains of one slice (64 float32 at most), a slot a
+// stage after the ring, filled by the producer with the slice.
+constexpr int kGainSlot = kBK * 4;
 
 // K splits of a (N, K) bf16 product: a function of N and K alone.  The
 // S splits of one 64-column tile double while the grid holds fewer than
@@ -161,14 +220,16 @@ inline int row_class(int M, int N, int K) {
 }
 
 // Shared memory of one block, as the kernel carves it: the stages'
-// mbarriers, then (1024-byte aligned, for the 128-byte swizzle) the ring
-// of weight tiles and x rows, which the float32 partial tile reuses
-// after the walk.
-inline size_t smem_bytes(const RowClass& c, int stages) {
+// mbarriers (and the fused norm's row scales), then (1024-byte aligned,
+// for the 128-byte swizzle) the ring of weight tiles and x rows, which
+// the float32 partial tile reuses after the walk, then the fused norm's
+// gain slots.
+inline size_t smem_bytes(const RowClass& c, int stages, bool norm) {
   const int bn = 16 * kWarpCols * c.cw;
   const size_t ring = (size_t)stages * (bn + c.rows) * kBK * 2;
   const size_t part = (size_t)c.rows * (bn + kPartPad) * 4;
-  return kHead + (ring > part ? ring : part);
+  return kHead + (ring > part ? ring : part) +
+         (norm ? (size_t)stages * kGainSlot : 0);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -227,41 +288,219 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// the cluster's barrier in two halves, so a warp can arrive early and wait
+// late (the producer arrives before it starts the ring)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+struct NoNorm {};  // the gain type of a plain G1 launch
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// elements e .. e + 7 of a row, as raw 16-byte words (one for bf16,
+// two for float; 16-byte aligned), and as floats
+template <typename T>
+struct Raw8 {
+  uint4 w[sizeof(T) / 2];
+};
+template <typename T>
+__device__ __forceinline__ Raw8<T> load_raw8(const T* p) {
+  Raw8<T> r;
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T) / 2; ++i)
+    r.w[i] = reinterpret_cast<const uint4*>(p)[i];
+  return r;
+}
+__device__ __forceinline__ void unpack8(const Raw8<bf16>& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.w[0].x, r.w[0].y, r.w[0].z, r.w[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const Raw8<float>& r, float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    v[4 * i] = __uint_as_float(r.w[i].x);
+    v[4 * i + 1] = __uint_as_float(r.w[i].y);
+    v[4 * i + 2] = __uint_as_float(r.w[i].z);
+    v[4 * i + 3] = __uint_as_float(r.w[i].w);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
+  unpack8(load_raw8(p), v);
+}
+
+// The scale rsqrt(mean(x * x) + eps) of one row of C elements, computed
+// by one warp (every lane returns it): G2's and the fused norm's, so the
+// two agree by construction.  The order of the sums depends on C alone,
+// and is that of 256 threads each summing the squares of elements u,
+// u + 256, u + 512, ... (thread u) in order with fmaf, each warp of 32
+// adding its threads' sums by an xor butterfly 16, 8, 4, 2, 1, and the 8
+// warp sums added in order.  Lane l holds the chains of threads 8l ..
+// 8l + 7, so one 16-byte load (two for float) feeds all eight: thread
+// u = 8l + j is lane (l % 4) and chain j of warp l / 4, the butterfly's
+// steps 16 and 8 are shuffles (lane xor 2, xor 1), its steps 4, 2 and 1
+// adds inside the lane, and warp w's sum lands on lanes 4w .. 4w + 3.
+// Past C a chain adds nothing (+0 to a sum of squares).
+template <typename T>
+__device__ float row_scale(const T* __restrict__ xr, int C, float eps,
+                           int lane) {
+  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (C % 8 == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+    // 256 bytes a lane in flight (a 4096-element bf16 row at once): the
+    // loads of a batch are issued before its first sum
+    constexpr int B = 32 / sizeof(T);
+    for (int e0 = 8 * lane; e0 < C; e0 += 256 * B) {
+      Raw8<T> raw[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b)
+        if (e0 + 256 * b < C) raw[b] = load_raw8(xr + e0 + 256 * b);
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (e0 + 256 * b < C) {
+          float v[8];
+          unpack8(raw[b], v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[j] = fmaf(v[j], v[j], s[j]);
+        }
+      }
+    }
+  } else {
+    for (int e = 8 * lane; e < C; e += 256) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = e + j < C ? to_float(xr[e + j]) : 0.f;
+        s[j] = fmaf(v, v, s[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
+  const float warp_sum =
+      ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
+  float total = __shfl_sync(0xffffffffu, warp_sum, 0);
+#pragma unroll
+  for (int w = 1; w < 8; ++w)
+    total += __shfl_sync(0xffffffffu, warp_sum, 4 * w);
+  return rsqrtf(total / C + eps);
+}
+
+// 8 bf16 x values of one row in shared memory, normalized in place as G2
+// writes them: (x * r) * gamma, rounded to bf16
+__device__ __forceinline__ void norm8(unsigned char* p, float r,
+                                      const float (&g)[8]) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  float v[8];
+  load8(reinterpret_cast<const bf16*>(q), v);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 o = __floats2bfloat162_rn(v[2 * i] * r * g[2 * i],
+                                             v[2 * i + 1] * r * g[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&o);
+  }
+  *q = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// gamma[k], gamma[k + 1] as floats, from a gain slot
+__device__ __forceinline__ float2 gain2(const bf16* g) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g));
+}
+__device__ __forceinline__ float2 gain2(const float* g) {
+  return *reinterpret_cast<const float2*>(g);
+}
+
+// a B fragment's two x values (k, k + 1 of one row), normalized as G2
+// writes them: (x * r) * gamma, rounded to bf16
+__device__ __forceinline__ uint32_t norm2(uint32_t b, float r, float2 gm) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+  __nv_bfloat162 o = __floats2bfloat162_rn(v.x * r * gm.x, v.y * r * gm.y);
+  return *reinterpret_cast<uint32_t*>(&o);
+}
+
+// generic-proxy writes to shared memory ordered before later TMA writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // One block: output columns [n0, n0 + BN) of rows [m0, m0 + rows), over
 // the k16 steps of split blockIdx.x % S.  Warps 0 .. 4*warp_rows - 1
 // compute: warp w owns the 16*CW columns (w % 4) and the 8*NGW rows
-// (w / 4) of the tile.  The last warp produces: it loads slice i (a
+// (w / 4) of the tile.  The next warp produces: it loads slice i (a
 // 64-deep box of the weight tile and one of the chunk's x rows, both
 // through tensor maps with the 128-byte swizzle; rows past N or M and
 // columns past K land as zeros) into stage i % STAGES once the
-// computing warps have released the stage.
-template <int CW, int NGW, int STAGES>
-__global__ void __launch_bounds__(288)
+// computing warps have released the stage.  The S splits of an N tile
+// are consecutive blocks of a cluster of P (P = S, or norm_cluster with
+// the fused norm, whose grid is padded to whole clusters: a block past
+// the last N tile loads and stores nothing).
+//
+// G (NoNorm, bf16 or float) is the gain's type.  With a gain the
+// producer also copies each slice's gains into the stage's gain slot,
+// and above 8 rows kNormWarps more warps normalize each landed x slice
+// in place before the computing warps read it (a third mbarrier a
+// stage; at 8 rows the computing warps normalize their B fragments).
+// Row r of the chunk is first reduced (row_scale) by cluster block
+// r % P, by one of its warps, and its scale is shared with the cluster
+// over distributed shared memory.
+template <int CW, int NGW, int STAGES, typename G>
+__global__ void __launch_bounds__(
+    std::is_same<G, NoNorm>::value || NGW == 1 ? 288 : 288 + 32 * kNormWarps)
     rows_linear_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                             const __grid_constant__ CUtensorMap xmap,
+                            const bf16* __restrict__ x,
+                            const G* __restrict__ gamma, float eps,
                             bf16* __restrict__ y, int M, int N, int K,
-                            int S, int warp_rows) {
+                            int S, int P, int warp_rows) {
   static_assert(STAGES <= kMaxStages, "the head holds kMaxStages barriers");
+  constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
+  constexpr bool kNormWarpsOn = kNorm && NGW > 1;  // else in registers
   constexpr int BN = 16 * kWarpCols * CW;
   constexpr int PLD = BN + kPartPad;
   extern __shared__ uint4 smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
+  uint64_t* normed = empty + kMaxStages;
+  float* scales = reinterpret_cast<float*>(normed + kMaxStages);
   const unsigned base = smem_addr(smem_raw);
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem_raw) +
-                        (((base + 2 * kMaxStages * 8 + 1023) & ~1023u) -
-                         base);
+                        (((base + kScalesEnd + 1023) & ~1023u) - base);
   const int R = 8 * NGW * warp_rows;
   const int stage_bytes = (BN + R) * kBK * 2;
+  const int ring_bytes = max(STAGES * stage_bytes, R * PLD * 4);
+  unsigned char* gslots = ring + ring_bytes;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int cwarps = kWarpCols * warp_rows;  // computing warps
+  const int nnw = kNormWarpsOn ? kNormWarps : 0;  // normalizing warps
   const int g = lane >> 2;
   const int t = lane & 3;
   const int wcol = warp % kWarpCols;
   const int grp0 = warp / kWarpCols * NGW;  // the warp's first 8-row group
   const int split = blockIdx.x % S;
+  const int rank = blockIdx.x % P;           // in the cluster
   const int n0 = blockIdx.x / S * BN;
   const int m0 = blockIdx.z * R;
   const int rows = min(R, M - m0);
@@ -271,36 +510,121 @@ __global__ void __launch_bounds__(288)
   k_range(K, S, split, &lo, &hi);
   const int kbeg = 16 * lo;
   const int kend = min(16 * hi, K);
-  const int nslices = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  const int nslices =
+      kend > kbeg && n0 < N ? (kend - kbeg + kBK - 1) / kBK : 0;
+  cg::cluster_group cluster = cg::this_cluster();
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], cwarps);
+      if (nnw) mbar_init(&normed[st], nnw);
     }
   }
   __syncthreads();
 
-  float acc[CW][NGW][4];
-#pragma unroll
-  for (int c = 0; c < CW; ++c)
-#pragma unroll
-    for (int j = 0; j < NGW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  // With the fused norm a cluster passes two barriers before the
+  // epilogue: the scales are written (phase 0), and read (phase 1, after
+  // which a block may leave; the producer arrives at both at once).  A
+  // block of no cluster (P = 1) would sync its reducing warps on barrier
+  // 1: norm_cluster() does not ask for one, but with that path in the
+  // kernel nvcc lays the 64-row class out 1.5x faster on the H100
+  // (kernel_ab.py norm's kernel_us, qkv at M = 64: 35 against 52 us).
+  const bool clustered = kNorm && P > 1;
+  if constexpr (kNorm) {
+    if (warp != cwarps) {
+      // the chunk's rows dealt over the cluster's blocks, and in each
+      // over its computing and normalizing warps
+      const int nw = cwarps + nnw;
+      const int w = warp < cwarps ? warp : warp - 1;
+      for (int r = rank + P * w; r < rows; r += P * nw) {
+        const float v = row_scale(x + (size_t)(m0 + r) * K, K, eps, lane);
+        if (lane == 0) scales[r] = v;
+      }
+      if (clustered) {
+        cluster_arrive();
+        cluster_wait();
+      } else {
+        asm volatile("bar.sync 1, %0;\n" ::"r"(32 * nw) : "memory");
+      }
+    }
+  }
 
+  float acc[CW][NGW][4];
   if (warp == cwarps) {
+    if (clustered) cluster_arrive_relaxed();
     if (lane == 0) {
       for (int i = 0; i < nslices; ++i) {
         const int st = i % STAGES;
+        const int k0 = kbeg + i * kBK;
+        // the gains of the slice's columns up to the split's end
+        const int gbytes = kNorm ? min(kBK, kend - k0) * (int)sizeof(G) : 0;
         if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
         unsigned char* ws = ring + (size_t)st * stage_bytes;
-        mbar_expect(&full[st], stage_bytes);
-        tma_load(ws, &wmap, kbeg + i * kBK, n0, &full[st]);
-        tma_load(ws + BN * kBK * 2, &xmap, kbeg + i * kBK, m0, &full[st]);
+        mbar_expect(&full[st], stage_bytes + gbytes);
+        tma_load(ws, &wmap, k0, n0, &full[st]);
+        tma_load(ws + BN * kBK * 2, &xmap, k0, m0, &full[st]);
+        if constexpr (kNorm)
+          bulk_copy(gslots + st * kGainSlot, gamma + k0, gbytes, &full[st]);
+      }
+    }
+    if (clustered) {
+      cluster_wait();
+      cluster_arrive_relaxed();
+    }
+  } else if (warp > cwarps) {
+    if constexpr (kNormWarpsOn) {
+      // normalize each landed slice: thread u takes 16-byte chunk u % 8
+      // of rows u / 8, u / 8 + 8, ... of the slice's x rows (each row's
+      // chunk at the same swizzled place, so one set of gains); chunks
+      // past the split's end are left as they are
+      const int u = tid - 32 * (cwarps + 1);
+      const int r0 = u >> 3;
+      float rsc[kNormRows];
+#pragma unroll
+      for (int j = 0; j < kNormRows; ++j) {
+        const int r = r0 + 8 * j;
+        rsc[j] = r >= rows    ? 0.f
+                 : clustered ? *cluster.map_shared_rank(scales + r, r % P)
+                             : scales[r];
+      }
+      if (clustered) cluster_arrive();
+      const int c8 = 8 * ((u & 7) ^ (r0 & 7));
+      for (int i = 0; i < nslices; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(&full[st], (i / STAGES) & 1);
+        if (kbeg + i * kBK + c8 < kend) {
+          float gk[8];
+          load8(reinterpret_cast<const G*>(gslots + st * kGainSlot) + c8,
+                gk);
+          unsigned char* xs = ring + (size_t)st * stage_bytes +
+                              BN * kBK * 2 + (u & 7) * 16;
+#pragma unroll
+          for (int j = 0; j < kNormRows; ++j) {
+            const int r = r0 + 8 * j;
+            if (r < rows) norm8(xs + r * kBK * 2, rsc[j], gk);
+          }
+          fence_proxy_async();  // before the stage's next TMA write
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&normed[st]);
       }
     }
   } else {
+    // the scale of the lane's x row (registers normalization: row g)
+    float rs = 0.f;
+    if constexpr (kNorm && !kNormWarpsOn) {
+      if (g < rows)
+        rs = clustered ? *cluster.map_shared_rank(scales + g, g % P)
+                       : scales[g];
+    }
+    if (clustered) cluster_arrive();
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+#pragma unroll
+      for (int j = 0; j < NGW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
     // ldmatrix rows (128 bytes each, 16-byte chunk c stored at c ^ (row
     // % 8), and row % 8 == lane % 8 for every row a lane addresses): A
     // rows wcol*16*CW + lane % 16, chunk 2kk + lane / 16; B pairs of
@@ -314,6 +638,9 @@ __global__ void __launch_bounds__(288)
     const int b_hi = (lane >> 3) & 1;
     for (int i = 0; i < nslices; ++i) {
       const int st = i % STAGES;
+      // with the fused norm the slice is read once normalized (which it
+      // is only after it landed)
+      if (kNormWarpsOn) mbar_wait(&normed[st], (i / STAGES) & 1);
       mbar_wait(&full[st], (i / STAGES) & 1);
       const unsigned ws = smem_addr(ring) + st * stage_bytes;
       const int steps = (kend - (kbeg + i * kBK) + 15) / 16;
@@ -329,6 +656,17 @@ __global__ void __launch_bounds__(288)
         uint32_t b[NGW][2];
         if constexpr (NGW == 1) {
           ldsm_x2(b[0][0], b[0][1], ws + b_row + b_chunk);
+          if constexpr (kNorm) {
+            // the lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+            // (past the split's end x is zero and so is the gain)
+            const G* gs = reinterpret_cast<const G*>(gslots + st * kGainSlot);
+            const int k = 16 * kk + 2 * t;
+            const int left = kend - (kbeg + i * kBK);
+            b[0][0] = norm2(b[0][0], rs, gain2(gs + k));
+            b[0][1] = norm2(b[0][1], rs,
+                            k + 8 < left ? gain2(gs + k + 8)
+                                         : make_float2(0.f, 0.f));
+          }
         } else {
 #pragma unroll
           for (int j = 0; j < NGW; j += 2) {
@@ -356,6 +694,7 @@ __global__ void __launch_bounds__(288)
     }
   }
 
+  if (clustered) cluster_wait();
   // the partial tile, rows x BN floats, over the ring
   __syncthreads();
   float* part = reinterpret_cast<float*>(ring);
@@ -369,26 +708,27 @@ __global__ void __launch_bounds__(288)
           part[((grp0 + j) * 8 + 2 * t + (e & 1)) * PLD + wcol * 16 * CW +
                c * 16 + g + (e >= 2 ? 8 : 0)] = acc[c][j][e];
   }
-  cg::cluster_group cluster = cg::this_cluster();
   if (S > 1)
     cluster.sync();
   else
     __syncthreads();
 
-  // this block's share of the tile, the S partials added in split order
+  // this block's share of the tile, the S partials (cluster blocks
+  // rank - split .. rank - split + S - 1) added in split order
   constexpr int quads = BN / 4;
   const int total = rows * quads;
   const int q_lo = split * total / S;
   const int q_hi = (split + 1) * total / S;
+  const int first = rank - split;
   for (int q = q_lo + tid; q < q_hi; q += blockDim.x) {
     const int r = q / quads;
     const int c = (q - r * quads) * 4;
     if (c >= ncols) continue;
     float4 v = *reinterpret_cast<const float4*>(
-        (S > 1 ? cluster.map_shared_rank(part, 0) : part) + r * PLD + c);
+        (S > 1 ? cluster.map_shared_rank(part, first) : part) + r * PLD + c);
     for (int z = 1; z < S; ++z) {
       const float4 u = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(part, z) + r * PLD + c);
+          cluster.map_shared_rank(part, first + z) + r * PLD + c);
       v.x += u.x;
       v.y += u.y;
       v.z += u.z;
@@ -414,35 +754,16 @@ __global__ void __launch_bounds__(288)
 constexpr int kF = 32;   // float32 path: output tile and K slice
 constexpr int kNormThreads = 256;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
     rows_rms_norm_kernel(const T* __restrict__ x,
                          const float* __restrict__ gamma,
                          T* __restrict__ y, int C, float eps) {
-  __shared__ float warp_sums[kNormThreads / 32];
   __shared__ float scale;
   const T* xr = x + (size_t)blockIdx.x * C;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < C; i += kNormThreads) {
-    const float v = to_float(xr[i]);
-    s = fmaf(v, v, s);
-  }
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = warp_sums[0];
-    for (int w = 1; w < kNormThreads / 32; ++w) total += warp_sums[w];
-    scale = rsqrtf(total / C + eps);
+  if (threadIdx.x < 32) {
+    const float r = row_scale(xr, C, eps, threadIdx.x);
+    if (threadIdx.x == 0) scale = r;
   }
   __syncthreads();
   const float r = scale;
@@ -451,23 +772,41 @@ __global__ void __launch_bounds__(kNormThreads)
     store(yr + i, to_float(xr[i]) * r * gamma[i]);
 }
 
+// NORM: x's rows normalized by gamma as the tile fills (the fused norm;
+// each warp reduces 4 of the tile's 32 rows first)
+template <bool NORM>
 __global__ void __launch_bounds__(256)
     rows_linear_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ gamma, float eps,
                            const float* __restrict__ w,
                            float* __restrict__ y, int M, int N, int K) {
   __shared__ float xs[kF][kF + 1];   // xs[m][k]
   __shared__ float wt[kF][kF + 1];   // wt[n][k]
+  __shared__ float sc[kF];           // the rows' scales
   const int tx = threadIdx.x % kF;   // output column in the tile
   const int ty = threadIdx.x / kF;   // rows ty, ty+8, ty+16, ty+24
   const int n0 = blockIdx.x * kF;
   const int m0 = blockIdx.y * kF;
+  if constexpr (NORM) {
+    for (int r = ty; r < kF; r += 256 / kF) {
+      const float v = m0 + r < M
+                          ? row_scale(x + (size_t)(m0 + r) * K, K, eps, tx)
+                          : 0.f;
+      if (tx == 0) sc[r] = v;
+    }
+    __syncthreads();
+  }
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < K; k0 += kF) {
     for (int i = threadIdx.x; i < kF * kF; i += 256) {
       const int r = i / kF;
       const int c = i % kF;
-      xs[r][c] = (m0 + r < M && k0 + c < K) ? x[(size_t)(m0 + r) * K + k0 + c]
-                                             : 0.f;
+      float v = 0.f;
+      if (m0 + r < M && k0 + c < K) {
+        v = x[(size_t)(m0 + r) * K + k0 + c];
+        if constexpr (NORM) v = v * sc[r] * gamma[k0 + c];
+      }
+      xs[r][c] = v;
       wt[r][c] = (n0 + r < N && k0 + c < K) ? w[(size_t)(n0 + r) * K + k0 + c]
                                              : 0.f;
     }
@@ -486,8 +825,6 @@ __global__ void __launch_bounds__(256)
     if (m < M && n0 + tx < N) y[(size_t)m * N + n0 + tx] = acc[u];
   }
 }
-
-
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query
 // (no link to libcuda).
@@ -524,16 +861,20 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
 }
 
 // One bf16 launch of class <CW, NGW, STAGES> with warp_rows rows of
-// computing warps.  The kernel's shared-memory limit is raised once per
-// size, and whether the card can schedule a cluster of S such blocks is
-// asked once per (S, block shape).
-template <int CW, int NGW, int STAGES>
-int launch_bf16(const void* x, const void* w, void* y, int M, int N, int K,
-                int S, int smem, int warp_rows, void* stream) {
+// computing warps, its x rows normalized by gamma unless G is NoNorm.
+// The kernel's shared-memory limit is raised once per size, and whether
+// the card can schedule a cluster of S such blocks is asked once per (S,
+// block shape).
+template <int CW, int NGW, int STAGES, typename G>
+int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
+                void* y, int M, int N, int K, int S, int P, int smem,
+                int warp_rows,
+                void* stream) {
   constexpr int BN = 16 * kWarpCols * CW;
-  auto kernel = rows_linear_bf16_kernel<CW, NGW, STAGES>;
+  constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
+  auto kernel = rows_linear_bf16_kernel<CW, NGW, STAGES, G>;
   static int smem_set = 0;
-  static int schedulable[kMaxSplits + 1][2] = {};  // smem found schedulable
+  static int schedulable[kNormCluster + 1][2] = {};  // smem schedulable
   cudaError_t err;
   if (smem > smem_set) {
     err = cudaFuncSetAttribute(
@@ -549,29 +890,66 @@ int launch_bf16(const void* x, const void* w, void* y, int M, int N, int K,
       return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN * S, 1, (M + kChunk - 1) / kChunk);
-  cfg.blockDim = dim3(32 * (kWarpCols * warp_rows + 1), 1, 1);
+  const int blocks = (N + BN - 1) / BN * S;
+  cfg.gridDim = dim3((blocks + P - 1) / P * P, 1, (M + kChunk - 1) / kChunk);
+  cfg.blockDim = dim3(
+      32 * (kWarpCols * warp_rows + 1 + (kNorm && NGW > 1 ? kNormWarps : 0)),
+      1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.x = P;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = S > 1 ? 1 : 0;
-  int& known = schedulable[S][warp_rows - 1];
-  if (S > 1 && known != smem) {
+  cfg.numAttrs = P > 1 ? 1 : 0;
+  int& known = schedulable[P][warp_rows - 1];
+  if (P > 1 && known != smem) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
     known = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, (bf16*)y, M, N, K, S,
-                           warp_rows);
+  err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, (const bf16*)x, gamma,
+                           eps, (bf16*)y, M, N, K, S, P, warp_rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// G1 in bfloat16 on the wrapper's launch plan, its x rows normalized by
+// gamma unless G is NoNorm: see mxtpu_rows_linear_bf16.
+template <typename G>
+int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
+                     void* y, int M, int N, int K, int bn, int S, int stages,
+                     int smem, void* stream) {
+  if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
+  const int ci = row_class(M, N, K);
+  const RowClass& c = kClasses[ci];
+  if (bn != 16 * kWarpCols * c.cw || S != splits(N, K) ||
+      stages != c.stages || smem < 0 || (size_t)smem > kMaxSmem ||
+      (size_t)smem != smem_bytes(c, stages, !std::is_same<G, NoNorm>::value))
+    return (int)cudaErrorInvalidValue;
+  // blocks a cluster
+  const int P = std::is_same<G, NoNorm>::value ? S : norm_cluster(S);
+  switch (ci) {
+    case 0:
+      return launch_bf16<1, 1, 4>(x, gamma, eps, w, y, M, N, K, S, P,
+                                  smem, c.warp_rows, stream);
+    case 1:
+      return launch_bf16<1, 4, 4>(x, gamma, eps, w, y, M, N, K, S, P,
+                                  smem, c.warp_rows, stream);
+    case 2:
+      return launch_bf16<2, 8, 3>(x, gamma, eps, w, y, M, N, K, S, P,
+                                  smem, c.warp_rows, stream);
+    case 3:
+      return launch_bf16<4, 8, 4>(x, gamma, eps, w, y, M, N, K, S, P,
+                                  smem, c.warp_rows, stream);
+    default:
+      return launch_bf16<3, 8, 5>(x, gamma, eps, w, y, M, N, K, S, P,
+                                  smem, c.warp_rows, stream);
+  }
 }
 
 }  // namespace
@@ -587,30 +965,22 @@ extern "C" {
 int mxtpu_rows_linear_bf16(const void* x, const void* w, void* y, int M,
                            int N, int K, int bn, int S, int stages, int smem,
                            void* stream) {
-  if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  const int ci = row_class(M, N, K);
-  const RowClass& c = kClasses[ci];
-  if (bn != 16 * kWarpCols * c.cw || S != splits(N, K) ||
-      stages != c.stages || smem < 0 || (size_t)smem > kMaxSmem ||
-      (size_t)smem != smem_bytes(c, stages))
-    return (int)cudaErrorInvalidValue;
-  switch (ci) {
-    case 0:
-      return launch_bf16<1, 1, 4>(x, w, y, M, N, K, S, smem, c.warp_rows,
-                                  stream);
-    case 1:
-      return launch_bf16<1, 4, 4>(x, w, y, M, N, K, S, smem, c.warp_rows,
-                                  stream);
-    case 2:
-      return launch_bf16<2, 8, 3>(x, w, y, M, N, K, S, smem, c.warp_rows,
-                                  stream);
-    case 3:
-      return launch_bf16<4, 8, 4>(x, w, y, M, N, K, S, smem, c.warp_rows,
-                                  stream);
-    default:
-      return launch_bf16<3, 8, 5>(x, w, y, M, N, K, S, smem, c.warp_rows,
-                                  stream);
-  }
+  return rows_linear_bf16(x, (const NoNorm*)nullptr, 0.f, w, y, M, N, K, bn,
+                          S, stages, smem, stream);
+}
+
+// The fused norm in bfloat16: G2 then G1 in one launch, on G1's plan.
+// gamma (K,) is float32 when gamma_f32 is nonzero, else bfloat16, 8-byte
+// aligned.
+int mxtpu_rows_norm_linear_bf16(const void* x, const void* gamma,
+                                const void* w, void* y, int gamma_f32, int M,
+                                int N, int K, float eps, int bn, int S,
+                                int stages, int smem, void* stream) {
+  if (gamma_f32)
+    return rows_linear_bf16(x, (const float*)gamma, eps, w, y, M, N, K, bn,
+                            S, stages, smem, stream);
+  return rows_linear_bf16(x, (const bf16*)gamma, eps, w, y, M, N, K, bn, S,
+                          stages, smem, stream);
 }
 
 // G2 over M rows of C elements; gamma is float32 (C,)
@@ -633,8 +1003,19 @@ int mxtpu_rows_rms_norm_bf16(const void* x, const void* gamma, void* y,
 int mxtpu_rows_linear_f32(const void* x, const void* w, void* y, int M, int N,
                           int K, void* stream) {
   const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
-  rows_linear_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)y, M, N, K);
+  rows_linear_f32_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, nullptr, 0.f, (const float*)w, (float*)y, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// The fused norm in float32; gamma is float32 (K,)
+int mxtpu_rows_norm_linear_f32(const void* x, const void* gamma,
+                               const void* w, void* y, int M, int N, int K,
+                               float eps, void* stream) {
+  const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
+  rows_linear_f32_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)gamma, eps, (const float*)w, (float*)y,
+      M, N, K);
   return (int)cudaGetLastError();
 }
 

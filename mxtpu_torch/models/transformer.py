@@ -31,12 +31,16 @@ helpers below).
 
 The decode step and the verify window (``step_pages``,
 ``verify_pages``) run their six projections (qkv, out_proj, gate, up,
-down, lm_head) through ``ops.linear.rows_linear`` (G1) and their three
-norms through ``ops.contrib.rows_rms_norm`` (G2), whose result for a
-row does not depend on how many rows the call has: a verify window's
-lane rounds as the step at its position would, so a speculative stream
-equals its plain stream in bfloat16 too.  Prefill and the training
-forward keep ``nn.Linear`` and ``RMSNorm``.
+down, lm_head) through G1, the row-invariant projection: out_proj and
+down through ``ops.linear.rows_linear``, and the four that read a norm's
+output (qkv after attn_norm, gate and up after ffn_norm, lm_head after
+the final norm) through ``ops.linear.rows_norm_linear``, which computes
+the norm (G2, ``ops.contrib.rows_rms_norm``) inside the projection's
+launch, with G2-then-G1's bits.  A row's result does not depend on how
+many rows the call has: a verify window's lane rounds as the step at its
+position would, so a speculative stream equals its plain stream in
+bfloat16 too.  Prefill and the training forward keep ``nn.Linear`` and
+``RMSNorm``.
 
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
@@ -54,8 +58,8 @@ from torch.nn import functional as F
 from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.contrib import rms_norm, rope, rows_rms_norm
-from ..ops.linear import rows_linear
+from ..ops.contrib import rms_norm, rope
+from ..ops.linear import rows_linear, rows_norm_linear
 from ..ops.tensor import (cache_dequant, cache_write_q8, paged_block_copy,
                           paged_cache_permute_span,
                           paged_cache_permute_span_q8, paged_cache_write,
@@ -126,10 +130,11 @@ def _linear(layer, x, rows):
     return rows_linear(x, layer.weight) if rows else layer(x)
 
 
-def _norm(norm, x, rows):
-    """``norm(x)`` for an :class:`RMSNorm`; with ``rows`` through
-    :func:`rows_rms_norm`."""
-    return rows_rms_norm(x, norm.weight) if rows else norm(x)
+def _normed_linear(norm, layer, x, rows):
+    """``layer(norm(x))`` for an :class:`RMSNorm` and a bias-free
+    ``nn.Linear``; with ``rows`` one :func:`rows_norm_linear` call."""
+    return (rows_norm_linear(x, norm.weight, layer.weight) if rows
+            else layer(norm(x)))
 
 
 def _masked_softmax(scores, valid):
@@ -159,15 +164,18 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(units, units, bias=False, device=device,
                                   dtype=dtype)
 
-    def _project(self, x, offset, rows=False):
+    def _project(self, x, offset, norm=None, rows=False):
         """x (B, T, C) → q (B, H, T, D), k and v (B, KV, T, D), rope
-        applied at ``offset`` (python int, (B,) or (B, T) tensor).
-        ``rows`` routes the projection through ``rows_linear``, whose
-        rounding of a row does not depend on the row count (the decode
-        step and the verify window)."""
+        applied at ``offset`` (python int, (B,) or (B, T) tensor); x
+        goes through the RMSNorm ``norm`` first where one is given.
+        ``rows`` routes the projection through ``rows_linear`` or, with
+        ``norm``, ``rows_norm_linear``, whose rounding of a row does not
+        depend on the row count (the decode step and the verify
+        window)."""
         B, T, _ = x.shape
         H, KV, D = self.heads, self.kv_heads, self.head_dim
-        qkv = _linear(self.qkv, x, rows)
+        qkv = (_linear(self.qkv, x, rows) if norm is None
+               else _normed_linear(norm, self.qkv, x, rows))
         q = qkv[..., :H * D].reshape(B, T, H, D).transpose(1, 2)
         k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D).transpose(1, 2)
         v = qkv[..., (H + KV) * D:].reshape(B, T, KV, D).transpose(1, 2)
@@ -242,12 +250,13 @@ class MultiHeadAttention(nn.Module):
         dt = dtype or w.dtype
         return (_new_leaf(shape, w.device, dt), _new_leaf(shape, w.device, dt))
 
-    def step_pages(self, x, pool_k, pool_v, tables, pos):
-        """One decode token per slot: x (B, 1, C), ``tables`` (B, M)
-        int32, ``pos`` (B,) int32.  Row b writes its K/V at position
-        pos[b] through its table, then the ragged paged decode kernel
-        reads [0, pos[b]]."""
-        q, k, v = self._project(x, pos, rows=True)
+    def step_pages(self, x, norm, pool_k, pool_v, tables, pos):
+        """One decode token per slot: x (B, 1, C), the residual stream,
+        which the RMSNorm ``norm`` normalizes inside the qkv
+        projection's launch; ``tables`` (B, M) int32, ``pos`` (B,)
+        int32.  Row b writes its K/V at position pos[b] through its
+        table, then the ragged paged decode kernel reads [0, pos[b]]."""
+        q, k, v = self._project(x, pos, norm, rows=True)
         _write(pool_k, k, paged_cache_write_rows, paged_cache_write_rows_q8,
                tables, pos)
         _write(pool_v, v, paged_cache_write_rows, paged_cache_write_rows_q8,
@@ -257,10 +266,12 @@ class MultiHeadAttention(nn.Module):
             q.contiguous(), pk, pv, tables, pos, **scales)
         return self._merge(out, rows=True)
 
-    def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
+    def verify_pages(self, x, norm, pool_k, pool_v, tables, pos, valid_len,
                      tree=None):
-        """A speculative verify window per slot: x (B, W, C) holds row
-        b's last sampled token and up to W-1 drafted tokens, written at
+        """A speculative verify window per slot: x (B, W, C), normalized
+        by ``norm`` inside the qkv projection as in :meth:`step_pages`,
+        holds row b's last sampled token and up to W-1 drafted tokens,
+        written at
         positions pos[b] .. pos[b]+W-1 (its first ``valid_len[b]`` lanes;
         the rest go to the null page), then read by the paged decode
         kernel: lane w attends [0, pos[b] + w].
@@ -271,7 +282,7 @@ class MultiHeadAttention(nn.Module):
         as its ancestors.  Rejected lanes stay in the pool past the
         slot's position, behind every later mask."""
         off = pos if tree is None else pos.reshape(-1, 1) + tree[0]
-        q, k, v = self._project(x, off, rows=True)
+        q, k, v = self._project(x, off, norm, rows=True)
         _write(pool_k, k, paged_cache_write_span, paged_cache_write_span_q8,
                tables, pos, valid_len)
         _write(pool_v, v, paged_cache_write_span, paged_cache_write_span_q8,
@@ -313,10 +324,13 @@ class LlamaDecoderLayer(nn.Module):
         self.down_proj = nn.Linear(hidden_size, units, bias=False, **fk)
 
     def _ffn(self, x, rows=False):
-        h = _norm(self.ffn_norm, x, rows)
-        return x + _linear(self.down_proj,
-                           F.silu(_linear(self.gate_proj, h, rows))
-                           * _linear(self.up_proj, h, rows), rows)
+        if rows:        # ffn_norm runs inside the gate and up launches
+            gate, up = (_normed_linear(self.ffn_norm, proj, x, True)
+                        for proj in (self.gate_proj, self.up_proj))
+        else:
+            h = self.ffn_norm(x)
+            gate, up = self.gate_proj(h), self.up_proj(h)
+        return x + _linear(self.down_proj, F.silu(gate) * up, rows)
 
     def forward(self, x):
         return self._ffn(x + self.attn(self.attn_norm(x)))
@@ -327,14 +341,13 @@ class LlamaDecoderLayer(nn.Module):
 
     def step_pages(self, x, pool_k, pool_v, tables, pos):
         return self._ffn(x + self.attn.step_pages(
-            _norm(self.attn_norm, x, True), pool_k, pool_v, tables, pos),
-            rows=True)
+            x, self.attn_norm, pool_k, pool_v, tables, pos), rows=True)
 
     def verify_pages(self, x, pool_k, pool_v, tables, pos, valid_len,
                      tree=None):
         return self._ffn(x + self.attn.verify_pages(
-            _norm(self.attn_norm, x, True), pool_k, pool_v, tables, pos,
-            valid_len, tree), rows=True)
+            x, self.attn_norm, pool_k, pool_v, tables, pos, valid_len,
+            tree), rows=True)
 
     def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
         return self._ffn(x + self.attn.prefill_pages(
@@ -370,7 +383,7 @@ class TransformerLM(nn.Module):
         return self.embed.weight.dtype
 
     def _logits(self, x, rows=False):
-        return _linear(self.lm_head, _norm(self.norm, x, rows), rows)
+        return _normed_linear(self.norm, self.lm_head, x, rows)
 
     def forward(self, token_ids):
         """token_ids (B, T) → logits (B, T, V), differentiable: the

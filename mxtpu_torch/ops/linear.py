@@ -11,10 +11,18 @@ projections through this wrapper; prefill and training keep
 ``nn.Linear``.  G1 replaces no Pallas kernel: XLA ran these products on
 the TPU.
 
-On a CPU tensor the wrapper runs :func:`rows_linear_plain`
-(``F.linear``); on a CUDA tensor it launches the kernel, or raises for
-what the kernel does not take.  Each call adds one to the
-``rows_linear`` launch counter (``mxtpu_torch.base``).
+``rows_norm_linear(x, gamma, weight)`` is G2 fused into G1: the
+projection of ``rows_rms_norm(x, gamma)`` (``ops/contrib.py``), the
+same bits in one launch, which neither launches the norm nor writes the
+normed rows.  The step and the window run their four normed projections
+(qkv, gate, up, lm_head) through it.
+
+On a CPU tensor the wrappers run their plain versions
+(:func:`rows_linear_plain`, :func:`rows_norm_linear_plain`); on a CUDA
+tensor they launch the kernel, or raise for what the kernel does not
+take.  Each call adds one to the ``rows_linear`` launch counter
+(``mxtpu_torch.base``), and a fused call one to ``rows_norm_linear``
+too: it is one G1 launch.
 
 A bfloat16 call is one launch on :func:`plan`: every weight byte is read
 once at any M <= 128 rows, and the K splits (:func:`splits`,
@@ -32,11 +40,14 @@ from torch.nn import functional as F
 
 from ..base import MXTPUError, bump
 from . import _build
+from .contrib import rms_norm
 
-__all__ = ["rows_linear", "rows_linear_plain", "plan", "splits", "k_ranges",
-           "KERNEL_NAME"]
+__all__ = ["rows_linear", "rows_linear_plain", "rows_norm_linear",
+           "rows_norm_linear_plain", "plan", "splits", "k_ranges",
+           "KERNEL_NAME", "NORM_KERNEL_NAME"]
 
 KERNEL_NAME = "rows_linear"
+NORM_KERNEL_NAME = "rows_norm_linear"
 _FNS: dict = {}
 
 # the bf16 kernel's tiling (csrc/rows_linear.cu): x rows a block holds,
@@ -50,6 +61,8 @@ _MIN_SPLIT_STEPS = 16
 _BK = 64
 _HEAD = 2048
 _PART_PAD = 4
+_GAIN_SLOT = _BK * 4     # the fused norm's gains of one slice, a stage
+_NORM_WARPS = 2          # the fused norm's normalizing warps above 8 rows
 MAX_SMEM_BYTES = 232448
 #: row classes (the kernel's kClasses): (rows a block holds, 16-column A
 #: tiles a computing warp, 8-row B groups a computing warp, computing
@@ -90,7 +103,7 @@ def k_ranges(N, K):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M, N, K):
+def plan(M, N, K, norm=False):
     """The bfloat16 launch for M >= 1 rows (the C launcher recomputes it
     and refuses a plan that disagrees): the row class ``rows`` (8, 32,
     64 or 128: the x rows one block holds; ``chunks`` of them cover M),
@@ -98,8 +111,10 @@ def plan(M, N, K):
     stay under the weights' bytes; at 128 rows 192 columns where that
     grid fits one wave, else 256), ``splits`` (a function of N and K
     alone), the K slice ``bk``, the ring's ``stages``, the ``threads``
-    (the computing warps and one producer warp) and the shared memory
-    ``smem`` in bytes.  Only the N tile and the
+    (the computing warps and one producer warp; with ``norm``, the fused
+    norm's, two normalizing warps more above 8 rows) and the shared
+    memory ``smem`` in bytes (with ``norm``, a slot of gains a stage
+    more).  Only the N tile and the
     ring depend on M; no element's arithmetic does.  Callers must not
     modify the returned dict."""
     c = next(i for i, c in enumerate(_CLASSES) if c[0] >= min(M, _CHUNK))
@@ -108,10 +123,12 @@ def plan(M, N, K):
     rows, cw, _, warp_rows, stages = _CLASSES[c]
     bn = 64 * cw
     smem = _HEAD + max(stages * (bn + rows) * _BK * 2,
-                       rows * (bn + _PART_PAD) * 4)
+                       rows * (bn + _PART_PAD) * 4) \
+        + (stages * _GAIN_SLOT if norm else 0)
+    warps = 4 * warp_rows + 1 + (_NORM_WARPS if norm and rows > 8 else 0)
     return dict(rows=rows, chunks=_cdiv(M, rows), bn=bn, tiles=_cdiv(N, bn),
                 splits=splits(N, K), bk=_BK, stages=stages,
-                threads=32 * (4 * warp_rows + 1), smem=smem)
+                threads=32 * warps, smem=smem)
 
 
 def rows_linear_plain(x, weight):
@@ -119,19 +136,31 @@ def rows_linear_plain(x, weight):
     return F.linear(x, weight)
 
 
+def rows_norm_linear_plain(x, gamma, weight, eps=1e-6):
+    """The fused kernel's plain version: ``F.linear`` of ``rms_norm``."""
+    return rows_linear_plain(rms_norm(x, gamma, eps), weight)
+
+
 def _fns():
     if not _FNS:
         lib = _build.load("rows_linear")
-        bf16 = lib.mxtpu_rows_linear_bf16
-        bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        f32 = lib.mxtpu_rows_linear_f32
-        f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        for fn in (bf16, f32):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fns = dict(bf16=(lib.mxtpu_rows_linear_bf16,
+                         [vp] * 3 + [i] * 7 + [vp]),
+                   f32=(lib.mxtpu_rows_linear_f32, [vp] * 3 + [i] * 3 + [vp]),
+                   norm_bf16=(lib.mxtpu_rows_norm_linear_bf16,
+                              [vp] * 4 + [i] * 4 + [f] + [i] * 4 + [vp]),
+                   norm_f32=(lib.mxtpu_rows_norm_linear_f32,
+                             [vp] * 4 + [i] * 3 + [f, vp]))
+        for name, (fn, argtypes) in fns.items():
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _FNS.update(bf16=bf16, f32=f32)
+            _FNS[name] = fn
     return _FNS
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch_bf16(x2, weight, y, p):
@@ -141,11 +170,33 @@ def _launch_bf16(x2, weight, y, p):
     (M, K), N = x2.shape, weight.shape[0]
     rc = _fns()["bf16"](
         x2.data_ptr(), weight.data_ptr(), y.data_ptr(), M, N, K, p["bn"],
-        p["splits"], p["stages"], p["smem"],
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        p["splits"], p["stages"], p["smem"], _stream(x2))
     if rc != 0:
         raise MXTPUError("rows_linear: CUDA launch failed (cudaError %d; "
                          "plan %r)" % (rc, p))
+
+
+def _operands(name, x, weight):
+    """x as (M, K) contiguous rows, checked against weight (N, K) as the
+    kernels take them; raises MXTPUError for what they do not take."""
+    N, K = weight.shape
+    if x.shape[-1] != K:
+        raise MXTPUError("%s: x %s does not match weight %s"
+                         % (name, tuple(x.shape), tuple(weight.shape)))
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or weight.dtype != x.dtype or weight.device != x.device:
+        raise MXTPUError("%s: x (%s on %s) and weight (%s on %s) must share "
+                         "a dtype, float32 or bfloat16, and a device"
+                         % (name, x.dtype, x.device, weight.dtype,
+                            weight.device))
+    x2 = x.reshape(-1, K).contiguous()
+    if not weight.is_contiguous():
+        raise MXTPUError("%s: weight must be contiguous" % name)
+    if x.dtype == torch.bfloat16 and (K % 8 or weight.data_ptr() % 16
+                                      or x2.data_ptr() % 16):
+        raise MXTPUError("%s: bfloat16 needs K %% 8 == 0 (got %d) and "
+                         "16-byte aligned x and weight" % (name, K))
+    return x2
 
 
 def rows_linear(x, weight):
@@ -158,24 +209,8 @@ def rows_linear(x, weight):
         return rows_linear_plain(x, weight)
     if x.device.type != "cuda":
         raise MXTPUError("rows_linear: no kernel for device %s" % x.device)
-    N, K = weight.shape
-    if x.shape[-1] != K:
-        raise MXTPUError("rows_linear: x %s does not match weight %s"
-                         % (tuple(x.shape), tuple(weight.shape)))
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or weight.dtype != x.dtype or weight.device != x.device:
-        raise MXTPUError("rows_linear: x (%s on %s) and weight (%s on %s) "
-                         "must share a dtype, float32 or bfloat16, and a "
-                         "device" % (x.dtype, x.device, weight.dtype,
-                                     weight.device))
-    x2 = x.reshape(-1, K).contiguous()
-    if not weight.is_contiguous():
-        raise MXTPUError("rows_linear: weight must be contiguous")
-    if x.dtype == torch.bfloat16 and (K % 8 or weight.data_ptr() % 16
-                                      or x2.data_ptr() % 16):
-        raise MXTPUError("rows_linear: bfloat16 needs K %% 8 == 0 (got %d) "
-                         "and 16-byte aligned x and weight" % K)
-    M = x2.shape[0]
+    x2 = _operands("rows_linear", x, weight)
+    (M, K), N = x2.shape, weight.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(x.shape[:-1] + (N,))
@@ -183,10 +218,53 @@ def rows_linear(x, weight):
         _launch_bf16(x2, weight, y, plan(M, N, K))
     else:
         rc = _fns()["f32"](x2.data_ptr(), weight.data_ptr(), y.data_ptr(), M,
-                           N, K, torch.cuda.current_stream(
-                               x.device).cuda_stream)
+                           N, K, _stream(x2))
         if rc != 0:
             raise MXTPUError("rows_linear: CUDA launch failed (cudaError %d)"
                              % rc)
     bump(KERNEL_NAME)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+def rows_norm_linear(x, gamma, weight, eps=1e-6):
+    """``rows_linear(rows_rms_norm(x, gamma, eps), weight)`` in one
+    launch, bit for bit: x (..., K), gamma (K,), weight (N, K) → (...,
+    N) in x's dtype.  The operands as :func:`rows_linear` takes them;
+    on the card gamma is contiguous, 16-byte aligned, on x's device, and
+    float32 or x's dtype."""
+    if x.device.type == "cpu":
+        bump(KERNEL_NAME)
+        bump(NORM_KERNEL_NAME)
+        return rows_norm_linear_plain(x, gamma, weight, eps)
+    if x.device.type != "cuda":
+        raise MXTPUError("rows_norm_linear: no kernel for device %s"
+                         % x.device)
+    x2 = _operands("rows_norm_linear", x, weight)
+    (M, K), N = x2.shape, weight.shape[0]
+    if gamma.shape != (K,) or gamma.device != x.device \
+            or gamma.dtype not in (torch.float32, x.dtype) \
+            or not gamma.is_contiguous() or gamma.data_ptr() % 16:
+        raise MXTPUError("rows_norm_linear: gamma (%s, %s on %s) must be a "
+                         "contiguous, 16-byte aligned (%d,) of float32 or "
+                         "%s on %s" % (tuple(gamma.shape), gamma.dtype,
+                                       gamma.device, K, x.dtype, x.device))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return y.reshape(x.shape[:-1] + (N,))
+    if x.dtype == torch.bfloat16:
+        p = plan(M, N, K, norm=True)
+        rc = _fns()["norm_bf16"](
+            x2.data_ptr(), gamma.data_ptr(), weight.data_ptr(), y.data_ptr(),
+            int(gamma.dtype == torch.float32), M, N, K, float(eps), p["bn"],
+            p["splits"], p["stages"], p["smem"], _stream(x2))
+    else:
+        p = None
+        rc = _fns()["norm_f32"](
+            x2.data_ptr(), gamma.data_ptr(), weight.data_ptr(), y.data_ptr(),
+            M, N, K, float(eps), _stream(x2))
+    if rc != 0:
+        raise MXTPUError("rows_norm_linear: CUDA launch failed (cudaError "
+                         "%d; plan %r)" % (rc, p))
+    bump(KERNEL_NAME)
+    bump(NORM_KERNEL_NAME)
     return y.reshape(x.shape[:-1] + (N,))

@@ -36,7 +36,12 @@ class, two 128-row chunks) and under a permutation of the rows (held
 relative to its largest output, ``GRAD_TOL``: its outputs reach several
 units, where one bfloat16 ulp exceeds 2e-2); a bfloat16 call allocating
 only its output, and its launcher refusing a plan that disagrees with
-its own; and G2 (``rows_rms_norm``) the same way.
+its own; and G2 (``rows_rms_norm``) the same way.  The fused norm
+(``rows_norm_linear``) ``torch.equal`` to G2 then G1 at every row class
+and two 128-row chunks, in both dtypes and with a gain of either dtype,
+at the 8B's four normed projections and ragged shapes; its rows
+``torch.equal`` across row counts and orders; no read past x, the gain
+or the weights (each lies at the head of a buffer of NaNs).
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -66,6 +71,7 @@ import torch
 
 from chip_smoke import tree_anc
 from mxtpu_torch import base
+from mxtpu_torch.ops import contrib
 from mxtpu_torch.ops import conv_bwd as cb
 from mxtpu_torch.ops import flash_attention as fa
 from mxtpu_torch.ops import linear
@@ -560,6 +566,91 @@ def test_rows_rms_norm_matches_plain_and_each_row_ignores_the_row_count(
         assert torch.equal(contrib.rows_rms_norm(x[:M], gamma), full[:M]), M
     assert torch.equal(contrib.rows_rms_norm(x.flip(0), gamma).flip(0), full)
     assert base.counts() == {contrib.NORM_KERNEL_NAME: 6}
+
+
+#: the fused norm's cases, ((N, K), x's dtype, the gain's dtype): the
+#: 8B's normed projections (qkv, gate and up, lm_head) with a bf16 gain
+#: (the model's) and a float32 one, and ragged shapes: N not a multiple
+#: of 4, K % 16 == 8 (a last half k16 step), K not a multiple of 8
+NORM_LINEAR_CASES = [
+    (nk, torch.bfloat16, gd) for nk in [(6144, 4096), (14336, 4096),
+                                        (128256, 4096), (130, 72),
+                                        (4096, 520)]
+    for gd in DTYPES[::-1]] + [
+    (nk, torch.float32, torch.float32)
+    for nk in [(96, 72), (200, 40), (64, 172), (4096, 4096)]]
+
+
+def _norm_linear_case(N, K, dtype, gamma_dtype, M=200):
+    g = torch.Generator(device="cuda").manual_seed(N + K)
+    w = torch.randn(N, K, generator=g, device="cuda", dtype=dtype) * 0.02
+    # rows of different sizes, so each row's scale is its own
+    x = (torch.randn(M, K, generator=g, device="cuda") * torch.exp(
+        torch.randn(M, 1, generator=g, device="cuda"))).to(dtype)
+    gamma = (1 + 0.3 * torch.randn(K, generator=g, device="cuda")).to(
+        gamma_dtype)
+    return x, gamma, w
+
+
+@pytest.mark.parametrize("NK,dtype,gamma_dtype", NORM_LINEAR_CASES, ids=[
+    "%dx%d-%s-gain%s" % (nk + (str(dt)[6:], str(gd)[6:]))
+    for nk, dt, gd in NORM_LINEAR_CASES])
+def test_rows_norm_linear_is_g2_then_g1_bit_for_bit(cuda, NK, dtype,
+                                                    gamma_dtype):
+    """At M = 1, 8, 13, 64, 128 and 200 (every row class, two 128-row
+    chunks) the fused norm gives G2-then-G1's bits, in one launch; a
+    row's bits do not move with the row count or the rows' order."""
+    x, gamma, w = _norm_linear_case(*NK, dtype, gamma_dtype)
+    for M in (1, 8, 13, 64, 128, 200):
+        base.reset_counts()
+        got = linear.rows_norm_linear(x[:M], gamma, w)
+        assert base.counts() == {linear.KERNEL_NAME: 1,
+                                 linear.NORM_KERNEL_NAME: 1}
+        pair = linear.rows_linear(contrib.rows_rms_norm(x[:M], gamma), w)
+        assert got.dtype == dtype and torch.equal(got, pair), M
+    full = got
+    assert torch.equal(linear.rows_norm_linear(x[:8], gamma, w), full[:8])
+    assert torch.equal(linear.rows_norm_linear(x[5:6], gamma, w), full[5:6])
+    assert torch.equal(linear.rows_norm_linear(x.flip(0), gamma, w).flip(0),
+                       full)
+    want = linear.rows_norm_linear_plain(x, gamma, w)
+    assert _err(full, want) <= GRAD_TOL[dtype] * float(
+        want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_rows_norm_linear_reads_nothing_past_its_operands(cuda, dtype):
+    """x (13 rows, M % 8 == 5), the gain and the weights each at the head
+    of a buffer of NaNs, K % 16 == 8: the padded rows and the last half
+    k16 step take exact zeros, so every output is finite and the pair's
+    bits hold."""
+    M, N, K = 13, 130, 520
+    x, gamma, w = _norm_linear_case(N, K, dtype, dtype, M)
+    heads = []
+    for t in (x, gamma, w):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device="cuda",
+                         dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        heads.append(buf[:t.numel()].view(t.shape))
+    y = linear.rows_norm_linear(*heads)
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y, linear.rows_linear(contrib.rows_rms_norm(x, gamma),
+                                             w))
+
+
+def test_rows_norm_linear_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(4, 64, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(32, 64, device="cuda", dtype=torch.bfloat16)
+    gamma = torch.ones(72, device="cuda", dtype=torch.bfloat16)
+    base.reset_counts()
+    bad = [(x, gamma[:60], w), (x, gamma[:64].cpu(), w),
+           (x, gamma[:64].half(), w), (x, gamma[1:65], w),
+           (x, torch.ones(64, 2, device="cuda")[:, 0], w),
+           (x.float(), gamma[:64], w.float()), (x, gamma[:64], w.float())]
+    for args in bad:
+        with pytest.raises(base.MXTPUError):
+            linear.rows_norm_linear(*args)
+    assert base.counts() == {}
 
 
 def test_rows_linear_rejects_what_the_kernel_does_not_take(cuda):
