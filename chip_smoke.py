@@ -48,6 +48,16 @@ Phases, in order; any failure exits non-zero:
    and at the 8B's four normed projections (qkv, gate, up, lm_head), M =
    8, 64 and 128, its rows invariant as G1's are, and its time against
    the pair (the gain's cast, G2, G1) and F.rms_norm then torch.matmul;
+   then G3 and G4, the weight-only int8 and int4 projections (G1 reading
+   int8 or packed int4 weights, ``ops/linear.py``'s ``wq_matmul_i8`` /
+   ``wq_matmul_i4`` and their norm-fused forms), weights quantized on
+   the card: at small ragged shapes (group sizes 16 to 128, bf16 and
+   float32 x) and the 8B's six projections (int4 at group size 64),
+   within TOL of their largest plain output, rows invariant and the
+   fused forms equal to G2 then the op (``torch.equal``), timed at M =
+   8, 64 and 128 against the plain version and the library yardstick
+   (``torch._weight_int8pack_mm`` / ``_weight_int4pack_mm`` on their own
+   packed layouts, else dequantize + torch.matmul, labelled);
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
 4b. a 1-layer float32 model (vocab 20, numpy-seeded weights) served by
@@ -91,6 +101,23 @@ Phases, in order; any failure exits non-zero:
 6c. phase 6b's traffic and engines with an int8 cache: every speculative
    stream token-identical to the int8 plain stream, K1 int8's launches
    by (W, tree);
+5q. the weight-only quantized main path: phase 5's model rebuilt from
+   its seed and quantized in place on the card by ``quantize_weights``
+   (int8; then again with int4 at group size 64), layer 0's qkv and the
+   lm_head first held ``torch.equal`` to the same weights quantized on
+   the CPU; served phase 5's traffic over bf16 pools and, int8, over
+   int8 pools: G3 or G4 launched 5 a layer and the head each step and
+   prefill chunk, 3 a layer and the head fused with their norm, no G1
+   or G2, every page back; the weight bytes, decode ms a step, tokens/s,
+   prefill tokens/s and peak memory; no cuBLAS or CUTLASS GEMM kernel in
+   the profiled decode steps and prefill chunk; the streams held against
+   ``generate`` (``streams_vs_generate``: where a greedy stream parts,
+   generate's logit gap must stay within ``PARTING_ULPS`` bf16 ulps of
+   its top logit; phase 5's bf16 run is held the same way);
+6q. phase 6b's speculative serve of each quantized model's own motif
+   traffic (int8 weights over int8 pools, int4 over bf16 pools): every
+   speculative stream token-identical to its plain stream, the
+   projections' launches exact, ``window_op_bits`` empty over G4;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -160,7 +187,12 @@ as one row per projection and row count, ``rows_linear[qkv,M=8]``,
 M = 8 phase 5's, at 64 and 128 phase 6b's windows and trees), the
 fused norm the same way for its four projections,
 ``rows_norm_linear[qkv,M=8]`` ..., G2 as ``rows_rms_norm[M=8]`` (no
-launch on the main path since the fused norm took its place), and K6 as
+launch on the main path since the fused norm took its place), G3 and
+G4 the same way as G1 and the fused norm, ``rows_linear_i8[qkv,M=8]``,
+``rows_norm_linear_i4[lm_head,M=128]`` ... (launches: phases 5q and 6q,
+M = 64 from prefill chunks and W = 8 windows; a fused row at 64 rows
+that the motif traffic never launched is left out), each with its
+``library`` label, and K6 as
 one row per stage shape); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
@@ -224,6 +256,22 @@ KERNEL_SOURCES = {
                          "none: no pallas_call (XLA's rms_norm and dot in "
                          "mxtpu/models/transformer.py); G2 fused into G1, "
                          "the port's row-invariant repair"),
+    "rows_linear_i8": ("mxtpu_torch/csrc/rows_linear.cu",
+                       "none: no pallas_call (XLA's dot_general in "
+                       "mxtpu/contrib/quantization.py:124, wq_matmul_i8); "
+                       "G1 reading int8 weights, row-invariant"),
+    "rows_linear_i4": ("mxtpu_torch/csrc/rows_linear.cu",
+                       "none: no pallas_call (XLA's einsum in "
+                       "mxtpu/contrib/quantization.py:173, wq_matmul_i4); "
+                       "G1 reading packed int4 weights, row-invariant"),
+    "rows_norm_linear_i8": ("mxtpu_torch/csrc/rows_linear.cu",
+                            "none: no pallas_call (XLA's rms_norm and "
+                            "mxtpu/contrib/quantization.py:124); G2 fused "
+                            "into G3"),
+    "rows_norm_linear_i4": ("mxtpu_torch/csrc/rows_linear.cu",
+                            "none: no pallas_call (XLA's rms_norm and "
+                            "mxtpu/contrib/quantization.py:173); G2 fused "
+                            "into G4"),
     "flash_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
                   "mxtpu/ops/pallas/flash_attention.py:107"),
     "flash_dq": ("mxtpu_torch/csrc/flash_attention.cu",
@@ -985,6 +1033,221 @@ def measure_linear(x, w, flush):
     return res
 
 
+#: the weight-only forms' group size on the main path (int4)
+QUANT_GROUP = 64
+#: G3 and G4 by bits: the kernels-line name of the op
+WQ_NAME = {8: "rows_linear_i8", 4: "rows_linear_i4"}
+
+
+def wq_call(x, q, s, gamma=None):
+    """G3 or G4 (by the shapes of q and s) on x, with ``gamma`` its
+    norm-fused form."""
+    from mxtpu_torch.ops import linear
+
+    return linear.wq_matmul(x, q, s, gamma)
+
+
+def wq_plain(x, q, s, gamma=None):
+    """The plain version of ``wq_call``."""
+    from mxtpu_torch.ops import linear
+
+    return linear.wq_matmul_plain(x, q, s, gamma)
+
+
+def wq_bits(s):
+    """8 for G3's (N,) scales, 4 for G4's (N, groups)."""
+    return 8 if s.dim() == 1 else 4
+
+
+def wq_err(x, q, s, gamma=None):
+    """G3/G4 against the plain version: max abs error and that over TOL
+    times max |plain| (float32 sums of exact products in other orders,
+    rounded once: within a bf16 ulp of the largest output in bf16)."""
+    got = wq_call(x, q, s, gamma)
+    want = wq_plain(x, q, s, gamma)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL[x.dtype] * float(want.float().abs().max())
+    if not err <= tol:
+        raise AssertionError("%s%s disagrees with its plain version: %g > %g "
+                             "(x %s %s, w %s)"
+                             % (WQ_NAME[wq_bits(s)],
+                                "+norm" if gamma is not None else "", err,
+                                tol, tuple(x.shape), x.dtype,
+                                tuple(q.shape)))
+    return got, err, err / tol
+
+
+def wq_invariant(x, q, s, gamma, full):
+    """G3/G4's rows by ``torch.equal``: an 8-row call's rows inside the
+    64- and 128-row calls, theirs inside the full call's; and the fused
+    form equals G2 then the op at 1, 8, 64, 128 and all rows."""
+    from mxtpu_torch.ops import contrib
+
+    bits = wq_bits(s)
+    part = {M: wq_call(x[:M].contiguous(), q, s)
+            for M in (8, 64, 128) if M <= x.shape[0]}
+    ok = all(torch.equal(part[M], full[:M]) for M in part) and all(
+        torch.equal(part[a], part[b][:a]) for a, b in ((8, 64), (64, 128))
+        if b in part)
+    if not ok:
+        raise AssertionError("%s rounds a row by the row count (x %s, w %s)"
+                             % (WQ_NAME[bits], tuple(x.shape),
+                                tuple(q.shape)))
+    for M in sorted({1, 8, 64, 128, x.shape[0]}):
+        if M > x.shape[0]:
+            continue
+        xm = x[:M].contiguous()
+        if not torch.equal(wq_call(xm, q, s, gamma),
+                           wq_call(contrib.rows_rms_norm(xm, gamma), q, s)):
+            raise AssertionError("the fused %s differs from G2 then %s at "
+                                 "M = %d (w %s)" % (WQ_NAME[bits],
+                                                    WQ_NAME[bits], M,
+                                                    tuple(q.shape)))
+
+
+def wq_library(x, q, s, gamma=None):
+    """The library yardstick of G3/G4 (its own packed layout converted
+    here, outside any timed window): ``torch._weight_int8pack_mm`` or
+    ``torch._weight_int4pack_mm`` where the card's torch runs it on CUDA
+    bf16 (after F.rms_norm with a gain), else dequantize then
+    torch.matmul, labelled, with the reason.  Returns (fn, label,
+    reason)."""
+    from mxtpu_torch.ops import linear
+
+    F = torch.nn.functional
+    K = x.shape[-1]
+    bits = wq_bits(s)
+    gs = 0 if bits == 8 else K // s.shape[1]
+
+    def pre(v):
+        return v if gamma is None else F.rms_norm(v, (K,), gamma, 1e-6)
+    try:
+        if bits == 8:
+            sb = s.to(x.dtype)
+            fn, label = (lambda: torch._weight_int8pack_mm(pre(x), q, sb),
+                         "torch._weight_int8pack_mm")
+        else:
+            # tinygemm's layout: k even in the high nibble of a uint8,
+            # values q + 8, and (groups, N, 2) scales and zeros
+            u = linear.unpack_int4_torch(q).to(torch.int32) + 8
+            packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            wp = torch._convert_weight_to_int4pack(packed, 8)
+            sz = torch.stack([s.t(), torch.zeros_like(s.t())], -1).to(
+                x.dtype).contiguous()
+            fn, label = (lambda: torch._weight_int4pack_mm(pre(x), wp, gs,
+                                                           sz),
+                         "torch._weight_int4pack_mm")
+        fn()
+        torch.cuda.synchronize()
+        return fn, label, None
+    except (RuntimeError, NotImplementedError, TypeError,
+            AttributeError) as e:
+        reason = "%s: %s" % (type(e).__name__, str(e).splitlines()[0][:160])
+    N = q.shape[0]
+    if bits == 8:
+        def deq():
+            return (q.float() * s[:, None]).to(x.dtype)
+    else:
+        def deq():
+            return (linear.unpack_int4_torch(q).float().reshape(N, -1, gs)
+                    * s[..., None]).reshape(N, K).to(x.dtype)
+    return (lambda: torch.matmul(pre(x), deq().t()),
+            "dequantize+torch.matmul (two calls)", reason)
+
+
+def measure_wq(x, q, s, flush, gamma=None):
+    """G3/G4 (fused with ``gamma``'s norm where given) on x: against the
+    plain version, and the kernel, plain and library times with the
+    bound (the int8 or packed int4 weights, their scales, x, y and the
+    gain read or written once)."""
+    _, err, ratio = wq_err(x, q, s, gamma)
+    M, K = x.shape
+    N = q.shape[0]
+    res = dict(max_abs_err=err, err_over_tol=ratio)
+    res["ms"] = cuda_ms(lambda: wq_call(x, q, s, gamma), flush)
+    res["plain_ms"] = cuda_ms(lambda: wq_plain(x, q, s, gamma), flush)
+    fn, res["library"], reason = wq_library(x, q, s, gamma)
+    if reason:
+        res["library_error"] = reason
+    res["library_ms"] = cuda_ms(fn, flush)
+    nbytes = (q.numel() + 4 * s.numel() + (x.numel() + M * N) * 2
+              + (K * 2 if gamma is not None else 0))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N * K,
+                                             torch.bfloat16)
+    res["weight_bytes"] = q.numel() + 4 * s.numel()
+    return res
+
+
+def quant_linear_against_plain(flush):
+    """G3 and G4, the weight-only int8 and int4 projections (``ops/
+    linear.py:wq_matmul``, plain and norm-fused): at small ragged shapes
+    (N not a multiple of the tile, K not of the 64-deep slice, group
+    sizes 16 to 128, bf16 and float32 x, M up to 200) and at the 8B's six projections (int4 at
+    group size 64), weights quantized on the card by ``quantize_tensor``,
+    each against its plain version (TOL relative to its largest output),
+    rows invariant and the fused forms equal to G2 then the op
+    (``torch.equal``); at the 8B shapes and M = 8, 64 and 128 timed
+    against the plain version and the library yardstick.  Returns
+    {(kernels-line row name): timed result}."""
+    from mxtpu_torch.contrib.quantization import quantize_tensor
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for N, K, bits, gs, dtype in ((130, 80, 8, 0, bf16),
+                                  (4096, 544, 8, 0, bf16),
+                                  (96, 72, 8, 0, f32), (200, 96, 8, 0, f32),
+                                  (130, 96, 4, 16, bf16),
+                                  (200, 160, 4, 32, bf16),
+                                  (4096, 576, 4, 64, bf16),
+                                  (4096, 1024, 4, 128, bf16),
+                                  (96, 80, 4, 16, f32),
+                                  (200, 128, 4, 32, f32)):
+        w = torch.randn(N, K, device="cuda", generator=g) * 0.02
+        q, s = quantize_tensor(w, bits, gs or QUANT_GROUP)
+        x = (torch.randn(200, K, device="cuda", generator=g) * torch.exp(
+            torch.randn(200, 1, device="cuda", generator=g))).to(dtype)
+        gamma = (1 + 0.3 * torch.randn(K, device="cuda", generator=g)).to(
+            dtype)
+        full, err, ratio = wq_err(x, q, s)
+        wq_invariant(x, q, s, gamma, full)
+        _, nerr, nratio = wq_err(x, q, s, gamma)
+        log(phase="quant_linear_vs_plain", kernel=WQ_NAME[bits], M=200, N=N,
+            K=K, group_size=gs, dtype=str(dtype).split(".")[1],
+            max_abs_err=err, err_over_tol=ratio, fused_max_abs_err=nerr,
+            fused_err_over_tol=nratio, rows_invariant=True,
+            fused_bit_identical_to_pair=True)
+    results = {}
+    for name, N, K in PROJECTIONS:
+        w = torch.randn(N, K, device="cuda", dtype=bf16, generator=g) * 0.02
+        x = torch.randn(200, K, device="cuda", dtype=bf16, generator=g)
+        gamma = (1 + 0.1 * torch.randn(K, device="cuda", generator=g)).to(
+            bf16)
+        for bits in (8, 4):
+            gs = QUANT_GROUP if bits == 4 else 0
+            q, s = quantize_tensor(w, bits, QUANT_GROUP)
+            full, _, _ = wq_err(x, q, s)
+            wq_invariant(x, q, s, gamma, full)
+            for M in (8, 64, 128):
+                xm = x[:M].contiguous()
+                for fused in (False, True):
+                    if fused and name not in NORMED:
+                        continue
+                    res = measure_wq(xm, q, s, flush,
+                                     gamma if fused else None)
+                    row = "%s_i%d[%s,M=%d]" % (
+                        "rows_norm_linear" if fused else "rows_linear", bits,
+                        name, M)
+                    log(phase="quant_linear_vs_plain", kernel=row, M=M, N=N,
+                        K=K, group_size=gs, dtype="bfloat16",
+                        rows_invariant=True, **res)
+                    results[row] = res
+            del q, s, full
+        del w, x
+    torch.cuda.empty_cache()
+    return results
+
+
 # -- phase 4: a small model against its isolated reference ------------------
 
 def init_weights(model, gen, std):
@@ -1217,6 +1480,55 @@ def pool_bytes(eng):
                for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
 
 
+#: the projections' launch counters (G1, the fused norm, G3, G4) and G2's
+PROJECTION_COUNTERS = ("rows_linear", "rows_norm_linear", "rows_linear_i8",
+                       "rows_linear_i4", "rows_rms_norm")
+
+
+def projection_launches(model, calls, chunks):
+    """The projections' launches a serving run must count, by counter:
+    each step or verify call runs 5 projections a layer and the head,
+    3 a layer and the head fused with their norm; G1 on a bf16 model,
+    G3 or G4 on a quantized one, which runs them in each prefill chunk
+    too (5 a layer and the head).  No G2 launch."""
+    L = len(model.layers)
+    bits = getattr(model.lm_head, "bits", None)
+    want = {"rows_norm_linear": (3 * L + 1) * calls}
+    if bits is None:
+        want["rows_linear"] = (5 * L + 1) * calls
+    else:
+        want["rows_linear_i%d" % bits] = (5 * L + 1) * (calls + chunks)
+    return want
+
+
+def projection_launches_differ(launches, want):
+    """The projection counters whose launches differ from ``want``."""
+    return {k: (launches.get(k, 0), want.get(k, 0))
+            for k in PROJECTION_COUNTERS
+            if launches.get(k, 0) != want.get(k, 0)}
+
+
+def wq_key(proj):
+    """A G3/G4 call's (projection, rows, fused), for ``Counted`` on
+    ``ops.linear.wq_matmul``."""
+    return lambda a, kw: (proj[a[1].data_ptr()],
+                          a[0].numel() // a[0].shape[-1],
+                          (a[3] if len(a) > 3 else kw.get("gamma"))
+                          is not None)
+
+
+def wq_rows(counts, bits):
+    """G3/G4 launches by kernels-line row from a ``wq_key`` count:
+    ``rows_linear_i8[<proj>,M=<rows>]`` every call (fused or not),
+    ``rows_norm_linear_i8[...]`` the fused ones."""
+    out = {}
+    for (proj, M, fused), n in counts.items():
+        for kind in ("rows_linear", "rows_norm_linear")[:1 + fused]:
+            name = "%s_i%d[%s,M=%d]" % (kind, bits, proj, M)
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def serve_llama_3_8b(model, cache_dtype=None):
     """The main path: ``traffic`` through the paged engine on SERVE's
     settings (pools of the model's dtype, or int8 with ``cache_dtype``),
@@ -1231,11 +1543,13 @@ def serve_llama_3_8b(model, cache_dtype=None):
     from mxtpu_torch import base
     from mxtpu_torch.models import sampler
     from mxtpu_torch.models import transformer
+    from mxtpu_torch.ops import linear
     from mxtpu_torch.ops import paged_attention as pa
     from mxtpu_torch.ops import prefill_attention as pf
     from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
 
     n_layers = len(model.layers)
+    bits = getattr(model.lm_head, "bits", None)
     k1, k2 = k_names(cache_dtype)
     eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype,
                                         **SERVE)
@@ -1262,6 +1576,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
                     lambda a, kw: proj[a[1].data_ptr()]) as g1, \
             Counted(transformer, "rows_norm_linear",
                     lambda a, kw: proj[a[2].data_ptr()]) as fused, \
+            Counted(linear, "wq_matmul", wq_key(proj)) as wq, \
             Timed(model, "prefill_pages") as t_pre, \
             Timed(model, "step_pages") as t_dec:
         torch.cuda.synchronize()
@@ -1286,9 +1601,8 @@ def serve_llama_3_8b(model, cache_dtype=None):
         raise AssertionError("pages leaked: %r" % after)
     if after["prefix_hit_requests"] - before["prefix_hit_requests"] <= 0:
         raise AssertionError("no request shared the prefix: %r" % after)
-    want = {k1: n_layers * steps, k2: n_layers * chunks,
-            "rows_linear": (5 * n_layers + 1) * steps,
-            "rows_norm_linear": (3 * n_layers + 1) * steps}
+    want = {k1: n_layers * steps, k2: n_layers * chunks}
+    want.update(projection_launches(model, steps, chunks))
     if launches != want or not steps or not chunks:
         raise AssertionError("launches %r, wanted exactly %r" % (launches,
                                                                  want))
@@ -1314,12 +1628,17 @@ def serve_llama_3_8b(model, cache_dtype=None):
         prefill_tokens_per_s=pre_tokens / (t_pre.ms() / 1e3),
         decode_tokens_per_s=gen_tokens / (t_dec.ms() / 1e3),
         mean_ms_per_decode_step=t_dec.ms() / steps, wall_s=wall,
-        pool_bytes=pool_bytes(eng),
+        pool_bytes=pool_bytes(eng), weight_bits=bits or 16,
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+        wq_by_projection_M_fused={"%s,M=%d,%s" % (p, m, f): n
+                                  for (p, m, f), n in wq.counts.items()},
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     if (decode_cap.args is None or prefill_cap.args is None
             or long_cap.args is None):
         raise AssertionError("no kernel inputs were captured")
-    profile_decode_steps(eng, model.vocab_size)
+    profile_decode_steps(eng, model.vocab_size, quantized=bits is not None)
+    launches.update(wq_rows(wq.counts, bits) if bits else {})
     launches.update({"rows_linear(%s)" % k: n for k, n in by_proj.items()})
     launches.update({"rows_norm_linear(%s)" % k: n
                      for k, n in fused.counts.items()})
@@ -1389,6 +1708,10 @@ def profile_device(run, steps):
                                             if "rows_linear" in r[1]),
                 rms_norm_calls_per_step=sum(r[2] for r in rows
                                             if "rms_norm" in r[1]),
+                library_gemm_calls_per_step=sum(
+                    r[2] for r in rows if is_library_gemm(r[1])),
+                library_gemm_kernels=sorted({r[1][:80] for r in rows
+                                             if is_library_gemm(r[1])}),
                 device_ms_per_step=device if rows else "not measured",
                 device_idle_share=1.0 - device / wall if rows
                 else "not measured",
@@ -1396,12 +1719,31 @@ def profile_device(run, steps):
                      for ms, k, n in rows[:12]])
 
 
-def profile_decode_steps(eng, vocab, steps=4):
+#: kernel names of the library GEMMs (cuBLAS, cuBLASLt, CUTLASS)
+LIBRARY_GEMM = ("gemm", "cutlass", "cublas", "nvjet", "xmma")
+
+
+def is_library_gemm(kernel):
+    return any(w in kernel.lower() for w in LIBRARY_GEMM)
+
+
+def profile_decode_steps(eng, vocab, steps=4, quantized=False):
     """The profile of a few pooled decode steps (8 slots at ~520 tokens
     of context, after the main run and outside its counts): its kernels
     a step, and no norm kernel among them (the fused norm runs inside
-    G1's launches)."""
+    G1's launches).  With a ``quantized`` model also one prefill chunk
+    (a 64-token prompt alone in the engine), and neither it nor a step
+    may launch a library GEMM: every projection is G3 or G4."""
     rng = np.random.RandomState(5)
+    if quantized:
+        eng.submit(rng.randint(0, vocab, (1, SERVE["prefill_chunk"])), 1)
+        res = profile_device(eng.step, 1)
+        eng.run()
+        log(phase="profile_prefill_chunk",
+            cache_dtype=str(eng._cache_dtype), **res)
+        if res["library_gemm_calls_per_step"]:
+            raise AssertionError("a library GEMM ran in the quantized "
+                                 "prefill chunk: %r" % res)
     for _ in range(SERVE["num_slots"]):
         eng.submit(rng.randint(0, vocab, (1, 512)), steps + 12)
     for _ in range(512 // SERVE["prefill_chunk"] + 1):
@@ -1412,6 +1754,143 @@ def profile_decode_steps(eng, vocab, steps=4):
     if res["rms_norm_calls_per_step"]:
         raise AssertionError("a norm kernel ran in the decode step: %r"
                              % res)
+    if quantized and res["library_gemm_calls_per_step"]:
+        raise AssertionError("a library GEMM ran in the quantized decode "
+                             "step: %r" % res)
+
+
+# -- phases 5q and 6q: weight-only int8 and int4 serving ----------------------
+
+def llama_3_8b_quantized(bits):
+    """Phases 5q and 6q's model: phase 5's (llama_3_8b at full width and
+    depth, bf16, Normal(0, 0.02) weights from seed 0) quantized in place
+    on the card by ``quantize_weights`` (int4 at group size 64).  First
+    layer 0's qkv and the lm_head are quantized on the card and on the
+    CPU, and the two must be ``torch.equal``."""
+    from mxtpu_torch.contrib.quantization import (quantize_tensor,
+                                                  quantize_weights)
+
+    model = llama_3_8b_model()
+    for lin in (model.layers[0].attn.qkv, model.lm_head):
+        qd, sd = quantize_tensor(lin.weight, bits, QUANT_GROUP)
+        qc, sc = quantize_tensor(lin.weight.cpu(), bits, QUANT_GROUP)
+        if not (torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)):
+            raise AssertionError("quantizing %s on the card differs from "
+                                 "the CPU (int%d)" % (tuple(lin.weight.shape),
+                                                      bits))
+        del qd, sd, qc, sc
+    before = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = quantize_weights(model, bits=bits, group_size=QUANT_GROUP)
+    torch.cuda.synchronize()
+    log(phase="quantize", bits=bits,
+        group_size=QUANT_GROUP if bits == 4 else None,
+        quantized=len(names), seconds=time.perf_counter() - t0,
+        weight_bytes_bf16=before,
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+        card_equals_cpu=["layer0_attn_qkv", "lm_head"])
+    return model
+
+
+def generate_logits(model, ids, prompt_len, cache_dtype):
+    """The logits ``generate`` had for the token after ``ids`` (1, T):
+    its own loop, one prefill of the prompt then a step a token, over a
+    contiguous cache as long as generate's."""
+    from mxtpu_torch.ops.tensor import resolve_cache_dtype
+
+    ids = torch.from_numpy(ids).cuda().long()
+    caches = model.init_cache(1, prompt_len + NEW_TOKENS,
+                              resolve_cache_dtype(cache_dtype, model.dtype))
+    logits = model.prefill(ids[:, :prompt_len], caches)
+    for pos in range(prompt_len, ids.shape[1]):
+        logits = model.step(ids[:, pos:pos + 1], caches, pos)
+    return logits[0, -1].float()
+
+
+#: the widest logit gap, in bf16 ulps of generate's top logit, at which
+#: a greedy engine stream may part from ``generate`` (runs of PR 15 read
+#: 0-9 on the 8B model in bf16, quantized or not)
+PARTING_ULPS = 16
+
+
+def streams_vs_generate(model, reqs, streams, cache_dtype=None):
+    """Each engine stream of a serve run against the model's own
+    ``generate`` (contiguous cache, plain masked-softmax attention, the
+    unfused norm; G3/G4 in every projection of a quantized model,
+    nn.Linear of a bf16 one; the same seed for a sampled request), and
+    for a greedy stream that parts, generate's own logits where it
+    parts: the gap from its top logit to the engine's token, in bf16
+    ulps of the top logit, and that token's rank.  At 8B in bf16 with
+    random weights the two paths' roundings part the streams at such
+    near-ties, with or without quantized weights, so a parting is no
+    fault; a gap over ``PARTING_ULPS`` is, since a wrong projection
+    moves the logits far more than a rounding does.  The rank is read,
+    not held: random weights crowd several logits within a few ulps of
+    the top.  Sampled streams are read only."""
+    parted = []
+    for j, ((p, kw), got) in enumerate(zip(reqs, streams)):
+        want = model.generate(torch.from_numpy(p).cuda(), NEW_TOKENS,
+                              cache_dtype=cache_dtype, **kw).cpu().numpy()
+        diff = np.nonzero(want[0] != got[0])[0]
+        if not diff.size:
+            continue
+        at = int(diff[0])
+        entry = dict(request=j, sampled="temperature" in kw,
+                     token=at - p.shape[1])
+        if not entry["sampled"]:
+            lg = generate_logits(model, want[:, :at], p.shape[1],
+                                 cache_dtype)
+            top, eng = float(lg[want[0, at]]), float(lg[got[0, at]])
+            ulp = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+            entry.update(gap=top - eng, gap_ulps=(top - eng) / ulp,
+                         engine_token_rank=1 + int((lg > eng).sum()))
+        parted.append(entry)
+    log(phase="streams_vs_generate", cache_dtype=str(cache_dtype),
+        weight_bits=getattr(model.lm_head, "bits", 16),
+        requests=len(reqs), identical=len(reqs) - len(parted),
+        parted=parted, bound_ulps=PARTING_ULPS)
+    wide = [e for e in parted if e.get("gap_ulps", 0) > PARTING_ULPS]
+    if wide:
+        raise AssertionError("engine streams part from generate over %d "
+                             "bf16 ulps of its top logit: %r"
+                             % (PARTING_ULPS, wide))
+
+
+def serve_quantized(bits):
+    """Phase 5q: the quantized 8B model (``llama_3_8b_quantized``) served
+    phase 5's traffic on its engine settings over bf16 pools and, with
+    int8 weights, over int8 pools too, every launch count exact (G3 or
+    G4 5 a layer and the head a step and a chunk, 3 a layer and the head
+    fused with their norm; no G1, no G2), every page back, the streams
+    held against ``generate`` (``streams_vs_generate``), no library
+    GEMM in the profiled steps or prefill chunk.  Phase 6q: phase 6b's
+    speculative serve of the model's own motif traffic, over int8 pools
+    with int8 weights and over bf16 pools with int4 weights, every
+    speculative stream token-identical to its plain stream.  Returns G3's or G4's launches
+    by kernels-line row over these runs."""
+    model = llama_3_8b_quantized(bits)
+    rows = {}
+    reqs = traffic(model.vocab_size)
+    runs = {}
+    for cache_dtype in (None, "int8") if bits == 8 else (None,):
+        launches, _, runs[cache_dtype] = serve_llama_3_8b(model, cache_dtype)
+        streams_vs_generate(model, reqs, runs[cache_dtype], cache_dtype)
+        for k, n in launches.items():
+            if k.startswith(("rows_linear_i", "rows_norm_linear_i")):
+                rows[k] = rows.get(k, 0) + n
+    if bits == 8:
+        compare_streams("int8_pools_vs_bf16_pools_streams", reqs, runs[None],
+                        runs["int8"])
+    _, _, _, by_m = serve_llama_3_8b_speculative(
+        model, "int8" if bits == 8 else None)
+    for k, n in by_m["wq"].items():
+        rows[k] = rows.get(k, 0) + n
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # -- speculative serving: a small model, then the 8B main path --------------
@@ -1667,6 +2146,7 @@ def serve_speculative(model, eng, reqs):
     the first tree K1 call are captured."""
     from mxtpu_torch import base
     from mxtpu_torch.models import sampler, transformer
+    from mxtpu_torch.ops import linear
     from mxtpu_torch.ops import paged_attention as pa
     from mxtpu_torch.ops import prefill_attention as pf
 
@@ -1693,6 +2173,7 @@ def serve_speculative(model, eng, reqs):
                     lambda a, kw: (proj[a[2].data_ptr()],
                                    a[0].numel() // a[0].shape[-1])) \
             as fused, \
+            Counted(linear, "wq_matmul", wq_key(proj)) as wq, \
             FiniteLogits(sampler) as finite, \
             Timed(model, "step_pages") as t_step, \
             Timed(model, "verify_pages") as t_ver:
@@ -1719,20 +2200,20 @@ def serve_speculative(model, eng, reqs):
                                  ", wanted %d x %d model calls"
                                  % (k1.counts.get(key, 0), key, n_layers,
                                     n))
+    differ = projection_launches_differ(launches, projection_launches(
+        model, d["steps"], d["prefill_chunks"]))
     if (set(k1.counts) != set(calls)
             or sum(verifies.counts.values()) != d["verify_calls"]
             or sum(calls.values()) != d["steps"]
             or launches.get(k1_name, 0) != n_layers * d["steps"]
-            or launches.get("rows_linear", 0)
-            != (5 * n_layers + 1) * d["steps"]
-            or launches.get("rows_norm_linear", 0)
-            != (3 * n_layers + 1) * d["steps"]
-            or launches.get("rows_rms_norm", 0)):
-        raise AssertionError("K1 (%s), G1, fused norm or G2 launches %r do "
-                             "not equal "
+            or differ):
+        raise AssertionError("K1 (%s), G1, G3/G4, fused norm or G2 "
+                             "launches %r (projections (got, wanted): %r) "
+                             "do not equal "
                              "%d x (plain steps + verify calls) %r, stats "
                              "%r"
-                             % (k1_name, launches, n_layers, calls, d))
+                             % (k1_name, launches, differ, n_layers, calls,
+                                d))
     if finite.ok is None or not bool(finite.ok):
         raise AssertionError("a sampled logit row was not finite")
     if after["blocks_in_use"] != 0:
@@ -1769,13 +2250,17 @@ def serve_speculative(model, eng, reqs):
                rows_norm_linear_by_projection_and_M={
                    "%s,M=%d" % k: n
                    for k, n in sorted(fused.counts.items())},
+               wq_by_projection_M_fused={"%s,M=%d,%s" % k: n
+                                         for k, n in wq.counts.items()},
                wall_s=wall,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)
     streams = [res[r].numpy() for r in rids]
     caps = {"linear": lin_cap.args and (lin_cap.args[:5], lin_cap.kwargs),
             "tree": tree_cap.args and (tree_cap.args[:5], tree_cap.kwargs)}
-    return out, streams, k1.counts, caps
+    bits = getattr(model.lm_head, "bits", None)
+    out_rows = wq_rows(wq.counts, bits) if bits else {}
+    return out, streams, k1.counts, caps, out_rows
 
 
 def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
@@ -1846,9 +2331,11 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
         if bits["bits_differ"]:
             raise AssertionError("a verify window's lane rounds %r otherwise "
                                  "than the step" % bits["bits_differ"])
-    return spec[2], caps, reqs, {
-        k: spec[0][k + "_by_projection_and_M"]
-        for k in ("rows_linear", "rows_norm_linear")}
+    by_m = {k: spec[0][k + "_by_projection_and_M"]
+            for k in ("rows_linear", "rows_norm_linear")}
+    by_m["wq"] = {k: plain[4].get(k, 0) + spec[4].get(k, 0)
+                  for k in set(plain[4]) | set(spec[4])}
+    return spec[2], caps, reqs, by_m
 
 
 def lane_invariant(args, kw):
@@ -1880,6 +2367,7 @@ def window_op_bits(model, widths=(8, 16)):
     those that agree."""
     from torch.nn import functional as F
 
+    from mxtpu_torch.contrib.quantization import QuantizedLinear
     from mxtpu_torch.ops.contrib import rope
     from mxtpu_torch.ops.linear import rows_linear, rows_norm_linear
 
@@ -1890,11 +2378,17 @@ def window_op_bits(model, widths=(8, 16)):
     g = torch.Generator(device=dev).manual_seed(3)
 
     def proj(mod):
+        if isinstance(mod, QuantizedLinear):
+            return mod                          # G3 or G4
         return lambda x: rows_linear(x, mod.weight)
 
     def normed(norm, mod, dtype=None):
         # in float32 too: a reduction whose order moves with the row
         # count shows in float32 bits, while bf16 rounding hides most of it
+        if isinstance(mod, QuantizedLinear):
+            gamma = norm.weight if dtype is None else norm.weight.to(dtype)
+            return lambda x: mod.normed(x if dtype is None else x.to(dtype),
+                                        gamma)
         if dtype is None:
             return lambda x: rows_norm_linear(x, norm.weight, mod.weight)
         gamma, w = norm.weight.to(dtype), mod.weight.to(dtype)
@@ -2529,11 +3023,13 @@ def main():
     g1 = linear_against_plain(flush)
     g2 = norm_against_plain(flush)
     fused = norm_linear_against_pair(flush)
+    wq_results = quant_linear_against_plain(flush)
     small_model_reference_check()
     small_model_speculative_check()
     small_model_speculative_check(cache_dtype="int8")
     model = llama_3_8b_model()
     launches, served, streams = serve_llama_3_8b(model)
+    streams_vs_generate(model, traffic(model.vocab_size), streams)
     launches_q8, served_q8, streams_q8 = serve_llama_3_8b(model, "int8")
     compare_streams("int8_vs_bf16_streams", traffic(model.vocab_size),
                     streams, streams_q8)
@@ -2547,7 +3043,23 @@ def main():
         model, "int8", reqs)
     del model
     gc.collect()
+    torch.cuda.empty_cache()
     results = {}
+    # phases 5q and 6q: the weight-only int8 and int4 model
+    quant_launches = {}
+    for bits in (8, 4):
+        quant_launches.update(serve_quantized(bits))
+    for name, res in wq_results.items():
+        n = quant_launches.get(name, 0)
+        if not n and name.startswith("rows_norm_linear") and "M=64" in name:
+            # only a linear W = 8 window runs a fused projection at 64
+            # rows, and the motif traffic may draft none
+            log(phase="kernels_row_dropped", kernel=name, launches=0)
+            continue
+        if not n:
+            raise AssertionError("the quantized main path never launched %s"
+                                 % name)
+        results[name], launches[name] = res, n
     for name, (args, kw) in served.items():
         results[name] = measure(name, args, flush, kw=kw)
         log(phase="served_inputs", kernel=name, shape=list(args[0].shape),
@@ -2619,7 +3131,8 @@ def main():
                          plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
-        for key in ("bound_tc_ms", "bwd_ms"):
+        for key in ("bound_tc_ms", "bwd_ms", "library", "library_error",
+                    "weight_bytes"):
             if key in res:
                 rows[-1][key] = res[key]
     print(json.dumps({"kernels": rows}), flush=True)

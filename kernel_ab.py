@@ -8,6 +8,7 @@
     python3 kernel_ab.py g1 ROOT_A ROOT_B
     python3 kernel_ab.py norm ROOT_A ROOT_B
     python3 kernel_ab.py flash ROOT_A ROOT_B
+    python3 kernel_ab.py quant ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
 (this tree's port) and saves the first counted step's K6 inputs, one
@@ -56,8 +57,16 @@ training path's shape), with lse and delta from the plain forward; each
 kernel by ``device_ms``, held against its plain version first; beside
 them the tree's whole backward (``torch.autograd.grad`` through its
 ``flash_attention``: delta, K4 and K5) and SDPA's, both by
-``events_ms`` (autograd is not captured in a graph).  Needs one CUDA
-card.
+``events_ms`` (autograd is not captured in a graph).
+
+``quant`` times the projections of the checkouts at ROOT_A and ROOT_B
+the same way, in turns A, B, B, A, one process each: seeded bfloat16 x
+and w at Llama-3-8B's six projections and M = 8, 64 and 128, each
+tree's G1 (``rows_linear``) and, where the tree has them, G3 and G4
+(``wq_matmul``, int8 and int4 at group size 64) on the same w
+quantized by its ``quantize_tensor``, all by ``device_ms``: a parent
+without them gives G1 against the change's G3 and G4 on one card.
+Needs one CUDA card.
 """
 
 import json
@@ -232,6 +241,37 @@ def norm_tree(root, turn):
         del w, x
 
 
+def quant_tree(root, turn):
+    """One turn of ``quant``: the tree at ``root``'s G1, and its G3 and
+    G4 where it has them, on seeded inputs."""
+    sys.path.insert(0, root)
+    from mxtpu_torch.ops import linear
+
+    try:
+        from mxtpu_torch.contrib.quantization import quantize_tensor
+    except ImportError:                  # a tree before the quantized forms
+        quantize_tensor = None
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, N, K in G1_PROJECTIONS:
+        w = torch.randn(N, K, device="cuda", dtype=torch.bfloat16,
+                        generator=g) * 0.02
+        x = torch.randn(max(G1_ROWS), K, device="cuda", dtype=torch.bfloat16,
+                        generator=g)
+        forms = {"g1": lambda xm: linear.rows_linear(xm, w)}
+        if quantize_tensor is not None:
+            q8, s8 = quantize_tensor(w, 8)
+            q4, s4 = quantize_tensor(w, 4, 64)
+            forms["g3"] = lambda xm: linear.wq_matmul(xm, q8, s8)
+            forms["g4"] = lambda xm: linear.wq_matmul(xm, q4, s4)
+        for M in G1_ROWS:
+            xm = x[:M].contiguous()
+            row = dict(turn=turn, tree=root, projection=name, M=M, N=N, K=K)
+            for form, fn in forms.items():
+                row[form + "_ms"] = device_ms(lambda: fn(xm))
+            print(json.dumps(row), flush=True)
+        del w, x, forms
+
+
 def turns(kind, root_a, root_b, collect):
     """``kind``'s turns, A, B, B, A, one process each (``<kind>-tree``),
     and their summary: ``collect(rows, line)`` files each printed line
@@ -268,6 +308,13 @@ def norm(root_a, root_b):
     return turns("norm", root_a, root_b, lambda rows, r: rows.setdefault(
         "%s,M=%d" % (r["projection"], r["M"]), []).append(
             (r["ms"], r["library_ms"], r["kernel_us"], r["g1_kernel_us"])))
+
+
+def quant(root_a, root_b):
+    """``quant``'s turns and their summary: (G1, G3, G4) ms a turn."""
+    return turns("quant", root_a, root_b, lambda rows, r: rows.setdefault(
+        "%s,M=%d" % (r["projection"], r["M"]), []).append(
+            (r["g1_ms"], r.get("g3_ms"), r.get("g4_ms"))))
 
 
 def flash(root_a, root_b):
@@ -335,6 +382,11 @@ def main(argv):
         return norm(argv[1], argv[2])
     if len(argv) == 3 and argv[0] == "norm-tree":
         norm_tree(argv[1], int(argv[2]))
+        return 0
+    if len(argv) == 3 and argv[0] == "quant":
+        return quant(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "quant-tree":
+        quant_tree(argv[1], int(argv[2]))
         return 0
     if len(argv) == 3 and argv[0] == "flash":
         return flash(argv[1], argv[2])

@@ -115,6 +115,43 @@
 // there.  The float32 kernel normalizes x as it fills its tile.  gamma is
 // read in its own dtype (bf16 or float32) and converted in the kernel,
 // exactly: no cast is launched.
+//
+// G3 and G4, the weight-only quantized forms (the reference's
+// wq_matmul_i8 and wq_matmul_i4, mxtpu/contrib/quantization.py, which XLA
+// ran with no Pallas kernel): G1's kernels with the weight type as a
+// template parameter WT.  int8 (G3): w (N, K) int8 with one float32 scale
+// a channel, y = (x @ w^T) * s.  int4 (G4): w (N, K/2) bytes, two
+// weights a byte (k even in the low nibble), one float32 scale a channel
+// and group of gs k, y = sum over groups g in k order of
+// (x_g @ w_g^T) * s[:, g].  Bias (float32) is added after the scale.
+// What bounds them: the weight bytes again, now half (int8) or a quarter
+// plus the scales (int4) of bf16's, so the conversion to bf16 has to stay
+// cheap.  The design is G1's, with these differences:
+// - The weights land by TMA in 64-deep slices of 64 (int8) or 32 (int4)
+//   bytes a row, swizzled by 64 or 32 bytes, and are turned into bf16 in
+//   registers (exactly: an int8 or int4 value is a bf16, and a bf16 x
+//   bf16 product is exact in float32); a float copy of the weight never
+//   exists.  int8: one ldmatrix.x4 gives a lane four bytes of two 16-row
+//   weight fragments for two k16 steps, converted through float32 by a
+//   magic-number add (bytes into 2^23 + u); int4: a lane reads its two
+//   bytes (four nibbles) of a row with one 16-bit load and converts them
+//   with a bf16 magic number (128 + u).
+// - A lane's four k values of a k16 step are its k 4t .. 4t + 3 (the
+//   MMA's k 2t, 2t + 1, 2t + 8, 2t + 9), so x's B fragments are read
+//   with the same order by one 8-byte shared load a lane (ldmatrix would
+//   give 2t, 2t + 1 and 2t + 8, 2t + 9).  The MMA sums the same products.
+// - int8: the splits' float32 partials are added in split order, then
+//   multiplied by the channel's scale once and rounded once.
+// - int4: the K splits cover whole groups (a function of N, K and gs:
+//   splits() halved while it exceeds the groups), and each group's k16
+//   steps accumulate into a fresh float32 fragment, which is multiplied
+//   by s[n, g] and added to the split's running sum.  A lane reads the
+//   scales of its columns from global memory a group ahead.  With two
+//   sets of accumulators the wide row classes take half the A tiles.
+// Nothing changes for M: the plan's splits, k ranges and groups are
+// functions of N, K and gs alone, so a row rounds alike at any row count.
+// The float32 kernel takes the same weight types, converting each weight
+// as it fills its tile.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -175,6 +212,14 @@ constexpr int kNormRows = kChunk / (kNormWarps * 32 / 8);
 // stage after the ring, filled by the producer with the slice.
 constexpr int kGainSlot = kBK * 4;
 
+// Weight types of the bf16 kernel (and of the float32 kernel, where
+// kWFloat is x's float32): bf16 (G1), int8 (G3), int4 two a byte (G4).
+constexpr int kWFloat = 0, kWI8 = 1, kWI4 = 2;
+// bytes of a weight row's 64-deep slice in a stage
+__host__ __device__ constexpr int wrow_bytes(int WT) {
+  return (kBK * 2) >> WT;
+}
+
 // K splits of a (N, K) bf16 product: a function of N and K alone.  The
 // S splits of one 64-column tile double while the grid holds fewer than
 // kSplitTarget blocks and each split keeps kMinSplitSteps k16 steps.
@@ -188,6 +233,16 @@ __host__ __device__ inline int splits(int N, int K) {
   return s;
 }
 
+// The splits of weight type WT: bf16's and int8's are splits(N, K); an
+// int4 split covers whole groups of gs, so splits(N, K) is halved while
+// it exceeds the K / gs groups.
+__host__ __device__ inline int wt_splits(int WT, int N, int K, int gs) {
+  int s = splits(N, K);
+  if (WT == kWI4)
+    while (s > K / gs) s /= 2;
+  return s;
+}
+
 // The k16 steps [*lo, *hi) that split `split` of S walks, in order.
 __host__ __device__ inline void k_range(int K, int S, int split, int* lo,
                                         int* hi) {
@@ -196,26 +251,60 @@ __host__ __device__ inline void k_range(int K, int S, int split, int* lo,
   *hi = (split + 1) * steps / S;
 }
 
+// The K range [*kbeg, *kend) that split `split` of S walks: k_range's
+// k16 steps (the last cut at K), or for int4 the split's whole groups.
+__host__ __device__ inline void k_span(int WT, int K, int S, int gs,
+                                       int split, int* kbeg, int* kend) {
+  if (WT == kWI4) {
+    const int groups = K / gs;
+    *kbeg = gs * (split * groups / S);
+    *kend = gs * ((split + 1) * groups / S);
+  } else {
+    int lo, hi;
+    k_range(K, S, split, &lo, &hi);
+    *kbeg = 16 * lo;
+    *kend = 16 * hi < K ? 16 * hi : K;
+  }
+}
+
 // A row class: the rows a block holds, a computing warp's 16-column A
 // tiles (CW) and 8-row B groups (NGW), the computing warps across the
 // rows, and the ring's stages.  A block runs 4 * warp_rows computing
 // warps and one producer warp.  128 rows take 256-column tiles, or 192
-// where that grid fits one wave (the last class).
+// where that grid fits one wave (the last class).  One table a weight
+// type: int8's stages hold about bf16's ring bytes; int4 keeps a second
+// set of accumulators (a group's), so its 64- and 128-row classes take
+// half the A tiles, and it has no 192-column class.
 struct RowClass {
   int rows, cw, ngw, warp_rows, stages;
 };
-constexpr RowClass kClasses[] = {{8, 1, 1, 1, 4},   {32, 1, 4, 1, 4},
-                                 {64, 2, 8, 1, 3},  {128, 4, 8, 2, 4},
-                                 {128, 3, 8, 2, 5}};
+constexpr RowClass kBf16Classes[] = {{8, 1, 1, 1, 4}, {32, 1, 4, 1, 4},
+                                     {64, 2, 8, 1, 3}, {128, 4, 8, 2, 4},
+                                     {128, 3, 8, 2, 5}};
+constexpr RowClass kI8Classes[] = {{8, 1, 1, 1, 8}, {32, 1, 4, 1, 6},
+                                   {64, 2, 8, 1, 4}, {128, 4, 8, 2, 6},
+                                   {128, 3, 8, 2, 7}};
+constexpr RowClass kI4Classes[] = {{8, 1, 1, 1, 8}, {32, 1, 4, 1, 8},
+                                   {64, 1, 8, 1, 6}, {128, 2, 8, 2, 6}};
+// Weight type WT's classes: how many, and class c.
+constexpr int num_classes(int WT) {
+  return WT == kWI4 ? 4 : 5;
+}
+constexpr RowClass row_classes(int WT, int c) {
+  return WT == kWI4 ? kI4Classes[c] : WT == kWI8 ? kI8Classes[c]
+                                                 : kBf16Classes[c];
+}
 // Blocks of one block an SM that fit the H100 at once in clusters of 4
 // (30 such clusters); a grid a few blocks past it runs a second wave.
 constexpr int kOneWave = 120;
 
-inline int row_class(int M, int N, int K) {
+inline int row_class(int M, int N, int K, int WT = kWFloat) {
   const int m = M < kChunk ? M : kChunk;
   int c = 0;
-  while (kClasses[c].rows < m) ++c;
-  if (c == 3 && (N + 191) / 192 * splits(N, K) <= kOneWave) c = 4;
+  while (row_classes(WT, c).rows < m) ++c;
+  if (c == 3 && num_classes(WT) > 4 &&
+      (N + 191) / 192 * splits(N, K) <= kOneWave)
+    c = 4;
   return c;
 }
 
@@ -224,9 +313,11 @@ inline int row_class(int M, int N, int K) {
 // for the 128-byte swizzle) the ring of weight tiles and x rows, which
 // the float32 partial tile reuses after the walk, then the fused norm's
 // gain slots.
-inline size_t smem_bytes(const RowClass& c, int stages, bool norm) {
+inline size_t smem_bytes(const RowClass& c, int stages, bool norm,
+                         int WT = kWFloat) {
   const int bn = 16 * kWarpCols * c.cw;
-  const size_t ring = (size_t)stages * (bn + c.rows) * kBK * 2;
+  const size_t ring =
+      (size_t)stages * (bn * wrow_bytes(WT) + c.rows * kBK * 2);
   const size_t part = (size_t)c.rows * (bn + kPartPad) * 4;
   return kHead + (ring > part ? ring : part) +
          (norm ? (size_t)stages * kGainSlot : 0);
@@ -444,17 +535,73 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 2 and 8 bytes of shared memory (the quantized forms' fragments)
+__device__ __forceinline__ uint32_t lds_u16(unsigned a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void lds_u64(uint32_t& lo, uint32_t& hi,
+                                        unsigned a) {
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(lo), "=r"(hi)
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// four int8 weights (the bytes of w, k ascending) as two bf16 pairs, lo =
+// (k0, k1) and hi = (k2, k3), exactly: byte u = w + 128 goes into the
+// mantissa of 2^23 (the float 2^23 + u), and 2^23 + 128 is subtracted
+__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540));
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541));
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542));
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543));
+  lo = bf16x2_bits(f0 - kMagic, f1 - kMagic);
+  hi = bf16x2_bits(f2 - kMagic, f3 - kMagic);
+}
+
+// four int4 weights (the nibbles of v's low 16 bits, k ascending) as two
+// bf16 pairs, exactly: nibble u = w + 8 goes into the mantissa of 128 (the
+// bf16 128 + u), and 136 is subtracted
+__device__ __forceinline__ void i4x4_bf16(uint32_t v, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t u = v ^ 0x8888u;
+  const uint32_t a = (u & 0xFu) | ((u & 0xF0u) << 12) | 0x43004300u;
+  const uint32_t b = ((u >> 8) & 0xFu) | ((u & 0xF000u) << 4) | 0x43004300u;
+  const uint32_t off = 0x43084308u;  // (136, 136)
+  __nv_bfloat162 r0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                              *reinterpret_cast<const __nv_bfloat162*>(&off));
+  __nv_bfloat162 r1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b),
+                              *reinterpret_cast<const __nv_bfloat162*>(&off));
+  lo = *reinterpret_cast<uint32_t*>(&r0);
+  hi = *reinterpret_cast<uint32_t*>(&r1);
+}
+
 // One block: output columns [n0, n0 + BN) of rows [m0, m0 + rows), over
-// the k16 steps of split blockIdx.x % S.  Warps 0 .. 4*warp_rows - 1
-// compute: warp w owns the 16*CW columns (w % 4) and the 8*NGW rows
-// (w / 4) of the tile.  The next warp produces: it loads slice i (a
-// 64-deep box of the weight tile and one of the chunk's x rows, both
-// through tensor maps with the 128-byte swizzle; rows past N or M and
-// columns past K land as zeros) into stage i % STAGES once the
-// computing warps have released the stage.  The S splits of an N tile
-// are consecutive blocks of a cluster of P (P = S, or norm_cluster with
-// the fused norm, whose grid is padded to whole clusters: a block past
-// the last N tile loads and stores nothing).
+// the K range of split blockIdx.x % S (k_span).  Warps 0 ..
+// 4*warp_rows - 1 compute: warp w owns the 16*CW columns (w % 4) and the
+// 8*NGW rows (w / 4) of the tile.  The next warp produces: it loads slice
+// i (a 64-deep box of the weight tile and one of the chunk's x rows, both
+// through tensor maps, x's with the 128-byte swizzle and the weights'
+// with wrow_bytes(WT)'s; rows past N or M and columns past K land as
+// zeros) into stage i % STAGES once the computing warps have released
+// the stage.  The S splits of an N tile are consecutive blocks of a
+// cluster of P (P = S, or norm_cluster with the fused norm, whose grid is
+// padded to whole clusters: a block past the last N tile loads and
+// stores nothing).
+//
+// WT is the weight type (kWFloat: bf16, kWI8, kWI4 with wscale (N, K /
+// gs)); the quantized forms scale (and add bias, float32, unless null) in
+// the epilogue or, int4, at each group's end.
 //
 // G (NoNorm, bf16 or float) is the gain's type.  With a gain the
 // producer also copies each slice's gains into the stage's gain slot,
@@ -464,20 +611,23 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Row r of the chunk is first reduced (row_scale) by cluster block
 // r % P, by one of its warps, and its scale is shared with the cluster
 // over distributed shared memory.
-template <int CW, int NGW, int STAGES, typename G>
+template <int WT, int CW, int NGW, int STAGES, typename G>
 __global__ void __launch_bounds__(
     std::is_same<G, NoNorm>::value || NGW == 1 ? 288 : 288 + 32 * kNormWarps)
     rows_linear_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                             const __grid_constant__ CUtensorMap xmap,
                             const bf16* __restrict__ x,
                             const G* __restrict__ gamma, float eps,
+                            const float* __restrict__ wscale,
+                            const float* __restrict__ bias,
                             bf16* __restrict__ y, int M, int N, int K,
-                            int S, int P, int warp_rows) {
+                            int S, int P, int warp_rows, int gs) {
   static_assert(STAGES <= kMaxStages, "the head holds kMaxStages barriers");
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
   constexpr bool kNormWarpsOn = kNorm && NGW > 1;  // else in registers
   constexpr int BN = 16 * kWarpCols * CW;
   constexpr int PLD = BN + kPartPad;
+  constexpr int WB = wrow_bytes(WT);  // a weight row's bytes in a stage
   extern __shared__ uint4 smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
@@ -487,7 +637,7 @@ __global__ void __launch_bounds__(
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem_raw) +
                         (((base + kScalesEnd + 1023) & ~1023u) - base);
   const int R = 8 * NGW * warp_rows;
-  const int stage_bytes = (BN + R) * kBK * 2;
+  const int stage_bytes = BN * WB + R * kBK * 2;
   const int ring_bytes = max(STAGES * stage_bytes, R * PLD * 4);
   unsigned char* gslots = ring + ring_bytes;
   const int tid = threadIdx.x;
@@ -506,10 +656,8 @@ __global__ void __launch_bounds__(
   const int rows = min(R, M - m0);
   const int groups = (rows + 7) / 8;        // 8-row groups holding a row
   const int ncols = min(BN, N - n0);
-  int lo, hi;
-  k_range(K, S, split, &lo, &hi);
-  const int kbeg = 16 * lo;
-  const int kend = min(16 * hi, K);
+  int kbeg, kend;
+  k_span(WT, K, S, gs, split, &kbeg, &kend);
   const int nslices =
       kend > kbeg && n0 < N ? (kend - kbeg + kBK - 1) / kBK : 0;
   cg::cluster_group cluster = cg::this_cluster();
@@ -562,8 +710,9 @@ __global__ void __launch_bounds__(
         if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
         unsigned char* ws = ring + (size_t)st * stage_bytes;
         mbar_expect(&full[st], stage_bytes + gbytes);
-        tma_load(ws, &wmap, k0, n0, &full[st]);
-        tma_load(ws + BN * kBK * 2, &xmap, k0, m0, &full[st]);
+        // the weight map's columns are bytes for the packed types
+        tma_load(ws, &wmap, WT == kWI4 ? k0 / 2 : k0, n0, &full[st]);
+        tma_load(ws + BN * WB, &xmap, k0, m0, &full[st]);
         if constexpr (kNorm)
           bulk_copy(gslots + st * kGainSlot, gamma + k0, gbytes, &full[st]);
       }
@@ -598,7 +747,7 @@ __global__ void __launch_bounds__(
           load8(reinterpret_cast<const G*>(gslots + st * kGainSlot) + c8,
                 gk);
           unsigned char* xs = ring + (size_t)st * stage_bytes +
-                              BN * kBK * 2 + (u & 7) * 16;
+                              BN * WB + (u & 7) * 16;
 #pragma unroll
           for (int j = 0; j < kNormRows; ++j) {
             const int r = r0 + 8 * j;
@@ -619,12 +768,37 @@ __global__ void __launch_bounds__(
                        : scales[g];
     }
     if (clustered) cluster_arrive();
+    // int4: the group's sums (each group's k16 steps accumulate here from
+    // zero) and the scales of the lane's columns g and g + 8 of each A
+    // tile, for the group being walked and, loaded a group ahead, the
+    // next (a load at the group's start stalled its last step's fold)
+    float accg[CW][NGW][4];
+    float gsc[CW][2], gnext[CW][2];
+    const int ngroups = WT == kWI4 ? K / gs : 0;
+    auto load_scales = [&](float (&dst)[CW][2], int grp) {
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + wcol * 16 * CW + c * 16 + g + 8 * h;
+          dst[c][h] = n < N && grp < ngroups
+                          ? wscale[(size_t)n * ngroups + grp]
+                          : 0.f;
+        }
+    };
+    // the step's place in its group (0: the group starts), the group
+    // whose scales gnext will hold next, and the split's last group
+    const int gsteps = WT == kWI4 ? gs / 16 : 1;
+    int gstep = 0;
+    int gnext_at = WT == kWI4 ? kbeg / gs + 1 : 0;
+    const int gend = WT == kWI4 ? kend / gs : 0;
+    if constexpr (WT == kWI4) load_scales(gnext, kbeg / gs);
 #pragma unroll
     for (int c = 0; c < CW; ++c)
 #pragma unroll
       for (int j = 0; j < NGW; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[c][j][e] = accg[c][j][e] = 0.f;
     // ldmatrix rows (128 bytes each, 16-byte chunk c stored at c ^ (row
     // % 8), and row % 8 == lane % 8 for every row a lane addresses): A
     // rows wcol*16*CW + lane % 16, chunk 2kk + lane / 16; B pairs of
@@ -634,8 +808,23 @@ __global__ void __launch_bounds__(
     const unsigned a_row = (wcol * 16 * CW + (lane & 15)) * kBK * 2;
     const int a_hi = lane >> 4;
     const unsigned b_row =
-        BN * kBK * 2 + (grp0 * 8 + 8 * (lane >> 4) + (lane & 7)) * kBK * 2;
+        BN * WB + (grp0 * 8 + 8 * (lane >> 4) + (lane & 7)) * kBK * 2;
     const int b_hi = (lane >> 3) & 1;
+    // The quantized forms.  int8 (64-byte rows, 16-byte chunk c stored
+    // at c ^ ((row / 2) % 4)): one ldmatrix.x4 a 16-row A tile and a pair
+    // of k16 steps, matrices (rows 0-7, step kk), (rows 8-15, kk), (0-7,
+    // kk + 1), (8-15, kk + 1); lane l gives row (l % 8) + 8 * ((l / 8) %
+    // 2), chunk kk + l / 16, and (row / 2) % 4 == (l / 2) % 4.  int4
+    // (32-byte rows, chunk c stored at c ^ ((row / 4) % 2)): the lane's
+    // two bytes of rows g and g + 8 at k 16kk + 4t, byte 8kk + 2t.  B
+    // (both): the lane's 8 bytes of x row 8j + g at k 16kk + 4t.
+    const unsigned q8_row =
+        (wcol * 16 * CW + (lane & 7) + 8 * ((lane >> 3) & 1)) * WB;
+    const int q8_sw = (lane >> 1) & 3;
+    const unsigned q4_row = (wcol * 16 * CW + g) * WB + 2 * t;
+    const int q4_sw = (g >> 2) & 1;
+    const unsigned qb_row = BN * WB + (grp0 * 8 + g) * kBK * 2 + 8 * (t & 1);
+    uint32_t q8[CW][4];
     for (int i = 0; i < nslices; ++i) {
       const int st = i % STAGES;
       // with the fused norm the slice is read once normalized (which it
@@ -647,45 +836,117 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         if (kk >= steps) break;
-        const unsigned a_chunk = ((2 * kk + a_hi) ^ sw) << 4;
-        const unsigned b_chunk = ((2 * kk + b_hi) ^ sw) << 4;
         uint32_t a[CW][4];
-#pragma unroll
-        for (int c = 0; c < CW; ++c)
-          ldsm_x4(a[c], ws + a_row + c * 16 * kBK * 2 + a_chunk);
         uint32_t b[NGW][2];
-        if constexpr (NGW == 1) {
-          ldsm_x2(b[0][0], b[0][1], ws + b_row + b_chunk);
-          if constexpr (kNorm) {
-            // the lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
-            // (past the split's end x is zero and so is the gain)
-            const G* gs = reinterpret_cast<const G*>(gslots + st * kGainSlot);
-            const int k = 16 * kk + 2 * t;
-            const int left = kend - (kbeg + i * kBK);
-            b[0][0] = norm2(b[0][0], rs, gain2(gs + k));
-            b[0][1] = norm2(b[0][1], rs,
-                            k + 8 < left ? gain2(gs + k + 8)
-                                         : make_float2(0.f, 0.f));
+        if constexpr (WT == kWFloat) {
+          const unsigned a_chunk = ((2 * kk + a_hi) ^ sw) << 4;
+          const unsigned b_chunk = ((2 * kk + b_hi) ^ sw) << 4;
+#pragma unroll
+          for (int c = 0; c < CW; ++c)
+            ldsm_x4(a[c], ws + a_row + c * 16 * kBK * 2 + a_chunk);
+          if constexpr (NGW == 1) {
+            ldsm_x2(b[0][0], b[0][1], ws + b_row + b_chunk);
+            if constexpr (kNorm) {
+              // the lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+              // (past the split's end x is zero and so is the gain)
+              const G* gs_ =
+                  reinterpret_cast<const G*>(gslots + st * kGainSlot);
+              const int k = 16 * kk + 2 * t;
+              const int left = kend - (kbeg + i * kBK);
+              b[0][0] = norm2(b[0][0], rs, gain2(gs_ + k));
+              b[0][1] = norm2(b[0][1], rs,
+                              k + 8 < left ? gain2(gs_ + k + 8)
+                                           : make_float2(0.f, 0.f));
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < NGW; j += 2) {
+              if (grp0 + j < groups) {
+                uint32_t r[4];
+                ldsm_x4(r, ws + b_row + j * 8 * kBK * 2 + b_chunk);
+                b[j][0] = r[0];
+                b[j][1] = r[1];
+                b[j + 1][0] = r[2];
+                b[j + 1][1] = r[3];
+              }
+            }
           }
         } else {
+          if constexpr (WT == kWI8) {
+            if ((kk & 1) == 0) {
+              const unsigned chunk = ((kk + (lane >> 4)) ^ q8_sw) << 4;
 #pragma unroll
-          for (int j = 0; j < NGW; j += 2) {
-            if (grp0 + j < groups) {
-              uint32_t r[4];
-              ldsm_x4(r, ws + b_row + j * 8 * kBK * 2 + b_chunk);
-              b[j][0] = r[0];
-              b[j][1] = r[1];
-              b[j + 1][0] = r[2];
-              b[j + 1][1] = r[3];
+              for (int c = 0; c < CW; ++c)
+                ldsm_x4(q8[c], ws + q8_row + c * 16 * WB + chunk);
             }
+            const int h = 2 * (kk & 1);  // the step's two registers
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              i8x4_bf16(q8[c][h], a[c][0], a[c][2]);
+              i8x4_bf16(q8[c][h + 1], a[c][1], a[c][3]);
+            }
+          } else {
+            const unsigned off = (((kk >> 1) ^ q4_sw) << 4) + 8 * (kk & 1);
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              const unsigned r = ws + q4_row + c * 16 * WB + off;
+              i4x4_bf16(lds_u16(r), a[c][0], a[c][2]);
+              i4x4_bf16(lds_u16(r + 8 * WB), a[c][1], a[c][3]);
+            }
+          }
+          const unsigned b_off = ((2 * kk + (t >> 1)) ^ g) << 4;
+#pragma unroll
+          for (int j = 0; j < NGW; ++j)
+            if (grp0 + j < groups)
+              lds_u64(b[j][0], b[j][1],
+                      ws + qb_row + j * 8 * kBK * 2 + b_off);
+          if constexpr (kNorm && NGW == 1) {
+            // the lane's k = 4t .. 4t + 3 of the step (K % 16 == 0 here)
+            const G* gs_ = reinterpret_cast<const G*>(gslots + st * kGainSlot);
+            const int k = 16 * kk + 4 * t;
+            b[0][0] = norm2(b[0][0], rs, gain2(gs_ + k));
+            b[0][1] = norm2(b[0][1], rs, gain2(gs_ + k + 2));
+          }
+        }
+        if constexpr (WT == kWI4) {
+          if (gstep == 0) {
+            // a group starts: its scales were loaded a group ago; the
+            // next group's are loaded now
+#pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              gsc[c][0] = gnext[c][0];
+              gsc[c][1] = gnext[c][1];
+            }
+            if (gnext_at < gend) load_scales(gnext, gnext_at);
+            ++gnext_at;
           }
         }
 #pragma unroll
         for (int j = 0; j < NGW; ++j) {
           if (grp0 + j < groups) {
 #pragma unroll
+            for (int c = 0; c < CW; ++c) {
+              if constexpr (WT == kWI4)
+                mma_bf16(accg[c][j], a[c], b[j][0], b[j][1]);
+              else
+                mma_bf16(acc[c][j], a[c], b[j][0], b[j][1]);
+            }
+          }
+        }
+        if constexpr (WT == kWI4) {
+          if (++gstep == gsteps) {
+            // the group ends: its sums scaled into the running sum
+            gstep = 0;
+#pragma unroll
             for (int c = 0; c < CW; ++c)
-              mma_bf16(acc[c][j], a[c], b[j][0], b[j][1]);
+#pragma unroll
+              for (int j = 0; j < NGW; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  acc[c][j][e] = __fadd_rn(
+                      acc[c][j][e], __fmul_rn(accg[c][j][e], gsc[c][e >> 1]));
+                  accg[c][j][e] = 0.f;
+                }
           }
         }
       }
@@ -734,6 +995,19 @@ __global__ void __launch_bounds__(
       v.z += u.z;
       v.w += u.w;
     }
+    if constexpr (WT != kWFloat) {
+      // int8: the channel's scale once, on the whole sum; then the bias
+      auto fix = [&](float f, int n) {
+        if (n < N) {
+          if (WT == kWI8) f = __fmul_rn(f, wscale[n]);
+          if (bias != nullptr) f = __fadd_rn(f, bias[n]);
+        }
+        return f;
+      };
+      const int n = n0 + c;
+      v = make_float4(fix(v.x, n), fix(v.y, n + 1), fix(v.z, n + 2),
+                      fix(v.w, n + 3));
+    }
     bf16* out = y + (size_t)(m0 + r) * N + n0 + c;
     if (c + 4 <= ncols && N % 4 == 0) {
       __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
@@ -773,13 +1047,19 @@ __global__ void __launch_bounds__(kNormThreads)
 }
 
 // NORM: x's rows normalized by gamma as the tile fills (the fused norm;
-// each warp reduces 4 of the tile's 32 rows first)
-template <bool NORM>
+// each warp reduces 4 of the tile's 32 rows first).  WT: w float32
+// (kWFloat), int8 (N, K) or int4 bytes (N, K / 2) with wscale, converted
+// as the tile fills; int8 scales the sum, int4 each group's sum of 16 k
+// or more (gs % 16 == 0), in k order, then bias (float32, unless null).
+template <bool NORM, int WT>
 __global__ void __launch_bounds__(256)
     rows_linear_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ gamma, float eps,
-                           const float* __restrict__ w,
-                           float* __restrict__ y, int M, int N, int K) {
+                           const void* __restrict__ w,
+                           const float* __restrict__ wscale,
+                           const float* __restrict__ bias,
+                           float* __restrict__ y, int M, int N, int K,
+                           int gs) {
   __shared__ float xs[kF][kF + 1];   // xs[m][k]
   __shared__ float wt[kF][kF + 1];   // wt[n][k]
   __shared__ float sc[kF];           // the rows' scales
@@ -797,6 +1077,7 @@ __global__ void __launch_bounds__(256)
     __syncthreads();
   }
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float accg[4] = {0.f, 0.f, 0.f, 0.f};  // int4: the group's sums
   for (int k0 = 0; k0 < K; k0 += kF) {
     for (int i = threadIdx.x; i < kF * kF; i += 256) {
       const int r = i / kF;
@@ -807,22 +1088,66 @@ __global__ void __launch_bounds__(256)
         if constexpr (NORM) v = v * sc[r] * gamma[k0 + c];
       }
       xs[r][c] = v;
-      wt[r][c] = (n0 + r < N && k0 + c < K) ? w[(size_t)(n0 + r) * K + k0 + c]
-                                             : 0.f;
+      float wv = 0.f;
+      if (n0 + r < N && k0 + c < K) {
+        const size_t at = (size_t)(n0 + r) * K + k0 + c;
+        if constexpr (WT == kWFloat) {
+          wv = static_cast<const float*>(w)[at];
+        } else if constexpr (WT == kWI8) {
+          wv = static_cast<const int8_t*>(w)[at];
+        } else {
+          const int b = static_cast<const int8_t*>(w)[at / 2];
+          wv = (k0 + c) & 1 ? b >> 4 : (int8_t)((unsigned)b << 4) >> 4;
+        }
+      }
+      wt[r][c] = wv;
     }
     __syncthreads();
+    if constexpr (WT == kWI4) {
+      for (int h = 0; h < kF && k0 + h < K; h += 16) {
 #pragma unroll
-    for (int k = 0; k < kF; ++k) {
-      const float b = wt[tx][k];
+        for (int k = h; k < h + 16; ++k) {
+          const float b = wt[tx][k];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = fmaf(xs[ty + 8 * u][k], b, acc[u]);
+          for (int u = 0; u < 4; ++u)
+            accg[u] = fmaf(xs[ty + 8 * u][k], b, accg[u]);
+        }
+        if ((k0 + h + 16) % gs == 0) {
+          const int n = n0 + tx;
+          const float s =
+              n < N ? wscale[(size_t)n * (K / gs) + (k0 + h) / gs] : 0.f;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[u] = __fadd_rn(acc[u], __fmul_rn(accg[u], s));
+            accg[u] = 0.f;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kF; ++k) {
+        const float b = wt[tx][k];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          acc[u] = fmaf(xs[ty + 8 * u][k], b, acc[u]);
+      }
     }
     __syncthreads();
   }
+  const int n = n0 + tx;
+  if (n >= N) return;
+  float s = 1.f, b = 0.f;
+  if constexpr (WT == kWI8) s = wscale[n];
+  if (WT != kWFloat && bias != nullptr) b = bias[n];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int m = m0 + ty + 8 * u;
-    if (m < M && n0 + tx < N) y[(size_t)m * N + n0 + tx] = acc[u];
+    float v = acc[u];
+    if constexpr (WT == kWI8) v = __fmul_rn(v, s);
+    if constexpr (WT != kWFloat) {
+      if (bias != nullptr) v = __fadd_rn(v, b);
+    }
+    if (m < M) y[(size_t)m * N + n] = v;
   }
 }
 
@@ -834,10 +1159,13 @@ using EncodeTiled = CUresult (*)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// A (rows, K) bf16 row-major tensor as a map of (box_rows, 64) boxes with
-// the 128-byte swizzle; out-of-bounds elements load as zeros.
+// A (rows, K) row-major tensor as a map of boxes of box_rows rows and a
+// 64-deep K slice, out-of-bounds elements loading as zeros: bf16 x or
+// weights (WT = kWFloat; 128-byte rows, 128-byte swizzle), or int8 or
+// packed int4 weights as bytes (64- or 32-byte rows, swizzled by as
+// many bytes).
 cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
-                       int box_rows) {
+                       int box_rows, int WT = kWFloat) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -848,31 +1176,42 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
     if (found != cudaDriverEntryPointSuccess || encode == nullptr)
       return cudaErrorNotSupported;
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  // a row's bytes, and the box's
+  const int row_bytes = WT == kWFloat ? 2 * K : WT == kWI8 ? K : K / 2;
+  const int box_bytes = wrow_bytes(WT);
+  const int elem = WT == kWFloat ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)(row_bytes / elem),
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / elem),
+                             (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      WT == kWFloat ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(p), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      WT == kWFloat ? CU_TENSOR_MAP_SWIZZLE_128B
+      : WT == kWI8  ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One bf16 launch of class <CW, NGW, STAGES> with warp_rows rows of
-// computing warps, its x rows normalized by gamma unless G is NoNorm.
-// The kernel's shared-memory limit is raised once per size, and whether
-// the card can schedule a cluster of S such blocks is asked once per (S,
-// block shape).
-template <int CW, int NGW, int STAGES, typename G>
+// One bf16 launch of weight type WT and class CI (row_classes(WT, CI)) with
+// warp_rows rows of computing warps, its x rows normalized by gamma
+// unless G is NoNorm.  The kernel's shared-memory limit is raised once
+// per size, and whether the card can schedule a cluster of S such blocks
+// is asked once per (S, block shape).
+template <int WT, int CI, typename G>
 int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
-                void* y, int M, int N, int K, int S, int P, int smem,
-                int warp_rows,
-                void* stream) {
-  constexpr int BN = 16 * kWarpCols * CW;
+                const float* wscale, const float* bias, void* y, int M,
+                int N, int K, int gs, int S, int P, int smem, void* stream) {
+  constexpr RowClass C = row_classes(WT, CI);
+  constexpr int BN = 16 * kWarpCols * C.cw;
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
-  auto kernel = rows_linear_bf16_kernel<CW, NGW, STAGES, G>;
+  auto kernel = rows_linear_bf16_kernel<WT, C.cw, C.ngw, C.stages, G>;
   static int smem_set = 0;
   static int schedulable[kNormCluster + 1][2] = {};  // smem schedulable
   cudaError_t err;
@@ -884,8 +1223,8 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
   }
   CUtensorMap wmap = {}, xmap = {};
   if (K > 0) {
-    const int rows = 8 * NGW * warp_rows;
-    if ((err = encode_map(&wmap, w, N, K, BN)) != cudaSuccess ||
+    const int rows = 8 * C.ngw * C.warp_rows;
+    if ((err = encode_map(&wmap, w, N, K, BN, WT)) != cudaSuccess ||
         (err = encode_map(&xmap, x, M, K, rows)) != cudaSuccess)
       return (int)err;
   }
@@ -893,7 +1232,8 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
   const int blocks = (N + BN - 1) / BN * S;
   cfg.gridDim = dim3((blocks + P - 1) / P * P, 1, (M + kChunk - 1) / kChunk);
   cfg.blockDim = dim3(
-      32 * (kWarpCols * warp_rows + 1 + (kNorm && NGW > 1 ? kNormWarps : 0)),
+      32 * (kWarpCols * C.warp_rows + 1 + (kNorm && C.ngw > 1 ? kNormWarps
+                                                               : 0)),
       1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -904,7 +1244,7 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = P > 1 ? 1 : 0;
-  int& known = schedulable[P][warp_rows - 1];
+  int& known = schedulable[P][C.warp_rows - 1];
   if (P > 1 && known != smem) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
@@ -913,43 +1253,64 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
     known = smem;
   }
   err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, (const bf16*)x, gamma,
-                           eps, (bf16*)y, M, N, K, S, P, warp_rows);
+                           eps, wscale, bias, (bf16*)y, M, N, K, S, P,
+                           C.warp_rows, gs);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// G1 in bfloat16 on the wrapper's launch plan, its x rows normalized by
-// gamma unless G is NoNorm: see mxtpu_rows_linear_bf16.
-template <typename G>
+// G1 (WT = kWFloat), G3 or G4 in bfloat16 on the wrapper's launch plan,
+// its x rows normalized by gamma unless G is NoNorm: see
+// mxtpu_rows_linear_bf16 and mxtpu_rows_linear_q_bf16.
+template <int WT, typename G>
 int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
-                     void* y, int M, int N, int K, int bn, int S, int stages,
+                     const float* wscale, const float* bias, void* y, int M,
+                     int N, int K, int gs, int bn, int S, int stages,
                      int smem, void* stream) {
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  const int ci = row_class(M, N, K);
-  const RowClass& c = kClasses[ci];
-  if (bn != 16 * kWarpCols * c.cw || S != splits(N, K) ||
+  // the packed types' rows are whole 16-byte units (the tensor map's
+  // stride) and int4's groups whole k16 steps
+  if ((WT == kWI8 && K % 16) ||
+      (WT == kWI4 && (K % 32 || gs < 16 || gs % 16 || K % gs)))
+    return (int)cudaErrorInvalidValue;
+  const int ci = row_class(M, N, K, WT);
+  const RowClass c = row_classes(WT, ci);
+  constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
+  if (bn != 16 * kWarpCols * c.cw || S != wt_splits(WT, N, K, gs) ||
       stages != c.stages || smem < 0 || (size_t)smem > kMaxSmem ||
-      (size_t)smem != smem_bytes(c, stages, !std::is_same<G, NoNorm>::value))
+      (size_t)smem != smem_bytes(c, stages, kNorm, WT))
     return (int)cudaErrorInvalidValue;
   // blocks a cluster
-  const int P = std::is_same<G, NoNorm>::value ? S : norm_cluster(S);
+  const int P = kNorm ? norm_cluster(S) : S;
+#define MXTPU_LAUNCH(CI)                                                    \
+  return launch_bf16<WT, CI>(x, gamma, eps, w, wscale, bias, y, M, N, K, gs, \
+                             S, P, smem, stream)
   switch (ci) {
     case 0:
-      return launch_bf16<1, 1, 4>(x, gamma, eps, w, y, M, N, K, S, P,
-                                  smem, c.warp_rows, stream);
+      MXTPU_LAUNCH(0);
     case 1:
-      return launch_bf16<1, 4, 4>(x, gamma, eps, w, y, M, N, K, S, P,
-                                  smem, c.warp_rows, stream);
+      MXTPU_LAUNCH(1);
     case 2:
-      return launch_bf16<2, 8, 3>(x, gamma, eps, w, y, M, N, K, S, P,
-                                  smem, c.warp_rows, stream);
+      MXTPU_LAUNCH(2);
     case 3:
-      return launch_bf16<4, 8, 4>(x, gamma, eps, w, y, M, N, K, S, P,
-                                  smem, c.warp_rows, stream);
+      MXTPU_LAUNCH(3);
     default:
-      return launch_bf16<3, 8, 5>(x, gamma, eps, w, y, M, N, K, S, P,
-                                  smem, c.warp_rows, stream);
+      // a type with four classes has no class 4 to instantiate
+      if constexpr (num_classes(WT) > 4) MXTPU_LAUNCH(4);
+      return (int)cudaErrorInvalidValue;
   }
+#undef MXTPU_LAUNCH
+}
+
+template <bool NORM, int WT>
+int launch_f32(const void* x, const void* gamma, const void* w,
+               const void* wscale, const void* bias, void* y, int M, int N,
+               int K, float eps, int gs, void* stream) {
+  const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
+  rows_linear_f32_kernel<NORM, WT><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)gamma, eps, w, (const float*)wscale,
+      (const float*)bias, (float*)y, M, N, K, gs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -965,8 +1326,9 @@ extern "C" {
 int mxtpu_rows_linear_bf16(const void* x, const void* w, void* y, int M,
                            int N, int K, int bn, int S, int stages, int smem,
                            void* stream) {
-  return rows_linear_bf16(x, (const NoNorm*)nullptr, 0.f, w, y, M, N, K, bn,
-                          S, stages, smem, stream);
+  return rows_linear_bf16<kWFloat>(x, (const NoNorm*)nullptr, 0.f, w,
+                                   nullptr, nullptr, y, M, N, K, 0, bn, S,
+                                   stages, smem, stream);
 }
 
 // The fused norm in bfloat16: G2 then G1 in one launch, on G1's plan.
@@ -977,10 +1339,39 @@ int mxtpu_rows_norm_linear_bf16(const void* x, const void* gamma,
                                 int N, int K, float eps, int bn, int S,
                                 int stages, int smem, void* stream) {
   if (gamma_f32)
-    return rows_linear_bf16(x, (const float*)gamma, eps, w, y, M, N, K, bn,
-                            S, stages, smem, stream);
-  return rows_linear_bf16(x, (const bf16*)gamma, eps, w, y, M, N, K, bn, S,
-                          stages, smem, stream);
+    return rows_linear_bf16<kWFloat>(x, (const float*)gamma, eps, w, nullptr,
+                                     nullptr, y, M, N, K, 0, bn, S, stages,
+                                     smem, stream);
+  return rows_linear_bf16<kWFloat>(x, (const bf16*)gamma, eps, w, nullptr,
+                                   nullptr, y, M, N, K, 0, bn, S, stages,
+                                   smem, stream);
+}
+
+// G3 (wtype 1: w (N, K) int8, wscale (N,)) or G4 (wtype 2: w (N, K / 2)
+// packed int4, wscale (N, K / gs)) in bfloat16 on the wrapper's plan, as
+// mxtpu_rows_linear_bf16; bias (N,) float32 or null; with a gamma (K,),
+// bfloat16, the fused norm.  K % 16 == 0 for int8; K % 32 == 0, gs % 16
+// == 0 and K % gs == 0 for int4; anything else is refused.
+int mxtpu_rows_linear_q_bf16(const void* x, const void* gamma, const void* w,
+                             const void* wscale, const void* bias, void* y,
+                             int wtype, int gs, int M, int N, int K,
+                             float eps, int bn, int S, int stages, int smem,
+                             void* stream) {
+  const float* s = (const float*)wscale;
+  const float* b = (const float*)bias;
+  const bf16* gm = (const bf16*)gamma;
+  const NoNorm* none = nullptr;
+  if (wtype == kWI8)
+    return gamma ? rows_linear_bf16<kWI8>(x, gm, eps, w, s, b, y, M, N, K,
+                                          gs, bn, S, stages, smem, stream)
+                 : rows_linear_bf16<kWI8>(x, none, eps, w, s, b, y, M, N, K,
+                                          gs, bn, S, stages, smem, stream);
+  if (wtype == kWI4)
+    return gamma ? rows_linear_bf16<kWI4>(x, gm, eps, w, s, b, y, M, N, K,
+                                          gs, bn, S, stages, smem, stream)
+                 : rows_linear_bf16<kWI4>(x, none, eps, w, s, b, y, M, N, K,
+                                          gs, bn, S, stages, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // G2 over M rows of C elements; gamma is float32 (C,)
@@ -1002,21 +1393,37 @@ int mxtpu_rows_rms_norm_bf16(const void* x, const void* gamma, void* y,
 
 int mxtpu_rows_linear_f32(const void* x, const void* w, void* y, int M, int N,
                           int K, void* stream) {
-  const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
-  rows_linear_f32_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, nullptr, 0.f, (const float*)w, (float*)y, M, N, K);
-  return (int)cudaGetLastError();
+  return launch_f32<false, kWFloat>(x, nullptr, w, nullptr, nullptr, y, M, N,
+                                    K, 0.f, 0, stream);
 }
 
 // The fused norm in float32; gamma is float32 (K,)
 int mxtpu_rows_norm_linear_f32(const void* x, const void* gamma,
                                const void* w, void* y, int M, int N, int K,
                                float eps, void* stream) {
-  const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
-  rows_linear_f32_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)gamma, eps, (const float*)w, (float*)y,
-      M, N, K);
-  return (int)cudaGetLastError();
+  return launch_f32<true, kWFloat>(x, gamma, w, nullptr, nullptr, y, M, N, K,
+                                   eps, 0, stream);
+}
+
+// G3 or G4 in float32 (wtype, wscale, bias and gs as in
+// mxtpu_rows_linear_q_bf16, but any K for int8 and an even K for int4),
+// with a float32 gamma the fused norm
+int mxtpu_rows_linear_q_f32(const void* x, const void* gamma, const void* w,
+                            const void* wscale, const void* bias, void* y,
+                            int wtype, int gs, int M, int N, int K, float eps,
+                            void* stream) {
+  if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
+  if (wtype == kWI8)
+    return gamma ? launch_f32<true, kWI8>(x, gamma, w, wscale, bias, y, M, N,
+                                          K, eps, gs, stream)
+                 : launch_f32<false, kWI8>(x, gamma, w, wscale, bias, y, M,
+                                           N, K, eps, gs, stream);
+  if (wtype == kWI4 && K % 2 == 0 && gs >= 16 && gs % 16 == 0 && K % gs == 0)
+    return gamma ? launch_f32<true, kWI4>(x, gamma, w, wscale, bias, y, M, N,
+                                          K, eps, gs, stream)
+                 : launch_f32<false, kWI4>(x, gamma, w, wscale, bias, y, M,
+                                           N, K, eps, gs, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

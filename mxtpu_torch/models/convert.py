@@ -15,7 +15,15 @@ names follow from its module paths (``mxtpu_name``).  Dense and conv
 weights have the same layout in both frameworks and copy as they are.
 
 ``export_mxtpu_params`` is the inverse: a port model's parameters (and
-running statistics) as ``{prefix-stripped reference name: numpy array}``.
+running statistics) as ``{prefix-stripped reference name: numpy array}``,
+which ``load_mxtpu_params`` takes back as they are.
+
+A model quantized by ``contrib.quantization.quantize_weights`` carries
+each quantized layer's int8 payload and float32 scales under the
+reference's ``QuantizedDense`` names (``layer0_attn_qkv_weight``,
+``layer0_attn_qkv_wscale``, ...), copied as they are: int8 stays int8,
+so a model quantized by the reference loads into a port model quantized
+the same way, and back.
 """
 
 from __future__ import annotations
@@ -64,11 +72,14 @@ def load_mxtpu_params(model, params):
     in place (cast to each parameter's dtype and device).  Raises
     :class:`MXTPUError` on a missing name, an extra name or a shape
     that differs."""
-    given = {strip_instance_prefix(k): v for k, v in params.items()}
+    wanted = _named_tensors(model)
+    # a name that is already the port's (export_mxtpu_params's output)
+    # keeps its form: stripping would cut ``layer0_`` off it
+    given = {k if k in wanted else strip_instance_prefix(k): v
+             for k, v in params.items()}
     if len(given) != len(params):
         raise MXTPUError("two reference parameters share a name once the "
                          "instance prefix is stripped")
-    wanted = _named_tensors(model)
     missing = sorted(set(wanted) - set(given))
     extra = sorted(set(given) - set(wanted))
     if missing or extra:

@@ -42,6 +42,17 @@ position would, so a speculative stream equals its plain stream in
 bfloat16 too.  Prefill and the training forward keep ``nn.Linear`` and
 ``RMSNorm``.
 
+A model quantized by ``contrib.quantization.quantize_weights`` holds
+``QuantizedLinear`` layers in place of its ``nn.Linear`` ones (int8 or
+packed int4 weights with float32 scales).  Every path then runs them
+through G3 or G4 (``ops.linear.wq_matmul``, row invariant like G1):
+the step and the window the norm-fused forms on the four normed
+projections, every other call the op itself, prefill and ``generate``
+included.  Over int8 pools their K and V rows are quantized
+at the write, as a float model's are: the reference's fused int8 V
+epilogue (``_project_qkv_fused_q8``) has the same bits and waits for a
+G3 that writes int8 V itself.
+
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
 """
@@ -59,6 +70,7 @@ from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.contrib import rms_norm, rope
+from ..contrib.quantization import QuantizedLinear
 from ..ops.linear import rows_linear, rows_norm_linear
 from ..ops.tensor import (cache_dequant, cache_write_q8, paged_block_copy,
                           paged_cache_permute_span,
@@ -126,15 +138,22 @@ def _kernel_pools(pool_k, pool_v):
 
 def _linear(layer, x, rows):
     """``layer(x)`` for a bias-free ``nn.Linear``; with ``rows`` through
-    :func:`rows_linear`."""
-    return rows_linear(x, layer.weight) if rows else layer(x)
+    :func:`rows_linear`.  A ``QuantizedLinear`` is its op (G3 or G4)
+    either way."""
+    if rows and not isinstance(layer, QuantizedLinear):
+        return rows_linear(x, layer.weight)
+    return layer(x)
 
 
 def _normed_linear(norm, layer, x, rows):
     """``layer(norm(x))`` for an :class:`RMSNorm` and a bias-free
-    ``nn.Linear``; with ``rows`` one :func:`rows_norm_linear` call."""
-    return (rows_norm_linear(x, norm.weight, layer.weight) if rows
-            else layer(norm(x)))
+    ``nn.Linear``; with ``rows`` one :func:`rows_norm_linear` call (a
+    ``QuantizedLinear``'s norm-fused op)."""
+    if not rows:
+        return layer(norm(x))
+    if isinstance(layer, QuantizedLinear):
+        return layer.normed(x, norm.weight)
+    return rows_norm_linear(x, norm.weight, layer.weight)
 
 
 def _masked_softmax(scores, valid):
@@ -395,9 +414,10 @@ class TransformerLM(nn.Module):
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
-        """Per-layer (k, v) caches of (B, KV, max_length, D) (int8
-        pairs for ``"int8"``)."""
-        return [layer.attn.init_cache(batch_size, max_length, dtype)
+        """Per-layer (k, v) caches of (B, KV, max_length, D) of
+        ``dtype``, the model's by default (int8 pairs for ``"int8"``)."""
+        return [layer.attn.init_cache(batch_size, max_length,
+                                      dtype or self.dtype)
                 for layer in self.layers]
 
     @torch.no_grad()
@@ -416,9 +436,10 @@ class TransformerLM(nn.Module):
 
     # -- paged pool: the serving path --------------------------------------
     def init_block_pool(self, num_blocks, block_size, dtype=None):
-        """Per-layer (k, v) page pools of (num_blocks, KV, bs, D) (int8
-        pairs for ``"int8"``)."""
-        return [layer.attn.init_block_pool(num_blocks, block_size, dtype)
+        """Per-layer (k, v) page pools of (num_blocks, KV, bs, D) of
+        ``dtype``, the model's by default (int8 pairs for ``"int8"``)."""
+        return [layer.attn.init_block_pool(num_blocks, block_size,
+                                           dtype or self.dtype)
                 for layer in self.layers]
 
     @torch.no_grad()

@@ -28,6 +28,24 @@ A bfloat16 call is one launch on :func:`plan`: every weight byte is read
 once at any M <= 128 rows, and the K splits (:func:`splits`,
 :func:`k_ranges`, functions of N and K alone) are added in split order
 inside a thread-block cluster, so the wrapper allocates nothing but y.
+
+G3 and G4 are the same kernels reading weight-only quantized weights
+(the reference's ``wq_matmul_i8`` and ``wq_matmul_i4``,
+``mxtpu/contrib/quantization.py``), one op, :func:`wq_matmul`, which
+reads the weight type from the shapes: int8 (N, K) with a float32 scale
+a channel (wscale (N,)), or two int4 a byte, (N, K/2), with a float32
+scale a channel and group (wscale (N, G)); with ``gamma`` the norm is
+fused in, as :func:`rows_norm_linear` fuses it into G1.  The weights
+are turned into bf16 in registers, so no float copy of a weight is ever
+written; int8 scales the whole sum once, int4 each group's sum (a fresh
+float32 accumulator) before adding it in k order, and a bias (float32)
+comes after the scale.  Their plain versions (:func:`wq_matmul_i8_plain`,
+:func:`wq_matmul_i4_plain`) compute that arithmetic in float32
+(:func:`wq_matmul_plain` picks one by the shapes, as :func:`wq_matmul`
+picks the kernel).  A call adds one to ``rows_linear_i8`` or
+``rows_linear_i4``, and a fused one to ``rows_norm_linear`` too; on a
+CUDA tensor it launches the kernel or raises (no dequantized weight, no
+library GEMM, no fallback).
 """
 
 from __future__ import annotations
@@ -43,11 +61,18 @@ from . import _build
 from .contrib import rms_norm
 
 __all__ = ["rows_linear", "rows_linear_plain", "rows_norm_linear",
-           "rows_norm_linear_plain", "plan", "splits", "k_ranges",
-           "KERNEL_NAME", "NORM_KERNEL_NAME"]
+           "rows_norm_linear_plain", "wq_matmul", "wq_matmul_plain",
+           "wq_matmul_i8_plain",
+           "wq_matmul_i4_plain", "unpack_int4_torch", "plan", "splits",
+           "k_ranges", "KERNEL_NAME", "NORM_KERNEL_NAME", "I8_KERNEL_NAME",
+           "I4_KERNEL_NAME"]
 
 KERNEL_NAME = "rows_linear"
 NORM_KERNEL_NAME = "rows_norm_linear"
+I8_KERNEL_NAME = "rows_linear_i8"
+I4_KERNEL_NAME = "rows_linear_i4"
+#: the kernels' weight types (csrc/rows_linear.cu's WT)
+_WTYPES = {"bf16": 0, "int8": 1, "int4": 2}
 _FNS: dict = {}
 
 # the bf16 kernel's tiling (csrc/rows_linear.cu): x rows a block holds,
@@ -64,15 +89,25 @@ _PART_PAD = 4
 _GAIN_SLOT = _BK * 4     # the fused norm's gains of one slice, a stage
 _NORM_WARPS = 2          # the fused norm's normalizing warps above 8 rows
 MAX_SMEM_BYTES = 232448
-#: row classes (the kernel's kClasses): (rows a block holds, 16-column A
+#: row classes (the kernel's class tables): (rows a block holds, 16-column A
 #: tiles a computing warp, 8-row B groups a computing warp, computing
 #: warps across the rows, ring stages); 4 computing warps across the N
 #: tile of 64 * (A tiles a warp) columns, and one producer warp.  128
 #: rows take 256-column tiles, or 192 (the last class) where that grid
 #: fits one wave: _ONE_WAVE blocks, 30 clusters of 4 at one block an SM
 #: on the H100
-_CLASSES = ((8, 1, 1, 1, 4), (32, 1, 4, 1, 4), (64, 2, 8, 1, 3),
-            (128, 4, 8, 2, 4), (128, 3, 8, 2, 5))
+#: one table a weight type: int8's stages hold about bf16's ring bytes;
+#: int4 keeps a group's accumulators beside the running sums, so its 64-
+#: and 128-row classes take half the A tiles, and it has no 192 class
+_CLASSES = {
+    "bf16": ((8, 1, 1, 1, 4), (32, 1, 4, 1, 4), (64, 2, 8, 1, 3),
+             (128, 4, 8, 2, 4), (128, 3, 8, 2, 5)),
+    "int8": ((8, 1, 1, 1, 8), (32, 1, 4, 1, 6), (64, 2, 8, 1, 4),
+             (128, 4, 8, 2, 6), (128, 3, 8, 2, 7)),
+    "int4": ((8, 1, 1, 1, 8), (32, 1, 4, 1, 8), (64, 1, 8, 1, 6),
+             (128, 2, 8, 2, 6))}
+#: bytes of a weight row's 64-deep slice in a ring stage
+_WROW = {"bf16": 128, "int8": 64, "int4": 32}
 _ONE_WAVE = 120
 
 
@@ -94,16 +129,33 @@ def splits(N, K):
     return s
 
 
-def k_ranges(N, K):
+def wt_splits(N, K, wtype="bf16", group_size=0):
+    """The K splits of weight type ``wtype``: :func:`splits` for bf16 and
+    int8; for int4 it is halved while it exceeds the K / group_size
+    groups, since an int4 split covers whole groups."""
+    s = splits(N, K)
+    if wtype == "int4":
+        while s > K // group_size:
+            s //= 2
+    return s
+
+
+def k_ranges(N, K, wtype="bf16", group_size=0):
     """[(k0, k1), ...]: the K range each split walks, in split order (the
-    kernel's ``k_range``, whole k16 steps but the last)."""
-    S, steps = splits(N, K), _cdiv(K, 16)
+    kernel's ``k_span``: whole k16 steps but the last, or for int4 whole
+    groups of ``group_size``)."""
+    S = wt_splits(N, K, wtype, group_size)
+    if wtype == "int4":
+        G = K // group_size
+        return [(group_size * (s * G // S), group_size * ((s + 1) * G // S))
+                for s in range(S)]
+    steps = _cdiv(K, 16)
     return [(min(16 * (s * steps // S), K), min(16 * ((s + 1) * steps // S), K))
             for s in range(S)]
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M, N, K, norm=False):
+def plan(M, N, K, norm=False, wtype="bf16", group_size=0):
     """The bfloat16 launch for M >= 1 rows (the C launcher recomputes it
     and refuses a plan that disagrees): the row class ``rows`` (8, 32,
     64 or 128: the x rows one block holds; ``chunks`` of them cover M),
@@ -114,21 +166,25 @@ def plan(M, N, K, norm=False):
     (the computing warps and one producer warp; with ``norm``, the fused
     norm's, two normalizing warps more above 8 rows) and the shared
     memory ``smem`` in bytes (with ``norm``, a slot of gains a stage
-    more).  Only the N tile and the
+    more).  ``wtype`` ("bf16", "int8" or "int4" with ``group_size``)
+    picks the class table (G3's and G4's) and the weight bytes of a
+    stage; the splits are :func:`wt_splits`.  Only the N tile and the
     ring depend on M; no element's arithmetic does.  Callers must not
     modify the returned dict."""
-    c = next(i for i, c in enumerate(_CLASSES) if c[0] >= min(M, _CHUNK))
-    if c == 3 and _cdiv(N, 192) * splits(N, K) <= _ONE_WAVE:
+    classes = _CLASSES[wtype]
+    c = next(i for i, c in enumerate(classes) if c[0] >= min(M, _CHUNK))
+    if c == 3 and len(classes) > 4 \
+            and _cdiv(N, 192) * splits(N, K) <= _ONE_WAVE:
         c = 4
-    rows, cw, _, warp_rows, stages = _CLASSES[c]
+    rows, cw, _, warp_rows, stages = classes[c]
     bn = 64 * cw
-    smem = _HEAD + max(stages * (bn + rows) * _BK * 2,
+    smem = _HEAD + max(stages * (bn * _WROW[wtype] + rows * _BK * 2),
                        rows * (bn + _PART_PAD) * 4) \
         + (stages * _GAIN_SLOT if norm else 0)
     warps = 4 * warp_rows + 1 + (_NORM_WARPS if norm and rows > 8 else 0)
     return dict(rows=rows, chunks=_cdiv(M, rows), bn=bn, tiles=_cdiv(N, bn),
-                splits=splits(N, K), bk=_BK, stages=stages,
-                threads=32 * warps, smem=smem)
+                splits=wt_splits(N, K, wtype, group_size), bk=_BK,
+                stages=stages, threads=32 * warps, smem=smem)
 
 
 def rows_linear_plain(x, weight):
@@ -151,7 +207,11 @@ def _fns():
                    norm_bf16=(lib.mxtpu_rows_norm_linear_bf16,
                               [vp] * 4 + [i] * 4 + [f] + [i] * 4 + [vp]),
                    norm_f32=(lib.mxtpu_rows_norm_linear_f32,
-                             [vp] * 4 + [i] * 3 + [f, vp]))
+                             [vp] * 4 + [i] * 3 + [f, vp]),
+                   q_bf16=(lib.mxtpu_rows_linear_q_bf16,
+                           [vp] * 6 + [i] * 5 + [f] + [i] * 4 + [vp]),
+                   q_f32=(lib.mxtpu_rows_linear_q_f32,
+                          [vp] * 6 + [i] * 5 + [f, vp]))
         for name, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -267,4 +327,158 @@ def rows_norm_linear(x, gamma, weight, eps=1e-6):
                          "%d; plan %r)" % (rc, p))
     bump(KERNEL_NAME)
     bump(NORM_KERNEL_NAME)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+# -- G3 and G4: weight-only int8 and int4 --------------------------------
+
+def unpack_int4_torch(packed):
+    """(O, I/2) int8 bytes of two int4 values each (k even in the low
+    nibble, the reference's ``pack_int4`` layout) → (O, I) int8 values,
+    each nibble sign-extended."""
+    b = packed.to(torch.int16)
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = b >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(
+        packed.shape[:-1] + (2 * packed.shape[-1],)).to(torch.int8)
+
+
+def wq_matmul_i8_plain(x, qweight, wscale, bias=None):
+    """G3's plain version, the reference's ``wq_matmul_i8`` arithmetic:
+    ``(x @ q^T) * s`` in float32 (+ bias after the scale), rounded once
+    to x's dtype; x (..., K), qweight (N, K) int8, wscale (N,)."""
+    out = torch.matmul(x.float(), qweight.float().t()) * wscale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def wq_matmul_i4_plain(x, qweight, wscale, group_size, in_units=0,
+                       bias=None):
+    """G4's plain version, the reference's ``wq_matmul_i4`` arithmetic:
+    the sum over input groups g, in k order, of ``(x_g @ w_g^T) *
+    s[:, g]`` in float32 (+ bias), rounded once to x's dtype; qweight
+    (N, K/2) packed int4, wscale (N, K / group_size)."""
+    N = qweight.shape[0]
+    K = int(in_units) or 2 * qweight.shape[1]
+    gs = int(group_size) or K
+    G = K // gs
+    lead = x.shape[:-1]
+    xg = x.float().reshape(-1, G, gs).transpose(0, 1)          # (G, M, gs)
+    wg = unpack_int4_torch(qweight).float().reshape(N, G, gs).permute(1, 2, 0)
+    parts = torch.bmm(xg, wg) * wscale.float().t()[:, None, :]  # (G, M, N)
+    out = parts[0]
+    for g in range(1, G):
+        out = out + parts[g]
+    if bias is not None:
+        out = out + bias.float()
+    return out.reshape(lead + (N,)).to(x.dtype)
+
+
+def _check_cuda(name, x2, t, what, shape, dtype):
+    if t.shape != shape or t.dtype != dtype or t.device != x2.device \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise MXTPUError("%s: %s (%s, %s on %s) must be a contiguous, "
+                         "16-byte aligned %s of %s on %s"
+                         % (name, what, tuple(t.shape), t.dtype, t.device,
+                            shape, dtype, x2.device))
+
+
+def _wq_type(x, qweight, wscale):
+    """("int8", 0) or ("int4", group size), read from the shapes."""
+    K = x.shape[-1]
+    if qweight.dim() == 2 and wscale.shape[0] == qweight.shape[0]:
+        if wscale.dim() == 1 and qweight.shape[1] == K:
+            return "int8", 0
+        if wscale.dim() == 2 and 2 * qweight.shape[1] == K \
+                and K % wscale.shape[1] == 0:
+            return "int4", K // wscale.shape[1]
+    raise MXTPUError("wq_matmul: weight %s and scales %s do not fit x %s"
+                     % (tuple(qweight.shape), tuple(wscale.shape),
+                        tuple(x.shape)))
+
+
+def wq_matmul_plain(x, qweight, wscale, gamma=None, bias=None, eps=1e-6):
+    """:func:`wq_matmul`'s plain version: ``rms_norm(x, gamma, eps)``
+    first unless gamma is None, then :func:`wq_matmul_i8_plain` or
+    :func:`wq_matmul_i4_plain` by the shapes."""
+    wtype, gs = _wq_type(x, qweight, wscale)
+    if gamma is not None:
+        x = rms_norm(x, gamma, eps)
+    if wtype == "int8":
+        return wq_matmul_i8_plain(x, qweight, wscale, bias)
+    return wq_matmul_i4_plain(x, qweight, wscale, gs, x.shape[-1], bias)
+
+
+def wq_matmul(x, qweight, wscale, gamma=None, bias=None, eps=1e-6):
+    """G3 or G4: the weight-only quantized projection of x (..., K),
+    float32 or bfloat16, normalized first by ``rows_rms_norm(x, gamma,
+    eps)`` in the same launch unless ``gamma`` is None (bit for bit G2
+    then the op; gamma (K,) of x's dtype).  The weight type follows from
+    the shapes:
+
+    - G3, int8: qweight (N, K) int8, wscale (N,) float32; y = (x @
+      qweight^T) * wscale.
+    - G4, int4: qweight (N, K/2) two int4 a byte (k even low), wscale (N,
+      G) float32 for groups of K / G; y = the sum over groups g, in k
+      order, of (x_g @ w_g^T) * wscale[:, g].
+
+    A bias (N,) float32 comes after the scale; y (..., N) is in x's
+    dtype, each row rounded independently of the others.  On the card
+    the group size is a multiple of 16, and bfloat16 needs K a multiple
+    of 16 (int8) or 32 (int4).  A call adds one to ``rows_linear_i8`` or
+    ``rows_linear_i4``, and with ``gamma`` to ``rows_norm_linear``."""
+    K = x.shape[-1]
+    N = qweight.shape[0]
+    wtype, gs = _wq_type(x, qweight, wscale)
+    counter = I8_KERNEL_NAME if wtype == "int8" else I4_KERNEL_NAME
+    if x.device.type == "cpu":
+        bump(counter)
+        if gamma is not None:
+            bump(NORM_KERNEL_NAME)
+        return wq_matmul_plain(x, qweight, wscale, gamma, bias, eps)
+    name = "wq_matmul"
+    if x.device.type != "cuda":
+        raise MXTPUError("%s: no kernel for device %s" % (name, x.device))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise MXTPUError("%s: x must be float32 or bfloat16, not %s"
+                         % (name, x.dtype))
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    _check_cuda(name, x2, qweight, "qweight", tuple(qweight.shape),
+                torch.int8)
+    _check_cuda(name, x2, wscale, "wscale", tuple(wscale.shape),
+                torch.float32)
+    if bias is not None:
+        _check_cuda(name, x2, bias, "bias", (N,), torch.float32)
+    if gamma is not None:
+        _check_cuda(name, x2, gamma, "gamma", (K,), x.dtype)
+    if wtype == "int4" and gs % 16:
+        raise MXTPUError("%s: the kernel takes a group size that is a "
+                         "multiple of 16 (got %d)" % (name, gs))
+    if x.dtype == torch.bfloat16 and (
+            x2.data_ptr() % 16 or (K % 32 if wtype == "int4" else K % 16)):
+        raise MXTPUError("%s: bfloat16 needs a 16-byte aligned x and K a "
+                         "multiple of %d (got %d)"
+                         % (name, 32 if wtype == "int4" else 16, K))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return y.reshape(x.shape[:-1] + (N,))
+    ptrs = (x2.data_ptr(), None if gamma is None else gamma.data_ptr(),
+            qweight.data_ptr(), wscale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            _WTYPES[wtype], gs, M, N, K, float(eps))
+    p = None
+    if x.dtype == torch.bfloat16:
+        p = plan(M, N, K, gamma is not None, wtype, gs)
+        rc = _fns()["q_bf16"](*ptrs, p["bn"], p["splits"], p["stages"],
+                              p["smem"], _stream(x2))
+    else:
+        rc = _fns()["q_f32"](*ptrs, _stream(x2))
+    if rc != 0:
+        raise MXTPUError("%s: CUDA launch failed (cudaError %d; plan %r)"
+                         % (name, rc, p))
+    bump(counter)
+    if gamma is not None:
+        bump(NORM_KERNEL_NAME)
     return y.reshape(x.shape[:-1] + (N,))

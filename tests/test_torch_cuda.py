@@ -41,7 +41,15 @@ its own; and G2 (``rows_rms_norm``) the same way.  The fused norm
 and two 128-row chunks, in both dtypes and with a gain of either dtype,
 at the 8B's four normed projections and ragged shapes; its rows
 ``torch.equal`` across row counts and orders; no read past x, the gain
-or the weights (each lies at the head of a buffer of NaNs).
+or the weights (each lies at the head of a buffer of NaNs).  G3 and G4
+(``wq_matmul``: G1 reading int8 or packed int4 weights, by the
+shapes) against their plain versions over M 1-200, K not a multiple of
+the 64-deep slice, N not a multiple of the tile, group sizes 16, 32, 64
+and 128, bf16 and float32 x and the 8B's projections, every row
+``torch.equal`` across row counts and orders; their norm-fused forms
+``torch.equal`` to G2 then the op; a call that allocates only y and
+runs with the library products made to raise; weights quantized on the
+card to the CPU's bits.
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -665,6 +673,146 @@ def test_rows_linear_rejects_what_the_kernel_does_not_take(cuda):
         with pytest.raises(base.MXTPUError):
             linear.rows_linear(*args)
     assert base.counts() == {}
+
+
+#: G3's and G4's cases, (N, K, bits, group size, x's dtype): N not a
+#: multiple of 4 or of the tile, K not a multiple of the 64-deep slice,
+#: every group size of 16 to 128 (an int4 split covers whole groups:
+#: (4096, 576) has 9 groups over 2 splits), float32 x (any K for int8),
+#: and the 8B's projections at the main path's group size
+WQ_CASES = [(130, 80, 8, 0, torch.bfloat16), (4096, 544, 8, 0, torch.bfloat16),
+            (96, 72, 8, 0, torch.float32), (200, 96, 8, 0, torch.float32),
+            (130, 96, 4, 16, torch.bfloat16), (200, 160, 4, 32, torch.bfloat16),
+            (4096, 576, 4, 64, torch.bfloat16),
+            (4096, 1024, 4, 128, torch.bfloat16),
+            (96, 80, 4, 16, torch.float32), (200, 128, 4, 32, torch.float32)] \
+    + [(N, K, 8, 0, torch.bfloat16) for N, K in PROJECTIONS] \
+    + [(N, K, 4, 64, torch.bfloat16) for N, K in PROJECTIONS]
+
+
+def _wq_case(N, K, bits, gs, dtype, M=200):
+    """Seeded weights quantized by the port, x of ``dtype``, and a gain."""
+    from mxtpu_torch.contrib.quantization import quantize_tensor
+
+    g = torch.Generator(device="cuda").manual_seed(N + K + bits)
+    w = torch.randn(N, K, generator=g, device="cuda") * 0.02
+    q, s = quantize_tensor(w, bits, gs or 64)
+    x = (torch.randn(M, K, generator=g, device="cuda") * torch.exp(
+        torch.randn(M, 1, generator=g, device="cuda"))).to(dtype)
+    gamma = (1 + 0.3 * torch.randn(K, generator=g, device="cuda")).to(dtype)
+    return x, q, s, gamma
+
+
+def _wq(x, q, s, gamma=None):
+    return linear.wq_matmul(x, q, s, gamma)
+
+
+@pytest.mark.parametrize("N,K,bits,gs,dtype", WQ_CASES, ids=[
+    "%dx%d-int%d-g%d-%s" % (c[:4] + (str(c[4])[6:],)) for c in WQ_CASES])
+def test_wq_matmul_matches_plain_and_each_row_ignores_the_row_count(
+        cuda, N, K, bits, gs, dtype):
+    """G3 and G4 at M = 200 (two 128-row chunks) within TOL of their
+    largest plain output; every prefix of 1 to 128 rows (each row class)
+    and a permutation of 128 and 200 rows give each row the full call's
+    bits; one launch a call, counted as int8 or int4."""
+    x, q, s, _ = _wq_case(N, K, bits, gs, dtype)
+    base.reset_counts()
+    full = _wq(x, q, s)
+    want = linear.wq_matmul_plain(x, q, s)
+    assert full.dtype == dtype and full.shape == (200, N)
+    assert _err(full, want) <= TOL[dtype] * float(want.float().abs().max())
+    for M in (1, 7, 8, 17, 64, 100, 128):
+        assert torch.equal(_wq(x[:M], q, s), full[:M]), M
+    for M in (128, 200):
+        perm = torch.randperm(
+            M, generator=torch.Generator().manual_seed(M)).cuda()
+        assert torch.equal(_wq(x[:M][perm], q, s), full[:M][perm]), M
+    name = linear.I8_KERNEL_NAME if bits == 8 else linear.I4_KERNEL_NAME
+    assert base.counts() == {name: 10}
+
+
+@pytest.mark.parametrize("N,K,bits,gs,dtype", WQ_CASES, ids=[
+    "%dx%d-int%d-g%d-%s" % (c[:4] + (str(c[4])[6:],)) for c in WQ_CASES])
+def test_wq_norm_matmul_is_g2_then_the_op_bit_for_bit(cuda, N, K, bits, gs,
+                                                      dtype):
+    """The fused-norm forms give G2-then-G3/G4's bits at every row class
+    and two 128-row chunks, each call one launch."""
+    x, q, s, gamma = _wq_case(N, K, bits, gs, dtype)
+    name = linear.I8_KERNEL_NAME if bits == 8 else linear.I4_KERNEL_NAME
+    for M in (1, 8, 13, 64, 128, 200):
+        base.reset_counts()
+        got = _wq(x[:M], q, s, gamma)
+        assert base.counts() == {name: 1, linear.NORM_KERNEL_NAME: 1}
+        pair = _wq(contrib.rows_rms_norm(x[:M], gamma), q, s)
+        assert got.dtype == dtype and torch.equal(got, pair), M
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wq_matmul_makes_no_float_weight_and_calls_no_library_gemm(cuda,
+                                                                   bits):
+    """A quantized projection on the card launches G3 or G4 and nothing
+    else: it allocates only y (no dequantized weight), and with the
+    library products made to raise it still runs, counted once."""
+    N, K = 14336, 4096
+    x, q, s, gamma = _wq_case(N, K, bits, 64, torch.bfloat16, M=8)
+    _wq(x, q, s)
+    torch.cuda.synchronize()
+    saved = (torch.matmul, torch.bmm, torch.nn.functional.linear)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a library product was called")
+
+    torch.matmul = torch.bmm = torch.nn.functional.linear = refuse
+    try:
+        base.reset_counts()
+        before = torch.cuda.memory_allocated()
+        y = _wq(x, q, s)
+        yn = _wq(x, q, s, gamma)
+        grew = torch.cuda.memory_allocated() - before
+    finally:
+        torch.matmul, torch.bmm, torch.nn.functional.linear = saved
+    name = linear.I8_KERNEL_NAME if bits == 8 else linear.I4_KERNEL_NAME
+    assert base.counts() == {name: 2, linear.NORM_KERNEL_NAME: 1}
+    nbytes = y.numel() * y.element_size()
+    assert 2 * nbytes <= grew < 2 * nbytes + 1024, (grew, nbytes)
+    assert torch.equal(yn, _wq(contrib.rows_rms_norm(x, gamma), q, s))
+
+
+def test_wq_matmul_rejects_what_the_kernel_does_not_take(cuda):
+    from mxtpu_torch.contrib.quantization import quantize_tensor
+
+    w = torch.randn(32, 96, device="cuda")
+    q8, s8 = quantize_tensor(w, 8)
+    q4, s4 = quantize_tensor(w, 4, 32)
+    x = torch.randn(4, 96, device="cuda", dtype=torch.bfloat16)
+    base.reset_counts()
+    bad8 = [(x[:, :88].contiguous(), q8[:, :88].contiguous(), s8),  # K % 16
+            (x, q8.cpu(), s8), (x, q8, s8[:16]), (x, q8, s8.double()),
+            (x.half(), q8, s8), (x, q8.float(), s8)]
+    q4_24, s4_24 = quantize_tensor(w, 4, 24)
+    bad4 = [(x, q4_24, s4_24),                              # group % 16
+            (x, q4, s4.t().contiguous()), (x, q4, s4[:, :2]),
+            (x[:, :48].contiguous(), q4[:, :24].contiguous(),
+             s4[:, :2].contiguous())]
+    for args in bad8 + bad4:
+        with pytest.raises(base.MXTPUError):
+            linear.wq_matmul(*args)
+    with pytest.raises(base.MXTPUError):                    # gain dtype
+        linear.wq_matmul(x, q8, s8, torch.ones(96, device="cuda"))
+    assert base.counts() == {}
+
+
+def test_quantize_tensor_on_the_card_equals_the_cpu(cuda):
+    """The card quantizes a weight to the CPU's bits (int8, and int4 at
+    group size 64), so the 8B model can be quantized in place."""
+    from mxtpu_torch.contrib.quantization import quantize_tensor
+
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn(512, 4096, generator=g) * 0.02).bfloat16()
+    for bits in (8, 4):
+        qc, sc = quantize_tensor(w, bits)
+        qd, sd = quantize_tensor(w.cuda(), bits)
+        assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc), bits
 
 
 # (B, H, T, D) of the flash kernels; then K3's tiling edges: T below one
