@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. the card: its name and power limit as ``nvidia-smi`` gives them, the
    torch and CUDA versions; TF32 is switched off for float32 products;
 2. build the CUDA kernels from ``mxtpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) into ``mxtpu_torch/_build``; then the timing
+   source, all at once) into ``mxtpu_torch/_build``, logging ptxas's
+   registers and spill bytes of every G3 and G4 instantiation and
+   failing if one spills; then the timing
    floor on a line of its own (``timing_floor``): an empty captured
    graph and G2 on 8 x 4096 bf16 values, timed as every kernel is
    (``cuda_ms``) under a flush that writes 64 MB and leaves dirty lines
@@ -214,6 +216,7 @@ about 2**-24 * sqrt(N*H*W) of its largest partial sum (4e-5 there).
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -547,6 +550,44 @@ def card():
     return line
 
 
+#: the weight types of rows_linear.cu's bf16 kernel (its first template
+#: argument): G3's and G4's names
+WQ_TYPES = {1: "rows_linear_i8", 2: "rows_linear_i4"}
+
+
+def quant_kernel_registers(ptxas_log):
+    """[{kernel, template, gain, registers, spill_stores, spill_loads}]
+    of every G3 and G4 instantiation of the bf16 kernel in ``ptxas -v``'s
+    report of rows_linear.cu (template: its integer arguments WT, CW,
+    NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's)."""
+    out, cur = [], None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            cur = None
+            k = re.search(r"rows_linear_bf16_kernelI((?:Li\d+E)+)(\w*?)EEv",
+                          m.group(1))
+            if k:
+                args = [int(v) for v in re.findall(r"Li(\d+)E", k.group(1))]
+                if args[0] in WQ_TYPES:
+                    gain = k.group(2)
+                    cur = dict(kernel=WQ_TYPES[args[0]], template=args,
+                               gain="none" if "NoNorm" in gain else
+                               "bf16" if "bfloat16" in gain else "float32")
+                    out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def build():
     from mxtpu_torch.ops import _build
 
@@ -559,6 +600,19 @@ def build():
             if any(w in line for w in ("entry function", "registers",
                                        "smem", "spill")):
                 print("ptxas[%s] %s" % (name, line.strip()), flush=True)
+    # G3's and G4's registers and spills, from ptxas's report of this
+    # build: every instantiation must keep its accumulators in registers
+    if "rows_linear" not in built:
+        log(phase="build", quant_kernels="not built in this run")
+        return
+    kernels = quant_kernel_registers(built["rows_linear"]["log"])
+    for k in kernels:
+        log(phase="build", **k)
+    spilled = [k for k in kernels
+               if k.get("spill_stores", 1) or k.get("spill_loads", 1)]
+    if not kernels or spilled:
+        raise AssertionError("G3/G4 kernels spill registers (or ptxas "
+                             "reported none): %s" % (spilled or kernels))
 
 
 # -- phase 3: kernels against plain versions --------------------------------

@@ -64,8 +64,10 @@ the same way, in turns A, B, B, A, one process each: seeded bfloat16 x
 and w at Llama-3-8B's six projections and M = 8, 64 and 128, each
 tree's G1 (``rows_linear``) and, where the tree has them, G3 and G4
 (``wq_matmul``, int8 and int4 at group size 64) on the same w
-quantized by its ``quantize_tensor``, all by ``device_ms``: a parent
-without them gives G1 against the change's G3 and G4 on one card.
+quantized by its ``quantize_tensor``, and on the four projections that
+read a norm G3's and G4's fused forms (``wq_matmul`` with the gain),
+all by ``device_ms``: a parent without them gives G1 against the
+change's G3 and G4 on one card.
 Needs one CUDA card.
 """
 
@@ -257,19 +259,24 @@ def quant_tree(root, turn):
                         generator=g) * 0.02
         x = torch.randn(max(G1_ROWS), K, device="cuda", dtype=torch.bfloat16,
                         generator=g)
+        gamma = (1 + 0.1 * torch.randn(K, device="cuda", generator=g)).to(
+            torch.bfloat16)
         forms = {"g1": lambda xm: linear.rows_linear(xm, w)}
         if quantize_tensor is not None:
             q8, s8 = quantize_tensor(w, 8)
             q4, s4 = quantize_tensor(w, 4, 64)
             forms["g3"] = lambda xm: linear.wq_matmul(xm, q8, s8)
             forms["g4"] = lambda xm: linear.wq_matmul(xm, q4, s4)
+            if name in NORMED:
+                forms["g3n"] = lambda xm: linear.wq_matmul(xm, q8, s8, gamma)
+                forms["g4n"] = lambda xm: linear.wq_matmul(xm, q4, s4, gamma)
         for M in G1_ROWS:
             xm = x[:M].contiguous()
             row = dict(turn=turn, tree=root, projection=name, M=M, N=N, K=K)
             for form, fn in forms.items():
                 row[form + "_ms"] = device_ms(lambda: fn(xm))
             print(json.dumps(row), flush=True)
-        del w, x, forms
+        del w, x, gamma, forms
 
 
 def turns(kind, root_a, root_b, collect):
@@ -311,10 +318,13 @@ def norm(root_a, root_b):
 
 
 def quant(root_a, root_b):
-    """``quant``'s turns and their summary: (G1, G3, G4) ms a turn."""
+    """``quant``'s turns and their summary: (G1, G3, G4, G3 fused, G4
+    fused) ms a turn (None where a tree or a projection has no such
+    form)."""
     return turns("quant", root_a, root_b, lambda rows, r: rows.setdefault(
         "%s,M=%d" % (r["projection"], r["M"]), []).append(
-            (r["g1_ms"], r.get("g3_ms"), r.get("g4_ms"))))
+            (r["g1_ms"], r.get("g3_ms"), r.get("g4_ms"), r.get("g3n_ms"),
+             r.get("g4n_ms"))))
 
 
 def flash(root_a, root_b):

@@ -118,38 +118,86 @@
 //
 // G3 and G4, the weight-only quantized forms (the reference's
 // wq_matmul_i8 and wq_matmul_i4, mxtpu/contrib/quantization.py, which XLA
-// ran with no Pallas kernel): G1's kernels with the weight type as a
+// ran with no Pallas kernel): G1's kernel with the weight type as a
 // template parameter WT.  int8 (G3): w (N, K) int8 with one float32 scale
 // a channel, y = (x @ w^T) * s.  int4 (G4): w (N, K/2) bytes, two
 // weights a byte (k even in the low nibble), one float32 scale a channel
 // and group of gs k, y = sum over groups g in k order of
 // (x_g @ w_g^T) * s[:, g].  Bias (float32) is added after the scale.
 // What bounds them: the weight bytes again, now half (int8) or a quarter
-// plus the scales (int4) of bf16's, so the conversion to bf16 has to stay
-// cheap.  The design is G1's, with these differences:
+// plus the scales (int4) of bf16's, so the instructions a weight byte
+// costs (its shared load, its conversion to bf16) and the latency of a
+// block's walk decide the time at the decode step's 8 rows.  The design
+// is G1's, with these differences:
 // - The weights land by TMA in 64-deep slices of 64 (int8) or 32 (int4)
-//   bytes a row, swizzled by 64 or 32 bytes, and are turned into bf16 in
-//   registers (exactly: an int8 or int4 value is a bf16, and a bf16 x
-//   bf16 product is exact in float32); a float copy of the weight never
-//   exists.  int8: one ldmatrix.x4 gives a lane four bytes of two 16-row
-//   weight fragments for two k16 steps, converted through float32 by a
-//   magic-number add (bytes into 2^23 + u); int4: a lane reads its two
-//   bytes (four nibbles) of a row with one 16-bit load and converts them
-//   with a bf16 magic number (128 + u).
-// - A lane's four k values of a k16 step are its k 4t .. 4t + 3 (the
-//   MMA's k 2t, 2t + 1, 2t + 8, 2t + 9), so x's B fragments are read
-//   with the same order by one 8-byte shared load a lane (ldmatrix would
-//   give 2t, 2t + 1 and 2t + 8, 2t + 9).  The MMA sums the same products.
-// - int8: the splits' float32 partials are added in split order, then
+//   bytes a row, not swizzled, and are turned into bf16 in registers
+//   (exactly: an int8 or int4 value is a bf16, and a bf16 x bf16 product
+//   is exact in float32); a float copy of the weight never exists.
+// - A lane owns a run of k inside each U-deep block of a slice (U = 64
+//   for int8 and for int4 groups of a multiple of 64; else 32 or 16, a
+//   divisor of gs, so k never leaves its group): one 16-byte (int8) or
+//   8-byte (int4) shared load a row gives it its weights for all four
+//   k16 steps of a slice, a half warp reading 128 consecutive bytes.
+//   Step s of lane t takes k kb .. kb + 3 (the MMA's k 2t, 2t + 1 and
+//   2t + 8, 2t + 9), kb = 16t + 4s at U = 64; x's B fragments are read
+//   in the same order, one 16-byte chunk of x's row giving two steps.
+//   The MMA sums the same products.  Conversion: int8 through float32
+//   (bytes into 2^23 + u by prmt, a subtraction, the float's upper half
+//   by prmt); int4 a pair a prmt, a lop3 and a bf16 subtraction (two
+//   nibbles under the bf16 exponent of 128 with the sign bit flipped:
+//   128 + w + 8, then 136 off).
+// - int4's scales reach shared memory with the slices, so a computing
+//   warp reads them there at each group's end and never waits on device
+//   memory in its walk: up to 32 rows a block's scales of its whole
+//   split land by one TMA box with the first stage (where the split's
+//   groups are a multiple of 4 and fit 16 KiB: every 8B projection at
+//   group 64); otherwise the producer warp's 32 lanes copy the scales
+//   of the groups that end in a slice into its stage (cp.async, tracked
+//   by the stage's mbarrier).  Measured at 8 rows: those per-lane copies
+//   cost 10-15% against none at all, and the TMA box took G4 from
+//   0.72-0.86 to 0.66-0.81 of the time of the kernel before this design
+//   (16-bit loads of four nibbles, scales read from device memory).
+// - int8: the splits are whole 64-deep slices (K's last slice is zero
+//   past K); their float32 partials are added in split order, then
 //   multiplied by the channel's scale once and rounded once.
-// - int4: the K splits cover whole groups (a function of N, K and gs:
-//   splits() halved while it exceeds the groups), and each group's k16
-//   steps accumulate into a fresh float32 fragment, which is multiplied
-//   by s[n, g] and added to the split's running sum.  A lane reads the
-//   scales of its columns from global memory a group ahead.  With two
-//   sets of accumulators the wide row classes take half the A tiles.
+// - int4: the K splits cover whole groups (splits(N, K) halved while it
+//   exceeds the K / gs groups: a function of N, K and gs), and each
+//   group's k16 steps accumulate into a fresh float32 fragment, which is
+//   multiplied by s[n, g] and added to the split's running sum.
+// - The classes keep both sets of accumulators in registers with no
+//   spill: a block of one row of computing warps (5 warps) may use 255
+//   registers a thread, one of two rows (9 warps) 168.  int8's 128 rows
+//   take 128 columns, or 192 where that grid fits one wave (as bf16's);
+//   int4 has no 128-row class: above 64 rows its 64-row blocks walk the
+//   rows in chunks (the grid's z), each reading the weights again (from
+//   L2 while the grid's chunks run together).  Above 8 rows x's B
+//   fragments are loaded a step at a time (8 bytes a lane), which keeps
+//   the 64-row int4 class at three blocks an SM.
 // Nothing changes for M: the plan's splits, k ranges and groups are
 // functions of N, K and gs alone, so a row rounds alike at any row count.
+// Measured on the H100 on the way (kernel_ab.py quant, and quant-tree
+// turns over variant trees of the class tables), and dropped:
+// - int4's 64-row class with two A tiles a warp (128 accumulators,
+//   200-220 registers, one block an SM): 1.4-2.4x the one-tile class.
+// - x's B fragments of both steps of a pair held at once at 64 rows (one
+//   16-byte load): 140 registers, two blocks an SM instead of three,
+//   1.3-1.9x; above 8 rows a step's 8 bytes are loaded at a time.
+// - The groups' loop outside the steps' (a group's two MMAs back to
+//   back, fewer registers): 1.4-1.8x at 64 and 128 rows, the same with
+//   plain C++ shared loads or a non-volatile mma.
+// - int4 splits up to 8 (clusters of 8): down at 128 rows 10% faster,
+//   out_proj at 8 and 64 rows 7-20% slower; int8 splits up to 8: 12-27%
+//   faster at 64 rows on N = 4096, 13-36% slower at 128.
+// - Two 64-deep slices a stage at 8 rows (more bytes a barrier round
+//   trip): lm_head 5% faster, the others up to 20% slower (128-deep
+//   int4 slices in the kernel before had read 0.89-1.28x).
+// - The fused norm's row scales with all of a 4096-element row's loads
+//   in flight: ptxas spilled 8-12 bytes for occupancy; pinning one block
+//   an SM (__launch_bounds__ minimum 1) kept them at 1.2-1.6x the time.
+// - The tensor maps' descriptors prefetched (prefetch.tensormap) while
+//   the barriers are set up: no change.  Kept: the split-K epilogue
+//   loads every split's partial before the first sum (3-10% on G4 and
+//   G3, out_proj at 8 rows 0.0191 to 0.0180 ms).
 // The float32 kernel takes the same weight types, converting each weight
 // as it fills its tile.
 
@@ -219,6 +267,24 @@ constexpr int kWFloat = 0, kWI8 = 1, kWI4 = 2;
 __host__ __device__ constexpr int wrow_bytes(int WT) {
   return (kBK * 2) >> WT;
 }
+// int4's scale slots a stage: the groups that end in its slice, at most
+// 4 (gs >= 16), each BN float32 scales
+__host__ __device__ constexpr int scale_slots(int WT) {
+  return WT == kWI4 ? 4 : 0;
+}
+// int4's scale area: in the classes of up to 32 rows, a block's scales of
+// its whole split (BN columns by the split's groups, a multiple of 4 so
+// that a row of them is whole 16-byte units) land by one TMA box with the
+// first stage, where they fit kScaleArea bytes; otherwise (0 bytes) the
+// producer's lanes copy each slice's into its stage's slots.  (In the
+// 64-row class the area cost a block an SM, and down and lm_head 7-21%.)
+constexpr int kScaleArea = 16384;
+__host__ __device__ inline int scale_area_bytes(int WT, int K, int S, int gs,
+                                                int BN, int rows) {
+  if (WT != kWI4 || rows > 32 || (K / gs) % (4 * S)) return 0;
+  const int bytes = BN * (K / gs / S) * 4;
+  return bytes <= kScaleArea ? bytes : 0;
+}
 
 // K splits of a (N, K) bf16 product: a function of N and K alone.  The
 // S splits of one 64-column tile double while the grid holds fewer than
@@ -252,13 +318,20 @@ __host__ __device__ inline void k_range(int K, int S, int split, int* lo,
 }
 
 // The K range [*kbeg, *kend) that split `split` of S walks: k_range's
-// k16 steps (the last cut at K), or for int4 the split's whole groups.
+// k16 steps (the last cut at K); for int8 whole 64-deep slices (the last
+// cut at K), so every slice but K's last is whole; for int4 the split's
+// whole groups.
 __host__ __device__ inline void k_span(int WT, int K, int S, int gs,
                                        int split, int* kbeg, int* kend) {
   if (WT == kWI4) {
     const int groups = K / gs;
     *kbeg = gs * (split * groups / S);
     *kend = gs * ((split + 1) * groups / S);
+  } else if (WT == kWI8) {
+    const int slices = (K + kBK - 1) / kBK;
+    *kbeg = kBK * (split * slices / S);
+    const int end = kBK * ((split + 1) * slices / S);
+    *kend = end < K ? end : K;
   } else {
     int lo, hi;
     k_range(K, S, split, &lo, &hi);
@@ -281,14 +354,20 @@ struct RowClass {
 constexpr RowClass kBf16Classes[] = {{8, 1, 1, 1, 4}, {32, 1, 4, 1, 4},
                                      {64, 2, 8, 1, 3}, {128, 4, 8, 2, 4},
                                      {128, 3, 8, 2, 5}};
+// The quantized forms' classes hold both accumulator sets (int4) in
+// registers with no spill: a block of one row of computing warps (5
+// warps) may use 255 registers a thread, one of two rows (9 warps) 168.
+// int8's 128 rows take 128-column tiles, or 192 where that grid fits one
+// wave (as bf16's); int4 has no 128-row class: above 64 rows the 64-row
+// blocks walk the rows in chunks (the grid's z).
 constexpr RowClass kI8Classes[] = {{8, 1, 1, 1, 8}, {32, 1, 4, 1, 6},
-                                   {64, 2, 8, 1, 4}, {128, 4, 8, 2, 6},
+                                   {64, 2, 8, 1, 4}, {128, 2, 8, 2, 8},
                                    {128, 3, 8, 2, 7}};
 constexpr RowClass kI4Classes[] = {{8, 1, 1, 1, 8}, {32, 1, 4, 1, 8},
-                                   {64, 1, 8, 1, 6}, {128, 2, 8, 2, 6}};
+                                   {64, 1, 8, 1, 6}};
 // Weight type WT's classes: how many, and class c.
 constexpr int num_classes(int WT) {
-  return WT == kWI4 ? 4 : 5;
+  return WT == kWI4 ? 3 : 5;
 }
 constexpr RowClass row_classes(int WT, int c) {
   return WT == kWI4 ? kI4Classes[c] : WT == kWI8 ? kI8Classes[c]
@@ -298,29 +377,41 @@ constexpr RowClass row_classes(int WT, int c) {
 // (30 such clusters); a grid a few blocks past it runs a second wave.
 constexpr int kOneWave = 120;
 
+// The class of M rows: the first that holds min(M, 128) rows (the last
+// one if none does), and for bf16 and int8 at 128 rows the 192-column
+// class where that grid fits one wave.
 inline int row_class(int M, int N, int K, int WT = kWFloat) {
   const int m = M < kChunk ? M : kChunk;
+  const int by_rows = num_classes(WT) > 4 ? 4 : num_classes(WT);
   int c = 0;
-  while (row_classes(WT, c).rows < m) ++c;
+  while (c + 1 < by_rows && row_classes(WT, c).rows < m) ++c;
   if (c == 3 && num_classes(WT) > 4 &&
-      (N + 191) / 192 * splits(N, K) <= kOneWave)
+      (N + 191) / 192 * wt_splits(WT, N, K, 0) <= kOneWave)
     c = 4;
   return c;
+}
+
+// A ring stage's bytes: the slice of the weight tile, of the x rows,
+// then int4's scale slots.
+inline int stage_bytes_of(const RowClass& c, int WT) {
+  const int bn = 16 * kWarpCols * c.cw;
+  return bn * wrow_bytes(WT) + c.rows * kBK * 2 + scale_slots(WT) * bn * 4;
 }
 
 // Shared memory of one block, as the kernel carves it: the stages'
 // mbarriers (and the fused norm's row scales), then (1024-byte aligned,
 // for the 128-byte swizzle) the ring of weight tiles and x rows, which
 // the float32 partial tile reuses after the walk, then the fused norm's
-// gain slots.
+// gain slots, then int4's scale area.
 inline size_t smem_bytes(const RowClass& c, int stages, bool norm,
-                         int WT = kWFloat) {
+                         int WT = kWFloat, int K = 0, int S = 1,
+                         int gs = 0) {
   const int bn = 16 * kWarpCols * c.cw;
-  const size_t ring =
-      (size_t)stages * (bn * wrow_bytes(WT) + c.rows * kBK * 2);
+  const size_t ring = (size_t)stages * stage_bytes_of(c, WT);
   const size_t part = (size_t)c.rows * (bn + kPartPad) * 4;
   return kHead + (ring > part ? ring : part) +
-         (norm ? (size_t)stages * kGainSlot : 0);
+         (norm ? (size_t)stages * kGainSlot : 0) +
+         scale_area_bytes(WT, K, S, gs, bn, c.rows);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -450,15 +541,15 @@ __device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
 // u = 8l + j is lane (l % 4) and chain j of warp l / 4, the butterfly's
 // steps 16 and 8 are shuffles (lane xor 2, xor 1), its steps 4, 2 and 1
 // adds inside the lane, and warp w's sum lands on lanes 4w .. 4w + 3.
-// Past C a chain adds nothing (+0 to a sum of squares).
-template <typename T>
-__device__ float row_scale(const T* __restrict__ xr, int C, float eps,
-                           int lane) {
+// Past C a chain adds nothing (+0 to a sum of squares).  B rows of 16
+// bytes a lane are loaded before their first sum (how many loads are in
+// flight; the order of the sums does not depend on it).
+template <int B, typename T>
+__device__ __forceinline__ float row_scale_inline(const T* __restrict__ xr,
+                                                  int C, float eps,
+                                                  int lane) {
   float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (C % 8 == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
-    // 256 bytes a lane in flight (a 4096-element bf16 row at once): the
-    // loads of a batch are issued before its first sum
-    constexpr int B = 32 / sizeof(T);
     for (int e0 = 8 * lane; e0 < C; e0 += 256 * B) {
       Raw8<T> raw[B];
 #pragma unroll
@@ -494,6 +585,14 @@ __device__ float row_scale(const T* __restrict__ xr, int C, float eps,
   for (int w = 1; w < 8; ++w)
     total += __shfl_sync(0xffffffffu, warp_sum, 4 * w);
   return rsqrtf(total / C + eps);
+}
+
+// G2's and G1's call of it, 256 bytes a lane in flight (a 4096-element
+// bf16 row at once); the quantized forms inline it with fewer
+template <typename T>
+__device__ float row_scale(const T* __restrict__ xr, int C, float eps,
+                           int lane) {
+  return row_scale_inline<(int)(32 / sizeof(T))>(xr, C, eps, lane);
 }
 
 // 8 bf16 x values of one row in shared memory, normalized in place as G2
@@ -535,10 +634,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// 2 and 8 bytes of shared memory (the quantized forms' fragments)
+// 2, 4, 8 and 16 bytes of shared memory (the quantized forms' fragments
+// and scales)
 __device__ __forceinline__ uint32_t lds_u16(unsigned a) {
   unsigned short v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(unsigned a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
   return v;
 }
 __device__ __forceinline__ void lds_u64(uint32_t& lo, uint32_t& hi,
@@ -548,42 +653,77 @@ __device__ __forceinline__ void lds_u64(uint32_t& lo, uint32_t& hi,
                : "r"(a)
                : "memory");
 }
+__device__ __forceinline__ void lds_u128(uint32_t (&r)[4], unsigned a) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
 
-__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&p);
+// 4 bytes from global to shared memory by cp.async, and an arrival on
+// `bar` once all of the thread's earlier cp.async copies have landed
+// (counted among the barrier's expected arrivals: .noinc)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // four int8 weights (the bytes of w, k ascending) as two bf16 pairs, lo =
 // (k0, k1) and hi = (k2, k3), exactly: byte u = w + 128 goes into the
-// mantissa of 2^23 (the float 2^23 + u), and 2^23 + 128 is subtracted
+// mantissa of 2^23 (the float 2^23 + u), 2^23 + 128 is subtracted, and
+// the float's upper half is the bf16 (an integer of 8 significant bits)
 __device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
                                           uint32_t& hi) {
   const uint32_t u = w ^ 0x80808080u;
   constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540));
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541));
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542));
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543));
-  lo = bf16x2_bits(f0 - kMagic, f1 - kMagic);
-  hi = bf16x2_bits(f2 - kMagic, f3 - kMagic);
+  const float f0 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kMagic;
+  const float f1 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kMagic;
+  const float f2 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kMagic;
+  const float f3 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kMagic;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// four int4 weights (the nibbles of v's low 16 bits, k ascending) as two
-// bf16 pairs, exactly: nibble u = w + 8 goes into the mantissa of 128 (the
-// bf16 128 + u), and 136 is subtracted
-__device__ __forceinline__ void i4x4_bf16(uint32_t v, uint32_t& lo,
-                                          uint32_t& hi) {
-  const uint32_t u = v ^ 0x8888u;
-  const uint32_t a = (u & 0xFu) | ((u & 0xF0u) << 12) | 0x43004300u;
-  const uint32_t b = ((u >> 8) & 0xFu) | ((u & 0xF000u) << 4) | 0x43004300u;
+// int4 weights 2p and 2p + 1 of the eight nibbles of w (k ascending; v =
+// w >> 4) as one bf16 pair, exactly: byte p of w and of v go into the
+// pair's two halves, whose low nibbles n are kept and flipped to
+// u = n ^ 8 = weight + 8 under the bf16 exponent of 128 (one lop3:
+// (t & 0x000F000F) ^ 0x43084308, the bf16 128 + u), and 136 is subtracted
+template <int P>
+__device__ __forceinline__ uint32_t i4_pair(uint32_t w, uint32_t v) {
+  const uint32_t t =
+      __byte_perm(w, v, P | (P << 4) | ((4 + P) << 8) | ((4 + P) << 12));
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n"
+      : "=r"(r)
+      : "r"(t), "r"(0x000F000Fu), "r"(0x43084308u));
   const uint32_t off = 0x43084308u;  // (136, 136)
-  __nv_bfloat162 r0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                              *reinterpret_cast<const __nv_bfloat162*>(&off));
-  __nv_bfloat162 r1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b),
-                              *reinterpret_cast<const __nv_bfloat162*>(&off));
-  lo = *reinterpret_cast<uint32_t*>(&r0);
-  hi = *reinterpret_cast<uint32_t*>(&r1);
+  __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<uint32_t*>(&d);
+}
+
+// The threads of a bf16-kernel block: G1's launch bounds are those of its
+// widest classes (288, or 352 with the fused norm's normalizing warps);
+// the quantized forms' are their class's own (4 * WR computing warps, the
+// producer, and the normalizing warps), so a block of one row of
+// computing warps may use 255 registers a thread.
+__host__ __device__ constexpr int block_threads(int WT, int NGW, int WR,
+                                                bool norm) {
+  return WT == kWFloat
+             ? (!norm || NGW == 1 ? 288 : 288 + 32 * kNormWarps)
+             : 32 * (kWarpCols * WR + 1 + (norm && NGW > 1 ? kNormWarps : 0));
 }
 
 // One block: output columns [n0, n0 + BN) of rows [m0, m0 + rows), over
@@ -591,17 +731,18 @@ __device__ __forceinline__ void i4x4_bf16(uint32_t v, uint32_t& lo,
 // 4*warp_rows - 1 compute: warp w owns the 16*CW columns (w % 4) and the
 // 8*NGW rows (w / 4) of the tile.  The next warp produces: it loads slice
 // i (a 64-deep box of the weight tile and one of the chunk's x rows, both
-// through tensor maps, x's with the 128-byte swizzle and the weights'
-// with wrow_bytes(WT)'s; rows past N or M and columns past K land as
-// zeros) into stage i % STAGES once the computing warps have released
-// the stage.  The S splits of an N tile are consecutive blocks of a
-// cluster of P (P = S, or norm_cluster with the fused norm, whose grid is
-// padded to whole clusters: a block past the last N tile loads and
-// stores nothing).
+// through tensor maps, x's with the 128-byte swizzle; rows past N or M
+// and columns past K land as zeros) into stage i % STAGES once the
+// computing warps have released the stage (and int4's producer copies
+// the scales of the groups that end in the slice beside it).  The S splits of an N tile are consecutive blocks of a cluster
+// of P (P = S, or norm_cluster with the fused norm, whose grid is padded
+// to whole clusters: a block past the last N tile loads and stores
+// nothing).
 //
 // WT is the weight type (kWFloat: bf16, kWI8, kWI4 with wscale (N, K /
 // gs)); the quantized forms scale (and add bias, float32, unless null) in
-// the epilogue or, int4, at each group's end.
+// the epilogue or, int4, at each group's end.  WR is the quantized forms'
+// rows of computing warps (G1 reads warp_rows).
 //
 // G (NoNorm, bf16 or float) is the gain's type.  With a gain the
 // producer also copies each slice's gains into the stage's gain slot,
@@ -611,11 +752,12 @@ __device__ __forceinline__ void i4x4_bf16(uint32_t v, uint32_t& lo,
 // Row r of the chunk is first reduced (row_scale) by cluster block
 // r % P, by one of its warps, and its scale is shared with the cluster
 // over distributed shared memory.
-template <int WT, int CW, int NGW, int STAGES, typename G>
+template <int WT, int CW, int NGW, int STAGES, int WR, typename G>
 __global__ void __launch_bounds__(
-    std::is_same<G, NoNorm>::value || NGW == 1 ? 288 : 288 + 32 * kNormWarps)
+    block_threads(WT, NGW, WR, !std::is_same<G, NoNorm>::value))
     rows_linear_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                             const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap smap,
                             const bf16* __restrict__ x,
                             const G* __restrict__ gamma, float eps,
                             const float* __restrict__ wscale,
@@ -628,6 +770,7 @@ __global__ void __launch_bounds__(
   constexpr int BN = 16 * kWarpCols * CW;
   constexpr int PLD = BN + kPartPad;
   constexpr int WB = wrow_bytes(WT);  // a weight row's bytes in a stage
+  constexpr int SQ = scale_slots(WT);
   extern __shared__ uint4 smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
@@ -636,14 +779,21 @@ __global__ void __launch_bounds__(
   const unsigned base = smem_addr(smem_raw);
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem_raw) +
                         (((base + kScalesEnd + 1023) & ~1023u) - base);
-  const int R = 8 * NGW * warp_rows;
-  const int stage_bytes = BN * WB + R * kBK * 2;
+  const int wrows = WT == kWFloat ? warp_rows : WR;
+  const int R = 8 * NGW * wrows;
+  // a stage: the weight box, the x box, then int4's scale slots
+  const int xoff = BN * WB;
+  const int soff = BN * WB + R * kBK * 2;
+  const int stage_bytes = soff + SQ * BN * 4;
   const int ring_bytes = max(STAGES * stage_bytes, R * PLD * 4);
   unsigned char* gslots = ring + ring_bytes;
+  // int4's scale area (128-byte aligned), if its split's scales fit one
+  const int sarea_bytes = scale_area_bytes(WT, K, S, gs, BN, R);
+  unsigned char* sarea = gslots + (kNorm ? STAGES * kGainSlot : 0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cwarps = kWarpCols * warp_rows;  // computing warps
+  const int cwarps = kWarpCols * wrows;  // computing warps
   const int nnw = kNormWarpsOn ? kNormWarps : 0;  // normalizing warps
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -664,7 +814,9 @@ __global__ void __launch_bounds__(
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&full[st], 1);
+      // int4 without a scale area: the producer's 32 lanes also arrive,
+      // as their scales land
+      mbar_init(&full[st], WT == kWI4 && !sarea_bytes ? 33 : 1);
       mbar_init(&empty[st], cwarps);
       if (nnw) mbar_init(&normed[st], nnw);
     }
@@ -686,7 +838,17 @@ __global__ void __launch_bounds__(
       const int nw = cwarps + nnw;
       const int w = warp < cwarps ? warp : warp - 1;
       for (int r = rank + P * w; r < rows; r += P * nw) {
-        const float v = row_scale(x + (size_t)(m0 + r) * K, K, eps, lane);
+        const bf16* xr = x + (size_t)(m0 + r) * K;
+        float v;
+        if constexpr (WT == kWFloat) {
+          v = row_scale(xr, K, eps, lane);
+        } else {
+          // inlined (a call spilled the registers live across it), with
+          // 128 bytes a lane in flight at 8 rows and 64 above: all 256
+          // left ptxas spilling 8-12 bytes for occupancy, and pinning one
+          // block an SM instead to keep them cost 20-60%
+          v = row_scale_inline<NGW == 1 ? 8 : 4>(xr, K, eps, lane);
+        }
         if (lane == 0) scales[r] = v;
       }
       if (clustered) {
@@ -701,20 +863,64 @@ __global__ void __launch_bounds__(
   float acc[CW][NGW][4];
   if (warp == cwarps) {
     if (clustered) cluster_arrive_relaxed();
-    if (lane == 0) {
+    if constexpr (WT == kWFloat) {
+      if (lane == 0) {
+        for (int i = 0; i < nslices; ++i) {
+          const int st = i % STAGES;
+          const int k0 = kbeg + i * kBK;
+          // the gains of the slice's columns up to the split's end
+          const int gbytes =
+              kNorm ? min(kBK, kend - k0) * (int)sizeof(G) : 0;
+          if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
+          unsigned char* ws = ring + (size_t)st * stage_bytes;
+          mbar_expect(&full[st], stage_bytes + gbytes);
+          tma_load(ws, &wmap, k0, n0, &full[st]);
+          tma_load(ws + BN * WB, &xmap, k0, m0, &full[st]);
+          if constexpr (kNorm)
+            bulk_copy(gslots + st * kGainSlot, gamma + k0, gbytes, &full[st]);
+        }
+      }
+    } else if ((WT == kWI4 && !sarea_bytes) || lane == 0) {
+      // the quantized forms: lane 0 loads the slices as G1's producer
+      // does, and int4's scale area with the first; without one, int4's
+      // 32 lanes copy the scales of the groups that end in a slice into
+      // its stage's slots (group j at slot j % SQ, BN columns, rows past
+      // N reading row N - 1's)
+      const int ngroups = WT == kWI4 ? K / gs : 0;
       for (int i = 0; i < nslices; ++i) {
         const int st = i % STAGES;
         const int k0 = kbeg + i * kBK;
-        // the gains of the slice's columns up to the split's end
         const int gbytes = kNorm ? min(kBK, kend - k0) * (int)sizeof(G) : 0;
         if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
         unsigned char* ws = ring + (size_t)st * stage_bytes;
-        mbar_expect(&full[st], stage_bytes + gbytes);
-        // the weight map's columns are bytes for the packed types
-        tma_load(ws, &wmap, WT == kWI4 ? k0 / 2 : k0, n0, &full[st]);
-        tma_load(ws + BN * WB, &xmap, k0, m0, &full[st]);
-        if constexpr (kNorm)
-          bulk_copy(gslots + st * kGainSlot, gamma + k0, gbytes, &full[st]);
+        if (lane == 0) {
+          mbar_expect(&full[st], soff + gbytes + (i == 0 ? sarea_bytes : 0));
+          // the weight map's columns are bytes
+          tma_load(ws, &wmap, WT == kWI4 ? k0 / 2 : k0, n0, &full[st]);
+          tma_load(ws + xoff, &xmap, k0, m0, &full[st]);
+          if constexpr (kNorm)
+            bulk_copy(gslots + st * kGainSlot, gamma + k0, gbytes, &full[st]);
+          // the scale map's coordinates: group, then column (past N zeros)
+          if (i == 0 && sarea_bytes)
+            tma_load(sarea, &smap, kbeg / gs, n0, &full[st]);
+        }
+        if constexpr (WT == kWI4) {
+          if (!sarea_bytes) {
+            // groups [g_lo, g_hi) end in (k0, k1]
+            const int k1 = min(k0 + kBK, kend);
+            const int g_lo = k0 / gs;
+            const int items = (k1 / gs - g_lo) * BN;
+            float* slot = reinterpret_cast<float*>(ws + soff);
+            for (int it = lane; it < items; it += 32) {
+              const int grp = g_lo + it / BN;
+              const int col = it % BN;
+              const int n = min(n0 + col, N - 1);
+              cp_async4(slot + (grp % SQ) * BN + col,
+                        wscale + (size_t)n * ngroups + grp);
+            }
+            cp_async_arrive(&full[st]);
+          }
+        }
       }
     }
     if (clustered) {
@@ -746,8 +952,8 @@ __global__ void __launch_bounds__(
           float gk[8];
           load8(reinterpret_cast<const G*>(gslots + st * kGainSlot) + c8,
                 gk);
-          unsigned char* xs = ring + (size_t)st * stage_bytes +
-                              BN * WB + (u & 7) * 16;
+          unsigned char* xs =
+              ring + (size_t)st * stage_bytes + xoff + (u & 7) * 16;
 #pragma unroll
           for (int j = 0; j < kNormRows; ++j) {
             const int r = r0 + 8 * j;
@@ -759,7 +965,7 @@ __global__ void __launch_bounds__(
         if (lane == 0) mbar_arrive(&normed[st]);
       }
     }
-  } else {
+  } else if constexpr (WT == kWFloat) {
     // the scale of the lane's x row (registers normalization: row g)
     float rs = 0.f;
     if constexpr (kNorm && !kNormWarpsOn) {
@@ -768,37 +974,12 @@ __global__ void __launch_bounds__(
                        : scales[g];
     }
     if (clustered) cluster_arrive();
-    // int4: the group's sums (each group's k16 steps accumulate here from
-    // zero) and the scales of the lane's columns g and g + 8 of each A
-    // tile, for the group being walked and, loaded a group ahead, the
-    // next (a load at the group's start stalled its last step's fold)
-    float accg[CW][NGW][4];
-    float gsc[CW][2], gnext[CW][2];
-    const int ngroups = WT == kWI4 ? K / gs : 0;
-    auto load_scales = [&](float (&dst)[CW][2], int grp) {
-#pragma unroll
-      for (int c = 0; c < CW; ++c)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = n0 + wcol * 16 * CW + c * 16 + g + 8 * h;
-          dst[c][h] = n < N && grp < ngroups
-                          ? wscale[(size_t)n * ngroups + grp]
-                          : 0.f;
-        }
-    };
-    // the step's place in its group (0: the group starts), the group
-    // whose scales gnext will hold next, and the split's last group
-    const int gsteps = WT == kWI4 ? gs / 16 : 1;
-    int gstep = 0;
-    int gnext_at = WT == kWI4 ? kbeg / gs + 1 : 0;
-    const int gend = WT == kWI4 ? kend / gs : 0;
-    if constexpr (WT == kWI4) load_scales(gnext, kbeg / gs);
 #pragma unroll
     for (int c = 0; c < CW; ++c)
 #pragma unroll
       for (int j = 0; j < NGW; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][j][e] = accg[c][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
     // ldmatrix rows (128 bytes each, 16-byte chunk c stored at c ^ (row
     // % 8), and row % 8 == lane % 8 for every row a lane addresses): A
     // rows wcol*16*CW + lane % 16, chunk 2kk + lane / 16; B pairs of
@@ -810,21 +991,6 @@ __global__ void __launch_bounds__(
     const unsigned b_row =
         BN * WB + (grp0 * 8 + 8 * (lane >> 4) + (lane & 7)) * kBK * 2;
     const int b_hi = (lane >> 3) & 1;
-    // The quantized forms.  int8 (64-byte rows, 16-byte chunk c stored
-    // at c ^ ((row / 2) % 4)): one ldmatrix.x4 a 16-row A tile and a pair
-    // of k16 steps, matrices (rows 0-7, step kk), (rows 8-15, kk), (0-7,
-    // kk + 1), (8-15, kk + 1); lane l gives row (l % 8) + 8 * ((l / 8) %
-    // 2), chunk kk + l / 16, and (row / 2) % 4 == (l / 2) % 4.  int4
-    // (32-byte rows, chunk c stored at c ^ ((row / 4) % 2)): the lane's
-    // two bytes of rows g and g + 8 at k 16kk + 4t, byte 8kk + 2t.  B
-    // (both): the lane's 8 bytes of x row 8j + g at k 16kk + 4t.
-    const unsigned q8_row =
-        (wcol * 16 * CW + (lane & 7) + 8 * ((lane >> 3) & 1)) * WB;
-    const int q8_sw = (lane >> 1) & 3;
-    const unsigned q4_row = (wcol * 16 * CW + g) * WB + 2 * t;
-    const int q4_sw = (g >> 2) & 1;
-    const unsigned qb_row = BN * WB + (grp0 * 8 + g) * kBK * 2 + 8 * (t & 1);
-    uint32_t q8[CW][4];
     for (int i = 0; i < nslices; ++i) {
       const int st = i % STAGES;
       // with the fused norm the slice is read once normalized (which it
@@ -838,115 +1004,245 @@ __global__ void __launch_bounds__(
         if (kk >= steps) break;
         uint32_t a[CW][4];
         uint32_t b[NGW][2];
-        if constexpr (WT == kWFloat) {
-          const unsigned a_chunk = ((2 * kk + a_hi) ^ sw) << 4;
-          const unsigned b_chunk = ((2 * kk + b_hi) ^ sw) << 4;
+        const unsigned a_chunk = ((2 * kk + a_hi) ^ sw) << 4;
+        const unsigned b_chunk = ((2 * kk + b_hi) ^ sw) << 4;
 #pragma unroll
-          for (int c = 0; c < CW; ++c)
-            ldsm_x4(a[c], ws + a_row + c * 16 * kBK * 2 + a_chunk);
-          if constexpr (NGW == 1) {
-            ldsm_x2(b[0][0], b[0][1], ws + b_row + b_chunk);
-            if constexpr (kNorm) {
-              // the lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
-              // (past the split's end x is zero and so is the gain)
-              const G* gs_ =
-                  reinterpret_cast<const G*>(gslots + st * kGainSlot);
-              const int k = 16 * kk + 2 * t;
-              const int left = kend - (kbeg + i * kBK);
-              b[0][0] = norm2(b[0][0], rs, gain2(gs_ + k));
-              b[0][1] = norm2(b[0][1], rs,
-                              k + 8 < left ? gain2(gs_ + k + 8)
-                                           : make_float2(0.f, 0.f));
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < NGW; j += 2) {
-              if (grp0 + j < groups) {
-                uint32_t r[4];
-                ldsm_x4(r, ws + b_row + j * 8 * kBK * 2 + b_chunk);
-                b[j][0] = r[0];
-                b[j][1] = r[1];
-                b[j + 1][0] = r[2];
-                b[j + 1][1] = r[3];
-              }
-            }
+        for (int c = 0; c < CW; ++c)
+          ldsm_x4(a[c], ws + a_row + c * 16 * kBK * 2 + a_chunk);
+        if constexpr (NGW == 1) {
+          ldsm_x2(b[0][0], b[0][1], ws + b_row + b_chunk);
+          if constexpr (kNorm) {
+            // the lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+            // (past the split's end x is zero and so is the gain)
+            const G* gs_ =
+                reinterpret_cast<const G*>(gslots + st * kGainSlot);
+            const int k = 16 * kk + 2 * t;
+            const int left = kend - (kbeg + i * kBK);
+            b[0][0] = norm2(b[0][0], rs, gain2(gs_ + k));
+            b[0][1] = norm2(b[0][1], rs,
+                            k + 8 < left ? gain2(gs_ + k + 8)
+                                         : make_float2(0.f, 0.f));
           }
         } else {
-          if constexpr (WT == kWI8) {
-            if ((kk & 1) == 0) {
-              const unsigned chunk = ((kk + (lane >> 4)) ^ q8_sw) << 4;
 #pragma unroll
-              for (int c = 0; c < CW; ++c)
-                ldsm_x4(q8[c], ws + q8_row + c * 16 * WB + chunk);
+          for (int j = 0; j < NGW; j += 2) {
+            if (grp0 + j < groups) {
+              uint32_t r[4];
+              ldsm_x4(r, ws + b_row + j * 8 * kBK * 2 + b_chunk);
+              b[j][0] = r[0];
+              b[j][1] = r[1];
+              b[j + 1][0] = r[2];
+              b[j + 1][1] = r[3];
             }
-            const int h = 2 * (kk & 1);  // the step's two registers
-#pragma unroll
-            for (int c = 0; c < CW; ++c) {
-              i8x4_bf16(q8[c][h], a[c][0], a[c][2]);
-              i8x4_bf16(q8[c][h + 1], a[c][1], a[c][3]);
-            }
-          } else {
-            const unsigned off = (((kk >> 1) ^ q4_sw) << 4) + 8 * (kk & 1);
-#pragma unroll
-            for (int c = 0; c < CW; ++c) {
-              const unsigned r = ws + q4_row + c * 16 * WB + off;
-              i4x4_bf16(lds_u16(r), a[c][0], a[c][2]);
-              i4x4_bf16(lds_u16(r + 8 * WB), a[c][1], a[c][3]);
-            }
-          }
-          const unsigned b_off = ((2 * kk + (t >> 1)) ^ g) << 4;
-#pragma unroll
-          for (int j = 0; j < NGW; ++j)
-            if (grp0 + j < groups)
-              lds_u64(b[j][0], b[j][1],
-                      ws + qb_row + j * 8 * kBK * 2 + b_off);
-          if constexpr (kNorm && NGW == 1) {
-            // the lane's k = 4t .. 4t + 3 of the step (K % 16 == 0 here)
-            const G* gs_ = reinterpret_cast<const G*>(gslots + st * kGainSlot);
-            const int k = 16 * kk + 4 * t;
-            b[0][0] = norm2(b[0][0], rs, gain2(gs_ + k));
-            b[0][1] = norm2(b[0][1], rs, gain2(gs_ + k + 2));
-          }
-        }
-        if constexpr (WT == kWI4) {
-          if (gstep == 0) {
-            // a group starts: its scales were loaded a group ago; the
-            // next group's are loaded now
-#pragma unroll
-            for (int c = 0; c < CW; ++c) {
-              gsc[c][0] = gnext[c][0];
-              gsc[c][1] = gnext[c][1];
-            }
-            if (gnext_at < gend) load_scales(gnext, gnext_at);
-            ++gnext_at;
           }
         }
 #pragma unroll
         for (int j = 0; j < NGW; ++j) {
           if (grp0 + j < groups) {
 #pragma unroll
-            for (int c = 0; c < CW; ++c) {
-              if constexpr (WT == kWI4)
-                mma_bf16(accg[c][j], a[c], b[j][0], b[j][1]);
-              else
-                mma_bf16(acc[c][j], a[c], b[j][0], b[j][1]);
-            }
+            for (int c = 0; c < CW; ++c)
+              mma_bf16(acc[c][j], a[c], b[j][0], b[j][1]);
           }
         }
-        if constexpr (WT == kWI4) {
-          if (++gstep == gsteps) {
-            // the group ends: its sums scaled into the running sum
-            gstep = 0;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  } else {
+    // The quantized forms.  A lane owns a run of k inside each U-deep
+    // block of a slice (U = 64 for int8 and for int4 groups of a multiple
+    // of 64 k, else 32 or 16, dividing gs), so one shared load gives it
+    // its weights for every k16 step of the block, and a step's 16 k are
+    // those of the four lanes t: step s of lane t takes k kb, kb + 1
+    // (the MMA's 2t, 2t + 1) and kb + 2, kb + 3 (2t + 8, 2t + 9) of the
+    // slice, kb = 16t + 4s (U = 64), 32(s / 2) + 8t + 4(s % 2) (U = 32)
+    // or 16s + 4t (U = 16).  x's B fragments are read in the same order:
+    // k kb .. kb + 3 are 8 bytes of one 16-byte chunk of x's row.  The
+    // weight tile's rows (WB bytes, no swizzle) are read 16 (int8), 8,
+    // 4 or 4 x 2 (int4) bytes a lane a row; each half warp reads 128
+    // consecutive bytes (U = 64).
+    float rs = 0.f;
+    if constexpr (kNorm && !kNormWarpsOn) {
+      if (g < rows)
+        rs = clustered ? *cluster.map_shared_rank(scales + g, g % P)
+                       : scales[g];
+    }
+    if (clustered) cluster_arrive();
+    const int U = WT == kWI8 || gs % 64 == 0 ? 64 : gs % 32 == 0 ? 32 : 16;
+    // int4: each group's k16 steps accumulate into accg from zero; at
+    // the group's end accg times the group's scales (from the stage's
+    // slot) is added to acc
+    float accg[CW][NGW][4];
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+#pragma unroll
+      for (int j = 0; j < NGW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][j][e] = accg[c][j][e] = 0.f;
+    const int gsteps = WT == kWI4 ? gs / 16 : 1;
+    const int gps = WT == kWI4 ? K / gs / S : 0;  // groups a split (area)
+    int gstep = 0;                          // the step's place in its group
+    int grp = WT == kWI4 ? kbeg / gs : 0;   // the group being walked
+    // row g of the warp's first A tile (row g + 8 at 8 * WB further), and
+    // x row 8 * grp0 + g of a box (16-byte chunk c stored at c ^ g)
+    const int a_row = (wcol * 16 * CW + g) * WB;
+    const int b_row = (grp0 * 8 + g) * kBK * 2;
+    for (int i = 0; i < nslices; ++i) {
+      const int st = i % STAGES;
+      // with the fused norm the slice is read once normalized
+      if (kNormWarpsOn) mbar_wait(&normed[st], (i / STAGES) & 1);
+      mbar_wait(&full[st], (i / STAGES) & 1);
+      const unsigned ws = smem_addr(ring) + st * stage_bytes;
+      {
+        const int left = kend - (kbeg + i * kBK);
+        // int8 splits are whole slices (K's last is zero past K)
+        const int steps = WT == kWI8 ? 4 : min(4, left / 16);
+        const unsigned wq = ws + a_row;
+        const unsigned xq = ws + xoff + b_row;
+        // the lane's weight words of the slice, rows g and g + 8 of each
+        // A tile: int8 k 16t .. 16t + 15; int4 word w holding steps 2w
+        // and 2w + 1 (nibbles 4h .. 4h + 3 of word w: step 2w + h)
+        constexpr int NWD = WT == kWI8 ? 4 : 2;
+        uint32_t wd[CW][2][NWD];
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const unsigned a = wq + (c * 16 + 8 * r) * WB;
+            if constexpr (WT == kWI8) {
+              lds_u128(wd[c][r], a + 16 * t);
+            } else if (U == 64) {
+              lds_u64(wd[c][r][0], wd[c][r][1], a + 8 * t);
+            } else if (U == 32) {
+              wd[c][r][0] = lds_u32(a + 4 * t);
+              wd[c][r][1] = lds_u32(a + 16 + 4 * t);
+            } else {
+              wd[c][r][0] = __byte_perm(lds_u16(a + 2 * t),
+                                        lds_u16(a + 8 + 2 * t), 0x5410);
+              wd[c][r][1] = __byte_perm(lds_u16(a + 16 + 2 * t),
+                                        lds_u16(a + 24 + 2 * t), 0x5410);
+            }
+          }
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          // the pair of steps 2w, 2w + 1
+          if (2 * w >= steps) break;
+          // x's B fragments, k kb .. kb + 3 of row 8j + g: at 8 rows both
+          // steps' at once, (bp[2h], bp[2h + 1]) step 2w + h's, one
+          // 16-byte chunk (chunk 2t + w at U = 64, 4w + t at U = 32) or 8
+          // bytes a step (chunk 2s + t / 2, half t % 2, at U = 16); with
+          // more rows a step's 8 bytes at a time, for fewer registers
+          uint32_t bp[4];
+          if constexpr (NGW == 1) {
+            const unsigned xr = xq;
+            if (U == 16) {
+              const unsigned half = 8 * (t & 1);
+              lds_u64(bp[0], bp[1],
+                      xr + (((4 * w + (t >> 1)) ^ g) << 4) + half);
+              lds_u64(bp[2], bp[3],
+                      xr + (((4 * w + 2 + (t >> 1)) ^ g) << 4) + half);
+            } else {
+              lds_u128(bp, xr + (((U == 64 ? 2 * t + w : 4 * w + t) ^ g)
+                                 << 4));
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int s = 2 * w + h;
+            if (s >= steps) break;
+            // a[c][r]: row r's (kb, kb + 1); a[c][2 + r]: (kb + 2, kb + 3)
+            uint32_t a[CW][4];
 #pragma unroll
             for (int c = 0; c < CW; ++c)
 #pragma unroll
-              for (int j = 0; j < NGW; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  acc[c][j][e] = __fadd_rn(
-                      acc[c][j][e], __fmul_rn(accg[c][j][e], gsc[c][e >> 1]));
-                  accg[c][j][e] = 0.f;
+              for (int r = 0; r < 2; ++r) {
+                if constexpr (WT == kWI8) {
+                  i8x4_bf16(wd[c][r][s], a[c][r], a[c][2 + r]);
+                } else {
+                  const uint32_t v = wd[c][r][w] >> 4;
+                  if (h == 0) {
+                    a[c][r] = i4_pair<0>(wd[c][r][w], v);
+                    a[c][2 + r] = i4_pair<1>(wd[c][r][w], v);
+                  } else {
+                    a[c][r] = i4_pair<2>(wd[c][r][w], v);
+                    a[c][2 + r] = i4_pair<3>(wd[c][r][w], v);
+                  }
                 }
+              }
+            uint32_t b[NGW][2];
+            if constexpr (NGW == 1) {
+              b[0][0] = bp[2 * h];
+              b[0][1] = bp[2 * h + 1];
+              if constexpr (kNorm) {
+                // the lane's k kb .. kb + 3 of the slice (past the
+                // split's or K's end x is zero and so is the gain)
+                const int kb = U == 64   ? 16 * t + 4 * s
+                               : U == 32 ? 32 * w + 8 * t + 4 * h
+                                         : 16 * s + 4 * t;
+                const G* gsl =
+                    reinterpret_cast<const G*>(gslots + st * kGainSlot);
+                const bool in = kb < left;
+                b[0][0] = norm2(b[0][0], rs,
+                                in ? gain2(gsl + kb) : make_float2(0.f, 0.f));
+                b[0][1] = norm2(b[0][1], rs,
+                                in ? gain2(gsl + kb + 2)
+                                   : make_float2(0.f, 0.f));
+              }
+            } else {
+              const unsigned off =
+                  U == 16 ? (((4 * w + 2 * h + (t >> 1)) ^ g) << 4) +
+                                8 * (t & 1)
+                          : (((U == 64 ? 2 * t + w : 4 * w + t) ^ g) << 4) +
+                                8 * h;
+#pragma unroll
+              for (int j = 0; j < NGW; ++j)
+                if (grp0 + j < groups)
+                  lds_u64(b[j][0], b[j][1], xq + j * 8 * kBK * 2 + off);
+            }
+#pragma unroll
+            for (int j = 0; j < NGW; ++j) {
+              if (grp0 + j < groups) {
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                  if constexpr (WT == kWI4)
+                    mma_bf16(accg[c][j], a[c], b[j][0], b[j][1]);
+                  else
+                    mma_bf16(acc[c][j], a[c], b[j][0], b[j][1]);
+                }
+              }
+            }
+            if constexpr (WT == kWI4) {
+              if (++gstep == gsteps) {
+                // the group ends: its sums scaled into the running sum,
+                // by the scales of columns g and g + 8 of each A tile,
+                // from the scale area ([column][group of the split]) or
+                // the stage's slot ([group % SQ][column])
+                gstep = 0;
+                const int col = wcol * 16 * CW + g;
+                const int cst = sarea_bytes ? 4 * gps : 4;  // a column's
+                const unsigned sl =
+                    sarea_bytes
+                        ? smem_addr(sarea) + col * cst + (grp - kbeg / gs) * 4
+                        : ws + soff + ((grp % SQ) * BN + col) * 4;
+                ++grp;
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                  const float s0 =
+                      __uint_as_float(lds_u32(sl + c * 16 * cst));
+                  const float s1 =
+                      __uint_as_float(lds_u32(sl + (c * 16 + 8) * cst));
+#pragma unroll
+                  for (int j = 0; j < NGW; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      acc[c][j][e] = __fadd_rn(
+                          acc[c][j][e],
+                          __fmul_rn(accg[c][j][e], e < 2 ? s0 : s1));
+                      accg[c][j][e] = 0.f;
+                    }
+                }
+              }
+            }
           }
         }
       }
@@ -985,15 +1281,40 @@ __global__ void __launch_bounds__(
     const int r = q / quads;
     const int c = (q - r * quads) * 4;
     if (c >= ncols) continue;
-    float4 v = *reinterpret_cast<const float4*>(
-        (S > 1 ? cluster.map_shared_rank(part, first) : part) + r * PLD + c);
-    for (int z = 1; z < S; ++z) {
-      const float4 u = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(part, first + z) + r * PLD + c);
-      v.x += u.x;
-      v.y += u.y;
-      v.z += u.z;
-      v.w += u.w;
+    float4 v;
+    if constexpr (WT == kWFloat) {
+      v = *reinterpret_cast<const float4*>(
+          (S > 1 ? cluster.map_shared_rank(part, first) : part) + r * PLD +
+          c);
+      for (int z = 1; z < S; ++z) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, first + z) + r * PLD + c);
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+    } else {
+      // the quantized forms: every split's partial loaded before the
+      // first sum (each a distributed shared memory read, latencies
+      // overlapped), then added in split order as G1 adds them
+      float4 u[kMaxSplits];
+#pragma unroll
+      for (int z = 0; z < kMaxSplits; ++z)
+        if (z < S)
+          u[z] = *reinterpret_cast<const float4*>(
+              (S > 1 ? cluster.map_shared_rank(part, first + z) : part) +
+              r * PLD + c);
+      v = u[0];
+#pragma unroll
+      for (int z = 1; z < kMaxSplits; ++z) {
+        if (z < S) {
+          v.x += u[z].x;
+          v.y += u[z].y;
+          v.z += u[z].z;
+          v.w += u[z].w;
+        }
+      }
     }
     if constexpr (WT != kWFloat) {
       // int8: the channel's scale once, on the whole sum; then the bias
@@ -1159,13 +1480,8 @@ using EncodeTiled = CUresult (*)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// A (rows, K) row-major tensor as a map of boxes of box_rows rows and a
-// 64-deep K slice, out-of-bounds elements loading as zeros: bf16 x or
-// weights (WT = kWFloat; 128-byte rows, 128-byte swizzle), or int8 or
-// packed int4 weights as bytes (64- or 32-byte rows, swizzled by as
-// many bytes).
-cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
-                       int box_rows, int WT = kWFloat) {
+// cuTensorMapEncodeTiled, looked up once.
+cudaError_t tiled_encoder(EncodeTiled* out) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -1176,6 +1492,19 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
     if (found != cudaDriverEntryPointSuccess || encode == nullptr)
       return cudaErrorNotSupported;
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A (rows, K) row-major tensor as a map of boxes of box_rows rows and a
+// 64-deep K slice, out-of-bounds elements loading as zeros: bf16 x or
+// weights (WT = kWFloat; 128-byte rows, 128-byte swizzle), or int8 or
+// packed int4 weights as bytes (64- or 32-byte rows, not swizzled).
+cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
+                       int box_rows, int WT = kWFloat) {
+  EncodeTiled encode;
+  const cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
   // a row's bytes, and the box's
   const int row_bytes = WT == kWFloat ? 2 * K : WT == kWI8 ? K : K / 2;
   const int box_bytes = wrow_bytes(WT);
@@ -1192,10 +1521,27 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, int rows, int K,
                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       2, const_cast<void*>(p), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      WT == kWFloat ? CU_TENSOR_MAP_SWIZZLE_128B
-      : WT == kWI8  ? CU_TENSOR_MAP_SWIZZLE_64B
-                    : CU_TENSOR_MAP_SWIZZLE_32B,
+      WT == kWFloat ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// int4's (N, G) float32 scales as a map of boxes of box_rows columns and
+// box_groups groups (whole 16-byte units), past N loading as zeros
+cudaError_t encode_scale_map(CUtensorMap* map, const float* p, int N, int G,
+                             int box_rows, int box_groups) {
+  EncodeTiled encode;
+  const cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)G, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)G * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_groups, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1211,7 +1557,8 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
   constexpr RowClass C = row_classes(WT, CI);
   constexpr int BN = 16 * kWarpCols * C.cw;
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
-  auto kernel = rows_linear_bf16_kernel<WT, C.cw, C.ngw, C.stages, G>;
+  auto kernel =
+      rows_linear_bf16_kernel<WT, C.cw, C.ngw, C.stages, C.warp_rows, G>;
   static int smem_set = 0;
   static int schedulable[kNormCluster + 1][2] = {};  // smem schedulable
   cudaError_t err;
@@ -1221,16 +1568,20 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  CUtensorMap wmap = {}, xmap = {};
+  CUtensorMap wmap = {}, xmap = {}, smap = {};
+  const int rows = 8 * C.ngw * C.warp_rows;  // a block's x rows
   if (K > 0) {
-    const int rows = 8 * C.ngw * C.warp_rows;
     if ((err = encode_map(&wmap, w, N, K, BN, WT)) != cudaSuccess ||
         (err = encode_map(&xmap, x, M, K, rows)) != cudaSuccess)
+      return (int)err;
+    if (scale_area_bytes(WT, K, S, gs, BN, rows) &&
+        (err = encode_scale_map(&smap, wscale, N, K / gs, BN,
+                                K / gs / S)) != cudaSuccess)
       return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
   const int blocks = (N + BN - 1) / BN * S;
-  cfg.gridDim = dim3((blocks + P - 1) / P * P, 1, (M + kChunk - 1) / kChunk);
+  cfg.gridDim = dim3((blocks + P - 1) / P * P, 1, (M + rows - 1) / rows);
   cfg.blockDim = dim3(
       32 * (kWarpCols * C.warp_rows + 1 + (kNorm && C.ngw > 1 ? kNormWarps
                                                                : 0)),
@@ -1252,8 +1603,8 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
     if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
     known = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, (const bf16*)x, gamma,
-                           eps, wscale, bias, (bf16*)y, M, N, K, S, P,
+  err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, smap, (const bf16*)x,
+                           gamma, eps, wscale, bias, (bf16*)y, M, N, K, S, P,
                            C.warp_rows, gs);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -1278,27 +1629,22 @@ int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
   if (bn != 16 * kWarpCols * c.cw || S != wt_splits(WT, N, K, gs) ||
       stages != c.stages || smem < 0 || (size_t)smem > kMaxSmem ||
-      (size_t)smem != smem_bytes(c, stages, kNorm, WT))
+      (size_t)smem != smem_bytes(c, stages, kNorm, WT, K, S, gs))
     return (int)cudaErrorInvalidValue;
   // blocks a cluster
   const int P = kNorm ? norm_cluster(S) : S;
 #define MXTPU_LAUNCH(CI)                                                    \
   return launch_bf16<WT, CI>(x, gamma, eps, w, wscale, bias, y, M, N, K, gs, \
                              S, P, smem, stream)
-  switch (ci) {
-    case 0:
-      MXTPU_LAUNCH(0);
-    case 1:
-      MXTPU_LAUNCH(1);
-    case 2:
-      MXTPU_LAUNCH(2);
-    case 3:
-      MXTPU_LAUNCH(3);
-    default:
-      // a type with four classes has no class 4 to instantiate
-      if constexpr (num_classes(WT) > 4) MXTPU_LAUNCH(4);
-      return (int)cudaErrorInvalidValue;
-  }
+  if (ci == 0) MXTPU_LAUNCH(0);
+  if (ci == 1) MXTPU_LAUNCH(1);
+  if (ci == 2) MXTPU_LAUNCH(2);
+  // a type with fewer classes has none to instantiate
+  if constexpr (num_classes(WT) > 3)
+    if (ci == 3) MXTPU_LAUNCH(3);
+  if constexpr (num_classes(WT) > 4)
+    if (ci == 4) MXTPU_LAUNCH(4);
+  return (int)cudaErrorInvalidValue;
 #undef MXTPU_LAUNCH
 }
 

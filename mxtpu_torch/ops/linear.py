@@ -37,8 +37,10 @@ a channel (wscale (N,)), or two int4 a byte, (N, K/2), with a float32
 scale a channel and group (wscale (N, G)); with ``gamma`` the norm is
 fused in, as :func:`rows_norm_linear` fuses it into G1.  The weights
 are turned into bf16 in registers, so no float copy of a weight is ever
-written; int8 scales the whole sum once, int4 each group's sum (a fresh
-float32 accumulator) before adding it in k order, and a bias (float32)
+written; a lane reads its weights of a slice with one wide load, its k
+permuted inside its group; int8 scales the whole sum once, int4 each
+group's sum (a fresh float32 accumulator, its scales carried into shared
+memory with the slice) before adding it in k order, and a bias (float32)
 comes after the scale.  Their plain versions (:func:`wq_matmul_i8_plain`,
 :func:`wq_matmul_i4_plain`) compute that arithmetic in float32
 (:func:`wq_matmul_plain` picks one by the shapes, as :func:`wq_matmul`
@@ -64,7 +66,7 @@ __all__ = ["rows_linear", "rows_linear_plain", "rows_norm_linear",
            "rows_norm_linear_plain", "wq_matmul", "wq_matmul_plain",
            "wq_matmul_i8_plain",
            "wq_matmul_i4_plain", "unpack_int4_torch", "plan", "splits",
-           "k_ranges", "KERNEL_NAME", "NORM_KERNEL_NAME", "I8_KERNEL_NAME",
+           "k_ranges", "scale_area", "KERNEL_NAME", "NORM_KERNEL_NAME", "I8_KERNEL_NAME",
            "I4_KERNEL_NAME"]
 
 KERNEL_NAME = "rows_linear"
@@ -92,22 +94,29 @@ MAX_SMEM_BYTES = 232448
 #: row classes (the kernel's class tables): (rows a block holds, 16-column A
 #: tiles a computing warp, 8-row B groups a computing warp, computing
 #: warps across the rows, ring stages); 4 computing warps across the N
-#: tile of 64 * (A tiles a warp) columns, and one producer warp.  128
-#: rows take 256-column tiles, or 192 (the last class) where that grid
-#: fits one wave: _ONE_WAVE blocks, 30 clusters of 4 at one block an SM
-#: on the H100
-#: one table a weight type: int8's stages hold about bf16's ring bytes;
-#: int4 keeps a group's accumulators beside the running sums, so its 64-
-#: and 128-row classes take half the A tiles, and it has no 192 class
+#: tile of 64 * (A tiles a warp) columns, and one producer warp.  bf16's
+#: 128 rows take 256-column tiles, or 192 (the last class) where that
+#: grid fits one wave: _ONE_WAVE blocks, 30 clusters of 4 at one block an
+#: SM on the H100.
+#: The quantized forms' classes keep their accumulators (int4: two sets)
+#: in registers with no spill; int8's 128 rows take 128 columns, or 192
+#: as bf16's do; int4 has no 128-row class: above 64 rows its 64-row
+#: blocks walk the rows in chunks.
 _CLASSES = {
     "bf16": ((8, 1, 1, 1, 4), (32, 1, 4, 1, 4), (64, 2, 8, 1, 3),
              (128, 4, 8, 2, 4), (128, 3, 8, 2, 5)),
     "int8": ((8, 1, 1, 1, 8), (32, 1, 4, 1, 6), (64, 2, 8, 1, 4),
-             (128, 4, 8, 2, 6), (128, 3, 8, 2, 7)),
-    "int4": ((8, 1, 1, 1, 8), (32, 1, 4, 1, 8), (64, 1, 8, 1, 6),
-             (128, 2, 8, 2, 6))}
+             (128, 2, 8, 2, 8), (128, 3, 8, 2, 7)),
+    "int4": ((8, 1, 1, 1, 8), (32, 1, 4, 1, 8), (64, 1, 8, 1, 6))}
 #: bytes of a weight row's 64-deep slice in a ring stage
 _WROW = {"bf16": 128, "int8": 64, "int4": 32}
+#: int4's scale slots a stage (the groups that end in its slice: at most
+#: 4, gs >= 16), each a float32 scale a column of the tile
+_SCALE_SLOTS = {"bf16": 0, "int8": 0, "int4": 4}
+#: int4's scale area, at most: in the classes of up to 32 rows, a block's
+#: scales of its whole split (the split's groups a multiple of 4), loaded
+#: by one TMA box
+_SCALE_AREA = 16384
 _ONE_WAVE = 120
 
 
@@ -142,16 +151,31 @@ def wt_splits(N, K, wtype="bf16", group_size=0):
 
 def k_ranges(N, K, wtype="bf16", group_size=0):
     """[(k0, k1), ...]: the K range each split walks, in split order (the
-    kernel's ``k_span``: whole k16 steps but the last, or for int4 whole
-    groups of ``group_size``)."""
+    kernel's ``k_span``: bf16 whole k16 steps but the last, int8 whole
+    64-deep slices but the last, int4 whole groups of ``group_size``)."""
     S = wt_splits(N, K, wtype, group_size)
     if wtype == "int4":
         G = K // group_size
         return [(group_size * (s * G // S), group_size * ((s + 1) * G // S))
                 for s in range(S)]
-    steps = _cdiv(K, 16)
-    return [(min(16 * (s * steps // S), K), min(16 * ((s + 1) * steps // S), K))
-            for s in range(S)]
+    unit = _BK if wtype == "int8" else 16
+    steps = _cdiv(K, unit)
+    return [(min(unit * (s * steps // S), K),
+             min(unit * ((s + 1) * steps // S), K)) for s in range(S)]
+
+
+def scale_area(N, K, wtype="bf16", group_size=0, bn=64, rows=8):
+    """Bytes of int4's scale area for an N tile of ``bn`` columns in a
+    class of ``rows`` rows: up to 32 rows, the tile's scales of one
+    split's groups where those are a multiple of 4 and fit 16 KiB, else
+    0 (each slice's scales are then copied into its stage)."""
+    if wtype != "int4" or rows > 32:
+        return 0
+    G, S = K // group_size, wt_splits(N, K, wtype, group_size)
+    if G % (4 * S):
+        return 0
+    b = bn * (G // S) * 4
+    return b if b <= _SCALE_AREA else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,21 +190,26 @@ def plan(M, N, K, norm=False, wtype="bf16", group_size=0):
     (the computing warps and one producer warp; with ``norm``, the fused
     norm's, two normalizing warps more above 8 rows) and the shared
     memory ``smem`` in bytes (with ``norm``, a slot of gains a stage
-    more).  ``wtype`` ("bf16", "int8" or "int4" with ``group_size``)
-    picks the class table (G3's and G4's) and the weight bytes of a
-    stage; the splits are :func:`wt_splits`.  Only the N tile and the
-    ring depend on M; no element's arithmetic does.  Callers must not
-    modify the returned dict."""
+    more).  ``wtype`` ("bf16", "int8"
+    or "int4" with ``group_size``) picks the class table (G3's and G4's:
+    int4's largest holds 64 rows, and more rows take 64-row chunks) and
+    the weight bytes of a stage (int4's with its scale slots, and its
+    :func:`scale_area`); the splits are :func:`wt_splits`.  Only the N tile and the ring depend
+    on M; no element's arithmetic does.  Callers must not modify the
+    returned dict."""
     classes = _CLASSES[wtype]
-    c = next(i for i, c in enumerate(classes) if c[0] >= min(M, _CHUNK))
+    by_rows = min(4, len(classes))
+    c = next((i for i in range(by_rows) if classes[i][0] >= min(M, _CHUNK)),
+             by_rows - 1)
     if c == 3 and len(classes) > 4 \
-            and _cdiv(N, 192) * splits(N, K) <= _ONE_WAVE:
+            and _cdiv(N, 192) * wt_splits(N, K, wtype) <= _ONE_WAVE:
         c = 4
     rows, cw, _, warp_rows, stages = classes[c]
     bn = 64 * cw
-    smem = _HEAD + max(stages * (bn * _WROW[wtype] + rows * _BK * 2),
-                       rows * (bn + _PART_PAD) * 4) \
-        + (stages * _GAIN_SLOT if norm else 0)
+    stage = bn * _WROW[wtype] + rows * _BK * 2 + _SCALE_SLOTS[wtype] * bn * 4
+    smem = _HEAD + max(stages * stage, rows * (bn + _PART_PAD) * 4) \
+        + (stages * _GAIN_SLOT if norm else 0) \
+        + scale_area(N, K, wtype, group_size, bn, rows)
     warps = 4 * warp_rows + 1 + (_NORM_WARPS if norm and rows > 8 else 0)
     return dict(rows=rows, chunks=_cdiv(M, rows), bn=bn, tiles=_cdiv(N, bn),
                 splits=wt_splits(N, K, wtype, group_size), bk=_BK,

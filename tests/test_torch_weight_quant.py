@@ -413,9 +413,13 @@ PLAN_CASES = [(N, K, wt, gs) for N, K in PLAN_SHAPES
                          ids=["%dx%d-%s-g%d" % c for c in PLAN_CASES])
 def test_quantized_plan_keeps_splits_and_groups_at_every_row_count(
         N, K, wtype, gs):
-    """G3's and G4's launch plan: the K splits tile K in order (for int4
-    on whole groups), are the same at every row count and with the fused
-    norm, and every plan fits one block's shared memory."""
+    """G3's and G4's launch plan: the K splits tile K in order (int8 on
+    whole 64-deep slices, as many as bf16's; int4 on whole groups), are
+    the same at every row count and with the fused norm; every plan fits
+    one block's shared memory with int4's scale slots in each stage, and
+    its class keeps a lane's accumulators (int4: two sets) within the
+    registers its block size leaves (255 a thread with one row of
+    computing warps, 168 with two: at most 128 and 96 of them)."""
     ranges = linear.k_ranges(N, K, wtype, gs)
     assert ranges[0][0] == 0 and ranges[-1][1] == K
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
@@ -423,11 +427,33 @@ def test_quantized_plan_keeps_splits_and_groups_at_every_row_count(
     if wtype == "int4":
         assert all(k0 % gs == 0 for k0, _ in ranges)
     else:
-        assert ranges == linear.k_ranges(N, K)
+        assert len(ranges) == len(linear.k_ranges(N, K))
+        assert all(k0 % 64 == 0 for k0, _ in ranges)
+    top = 64 if wtype == "int4" else 128     # the largest class's rows
     for M in (1, 8, 9, 33, 64, 100, 128, 200, 1000):
         for norm in (False, True):
             p = linear.plan(M, N, K, norm, wtype, gs)
             assert p["splits"] == len(ranges)
             assert p["chunks"] * p["rows"] >= M
+            assert min(M, top) <= p["rows"] <= top
             assert p["smem"] <= linear.MAX_SMEM_BYTES
             assert p["threads"] <= (12 if norm else 10) * 32
+            stage = p["bn"] * (64 if wtype == "int8" else 32 + 16) \
+                + p["rows"] * 128
+            assert 2 <= p["stages"] and p["stages"] * stage <= p["smem"]
+            # int4's scale area up to 32 rows: the tile's scales of a
+            # split, whole 16-byte rows of groups, where they fit 16 KiB
+            # (the 8B's shapes at group 64 all do)
+            area = linear.scale_area(N, K, wtype, gs, p["bn"], p["rows"])
+            groups = K // gs if wtype == "int4" else 0
+            if area:
+                assert groups % (4 * len(ranges)) == 0 and p["rows"] <= 32
+                assert area == p["bn"] * groups // len(ranges) * 4 <= 16384
+            if wtype == "int4" and gs == 64 and (N, K) in PLAN_SHAPES[:5]:
+                assert bool(area) == (p["rows"] <= 32)
+            warps = p["threads"] // 32 - 1 - (2 if norm and p["rows"] > 8
+                                              else 0)
+            warp_rows = warps // 4
+            accs = (p["bn"] // 16 // 4) * (p["rows"] // warp_rows // 8) * 4
+            accs *= 2 if wtype == "int4" else 1
+            assert accs <= (128 if warp_rows == 1 else 96), p
