@@ -59,7 +59,13 @@ Phases, in order; any failure exits non-zero:
    fused forms equal to G2 then the op (``torch.equal``), timed at M =
    8, 64 and 128 against the plain version and the library yardstick
    (``torch._weight_int8pack_mm`` / ``_weight_int4pack_mm`` on their own
-   packed layouts, else dequantize + torch.matmul, labelled);
+   packed layouts, else dequantize + torch.matmul, labelled); and G3's
+   q8 epilogue (``wq_matmul_q8``) on the 8B's qkv at M = 8, 64 and 128,
+   plain and norm-fused: its q/k rows, int8 V payload and scales
+   ``torch.equal`` to the unfused arm (G3 or its fused norm, then the
+   cache's quantizer on the V heads), within TOL of its plain version,
+   timed beside the plain version, the unfused arm and the library
+   (F.rms_norm, ``torch._weight_int8pack_mm``, the quantizer);
 4. a small float32 model served by the paged engine on the card, its
    streams token-identical to the model's isolated ``generate``;
 4b. a 1-layer float32 model (vocab 20, numpy-seeded weights) served by
@@ -115,11 +121,37 @@ Phases, in order; any failure exits non-zero:
    the profiled decode steps and prefill chunk; the streams held against
    ``generate`` (``streams_vs_generate``: where a greedy stream parts,
    generate's logit gap must stay within ``PARTING_ULPS`` bf16 ulps of
-   its top logit; phase 5's bf16 run is held the same way);
+   its top logit; phase 5's bf16 run is held the same way); the int8
+   weights over int8 pools take the fused int8 V epilogue (G3 with its
+   q8 epilogue a layer each step, the ``*_i8_q8`` launches exact), and
+   the same run through quantize-on-write (the unfused arm, entered
+   directly, ``UnfusedQ8``) must give the same streams token for token,
+   each run's profiled decode step read (kernels and device time a
+   step);
 6q. phase 6b's speculative serve of each quantized model's own motif
    traffic (int8 weights over int8 pools, int4 over bf16 pools): every
    speculative stream token-identical to its plain stream, the
    projections' launches exact, ``window_op_bits`` empty over G4;
+6d. draft-model speculation on the paged engine: phase 5's traffic and
+   engine with spec_k = 4 and ``draft_block`` = the 8B model itself (its
+   own contiguous slot cache of 1.07 GB, no second copy of the weights),
+   over bf16 pools and over int8 ones: every stream, greedy and
+   sampled, token-identical to phase 5's (5b's) plain stream, the
+   greedy requests at 2 or more decode tokens a slot-iteration, the
+   launches exact (K1 and K2 32 a target call or chunk, G1 161 a target
+   or draft call); tokens a slot-iteration, the draft hit rate and the
+   verify calls read;
+6s. the slot engine at 8B (``ContinuousBatchingEngine``, 8 contiguous
+   cache rows of 1024 positions, 1.07 GB): phase 5's 12 requests, the
+   greedy streams held against ``generate`` by the C5 rule; then phase
+   6b's motif traffic without speculation and with spec_k = 4, every
+   speculative stream token-identical to its plain stream; G1 161 a step
+   or verify call, no K1 or K2 (the slot path's attention is plain
+   PyTorch, as the reference's is XLA's);
+6t. beam search (4 beams) and ``SequenceSampler`` (4 samples) on the 8B
+   model, one 64-token prompt and 16 new tokens: finite scores, rows
+   sorted by score, the prompt kept, a seed reproducing its samples,
+   and ``beam_size=1`` equal to greedy ``generate``;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -194,7 +226,9 @@ G4 the same way as G1 and the fused norm, ``rows_linear_i8[qkv,M=8]``,
 ``rows_norm_linear_i4[lm_head,M=128]`` ... (launches: phases 5q and 6q,
 M = 64 from prefill chunks and W = 8 windows; a fused row at 64 rows
 that the motif traffic never launched is left out), each with its
-``library`` label, and K6 as
+``library`` label, G3's q8 epilogue as ``rows_linear_i8_q8[qkv,M=8]``
+... and ``rows_norm_linear_i8_q8[qkv,M=8]`` ... (launches: phases 5q
+and 6q over int8 pools, every one norm-fused), and K6 as
 one row per stage shape); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
@@ -275,6 +309,15 @@ KERNEL_SOURCES = {
                             "none: no pallas_call (XLA's rms_norm and "
                             "mxtpu/contrib/quantization.py:173); G2 fused "
                             "into G4"),
+    "rows_linear_i8_q8": ("mxtpu_torch/csrc/rows_linear.cu",
+                          "none: no pallas_call (XLA's dot_general and "
+                          "_q8_quantize in mxtpu/contrib/quantization.py:"
+                          "144, wq_matmul_i8_q8); G3 with the int8 KV "
+                          "cache's quantizer as its epilogue"),
+    "rows_norm_linear_i8_q8": ("mxtpu_torch/csrc/rows_linear.cu",
+                               "none: no pallas_call (XLA's rms_norm and "
+                               "mxtpu/contrib/quantization.py:144); G2 "
+                               "fused into G3 with the q8 epilogue"),
     "flash_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
                   "mxtpu/ops/pallas/flash_attention.py:107"),
     "flash_dq": ("mxtpu_torch/csrc/flash_attention.cu",
@@ -559,12 +602,23 @@ def quant_kernel_registers(ptxas_log):
     """[{kernel, template, gain, registers, spill_stores, spill_loads}]
     of every G3 and G4 instantiation of the bf16 kernel in ``ptxas -v``'s
     report of rows_linear.cu (template: its integer arguments WT, CW,
-    NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's)."""
-    out, cur = [], None
+    NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's), and
+    of each instantiation of the q8 epilogue they call (its frame and
+    spills; no registers of its own)."""
+    out, cur, entry = [], None, None
     for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and m.group(1) != entry:
+            # a function the kernels call (G3's q8 epilogue): its own
+            # record, so its frame never stands for the last kernel's
+            cur = None
+            if "q8_epilogue" in m.group(1):
+                cur = dict(kernel="q8_epilogue", template=[], gain="none")
+                out.append(cur)
+            continue
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            cur = None
+            cur, entry = None, m.group(1)
             k = re.search(r"rows_linear_bf16_kernelI((?:Li\d+E)+)(\w*?)EEv",
                           m.group(1))
             if k:
@@ -1233,6 +1287,82 @@ def measure_wq(x, q, s, flush, gamma=None):
     return res
 
 
+#: the 8B's qkv as G3's q8 epilogue splits it: head_dim and V heads
+Q8_HEAD_DIM, Q8_V_HEADS = 128, 8
+
+
+def q8_unfused(x, q, s, gamma=None):
+    """The epilogue's unfused arm: G3 (or its fused norm), then the
+    cache's quantizer on each V head."""
+    from mxtpu_torch.ops import linear
+    from mxtpu_torch.ops.tensor import _q8_quantize
+
+    nv = Q8_HEAD_DIM * Q8_V_HEADS
+    y = linear.wq_matmul(x, q, s, gamma)
+    N = y.shape[-1]
+    vq, vs = _q8_quantize(y[:, N - nv:].reshape(-1, Q8_V_HEADS, Q8_HEAD_DIM))
+    return y[:, :N - nv], vq.reshape(-1, nv), vs
+
+
+def measure_q8(x, q, s, flush, gamma=None):
+    """G3 with its q8 epilogue on the 8B's qkv: the q/k rows, the int8
+    payload and the scales ``torch.equal`` to the unfused arm (raises
+    otherwise); against the plain version (q/k and the dequantized V
+    within TOL of their largest plain value); the kernel's, the plain
+    version's, the unfused arm's (``unfused_ms``) and the library's
+    (``torch._weight_int8pack_mm``, after F.rms_norm with a gain, then
+    the cache's quantizer) times; the bound (weights, scales, x, the
+    gain, q/k, payload and scales read or written once)."""
+    from mxtpu_torch.ops import linear
+    from mxtpu_torch.ops.tensor import _q8_quantize
+
+    hd, nv = Q8_HEAD_DIM, Q8_HEAD_DIM * Q8_V_HEADS
+    M, K = x.shape
+    N = q.shape[0]
+
+    def fused():
+        return linear.wq_matmul_q8(x, q, s, hd, nv, gamma=gamma)
+
+    got = fused()
+    want = q8_unfused(x, q, s, gamma)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("G3's q8 epilogue differs from G3 then the "
+                             "cache's quantizer (M = %d, fused norm %s)"
+                             % (M, gamma is not None))
+    plain = linear.wq_matmul_q8_plain(x, q, s, hd, nv, gamma)
+    torch.cuda.synchronize()
+
+    def deq(v):
+        return (v[1].float().reshape(M, -1, hd)
+                * v[2][..., None]).reshape(M, nv)
+    err = max(float((got[0].float() - plain[0].float()).abs().max()),
+              float((deq(got) - deq(plain)).abs().max()))
+    tol = TOL[x.dtype] * max(float(plain[0].float().abs().max()),
+                             float(deq(plain).abs().max()))
+    if not err <= tol:
+        raise AssertionError("G3's q8 epilogue disagrees with its plain "
+                             "version: %g > %g" % (err, tol))
+    res = dict(max_abs_err=err, err_over_tol=err / tol,
+               bit_identical_to_unfused=True)
+    res["ms"] = cuda_ms(fused, flush)
+    res["plain_ms"] = cuda_ms(lambda: linear.wq_matmul_q8_plain(
+        x, q, s, hd, nv, gamma), flush)
+    res["unfused_ms"] = cuda_ms(lambda: q8_unfused(x, q, s, gamma), flush)
+    fn, res["library"], reason = wq_library(x, q, s, gamma)
+    if reason:
+        res["library_error"] = reason
+    res["library"] += " + _q8_quantize"
+    res["library_ms"] = cuda_ms(lambda: _q8_quantize(
+        fn()[:, N - nv:].reshape(M, -1, hd)), flush)
+    nbytes = (q.numel() + 4 * s.numel() + x.numel() * 2
+              + M * (N - nv) * 2 + M * nv + M * (nv // hd) * 4
+              + (K * 2 if gamma is not None else 0))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N * K,
+                                             torch.bfloat16)
+    res["weight_bytes"] = q.numel() + 4 * s.numel()
+    return res
+
+
 def quant_linear_against_plain(flush):
     """G3 and G4, the weight-only int8 and int4 projections (``ops/
     linear.py:wq_matmul``, plain and norm-fused): at small ragged shapes
@@ -1296,6 +1426,20 @@ def quant_linear_against_plain(flush):
                         K=K, group_size=gs, dtype="bfloat16",
                         rows_invariant=True, **res)
                     results[row] = res
+            if bits == 8 and name == "qkv":
+                # G3's q8 epilogue, plain and norm-fused (the decode
+                # step's and the window's qkv over int8 pools)
+                for M in (8, 64, 128):
+                    xm = x[:M].contiguous()
+                    for fused in (False, True):
+                        res = measure_q8(xm, q, s, flush,
+                                         gamma if fused else None)
+                        row = "%s_i8_q8[qkv,M=%d]" % (
+                            "rows_norm_linear" if fused else "rows_linear",
+                            M)
+                        log(phase="quant_linear_vs_plain", kernel=row, M=M,
+                            N=N, K=K, dtype="bfloat16", **res)
+                        results[row] = res
             del q, s, full
         del w, x
     torch.cuda.empty_cache()
@@ -1536,15 +1680,18 @@ def pool_bytes(eng):
 
 #: the projections' launch counters (G1, the fused norm, G3, G4) and G2's
 PROJECTION_COUNTERS = ("rows_linear", "rows_norm_linear", "rows_linear_i8",
-                       "rows_linear_i4", "rows_rms_norm")
+                       "rows_linear_i4", "rows_rms_norm", "rows_linear_i8_q8",
+                       "rows_norm_linear_i8_q8")
 
 
-def projection_launches(model, calls, chunks):
+def projection_launches(model, calls, chunks, q8=False):
     """The projections' launches a serving run must count, by counter:
     each step or verify call runs 5 projections a layer and the head,
     3 a layer and the head fused with their norm; G1 on a bf16 model,
     G3 or G4 on a quantized one, which runs them in each prefill chunk
-    too (5 a layer and the head).  No G2 launch."""
+    too (5 a layer and the head).  With ``q8`` (int8 weights over int8
+    pools, the fused V epilogue) each step's or window's qkv is one of
+    G3's, with the epilogue.  No G2 launch."""
     L = len(model.layers)
     bits = getattr(model.lm_head, "bits", None)
     want = {"rows_norm_linear": (3 * L + 1) * calls}
@@ -1552,7 +1699,33 @@ def projection_launches(model, calls, chunks):
         want["rows_linear"] = (5 * L + 1) * calls
     else:
         want["rows_linear_i%d" % bits] = (5 * L + 1) * (calls + chunks)
+    if q8:
+        want["rows_linear_i8_q8"] = want["rows_norm_linear_i8_q8"] = \
+            L * calls
     return want
+
+
+def q8_route(model, eng):
+    """Whether the engine's steps and windows take the fused int8 V
+    epilogue (the model's own decision on the engine's pools)."""
+    return bool(model.layers[0].attn._fused_q8_epilogue_on(eng._pools[0][1]))
+
+
+class UnfusedQ8:
+    """Routes a model's step and window through quantize-on-write (the
+    unfused arm of the fused int8 V epilogue) while it is entered."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        for layer in self.model.layers:
+            layer.attn._fused_q8_epilogue_on = lambda pool_v: False
+        return self
+
+    def __exit__(self, *exc):
+        for layer in self.model.layers:
+            del layer.attn._fused_q8_epilogue_on
 
 
 def projection_launches_differ(launches, want):
@@ -1580,6 +1753,29 @@ def wq_rows(counts, bits):
         for kind in ("rows_linear", "rows_norm_linear")[:1 + fused]:
             name = "%s_i%d[%s,M=%d]" % (kind, bits, proj, M)
             out[name] = out.get(name, 0) + n
+    return out
+
+
+def q8_key(proj):
+    """A fused-epilogue call's (projection, rows, fused), for ``Counted``
+    on ``wq_matmul_q8`` (imported by the model)."""
+    return lambda a, kw: (proj[a[1].data_ptr()],
+                          a[0].numel() // a[0].shape[-1],
+                          kw.get("gamma") is not None)
+
+
+def q8_rows(counts):
+    """The epilogue's launches by kernels-line row from a ``q8_key``
+    count: ``rows_linear_i8_q8[<proj>,M=<rows>]`` every call,
+    ``rows_norm_linear_i8_q8[...]`` the norm-fused ones; each is a G3
+    launch too (the counters count it so), so it adds to G3's rows,
+    ``rows_linear_i8[...]`` and ``rows_norm_linear_i8[...]``, as well."""
+    out = {}
+    for (proj, M, fused), n in counts.items():
+        for kind in ("rows_linear", "rows_norm_linear")[:1 + fused]:
+            for suffix in ("_i8", "_i8_q8"):
+                name = "%s%s[%s,M=%d]" % (kind, suffix, proj, M)
+                out[name] = out.get(name, 0) + n
     return out
 
 
@@ -1631,6 +1827,7 @@ def serve_llama_3_8b(model, cache_dtype=None):
             Counted(transformer, "rows_norm_linear",
                     lambda a, kw: proj[a[2].data_ptr()]) as fused, \
             Counted(linear, "wq_matmul", wq_key(proj)) as wq, \
+            Counted(transformer, "wq_matmul_q8", q8_key(proj)) as wq8, \
             Timed(model, "prefill_pages") as t_pre, \
             Timed(model, "step_pages") as t_dec:
         torch.cuda.synchronize()
@@ -1656,7 +1853,8 @@ def serve_llama_3_8b(model, cache_dtype=None):
     if after["prefix_hit_requests"] - before["prefix_hit_requests"] <= 0:
         raise AssertionError("no request shared the prefix: %r" % after)
     want = {k1: n_layers * steps, k2: n_layers * chunks}
-    want.update(projection_launches(model, steps, chunks))
+    q8 = q8_route(model, eng)
+    want.update(projection_launches(model, steps, chunks, q8))
     if launches != want or not steps or not chunks:
         raise AssertionError("launches %r, wanted exactly %r" % (launches,
                                                                  want))
@@ -1687,12 +1885,18 @@ def serve_llama_3_8b(model, cache_dtype=None):
                          for p in model.parameters()),
         wq_by_projection_M_fused={"%s,M=%d,%s" % (p, m, f): n
                                   for (p, m, f), n in wq.counts.items()},
+        fused_q8_epilogue=q8,
+        q8_by_projection_M_fused={"%s,M=%d,%s" % (p, m, f): n
+                                  for (p, m, f), n in wq8.counts.items()},
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     if (decode_cap.args is None or prefill_cap.args is None
             or long_cap.args is None):
         raise AssertionError("no kernel inputs were captured")
     profile_decode_steps(eng, model.vocab_size, quantized=bits is not None)
-    launches.update(wq_rows(wq.counts, bits) if bits else {})
+    rows = wq_rows(wq.counts, bits) if bits else {}
+    for k, n in q8_rows(wq8.counts).items():
+        rows[k] = rows.get(k, 0) + n
+    launches.update(rows)
     launches.update({"rows_linear(%s)" % k: n for k, n in by_proj.items()})
     launches.update({"rows_norm_linear(%s)" % k: n
                      for k, n in fused.counts.items()})
@@ -1937,6 +2141,17 @@ def serve_quantized(bits):
     if bits == 8:
         compare_streams("int8_pools_vs_bf16_pools_streams", reqs, runs[None],
                         runs["int8"])
+        # the fused int8 V epilogue against its unfused arm: the same
+        # engine settings and traffic with quantize-on-write
+        with UnfusedQ8(model):
+            unfused = serve_llama_3_8b(model, "int8")[2]
+        parted = [j for j, (a, b) in enumerate(zip(runs["int8"], unfused))
+                  if not np.array_equal(a, b)]
+        log(phase="fused_q8_vs_unfused_streams", requests=len(reqs),
+            identical=len(reqs) - len(parted), parted=parted)
+        if parted:
+            raise AssertionError("the fused int8 V epilogue's streams %r "
+                                 "differ from the unfused arm's" % parted)
     _, _, _, by_m = serve_llama_3_8b_speculative(
         model, "int8" if bits == 8 else None)
     for k, n in by_m["wq"].items():
@@ -2228,6 +2443,7 @@ def serve_speculative(model, eng, reqs):
                                    a[0].numel() // a[0].shape[-1])) \
             as fused, \
             Counted(linear, "wq_matmul", wq_key(proj)) as wq, \
+            Counted(transformer, "wq_matmul_q8", q8_key(proj)) as wq8, \
             FiniteLogits(sampler) as finite, \
             Timed(model, "step_pages") as t_step, \
             Timed(model, "verify_pages") as t_ver:
@@ -2255,7 +2471,7 @@ def serve_speculative(model, eng, reqs):
                                  % (k1.counts.get(key, 0), key, n_layers,
                                     n))
     differ = projection_launches_differ(launches, projection_launches(
-        model, d["steps"], d["prefill_chunks"]))
+        model, d["steps"], d["prefill_chunks"], q8_route(model, eng)))
     if (set(k1.counts) != set(calls)
             or sum(verifies.counts.values()) != d["verify_calls"]
             or sum(calls.values()) != d["steps"]
@@ -2306,6 +2522,8 @@ def serve_speculative(model, eng, reqs):
                    for k, n in sorted(fused.counts.items())},
                wq_by_projection_M_fused={"%s,M=%d,%s" % k: n
                                          for k, n in wq.counts.items()},
+               q8_by_projection_M_fused={"%s,M=%d,%s" % k: n
+                                         for k, n in wq8.counts.items()},
                wall_s=wall,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                **d)
@@ -2314,6 +2532,8 @@ def serve_speculative(model, eng, reqs):
             "tree": tree_cap.args and (tree_cap.args[:5], tree_cap.kwargs)}
     bits = getattr(model.lm_head, "bits", None)
     out_rows = wq_rows(wq.counts, bits) if bits else {}
+    for k, n in q8_rows(wq8.counts).items():
+        out_rows[k] = out_rows.get(k, 0) + n
     return out, streams, k1.counts, caps, out_rows
 
 
@@ -2390,6 +2610,256 @@ def serve_llama_3_8b_speculative(model, cache_dtype=None, reqs=None):
     by_m["wq"] = {k: plain[4].get(k, 0) + spec[4].get(k, 0)
                   for k in set(plain[4]) | set(spec[4])}
     return spec[2], caps, reqs, by_m
+
+
+# -- the rest of decoding: draft-model speculation, the slot engine and the
+# -- sequence samplers at 8B ---------------------------------------------------
+
+#: phase 5's engine settings with the draft model's window
+DRAFT_SERVE = dict(SERVE, spec_k=4)
+#: the slot engine's settings at 8B: contiguous caches of 8 rows x 1024
+#: positions (8 x 1024 x 32 layers x 8 kv heads x 128 x 2 x 2 B = 1.07 GB)
+SLOT_SERVE = dict(num_slots=8, max_length=1024)
+
+
+class Emitted:
+    """Wraps an engine's ``_finish``: each finished request's decode
+    tokens and the decode iterations it took part in (the first token
+    comes from its prefill)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.inner = None
+        self.by_rid = {}
+
+    def __call__(self, row):
+        slot = self.eng._slots[row]
+        self.by_rid[slot.req.rid] = (slot.n_emitted - 1,
+                                     len(slot.emitted) - 1)
+        return self.inner(row)
+
+    def __enter__(self):
+        self.inner = self.eng._finish
+        self.eng._finish = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._finish
+
+
+def serve_draft_model(model, cache_dtype, plain_streams):
+    """Draft-model speculation on the paged engine: phase 5's traffic and
+    engine with spec_k = 4 and ``draft_block`` = the model itself (its
+    own contiguous slot cache, no second copy of the weights), over the
+    model's pools or int8 ones.  Every stream, greedy and sampled, must
+    be token-identical to phase 5's (or 5b's) plain stream, the greedy
+    requests must average 2 or more decode tokens a slot-iteration, and
+    the launches are exact: K1 32 a target call (plain step or verify
+    window), K2 32 a chunk, G1 161 a target or draft call (97 fused)."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models import sampler
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    L = len(model.layers)
+    k1, k2 = k_names(cache_dtype)
+    reqs = traffic(model.vocab_size)
+    eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype,
+                                        draft_block=model, **DRAFT_SERVE)
+    eng.submit(np.arange(64)[None], 2)          # warm-up, outside counts
+    eng.run()
+    before = eng.stats
+    with Counted(model, "step_slots", lambda a, kw: int(a[0].shape[0])) \
+            as drafts, Counted(model, "verify_pages", model_key) as verifies, \
+            FiniteLogits(sampler) as finite, Emitted(eng) as emitted, \
+            Timed(model, "step_slots") as t_draft, \
+            Timed(model, "verify_pages") as t_ver, \
+            Timed(model, "step_pages") as t_step:
+        torch.cuda.synchronize()
+        rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+        base.reset_counts()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = base.counts()
+    after = eng.stats
+    d = {k: after[k] - before[k] for k in (
+        "steps", "generated_tokens", "prefill_chunks", "verify_calls",
+        "drafted_tokens", "accepted_tokens", "slot_iterations")}
+    n_draft = sum(drafts.counts.values())
+    want = {k1: L * d["steps"], k2: L * d["prefill_chunks"]}
+    want.update(projection_launches(model, d["steps"] + n_draft, 0))
+    streams = [res[r].numpy() for r in rids]
+    parted = [j for j, (a, b) in enumerate(zip(streams, plain_streams))
+              if not np.array_equal(a, b)]
+    greedy = [r for r, (_, kw) in zip(rids, reqs) if "temperature" not in kw]
+    g_tok = sum(emitted.by_rid[r][0] for r in greedy)
+    g_it = sum(emitted.by_rid[r][1] for r in greedy)
+    log(phase="serve_draft_model", cache_dtype=str(eng._cache_dtype),
+        requests=len(rids), identical_to_plain=len(rids) - len(parted),
+        parted=parted, target_calls=d["steps"], draft_calls=n_draft,
+        verify_calls=d["verify_calls"], verify_windows=verifies.counts and {
+            "W=%d" % w: n for (w, _), n in verifies.counts.items()},
+        drafted_tokens=d["drafted_tokens"],
+        accepted_tokens=d["accepted_tokens"],
+        draft_hit_rate=(d["accepted_tokens"] / d["drafted_tokens"]
+                        if d["drafted_tokens"] else 0.0),
+        tokens_per_slot_iteration=d["generated_tokens"]
+        / max(1, d["slot_iterations"]),
+        greedy_tokens_per_slot_iteration=g_tok / max(1, g_it),
+        draft_ms=t_draft.ms(), verify_ms=t_ver.ms(), step_ms=t_step.ms(),
+        decode_tokens_per_s=d["generated_tokens"]
+        / ((t_draft.ms() + t_ver.ms() + t_step.ms()) / 1e3),
+        launches=launches, wall_s=wall)
+    if finite.ok is None or not bool(finite.ok):
+        raise AssertionError("a sampled logit row was not finite")
+    if launches != want:
+        raise AssertionError("draft-model launches %r, wanted exactly %r"
+                             % (launches, want))
+    if parted:
+        raise AssertionError("draft-model streams %r differ from the plain "
+                             "streams" % parted)
+    if after["blocks_in_use"] != 0:
+        raise AssertionError("pages leaked: %r" % after)
+    if not g_it or g_tok / g_it < 2.0:
+        raise AssertionError("the greedy requests took %d decode tokens in "
+                             "%d slot-iterations (< 2 a slot-iteration)"
+                             % (g_tok, g_it))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def slot_run(model, reqs, cfg):
+    """``reqs`` through a ``ContinuousBatchingEngine`` on ``cfg`` (warmed
+    up outside the counts): its streams and a summary.  The slot path
+    launches G1 (161 a step or verify call, 97 fused) and no K1 or K2:
+    its attention is plain PyTorch, as the reference's is XLA's."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models import sampler
+    from mxtpu_torch.parallel.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, **cfg)
+    eng.submit(np.arange(64)[None], 2)
+    eng.run()
+    before = eng.stats
+    with FiniteLogits(sampler) as finite, \
+            Counted(model, "verify_slots",
+                    lambda a, kw: int(a[0].shape[1])) as verifies, \
+            Timed(model, "step_slots") as t_step, \
+            Timed(model, "verify_slots") as t_ver:
+        torch.cuda.synchronize()
+        rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+        base.reset_counts()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = base.counts()
+    after = eng.stats
+    d = {k: after[k] - before[k] for k in (
+        "steps", "generated_tokens", "verify_calls", "drafted_tokens",
+        "accepted_tokens", "slot_iterations", "tree_nodes_drafted")}
+    want = projection_launches(model, d["steps"], 0)
+    out = dict(spec_k=cfg.get("spec_k", 0), requests=len(rids),
+               decode_calls=d["steps"], verify_calls=d["verify_calls"],
+               verify_windows={"W=%d" % w: n
+                               for w, n in verifies.counts.items()},
+               drafted_tokens=d["drafted_tokens"],
+               accepted_tokens=d["accepted_tokens"],
+               tokens_per_slot_iteration=d["generated_tokens"]
+               / max(1, d["slot_iterations"]),
+               step_ms=t_step.ms(), verify_ms=t_ver.ms(),
+               mean_ms_per_step=t_step.ms() / max(1, len(t_step.events)),
+               decode_tokens_per_s=d["generated_tokens"]
+               / ((t_step.ms() + t_ver.ms()) / 1e3),
+               launches=launches, wall_s=wall,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if finite.ok is None or not bool(finite.ok):
+        raise AssertionError("a sampled logit row was not finite")
+    if launches != want:
+        raise AssertionError("slot engine launches %r, wanted exactly %r"
+                             % (launches, want))
+    del eng
+    torch.cuda.empty_cache()
+    return [res[r].numpy() for r in rids], out
+
+
+def serve_slots(model, motif_reqs):
+    """The slot engine at 8B (``SLOT_SERVE``): phase 5's 12 requests, the
+    greedy streams held against ``generate`` by the C5 rule
+    (``streams_vs_generate``); then the motif traffic of phase 6b without
+    speculation and with spec_k = 4, every speculative stream
+    token-identical to its plain stream (a window lane attends with the
+    step's shapes, and G1 rounds its rows as the step's)."""
+    reqs = traffic(model.vocab_size)
+    streams, out = slot_run(model, reqs, SLOT_SERVE)
+    log(phase="serve_slots", traffic="phase 5", **out)
+    streams_vs_generate(model, reqs, streams)
+    plain, out = slot_run(model, motif_reqs, SLOT_SERVE)
+    log(phase="serve_slots", traffic="motif", **out)
+    spec, out = slot_run(model, motif_reqs, dict(SLOT_SERVE, spec_k=4))
+    log(phase="serve_slots", traffic="motif", **out)
+    parted = []
+    for j, ((p, kw), a, b) in enumerate(zip(motif_reqs, plain, spec)):
+        diff = np.nonzero(a[0] != b[0])[0]
+        if diff.size:
+            at = int(diff[0])
+            entry = dict(request=j, token=at - p.shape[1],
+                         sampled="temperature" in kw)
+            if not entry["sampled"]:
+                lg = generate_logits(model, a[:, :at], p.shape[1], None)
+                top, other = float(lg[a[0, at]]), float(lg[b[0, at]])
+                ulp = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+                entry.update(gap=top - other, gap_ulps=(top - other) / ulp)
+            parted.append(entry)
+    log(phase="slot_speculative_identity", requests=len(motif_reqs),
+        identical=len(motif_reqs) - len(parted), parted=parted,
+        drafted_tokens=out["drafted_tokens"],
+        accepted_tokens=out["accepted_tokens"])
+    if not out["verify_calls"]:
+        raise AssertionError("the slot engine verified no window: %r" % out)
+    if parted:
+        raise AssertionError("the slot engine's speculative streams part "
+                             "from its plain streams: %r" % parted)
+
+
+def samplers_8b(model):
+    """Beam search (4 beams) and ``SequenceSampler`` (4 samples) on the
+    8B model, one 64-token prompt, 16 new tokens: finite scores, the
+    prompt kept, rows sorted by score, the same samples from the same
+    seed, and ``beam_size=1`` equal to greedy ``generate``."""
+    from mxtpu_torch.models.sampler import (BeamSearchSampler,
+                                            SequenceSampler, beam_search)
+
+    p = np.random.RandomState(11).randint(0, model.vocab_size, (1, 64))
+    n = 16
+    t0 = time.perf_counter()
+    beams, scores = BeamSearchSampler(model, beam_size=4)(p, n)
+    t_beam = time.perf_counter() - t0
+    one, _ = beam_search(model, p, n, beam_size=1)
+    want = model.generate(torch.from_numpy(p).cuda(), n).cpu().numpy()
+    s = SequenceSampler(model, n_samples=4, temperature=0.8, top_k=50)
+    t0 = time.perf_counter()
+    samples, sscores = s(p, n, seed=3)
+    t_seq = time.perf_counter() - t0
+    again, _ = s(p, n, seed=3)
+    checks = dict(
+        beam_shape=tuple(beams.shape) == (1, 4, 64 + n),
+        beam_scores_finite=bool(np.isfinite(scores).all()),
+        beams_sorted=bool((np.diff(scores, axis=1) <= 0).all()),
+        beam_prompt_kept=bool((beams.numpy()[0, :, :64] == p).all()),
+        beam_size_1_is_generate=bool(np.array_equal(one.numpy()[:, 0], want)),
+        samples_shape=tuple(samples.shape) == (1, 4, 64 + n),
+        sample_scores_finite=bool(np.isfinite(sscores).all()),
+        samples_sorted=bool((np.diff(sscores, axis=1) <= 0).all()),
+        sample_prompt_kept=bool((samples.numpy()[0, :, :64] == p).all()),
+        seed_reproduces=bool(torch.equal(samples, again)))
+    log(phase="samplers", beam_s=t_beam, sequence_s=t_seq,
+        beam_scores=scores[0].tolist(), sample_scores=sscores[0].tolist(),
+        **checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError("the samplers failed %r" % failed)
 
 
 def lane_invariant(args, kw):
@@ -3095,6 +3565,12 @@ def main():
         model)
     k1_counts_q8, verify_caps_q8, _, _ = serve_llama_3_8b_speculative(
         model, "int8", reqs)
+    # the rest of decoding: draft-model speculation on the paged engine
+    # (the model's pools, then int8 ones), the slot engine, the samplers
+    serve_draft_model(model, None, streams)
+    serve_draft_model(model, "int8", streams_q8)
+    serve_slots(model, reqs)
+    samplers_8b(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3105,9 +3581,10 @@ def main():
         quant_launches.update(serve_quantized(bits))
     for name, res in wq_results.items():
         n = quant_launches.get(name, 0)
-        if not n and name.startswith("rows_norm_linear") and "M=64" in name:
-            # only a linear W = 8 window runs a fused projection at 64
-            # rows, and the motif traffic may draft none
+        if not n and (name.startswith("rows_norm_linear")
+                      or "_q8[" in name) and "M=64" in name:
+            # only a linear W = 8 window runs a fused projection (and the
+            # epilogue) at 64 rows, and the motif traffic may draft none
             log(phase="kernels_row_dropped", kernel=name, launches=0)
             continue
         if not n:

@@ -9,6 +9,7 @@
     python3 kernel_ab.py norm ROOT_A ROOT_B
     python3 kernel_ab.py flash ROOT_A ROOT_B
     python3 kernel_ab.py quant ROOT_A ROOT_B
+    python3 kernel_ab.py q8 ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
 (this tree's port) and saves the first counted step's K6 inputs, one
@@ -68,6 +69,19 @@ quantized by its ``quantize_tensor``, and on the four projections that
 read a norm G3's and G4's fused forms (``wq_matmul`` with the gain),
 all by ``device_ms``: a parent without them gives G1 against the
 change's G3 and G4 on one card.
+
+``q8`` profiles the int8-weight decode step over int8 pools of the
+checkouts at ROOT_A and ROOT_B in turns, A, B, B, A, one process each:
+that tree's ``chip_smoke.llama_3_8b_quantized(8)`` (the 8B model at full
+width and depth, bf16 weights from seed 0, quantized to int8 on the
+card) in that tree's ``PagedContinuousBatchingEngine`` on phase 5's
+settings with int8 pools, 8 slots at ~520 tokens of context (seeded
+512-token prompts, as ``profile_decode_steps``), and ``Q8_STEPS``
+pooled decode steps under ``chip_smoke.profile_device``: kernels a step,
+device time a step, wall time a step and the idle share, beside the
+first ``Q8_TOKENS`` tokens of each stream, which the two trees must
+share.  A tree with the fused int8 V epilogue runs it there; its parent
+quantizes V at the write.
 Needs one CUDA card.
 """
 
@@ -279,6 +293,45 @@ def quant_tree(root, turn):
         del w, x, gamma, forms
 
 
+#: q8's profiled decode steps a turn, and the tokens a stream prints
+Q8_STEPS = 8
+Q8_TOKENS = 16
+
+
+def q8_tree(root, turn):
+    """One turn of ``q8``: the tree at ``root``'s int8 x int8 decode step
+    profiled, and its streams' first tokens."""
+    sys.path.insert(0, root)
+    import numpy as np
+
+    import chip_smoke
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    chip_smoke.log = lambda **fields: None
+    model = chip_smoke.llama_3_8b_quantized(8)
+    eng = PagedContinuousBatchingEngine(model, cache_dtype="int8",
+                                        **chip_smoke.SERVE)
+    rng = np.random.RandomState(5)
+    slots = chip_smoke.SERVE["num_slots"]
+    rids = [eng.submit(rng.randint(0, model.vocab_size, (1, 512)),
+                       Q8_STEPS + Q8_TOKENS + 4) for _ in range(slots)]
+    for _ in range(512 // chip_smoke.SERVE["prefill_chunk"] + 1):
+        eng.step()                     # every slot prefilled, decoding
+    for _ in range(2):
+        eng.step()                     # warm
+    res = chip_smoke.profile_device(eng.step, Q8_STEPS)
+    out = eng.run()
+    print(json.dumps(dict(
+        turn=turn, tree=root, steps=Q8_STEPS,
+        kernels_per_step=res["kernels_per_step"],
+        device_ms_per_step=res["device_ms_per_step"],
+        wall_ms_per_step=res["wall_ms_per_step"],
+        device_idle_share=res["device_idle_share"],
+        top=res["top"][:6],
+        streams=[out[r][0, 512:512 + Q8_TOKENS].tolist() for r in rids])),
+        flush=True)
+
+
 def turns(kind, root_a, root_b, collect):
     """``kind``'s turns, A, B, B, A, one process each (``<kind>-tree``),
     and their summary: ``collect(rows, line)`` files each printed line
@@ -325,6 +378,21 @@ def quant(root_a, root_b):
         "%s,M=%d" % (r["projection"], r["M"]), []).append(
             (r["g1_ms"], r.get("g3_ms"), r.get("g4_ms"), r.get("g3n_ms"),
              r.get("g4n_ms"))))
+
+
+def q8(root_a, root_b):
+    """``q8``'s turns and their summary: (kernels, device ms, wall ms) a
+    step a turn, and whether every turn's streams agree."""
+    streams = []
+
+    def collect(rows, r):
+        streams.append(r["streams"])
+        rows.setdefault("kernels_device_ms_wall_ms", []).append(
+            (r["kernels_per_step"], r["device_ms_per_step"],
+             r["wall_ms_per_step"]))
+        rows["streams_agree"] = all(x == streams[0] for x in streams)
+
+    return turns("q8", root_a, root_b, collect)
 
 
 def flash(root_a, root_b):
@@ -397,6 +465,11 @@ def main(argv):
         return quant(argv[1], argv[2])
     if len(argv) == 3 and argv[0] == "quant-tree":
         quant_tree(argv[1], int(argv[2]))
+        return 0
+    if len(argv) == 3 and argv[0] == "q8":
+        return q8(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "q8-tree":
+        q8_tree(argv[1], int(argv[2]))
         return 0
     if len(argv) == 3 and argv[0] == "flash":
         return flash(argv[1], argv[2])

@@ -28,10 +28,11 @@ pair with ``cache_dtype="int8"`` for the int8 cache too.
   int8 or packed int4 weights themselves, so no float copy of a weight
   is ever made.  :func:`wq_matmul_i8_q8` is ``wq_matmul_i8`` followed by
   the KV cache's quantizer per head (``ops/tensor.py:_q8_quantize``),
-  the reference's own definition.  The port's decode step and verify
-  window quantize V at the cache write instead, with the same bits; the
-  reference's fused int8 V epilogue waits for a G3 that writes int8 V
-  from the kernel itself.
+  the reference's own definition, in one launch: G3 with its q8
+  epilogue (``ops/linear.py:wq_matmul_q8``, the whole output as V).
+  The decode step and the verify window run that epilogue over the
+  whole qkv weight (``models/transformer.py``: the fused int8 V
+  epilogue).
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from torch import nn
 from ..base import MXTPUError
 from ..ops import linear as _linear
 from ..ops.linear import wq_matmul_i4_plain, wq_matmul_i8_plain
-from ..ops.tensor import _q8_quantize
 
 __all__ = ["pack_int4", "unpack_int4", "quantize_tensor", "wq_matmul_i8",
            "wq_matmul_i8_q8", "wq_matmul_i4", "wq_matmul_i8_plain",
@@ -149,13 +149,16 @@ def wq_matmul_i8_q8(x, qweight, wscale, bias=None, head_dim=0,
     """``wq_matmul_i8`` with the int8 cache's quantizer as its epilogue,
     per ``head_dim`` group of the output axis: ((..., O) int8 payload,
     (..., O / head_dim) float32 scales), the bits of projecting and then
-    quantizing at the cache write (the reference's definition)."""
-    y = wq_matmul_i8(x, qweight, wscale, bias, flatten, no_bias)
-    O = y.shape[-1]
-    hd = int(head_dim) or O
-    lead = y.shape[:-1]
-    q, s = _q8_quantize(y.reshape(lead + (O // hd, hd)))
-    return q.reshape(lead + (O,)), s
+    quantizing at the cache write (the reference's definition), in one
+    G3 launch on the card."""
+    if wscale.dim() != 1:
+        raise MXTPUError("wq_matmul_i8_q8: wscale must be (O,), got %s"
+                         % (tuple(wscale.shape),))
+    O = qweight.shape[0]
+    _, q, s = _linear.wq_matmul_q8(_flat(x, flatten), qweight, wscale,
+                                   int(head_dim) or O, O,
+                                   bias=None if no_bias else bias)
+    return q, s
 
 
 class QuantizedLinear(nn.Module):

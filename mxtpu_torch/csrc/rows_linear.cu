@@ -714,6 +714,118 @@ __device__ __forceinline__ uint32_t i4_pair(uint32_t w, uint32_t v) {
   return *reinterpret_cast<uint32_t*>(&d);
 }
 
+// G3's q8 epilogue: the last nv columns of y, heads of hd columns, leave
+// the launch as the int8 KV cache stores them, an int8 payload vq (M, nv)
+// and a float32 scale a row and head vs (M, nv / hd), with the bits of
+// _q8_quantize (ops/tensor.py) applied to the y that G3 rounds.  A null
+// vq launches plain G3.  counters holds one int a row chunk and head,
+// zero between launches; the launch's last arriving block resets it.
+struct Q8Out {
+  int8_t* vq;
+  float* vs;
+  int* counters;
+  int nv, hd;
+};
+
+__device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float load_l2(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// x / y rounded to float as IEEE division rounds it (div.rn.f32), with no
+// call: ptxas expands a division into a fast path and a call to its slow
+// path, and the call left it spilling 4-12 bytes in the G3 kernels that
+// carry the epilogue below.  Here in double: a reciprocal of y refined by
+// three Newton steps from the hardware's estimate (each step doubles its
+// bits), x times it, the product's exact residual x - q * y (one FMA) and
+// one correction: the result is within 2^-52 of x / y, relative.  A
+// quotient of two floats is a float midpoint or lies 2^-50 or more from
+// every midpoint, relative, so rounding the double to float gives the
+// float quotient's bits, ties included.  y is normal and positive here
+// (the scale floor is 1e-8 / 127).
+__device__ __forceinline__ double q8_rcp(double y) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(y));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fma(r, fma(-y, r, 1.0), r);
+  return r;
+}
+__device__ __forceinline__ float q8_div(float x, double y, double ry) {
+  const double q = (double)x * ry;
+  return __double2float_rn(fma(fma(-q, y, (double)x), ry, q));
+}
+
+// The epilogue of one block, after it stored its share of output columns
+// [c_lo, c_hi) of rows [r0, r0 + nrows) (row chunk `chunk`) to y, every
+// thread of the block calling.  A head spans several tiles of tile_w
+// columns, each written by per_tile blocks (the K splits share a tile's
+// rows out): every block that wrote a column of the head arrives on the
+// head's counter after a fence, and the last to arrive reads the head's
+// rounded values back from L2 and quantizes them, a warp a row with all
+// its loads in flight: amax over the head's columns (exact in any order),
+// s = max(amax, 1e-8) / 127 and q = round-half-even(v / s), both
+// divisions with IEEE's bits (q8_div), clamped to +-127.  The rows' y
+// columns stay written (they are the epilogue's staging).  The block
+// learns that it arrived last by __syncthreads_or, so the epilogue holds
+// nothing of the kernel's shared memory.  It is a function of its own, not
+// inlined: inlined, ptxas's allocation of an 8-row int8 class spilled 4
+// bytes (ptxas -v on the H100); called, neither the kernels nor it spill.
+constexpr int kQ8PerLane = 8;  // a lane's values of a head: head_dim <= 256
+template <typename T>
+__device__ __noinline__ void q8_epilogue(const Q8Out q8, const T* y, int N,
+                                        int c_lo, int c_hi, int tile_w,
+                                        int per_tile, int chunk, int r0,
+                                        int nrows) {
+  const int vbeg = N - q8.nv;
+  const int lo = max(c_lo, vbeg);
+  const int hi = min(c_hi, N);
+  if (lo >= hi) return;  // no V column in this block's tile
+  const int heads = q8.nv / q8.hd;
+  const int lane = threadIdx.x & 31;
+  __threadfence();
+  __syncthreads();
+#pragma unroll 1
+  for (int h = (lo - vbeg) / q8.hd; h < heads && vbeg + h * q8.hd < hi;
+       ++h) {
+    const int c0 = vbeg + h * q8.hd;
+    const int arrivals =
+        ((c0 + q8.hd - 1) / tile_w - c0 / tile_w + 1) * per_tile;
+    int* ctr = q8.counters + (size_t)chunk * heads + h;
+    const int first = threadIdx.x == 0 ? atomicAdd(ctr, 1) : 0;
+    if (!__syncthreads_or(threadIdx.x == 0 && first == arrivals - 1))
+      continue;
+    __threadfence();
+#pragma unroll 1
+    for (int r = threadIdx.x >> 5; r < nrows; r += blockDim.x >> 5) {
+      const T* src = y + (size_t)(r0 + r) * N + c0;
+      float v[kQ8PerLane];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < kQ8PerLane; ++i) {
+        v[i] = lane + 32 * i < q8.hd ? load_l2(src + lane + 32 * i) : 0.f;
+        amax = fmaxf(amax, fabsf(v[i]));
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float s = q8_div(fmaxf(amax, 1e-8f), 127.0, 1.0 / 127.0);
+      const double sd = s;
+      const double rs = q8_rcp(sd);
+      int8_t* dst = q8.vq + (size_t)(r0 + r) * q8.nv + h * q8.hd;
+#pragma unroll
+      for (int i = 0; i < kQ8PerLane; ++i) {
+        if (lane + 32 * i < q8.hd) {
+          const float q = rintf(q8_div(v[i], sd, rs));
+          dst[lane + 32 * i] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+        }
+      }
+      if (lane == 0) q8.vs[(size_t)(r0 + r) * heads + h] = s;
+    }
+    if (threadIdx.x == 0) *ctr = 0;  // for the next launch
+  }
+}
+
 // The threads of a bf16-kernel block: G1's launch bounds are those of its
 // widest classes (288, or 352 with the fused norm's normalizing warps);
 // the quantized forms' are their class's own (4 * WR computing warps, the
@@ -763,7 +875,8 @@ __global__ void __launch_bounds__(
                             const float* __restrict__ wscale,
                             const float* __restrict__ bias,
                             bf16* __restrict__ y, int M, int N, int K,
-                            int S, int P, int warp_rows, int gs) {
+                            int S, int P, int warp_rows, int gs,
+                            const Q8Out q8) {
   static_assert(STAGES <= kMaxStages, "the head holds kMaxStages barriers");
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
   constexpr bool kNormWarpsOn = kNorm && NGW > 1;  // else in registers
@@ -1344,6 +1457,10 @@ __global__ void __launch_bounds__(
     }
   }
   if (S > 1) cluster.sync();  // no block leaves while another reads it
+  if constexpr (WT == kWI8) {
+    if (q8.vq != nullptr)
+      q8_epilogue(q8, y, N, n0, n0 + ncols, BN, S, blockIdx.z, m0, rows);
+  }
 }
 
 constexpr int kF = 32;   // float32 path: output tile and K slice
@@ -1380,7 +1497,7 @@ __global__ void __launch_bounds__(256)
                            const float* __restrict__ wscale,
                            const float* __restrict__ bias,
                            float* __restrict__ y, int M, int N, int K,
-                           int gs) {
+                           int gs, const Q8Out q8) {
   __shared__ float xs[kF][kF + 1];   // xs[m][k]
   __shared__ float wt[kF][kF + 1];   // wt[n][k]
   __shared__ float sc[kF];           // the rows' scales
@@ -1456,19 +1573,25 @@ __global__ void __launch_bounds__(256)
     __syncthreads();
   }
   const int n = n0 + tx;
-  if (n >= N) return;
-  float s = 1.f, b = 0.f;
-  if constexpr (WT == kWI8) s = wscale[n];
-  if (WT != kWFloat && bias != nullptr) b = bias[n];
+  if (n < N) {
+    float s = 1.f, b = 0.f;
+    if constexpr (WT == kWI8) s = wscale[n];
+    if (WT != kWFloat && bias != nullptr) b = bias[n];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int m = m0 + ty + 8 * u;
-    float v = acc[u];
-    if constexpr (WT == kWI8) v = __fmul_rn(v, s);
-    if constexpr (WT != kWFloat) {
-      if (bias != nullptr) v = __fadd_rn(v, b);
+    for (int u = 0; u < 4; ++u) {
+      const int m = m0 + ty + 8 * u;
+      float v = acc[u];
+      if constexpr (WT == kWI8) v = __fmul_rn(v, s);
+      if constexpr (WT != kWFloat) {
+        if (bias != nullptr) v = __fadd_rn(v, b);
+      }
+      if (m < M) y[(size_t)m * N + n] = v;
     }
-    if (m < M) y[(size_t)m * N + n] = v;
+  }
+  if constexpr (WT == kWI8) {
+    if (q8.vq != nullptr)
+      q8_epilogue(q8, y, N, n0, min(n0 + kF, N), kF, 1, blockIdx.y, m0,
+                  min(kF, M - m0));
   }
 }
 
@@ -1553,7 +1676,8 @@ cudaError_t encode_scale_map(CUtensorMap* map, const float* p, int N, int G,
 template <int WT, int CI, typename G>
 int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
                 const float* wscale, const float* bias, void* y, int M,
-                int N, int K, int gs, int S, int P, int smem, void* stream) {
+                int N, int K, int gs, int S, int P, int smem, void* stream,
+                const Q8Out& q8) {
   constexpr RowClass C = row_classes(WT, CI);
   constexpr int BN = 16 * kWarpCols * C.cw;
   constexpr bool kNorm = !std::is_same<G, NoNorm>::value;
@@ -1605,7 +1729,7 @@ int launch_bf16(const void* x, const G* gamma, float eps, const void* w,
   }
   err = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, smap, (const bf16*)x,
                            gamma, eps, wscale, bias, (bf16*)y, M, N, K, S, P,
-                           C.warp_rows, gs);
+                           C.warp_rows, gs, q8);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1617,7 +1741,7 @@ template <int WT, typename G>
 int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
                      const float* wscale, const float* bias, void* y, int M,
                      int N, int K, int gs, int bn, int S, int stages,
-                     int smem, void* stream) {
+                     int smem, void* stream, Q8Out q8 = {}) {
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
   // the packed types' rows are whole 16-byte units (the tensor map's
   // stride) and int4's groups whole k16 steps
@@ -1635,7 +1759,7 @@ int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
   const int P = kNorm ? norm_cluster(S) : S;
 #define MXTPU_LAUNCH(CI)                                                    \
   return launch_bf16<WT, CI>(x, gamma, eps, w, wscale, bias, y, M, N, K, gs, \
-                             S, P, smem, stream)
+                             S, P, smem, stream, q8)
   if (ci == 0) MXTPU_LAUNCH(0);
   if (ci == 1) MXTPU_LAUNCH(1);
   if (ci == 2) MXTPU_LAUNCH(2);
@@ -1651,11 +1775,11 @@ int rows_linear_bf16(const void* x, const G* gamma, float eps, const void* w,
 template <bool NORM, int WT>
 int launch_f32(const void* x, const void* gamma, const void* w,
                const void* wscale, const void* bias, void* y, int M, int N,
-               int K, float eps, int gs, void* stream) {
+               int K, float eps, int gs, void* stream, Q8Out q8 = {}) {
   const dim3 grid((N + kF - 1) / kF, (M + kF - 1) / kF);
   rows_linear_f32_kernel<NORM, WT><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)gamma, eps, w, (const float*)wscale,
-      (const float*)bias, (float*)y, M, N, K, gs);
+      (const float*)bias, (float*)y, M, N, K, gs, q8);
   return (int)cudaGetLastError();
 }
 
@@ -1718,6 +1842,47 @@ int mxtpu_rows_linear_q_bf16(const void* x, const void* gamma, const void* w,
                  : rows_linear_bf16<kWI4>(x, none, eps, w, s, b, y, M, N, K,
                                           gs, bn, S, stages, smem, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// G3 with its q8 epilogue (Q8Out) in bfloat16, on G3's plan for (M, N,
+// K): y (M, N) as mxtpu_rows_linear_q_bf16 writes it, and the last nv
+// columns, heads of hd <= 256, also as the int8 payload vq (M, nv) and the
+// float32 scales vs (M, nv / hd); counters (ceil(M / rows) * nv / hd
+// ints, rows the plan's class rows) are zero and left zero.
+int mxtpu_rows_linear_q8_bf16(const void* x, const void* gamma,
+                              const void* w, const void* wscale,
+                              const void* bias, void* y, void* vq, void* vs,
+                              void* counters, int nv, int hd, int M, int N,
+                              int K, float eps, int bn, int S, int stages,
+                              int smem, void* stream) {
+  if (nv < 1 || hd < 1 || hd > 32 * kQ8PerLane || nv % hd || nv > N || !vq ||
+      !vs || !counters)
+    return (int)cudaErrorInvalidValue;
+  const Q8Out q8 = {(int8_t*)vq, (float*)vs, (int*)counters, nv, hd};
+  const float* s = (const float*)wscale;
+  const float* b = (const float*)bias;
+  if (gamma)
+    return rows_linear_bf16<kWI8>(x, (const bf16*)gamma, eps, w, s, b, y, M,
+                                  N, K, 0, bn, S, stages, smem, stream, q8);
+  return rows_linear_bf16<kWI8>(x, (const NoNorm*)nullptr, eps, w, s, b, y,
+                                M, N, K, 0, bn, S, stages, smem, stream, q8);
+}
+
+// The same in float32 (a float32 gamma, any K; counters ceil(M / 32) *
+// nv / hd ints)
+int mxtpu_rows_linear_q8_f32(const void* x, const void* gamma,
+                             const void* w, const void* wscale,
+                             const void* bias, void* y, void* vq, void* vs,
+                             void* counters, int nv, int hd, int M, int N,
+                             int K, float eps, void* stream) {
+  if (M < 1 || N < 1 || K < 0 || nv < 1 || hd < 1 || hd > 32 * kQ8PerLane ||
+      nv % hd || nv > N || !vq || !vs || !counters)
+    return (int)cudaErrorInvalidValue;
+  const Q8Out q8 = {(int8_t*)vq, (float*)vs, (int*)counters, nv, hd};
+  return gamma ? launch_f32<true, kWI8>(x, gamma, w, wscale, bias, y, M, N,
+                                        K, eps, 0, stream, q8)
+               : launch_f32<false, kWI8>(x, gamma, w, wscale, bias, y, M, N,
+                                         K, eps, 0, stream, q8);
 }
 
 // G2 over M rows of C elements; gamma is float32 (C,)

@@ -1,6 +1,14 @@
-"""Next-token sampling and the speculative drafters (the port of
-``sample_next_token``, ``NGramDrafter`` and ``TreeDrafter`` in
-``mxtpu/models/sampler.py``).
+"""Next-token sampling, the speculative drafters and the sequence
+samplers (the port of ``sample_next_token``, ``NGramDrafter``,
+``TreeDrafter``, ``BeamSearchSampler``, ``beam_search`` and
+``SequenceSampler`` in ``mxtpu/models/sampler.py``).
+
+The sequence samplers run over the model's contiguous ``prefill`` and
+``step``: one prefill at batch B, each sequence's caches tiled K times
+(row b*K + k is continuation k of sequence b), then one step a token.
+Beam search ranks in float64 on the host as the reference does, with
+ties broken by the lower index (a stable sort), so ``beam_size=1`` is
+greedy ``generate``.
 
 Randomness comes from explicit ``torch.Generator``s.  A draw for one
 row is a Gumbel-max draw from ``torch.rand(V, generator=g)``, taken row
@@ -18,10 +26,12 @@ draw is the very draw the stream would make there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["sample_next_token", "sampling_scores", "future_states",
-           "generator_at", "NGramDrafter", "TreeDrafter"]
+           "generator_at", "NGramDrafter", "TreeDrafter",
+           "BeamSearchSampler", "beam_search", "SequenceSampler"]
 
 _NEG_INF = -1e30
 
@@ -259,3 +269,231 @@ class TreeDrafter:
                 break
             _insert(H[s:s + max_depth])
         return toks, parents, depths
+
+
+def _tile(leaf, K):
+    """A cache leaf (a tensor or an int8 pair) with each row repeated K
+    times in place order."""
+    if isinstance(leaf, tuple):
+        return tuple(t.repeat_interleave(K, dim=0) for t in leaf)
+    return leaf.repeat_interleave(K, dim=0)
+
+
+def _take(leaf, idx):
+    """A cache leaf's rows ``idx``, in that order."""
+    if isinstance(leaf, tuple):
+        return tuple(t.index_select(0, idx) for t in leaf)
+    return leaf.index_select(0, idx)
+
+
+def _prepare(model, prompt_ids, max_new_tokens, max_length, K):
+    """The samplers' preamble: check the lengths, answer max_new_tokens
+    <= 0 with the prompt K times, else prefill once at batch B and tile
+    each sequence's caches K times.  Returns (done, early result,
+    (prompt (B, Tp) int64 on the model's device, B, Tp, total, logits,
+    caches))."""
+    prompt = torch.as_tensor(prompt_ids, device=model.device).long()
+    B, Tp = prompt.shape
+    total = Tp + max_new_tokens
+    max_length = max_length or total
+    if max_length < total:
+        raise ValueError("max_length %d < prompt+new %d"
+                         % (max_length, total))
+    if max_new_tokens <= 0:
+        beams = prompt.cpu().int()[:, None, :].repeat(1, K, 1)
+        return True, (beams, np.zeros((B, K))), None
+    caches = model.init_cache(B, max_length)
+    logits = model.prefill(prompt, caches)
+    caches = [tuple(_tile(leaf, K) for leaf in pair) for pair in caches]
+    return False, None, (prompt, B, Tp, total, logits, caches)
+
+
+class BeamSearchSampler:
+    """Length-normalized beam search (gluonnlp conventions), the
+    reference's arithmetic: log-probabilities in float64 on the host,
+    candidates ranked by score / ((5 + len) / 6) ** alpha per beam,
+    raw scores kept.
+
+    Parameters
+    ----------
+    model : a port ``TransformerLM`` (``init_cache`` / ``prefill`` /
+        ``step``).
+    beam_size : beams per sequence (K).
+    alpha : the length penalty's exponent.
+    eos_id : a token that ends a beam: a finished beam is frozen (its
+        score stops growing) and padded with eos_id.
+    """
+
+    def __init__(self, model, beam_size=4, alpha=0.6, eos_id=None):
+        self._model = model
+        self._K = int(beam_size)
+        self._alpha = float(alpha)
+        self._eos = eos_id
+
+    @staticmethod
+    def _log_softmax(logits):
+        x = logits.float().cpu().numpy().astype(np.float64)
+        x = x - x.max(axis=-1, keepdims=True)
+        return x - np.log(np.exp(x).sum(axis=-1, keepdims=True))
+
+    def _penalty(self, length):
+        return ((5.0 + length) / 6.0) ** self._alpha
+
+    @staticmethod
+    def _topk_desc(flat, k):
+        """Indices of the k largest entries a row, descending, ties to
+        the lower index."""
+        return np.argsort(-flat, axis=-1, kind="stable")[:, :k]
+
+    @torch.no_grad()
+    def __call__(self, prompt_ids, max_new_tokens, max_length=None):
+        """Returns (samples (B, K, Tp + new) int32 CPU tensor sorted by
+        descending length-normalized score, scores (B, K) numpy array of
+        the raw sequence log-probabilities)."""
+        model = self._model
+        K = self._K
+        done, early, state = _prepare(model, prompt_ids, max_new_tokens,
+                                      max_length, K)
+        if done:
+            return early
+        prompt, B, Tp, total, logits, caches = state
+        logp = self._log_softmax(logits[:, -1])                # (B, V)
+        V = logp.shape[-1]
+        if K > V:
+            raise ValueError(
+                "beam_size %d exceeds vocabulary size %d: beam search "
+                "needs K distinct continuations per step" % (K, V))
+        top = self._topk_desc(logp, K)                          # (B, K)
+        scores = np.take_along_axis(logp, top, axis=-1)
+        beams = np.repeat(prompt.cpu().numpy()[:, None, :], K, axis=1)
+        beams = np.concatenate([beams, top[:, :, None]], axis=2)
+        finished = np.zeros((B, K), bool)
+        if self._eos is not None:
+            finished |= top == self._eos
+        lengths = np.ones((B, K))
+        dev = model.device
+        for pos in range(Tp, total - 1):
+            tok = torch.from_numpy(beams[:, :, -1].reshape(B * K, 1)).to(dev)
+            logits = model.step(tok, caches, pos)
+            logp = self._log_softmax(logits[:, 0]).reshape(B, K, V)
+            # frozen beams: only an eos continuation, at logprob 0
+            if self._eos is not None and finished.any():
+                frozen = np.full((B, K, V), _NEG_INF)
+                frozen[:, :, self._eos] = 0.0
+                logp = np.where(finished[:, :, None], frozen, logp)
+            cand = scores[:, :, None] + logp                    # (B, K, V)
+            cand_len = lengths + ~finished
+            norm = cand / self._penalty(cand_len)[:, :, None]
+            pick = self._topk_desc(norm.reshape(B, K * V), K)   # (B, K)
+            src_beam, tok_next = pick // V, pick % V
+            scores = np.take_along_axis(cand.reshape(B, K * V), pick, axis=-1)
+            lengths = np.take_along_axis(cand_len, src_beam, axis=1)
+            beams = np.concatenate(
+                [np.take_along_axis(beams, src_beam[:, :, None], axis=1),
+                 tok_next[:, :, None]], axis=2)
+            if pos < total - 2:     # the last iteration's caches die unused
+                gidx = torch.from_numpy(
+                    (np.arange(B)[:, None] * K + src_beam).reshape(-1)).to(dev)
+                caches = [tuple(_take(leaf, gidx) for leaf in pair)
+                          for pair in caches]
+            finished = np.take_along_axis(finished, src_beam, axis=1)
+            if self._eos is not None:
+                finished |= tok_next == self._eos
+                if finished.all():
+                    pad = np.full((B, K, total - beams.shape[2]), self._eos,
+                                  beams.dtype)
+                    beams = np.concatenate([beams, pad], axis=2)
+                    break
+        order = np.argsort(-scores / self._penalty(lengths), axis=-1,
+                           kind="stable")
+        beams = np.take_along_axis(beams, order[:, :, None], axis=1)
+        scores = np.take_along_axis(scores, order, axis=-1)
+        return torch.from_numpy(beams.astype(np.int32)), scores
+
+
+def beam_search(model, prompt_ids, max_new_tokens, beam_size=4, alpha=0.6,
+                eos_id=None, max_length=None):
+    """Functional form of :class:`BeamSearchSampler`."""
+    return BeamSearchSampler(model, beam_size, alpha, eos_id)(
+        prompt_ids, max_new_tokens, max_length)
+
+
+class SequenceSampler:
+    """K independent sampled continuations a prompt (gluonnlp's
+    SequenceSampler): each of the B*K rows draws its next token with
+    :func:`sample_next_token` and sums its own log-probabilities; a row
+    that drew ``eos_id`` freezes and pads.  Draws come from one
+    ``torch.Generator`` seeded with ``seed`` (a random seed when None),
+    rows in order, so a seed reproduces the samples inside the port, not
+    the reference's draws.
+
+    Returns (samples (B, K, Tp + new) int32 CPU tensor, scores (B, K)
+    numpy array of the summed log-probabilities), rows sorted by
+    descending score.
+    """
+
+    def __init__(self, model, n_samples=4, temperature=1.0, top_k=0,
+                 top_p=0.0, repetition_penalty=1.0, eos_id=None):
+        self._model = model
+        self._K = int(n_samples)
+        self._temp = float(temperature)
+        self._top_k = top_k
+        self._top_p = top_p
+        self._rep = repetition_penalty
+        self._eos = eos_id
+
+    @torch.no_grad()
+    def __call__(self, prompt_ids, max_new_tokens, max_length=None,
+                 seed=None):
+        model = self._model
+        K = self._K
+        done, early, state = _prepare(model, prompt_ids, max_new_tokens,
+                                      max_length, K)
+        if done:
+            return early
+        prompt, B, Tp, total, logits, caches = state
+        dev = model.device
+        gen = None
+        if self._temp > 0.0:       # seeded after prefill, as generate
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed) if seed is not None
+                            else int(np.random.randint(0, 2**31 - 1)))
+        penalized = bool(self._rep and self._rep != 1.0)
+        last = logits[:, -1].repeat_interleave(K, dim=0)        # (B*K, V)
+        V = last.shape[-1]
+        rows = torch.arange(B * K, device=dev)
+        seen = None
+        if penalized:
+            seen = torch.zeros((B * K, V), dtype=torch.bool, device=dev)
+            seen[rows[:, None], prompt.repeat_interleave(K, dim=0)] = True
+        beams = np.repeat(prompt.cpu().numpy()[:, None, :], K, axis=1)
+        scores = np.zeros((B, K))
+        finished = np.zeros((B, K), bool)
+        for pos in range(Tp, total):
+            nxt = sample_next_token(last, gen, self._temp, self._top_k,
+                                    self._top_p, self._rep, seen_mask=seen)
+            logp = torch.log_softmax(last.float(), dim=-1)
+            tok_logp = logp.gather(1, nxt[:, None])[:, 0].cpu().numpy() \
+                .astype(np.float64).reshape(B, K)
+            tok = nxt.cpu().numpy().reshape(B, K)
+            if self._eos is not None:
+                tok = np.where(finished, self._eos, tok)
+                tok_logp = np.where(finished, 0.0, tok_logp)
+            scores += tok_logp
+            beams = np.concatenate([beams, tok[:, :, None]], axis=2)
+            step_tok = torch.from_numpy(tok.reshape(B * K, 1)).to(dev)
+            if penalized:
+                seen[rows, step_tok[:, 0]] = True
+            if self._eos is not None:
+                finished |= tok == self._eos
+                if finished.all() and pos < total - 1:
+                    pad = np.full((B, K, total - beams.shape[2]), self._eos,
+                                  beams.dtype)
+                    beams = np.concatenate([beams, pad], axis=2)
+                    break
+            if pos < total - 1:
+                last = model.step(step_tok, caches, pos)[:, -1]
+        order = np.argsort(-scores, axis=-1, kind="stable")
+        beams = np.take_along_axis(beams, order[:, :, None], axis=1)
+        scores = np.take_along_axis(scores, order, axis=-1)
+        return torch.from_numpy(beams.astype(np.int32)), scores

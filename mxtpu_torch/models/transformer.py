@@ -17,13 +17,18 @@ Two cache forms, both under ``torch.no_grad``:
 
 - the paged pool (``init_block_pool`` / ``prefill_pages`` /
   ``step_pages`` / ``verify_pages`` / ``permute_pool_span`` /
-  ``copy_block``), what the serving engine runs.  Its
+  ``copy_block``), what the paged serving engine runs.  Its
   attention always goes through the two kernel wrappers
   (``ops.paged_attention``, ``ops.prefill_attention``), which alone
   pick the plain version on a CPU tensor or the CUDA kernel on the card;
 - the contiguous per-sequence cache (``init_cache`` / ``prefill`` /
-  ``step`` and ``generate``), the isolated reference inside the port: a
-  plain masked softmax over the whole cache, no kernel.
+  ``step`` and ``generate``, the isolated reference inside the port;
+  ``step_slots`` / ``verify_slots`` / ``permute_cache_span`` /
+  ``write_cache_slot``, the slot engine's pooled forms, one cache row a
+  slot): a plain masked softmax over the whole cache, no kernel, as the
+  reference computes it.  ``verify_slots`` attends one window lane at a
+  time with the step's shapes, so lane w is ``step_slots`` at pos + w
+  bit for bit on any device.
 
 Either form holds float leaves or, with the dtype ``"int8"``, int8
 payloads with one float32 scale per head and position (see the leaf
@@ -48,10 +53,14 @@ packed int4 weights with float32 scales).  Every path then runs them
 through G3 or G4 (``ops.linear.wq_matmul``, row invariant like G1):
 the step and the window the norm-fused forms on the four normed
 projections, every other call the op itself, prefill and ``generate``
-included.  Over int8 pools their K and V rows are quantized
-at the write, as a float model's are: the reference's fused int8 V
-epilogue (``_project_qkv_fused_q8``) has the same bits and waits for a
-G3 that writes int8 V itself.
+included.  An int8 qkv over int8 pools takes the reference's fused int8
+V epilogue in the step and the window (``_fused_q8_epilogue_on``,
+``_project_qkv_fused_q8``): one G3 launch over the whole qkv weight
+(``ops.linear.wq_matmul_q8``) gives q and k in x's dtype and V as the
+pool stores it, int8 rows with their scales, which land by the
+``*_pre_q8`` writes; the bits are those of projecting and then
+quantizing at the write, which int4 weights, prefill and every other
+cache write still do.
 
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
@@ -71,12 +80,18 @@ from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.contrib import rms_norm, rope
 from ..contrib.quantization import QuantizedLinear
-from ..ops.linear import rows_linear, rows_norm_linear
-from ..ops.tensor import (cache_dequant, cache_write_q8, paged_block_copy,
-                          paged_cache_permute_span,
+from ..ops.linear import rows_linear, rows_norm_linear, wq_matmul_q8
+from ..ops.tensor import (cache_dequant, cache_permute_span,
+                          cache_permute_span_q8, cache_write_q8,
+                          cache_write_rows, cache_write_rows_q8,
+                          cache_write_slot, cache_write_slot_q8,
+                          cache_write_span, cache_write_span_q8,
+                          paged_block_copy, paged_cache_permute_span,
                           paged_cache_permute_span_q8, paged_cache_write,
                           paged_cache_write_q8, paged_cache_write_rows,
+                          paged_cache_write_rows_pre_q8,
                           paged_cache_write_rows_q8, paged_cache_write_span,
+                          paged_cache_write_span_pre_q8,
                           paged_cache_write_span_q8, resolve_cache_dtype)
 from .sampler import sample_next_token
 
@@ -154,6 +169,12 @@ def _normed_linear(norm, layer, x, rows):
     if isinstance(layer, QuantizedLinear):
         return layer.normed(x, norm.weight)
     return rows_norm_linear(x, norm.weight, layer.weight)
+
+
+def _float_view(leaf):
+    """A cache leaf as attention reads it: the float tensor, or an int8
+    pair dequantized to float32."""
+    return cache_dequant(*leaf) if _q8(leaf) else leaf
 
 
 def _masked_softmax(scores, valid):
@@ -258,6 +279,107 @@ class MultiHeadAttention(nn.Module):
         out = out.reshape(B, KV, rep, T, D).reshape(B, H, T, D)
         return self._merge(out.to(x.dtype))
 
+    def _slot_attend(self, q, keys, values, limit):
+        """One query lane per row against the whole contiguous cache: q
+        (B, H, 1, D); ``keys``/``values`` (B, KV, T_max, D) float views;
+        row b attends positions <= limit[b].  The GQA fold of the
+        reference's ``step_slots`` → (B, H, 1, D) in q's dtype."""
+        B, H, _, D = q.shape
+        KV, Tmax = keys.shape[1], keys.shape[2]
+        rep = H // KV
+        q_r = q.reshape(B * KV, rep, D).to(keys.dtype)
+        scores = torch.bmm(q_r, keys.reshape(B * KV, Tmax, D).transpose(
+            1, 2)) / math.sqrt(D)
+        valid = (torch.arange(Tmax, device=q.device)[None, :]
+                 <= limit.reshape(-1, 1).long())            # (B, Tmax)
+        attn = _masked_softmax(scores.reshape(B, KV, rep, Tmax),
+                               valid[:, None, None, :])
+        out = torch.bmm(attn.reshape(B * KV, rep, Tmax),
+                        values.reshape(B * KV, Tmax, D))
+        return out.reshape(B, H, 1, D).to(q.dtype)
+
+    def step_slots(self, x, norm, cache_k, cache_v, pos):
+        """One decode token per cache row, each at its own position: x
+        (B, 1, C), the residual stream, normalized by ``norm`` inside
+        the qkv projection's launch; ``pos`` (B,) int.  Row b writes its
+        K/V at pos[b] of its cache row and attends its own [0, pos[b]]
+        (the reference's ``step_slots``; projections row invariant as in
+        :meth:`step_pages`)."""
+        q, k, v = self._project(x, pos, norm, rows=True)
+        _write(cache_k, k, cache_write_rows, cache_write_rows_q8, pos)
+        _write(cache_v, v, cache_write_rows, cache_write_rows_q8, pos)
+        out = self._slot_attend(q, _float_view(cache_k),
+                                _float_view(cache_v), pos)
+        return self._merge(out, rows=True)
+
+    def verify_slots(self, x, norm, cache_k, cache_v, pos, valid_len,
+                     tree=None):
+        """A speculative verify window per cache row: x (B, W, C), lane
+        w at position pos[b] + w, its first ``valid_len[b]`` lanes
+        written (the rest write nothing); lane w attends [0, pos[b] +
+        w].  Each lane is attended on its own with the step's shapes,
+        so its logits are :meth:`step_slots`' at pos[b] + w bit for
+        bit, not only to rounding.
+
+        ``tree=(perm, depth)`` ((B, W, W) and (B, W) integer) verifies a
+        draft tree: lane w is rotated at pos[b] + depth[b, w], its K/V
+        stays at pos[b] + w, and it attends its root path, the window's
+        positions gathered into path order through ``perm[b, w]`` (the
+        reference's ``_internal_tree_verify_attn``), under the step's
+        mask t <= pos[b] + depth[b, w]."""
+        B, W, _ = x.shape
+        off = pos if tree is None else pos.reshape(-1, 1) + tree[1]
+        q, k, v = self._project(x, off, norm, rows=True)
+        _write(cache_k, k, cache_write_span, cache_write_span_q8, pos,
+               valid_len)
+        _write(cache_v, v, cache_write_span, cache_write_span_q8, pos,
+               valid_len)
+        keys, values = _float_view(cache_k), _float_view(cache_v)
+        p = pos.reshape(-1).long()
+        outs = []
+        for w in range(W):
+            if tree is None:
+                outs.append(self._slot_attend(q[:, :, w:w + 1], keys,
+                                              values, p + w))
+                continue
+            Tmax = keys.shape[2]
+            t = torch.arange(Tmax, device=x.device)[None, :]
+            rel = t - p[:, None]                                  # (B, T)
+            inside = (rel >= 0) & (rel < W)
+            anc = torch.gather(tree[0][:, w].long(), 1, rel.clamp(0, W - 1))
+            src = torch.where(inside, p[:, None] + anc, t).clamp(0, Tmax - 1)
+            idx = src[:, None, :, None].expand(keys.shape)
+            outs.append(self._slot_attend(
+                q[:, :, w:w + 1], torch.gather(keys, 2, idx),
+                torch.gather(values, 2, idx), p + tree[1][:, w].long()))
+        return self._merge(torch.cat(outs, dim=2), rows=True)
+
+    # -- the fused int8 V epilogue -------------------------------------------
+    def _fused_q8_epilogue_on(self, pool_v):
+        """Whether the step and the window project qkv with G3's q8
+        epilogue: an int8 ``QuantizedLinear`` qkv feeding an int8 pool
+        (the reference's eligibility; its paged kernels are always on
+        here)."""
+        return (_q8(pool_v) and isinstance(self.qkv, QuantizedLinear)
+                and self.qkv.bits == 8)
+
+    def _project_qkv_fused_q8(self, x, offset, norm):
+        """:meth:`_project` with the fused epilogue, in one launch over
+        the whole qkv weight: q (B, H, T, D) and k (B, KV, T, D) roped
+        at ``offset`` in x's dtype, V as the int8 pool stores it,
+        payload (B, KV, T, D) int8 and scales (B, KV, T) float32 — the
+        bits of projecting and then quantizing at the write."""
+        B, T, _ = x.shape
+        H, KV, D = self.heads, self.kv_heads, self.head_dim
+        qk, vq, vs = wq_matmul_q8(x, self.qkv.weight, self.qkv.wscale, D,
+                                  KV * D, gamma=norm.weight,
+                                  bias=self.qkv.bias)
+        q = qk[..., :H * D].reshape(B, T, H, D).transpose(1, 2)
+        k = qk[..., H * D:].reshape(B, T, KV, D).transpose(1, 2)
+        return (rope(q, offset=offset), rope(k, offset=offset),
+                vq.reshape(B, T, KV, D).transpose(1, 2),
+                vs.reshape(B, T, KV).transpose(1, 2))
+
     # -- paged pool: the serving path --------------------------------------
     def init_block_pool(self, num_blocks, block_size, dtype=None):
         """(k, v) page pools of (num_blocks, KV, block_size, D), zeros,
@@ -275,10 +397,14 @@ class MultiHeadAttention(nn.Module):
         projection's launch; ``tables`` (B, M) int32, ``pos`` (B,)
         int32.  Row b writes its K/V at position pos[b] through its
         table, then the ragged paged decode kernel reads [0, pos[b]]."""
-        q, k, v = self._project(x, pos, norm, rows=True)
+        if self._fused_q8_epilogue_on(pool_v):
+            q, k, vq, vs = self._project_qkv_fused_q8(x, pos, norm)
+            paged_cache_write_rows_pre_q8(*pool_v, vq, vs, tables, pos)
+        else:
+            q, k, v = self._project(x, pos, norm, rows=True)
+            _write(pool_v, v, paged_cache_write_rows,
+                   paged_cache_write_rows_q8, tables, pos)
         _write(pool_k, k, paged_cache_write_rows, paged_cache_write_rows_q8,
-               tables, pos)
-        _write(pool_v, v, paged_cache_write_rows, paged_cache_write_rows_q8,
                tables, pos)
         pk, pv, scales = _kernel_pools(pool_k, pool_v)
         out = paged_attention.paged_decode_attention(
@@ -301,10 +427,15 @@ class MultiHeadAttention(nn.Module):
         as its ancestors.  Rejected lanes stay in the pool past the
         slot's position, behind every later mask."""
         off = pos if tree is None else pos.reshape(-1, 1) + tree[0]
-        q, k, v = self._project(x, off, norm, rows=True)
+        if self._fused_q8_epilogue_on(pool_v):
+            q, k, vq, vs = self._project_qkv_fused_q8(x, off, norm)
+            paged_cache_write_span_pre_q8(*pool_v, vq, vs, tables, pos,
+                                          valid_len)
+        else:
+            q, k, v = self._project(x, off, norm, rows=True)
+            _write(pool_v, v, paged_cache_write_span,
+                   paged_cache_write_span_q8, tables, pos, valid_len)
         _write(pool_k, k, paged_cache_write_span, paged_cache_write_span_q8,
-               tables, pos, valid_len)
-        _write(pool_v, v, paged_cache_write_span, paged_cache_write_span_q8,
                tables, pos, valid_len)
         pk, pv, scales = _kernel_pools(pool_k, pool_v)
         out = paged_attention.paged_decode_attention(
@@ -358,6 +489,15 @@ class LlamaDecoderLayer(nn.Module):
         return self._ffn(x + self.attn.prefill(self.attn_norm(x), cache_k,
                                                cache_v, start_pos))
 
+    def step_slots(self, x, cache_k, cache_v, pos):
+        return self._ffn(x + self.attn.step_slots(
+            x, self.attn_norm, cache_k, cache_v, pos), rows=True)
+
+    def verify_slots(self, x, cache_k, cache_v, pos, valid_len, tree=None):
+        return self._ffn(x + self.attn.verify_slots(
+            x, self.attn_norm, cache_k, cache_v, pos, valid_len, tree),
+            rows=True)
+
     def step_pages(self, x, pool_k, pool_v, tables, pos):
         return self._ffn(x + self.attn.step_pages(
             x, self.attn_norm, pool_k, pool_v, tables, pos), rows=True)
@@ -377,10 +517,14 @@ class TransformerLM(nn.Module):
     """Causal decoder LM, Llama architecture.
 
     Built on the CUDA card unless ``device`` names another; with no
-    device named and no CUDA present the constructor raises."""
+    device named and no CUDA present the constructor raises.  With
+    ``tie_weights`` the logits head is the embedding's weight (no
+    ``lm_head``, so ``quantize_weights`` leaves the head in float, as
+    the reference never quantizes a tied head)."""
 
     def __init__(self, vocab_size, units, hidden_size, num_layers, num_heads,
-                 num_kv_heads=None, device=None, dtype=torch.float32):
+                 num_kv_heads=None, device=None, dtype=torch.float32,
+                 tie_weights=False):
         super().__init__()
         device = resolve_device(device)
         fk = {"device": device, "dtype": dtype}
@@ -391,7 +535,9 @@ class TransformerLM(nn.Module):
                               num_kv_heads or num_heads, **fk)
             for _ in range(num_layers)])
         self.norm = RMSNorm(units, **fk)
-        self.lm_head = nn.Linear(units, vocab_size, bias=False, **fk)
+        self.tie_weights = bool(tie_weights)
+        self.lm_head = None if self.tie_weights else nn.Linear(
+            units, vocab_size, bias=False, **fk)
 
     @property
     def device(self):
@@ -402,6 +548,10 @@ class TransformerLM(nn.Module):
         return self.embed.weight.dtype
 
     def _logits(self, x, rows=False):
+        if self.tie_weights:
+            w = self.embed.weight
+            return (rows_norm_linear(x, self.norm.weight, w) if rows
+                    else F.linear(self.norm(x), w))
         return _normed_linear(self.norm, self.lm_head, x, rows)
 
     def forward(self, token_ids):
@@ -433,6 +583,54 @@ class TransformerLM(nn.Module):
         """One token per row, token_ids (B, 1), at position ``pos``
         (int) → logits (B, 1, V): a one-token prefill."""
         return self.prefill(token_ids, caches, start_pos=pos)
+
+    @torch.no_grad()
+    def step_slots(self, token_ids, caches, pos):
+        """One decode token per cache row, each at its own position:
+        token_ids (B, 1), ``pos`` (B,) int → logits (B, 1, V).  Row b
+        writes at pos[b] of its cache row and attends its own [0,
+        pos[b]]: the slot engine's pooled step."""
+        x = self.embed(token_ids)
+        for layer, (ck, cv) in zip(self.layers, caches):
+            x = layer.step_slots(x, ck, cv, pos)
+        return self._logits(x, rows=True)
+
+    @torch.no_grad()
+    def verify_slots(self, token_ids, caches, pos, valid_len, tree=None):
+        """Score a speculative window per cache row in one forward:
+        token_ids (B, W), row b's last sampled token then up to W-1
+        drafts from position pos[b] → logits (B, W, V), lane w's equal
+        to :meth:`step_slots`' at pos[b] + w (on its own tree path with
+        ``tree=(perm, depth)``, see ``MultiHeadAttention.verify_slots``).
+        ``valid_len`` (B,) counts each row's real lanes; the others
+        write nothing."""
+        x = self.embed(token_ids)
+        for layer, (ck, cv) in zip(self.layers, caches):
+            x = layer.verify_slots(x, ck, cv, pos, valid_len, tree)
+        return self._logits(x, rows=True)
+
+    @torch.no_grad()
+    def permute_cache_span(self, caches, pos, src_lane):
+        """The tree fix-up in every layer's contiguous cache, in place:
+        row b's entry at pos[b] + src_lane[b, j] moves to pos[b] + j
+        (lanes marked -1 stay as they are)."""
+        for leaf in (leaf for pair in caches for leaf in pair):
+            if _q8(leaf):
+                cache_permute_span_q8(*leaf, pos, src_lane)
+            else:
+                cache_permute_span(leaf, pos, src_lane)
+
+    @torch.no_grad()
+    def write_cache_slot(self, caches, slot_caches, slot, pos=0):
+        """Copy one sequence's per-layer caches (batch 1, length T) into
+        row ``slot`` of ``caches`` at positions pos .. pos+T-1, in place
+        (an int8 scratch is copied as it is, no requantization)."""
+        for pair, spair in zip(caches, slot_caches):
+            for leaf, new in zip(pair, spair):
+                if _q8(leaf):
+                    cache_write_slot_q8(*leaf, *new, slot, pos)
+                else:
+                    cache_write_slot(leaf, new, slot, pos)
 
     # -- paged pool: the serving path --------------------------------------
     def init_block_pool(self, num_blocks, block_size, dtype=None):

@@ -48,6 +48,24 @@ picks the kernel).  A call adds one to ``rows_linear_i8`` or
 ``rows_linear_i4``, and a fused one to ``rows_norm_linear`` too; on a
 CUDA tensor it launches the kernel or raises (no dequantized weight, no
 library GEMM, no fallback).
+
+:func:`wq_matmul_q8` is G3 with the int8 KV cache's quantizer as its
+epilogue (the reference's ``_project_qkv_fused_q8`` in one launch over
+the whole qkv weight): the last ``v_cols`` output columns, heads of
+``head_dim``, leave the launch as an int8 payload and a float32 scale a
+row and head, with the bits of ``ops/tensor.py:_q8_quantize`` applied to
+the rounded G3 output, so a quantized V never passes through a float
+tensor of its own.  The K splits, the k order and the split sums are
+G3's plan for the whole N, so the other columns are G3's bits too.  A
+head spans several N tiles (64 columns at 8 and 32 rows, and the wider
+tiles of the larger classes start mid-head): each block that wrote a
+column of a head arrives on a counter of the head after a fence, and
+the last to arrive reads the head's rounded values back from L2 and
+quantizes them.  The counters live in a zeroed int32 buffer a device,
+which each launch leaves zero, so calls on one device run on one
+stream at a time.  A call adds one to ``rows_linear_i8`` and
+``rows_linear_i8_q8`` (and, with the fused norm, ``rows_norm_linear``
+and ``rows_norm_linear_i8_q8``).
 """
 
 from __future__ import annotations
@@ -61,18 +79,22 @@ from torch.nn import functional as F
 from ..base import MXTPUError, bump
 from . import _build
 from .contrib import rms_norm
+from .tensor import _q8_quantize
 
 __all__ = ["rows_linear", "rows_linear_plain", "rows_norm_linear",
            "rows_norm_linear_plain", "wq_matmul", "wq_matmul_plain",
            "wq_matmul_i8_plain",
            "wq_matmul_i4_plain", "unpack_int4_torch", "plan", "splits",
-           "k_ranges", "scale_area", "KERNEL_NAME", "NORM_KERNEL_NAME", "I8_KERNEL_NAME",
-           "I4_KERNEL_NAME"]
+           "k_ranges", "scale_area", "wq_matmul_q8", "wq_matmul_q8_plain",
+           "KERNEL_NAME", "NORM_KERNEL_NAME", "I8_KERNEL_NAME",
+           "I4_KERNEL_NAME", "Q8_KERNEL_NAME", "NORM_Q8_KERNEL_NAME"]
 
 KERNEL_NAME = "rows_linear"
 NORM_KERNEL_NAME = "rows_norm_linear"
 I8_KERNEL_NAME = "rows_linear_i8"
 I4_KERNEL_NAME = "rows_linear_i4"
+Q8_KERNEL_NAME = "rows_linear_i8_q8"
+NORM_Q8_KERNEL_NAME = "rows_norm_linear_i8_q8"
 #: the kernels' weight types (csrc/rows_linear.cu's WT)
 _WTYPES = {"bf16": 0, "int8": 1, "int4": 2}
 _FNS: dict = {}
@@ -240,7 +262,11 @@ def _fns():
                    q_bf16=(lib.mxtpu_rows_linear_q_bf16,
                            [vp] * 6 + [i] * 5 + [f] + [i] * 4 + [vp]),
                    q_f32=(lib.mxtpu_rows_linear_q_f32,
-                          [vp] * 6 + [i] * 5 + [f, vp]))
+                          [vp] * 6 + [i] * 5 + [f, vp]),
+                   q8_bf16=(lib.mxtpu_rows_linear_q8_bf16,
+                            [vp] * 9 + [i] * 5 + [f] + [i] * 4 + [vp]),
+                   q8_f32=(lib.mxtpu_rows_linear_q8_f32,
+                           [vp] * 9 + [i] * 5 + [f, vp]))
         for name, (fn, argtypes) in fns.items():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -511,3 +537,103 @@ def wq_matmul(x, qweight, wscale, gamma=None, bias=None, eps=1e-6):
     if gamma is not None:
         bump(NORM_KERNEL_NAME)
     return y.reshape(x.shape[:-1] + (N,))
+
+
+# -- G3 with the q8 epilogue ---------------------------------------------
+
+_Q8_COUNTERS: dict = {}
+
+
+def _q8_counters(device, n):
+    """The epilogue's arrival counters on ``device``: at least ``n``
+    zeroed int32, which every launch leaves zero."""
+    buf = _Q8_COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _Q8_COUNTERS[device] = buf
+    return buf
+
+
+def wq_matmul_q8_plain(x, qweight, wscale, head_dim, v_cols, gamma=None,
+                       bias=None, eps=1e-6):
+    """:func:`wq_matmul_q8`'s plain version: :func:`wq_matmul_plain`,
+    then ``_q8_quantize`` on each head of the last ``v_cols`` columns."""
+    y = wq_matmul_plain(x, qweight, wscale, gamma, bias, eps)
+    N = y.shape[-1]
+    lead = y.shape[:-1]
+    q, s = _q8_quantize(y[..., N - v_cols:].reshape(
+        lead + (v_cols // head_dim, head_dim)))
+    return y[..., :N - v_cols], q.reshape(lead + (v_cols,)), s
+
+
+def wq_matmul_q8(x, qweight, wscale, head_dim, v_cols, gamma=None,
+                 bias=None, eps=1e-6):
+    """G3 with the q8 epilogue (module docstring), heads of ``head_dim``
+    <= 256: x (..., K), float32 or
+    bfloat16, qweight (N, K) int8, wscale (N,) float32, normalized first
+    by ``gamma`` in the same launch unless it is None, as
+    :func:`wq_matmul` takes them.  Returns (y (..., N - v_cols) in x's
+    dtype, a view of G3's first columns; the payload (..., v_cols) int8;
+    the scales (..., v_cols / head_dim) float32), the bits of
+    :func:`wq_matmul` followed by ``_q8_quantize`` on each head of its
+    last ``v_cols`` columns."""
+    K = x.shape[-1]
+    N = qweight.shape[0]
+    if _wq_type(x, qweight, wscale)[0] != "int8" or not 1 <= head_dim <= 256 \
+            or v_cols < head_dim or v_cols % head_dim or v_cols > N:
+        raise MXTPUError("wq_matmul_q8: an int8 weight %s with %d V columns "
+                         "in heads of %d (at most 256)"
+                         % (tuple(qweight.shape), v_cols, head_dim))
+    bumps = [I8_KERNEL_NAME, Q8_KERNEL_NAME] + (
+        [] if gamma is None else [NORM_KERNEL_NAME, NORM_Q8_KERNEL_NAME])
+    if x.device.type == "cpu":
+        for name in bumps:
+            bump(name)
+        return wq_matmul_q8_plain(x, qweight, wscale, head_dim, v_cols,
+                                  gamma, bias, eps)
+    name = "wq_matmul_q8"
+    if x.device.type != "cuda":
+        raise MXTPUError("%s: no kernel for device %s" % (name, x.device))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise MXTPUError("%s: x must be float32 or bfloat16, not %s"
+                         % (name, x.dtype))
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    _check_cuda(name, x2, qweight, "qweight", (N, K), torch.int8)
+    _check_cuda(name, x2, wscale, "wscale", (N,), torch.float32)
+    if bias is not None:
+        _check_cuda(name, x2, bias, "bias", (N,), torch.float32)
+    if gamma is not None:
+        _check_cuda(name, x2, gamma, "gamma", (K,), x.dtype)
+    if x.dtype == torch.bfloat16 and (x2.data_ptr() % 16 or K % 16):
+        raise MXTPUError("%s: bfloat16 needs a 16-byte aligned x and K a "
+                         "multiple of 16 (got %d)" % (name, K))
+    lead = x.shape[:-1]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    vq = torch.empty((M, v_cols), dtype=torch.int8, device=x.device)
+    vs = torch.empty((M, v_cols // head_dim), dtype=torch.float32,
+                     device=x.device)
+    if M:
+        ptrs = (x2.data_ptr(), None if gamma is None else gamma.data_ptr(),
+                qweight.data_ptr(), wscale.data_ptr(),
+                None if bias is None else bias.data_ptr(), y.data_ptr(),
+                vq.data_ptr(), vs.data_ptr())
+        p = None
+        if x.dtype == torch.bfloat16:
+            p = plan(M, N, K, gamma is not None, "int8")
+            ctr = _q8_counters(x.device, p["chunks"] * (v_cols // head_dim))
+            rc = _fns()["q8_bf16"](
+                *ptrs, ctr.data_ptr(), v_cols, head_dim, M, N, K, float(eps),
+                p["bn"], p["splits"], p["stages"], p["smem"], _stream(x2))
+        else:
+            ctr = _q8_counters(x.device, _cdiv(M, 32) * (v_cols // head_dim))
+            rc = _fns()["q8_f32"](*ptrs, ctr.data_ptr(), v_cols, head_dim,
+                                  M, N, K, float(eps), _stream(x2))
+        if rc != 0:
+            raise MXTPUError("%s: CUDA launch failed (cudaError %d; plan %r)"
+                             % (name, rc, p))
+    for n in bumps:
+        bump(n)
+    return (y[:, :N - v_cols].reshape(lead + (N - v_cols,)),
+            vq.reshape(lead + (v_cols,)),
+            vs.reshape(lead + (v_cols // head_dim,)))

@@ -1,7 +1,9 @@
-"""The paged KV-cache ops as torch index ops (the port of the six
-float block-paged cache ops in ``mxtpu/ops/tensor.py`` and of their int8
-twins), the int8 quantizer of the KV cache, and the ambient choice of
-its dtype (``resolve_cache_dtype``).
+"""The KV-cache ops as torch index ops (the port of the block-paged
+cache ops and the contiguous slot-cache ops of ``mxtpu/ops/tensor.py``,
+and of their int8 twins), the int8 quantizer of the KV cache, and the
+ambient choice of its dtype (``resolve_cache_dtype``).  The ``*_pre_q8``
+writes land rows that arrive quantized (G3's q8 epilogue) with their
+``*_q8`` twin's index math.
 
 The pool is (N, KV, block_size, D); a request's block table lists its
 pages in sequence order, logical position ``p`` living in page
@@ -38,6 +40,10 @@ __all__ = ["paged_cache_gather", "paged_cache_write",
            "cache_dequant", "cache_write_q8", "paged_cache_gather_q8",
            "paged_cache_write_q8", "paged_cache_write_rows_q8",
            "paged_cache_write_span_q8", "paged_cache_permute_span_q8",
+           "paged_cache_write_rows_pre_q8", "paged_cache_write_span_pre_q8",
+           "cache_write_rows", "cache_write_span", "cache_write_slot",
+           "cache_permute_span", "cache_write_rows_q8", "cache_write_span_q8",
+           "cache_write_slot_q8", "cache_permute_span_q8",
            "resolve_cache_dtype"]
 
 _Q8_EPS = 1e-8  # scale floor (the reference's _Q8_EPS)
@@ -55,15 +61,24 @@ def resolve_cache_dtype(cache_dtype, default=torch.float32):
     return os.environ.get("MXTPU_CACHE_DTYPE", default)
 
 
+_LEVELS: dict = {}  # a 0-dim float32 127 a device
+
+
 def _q8_quantize(new):
     """(..., D) float → ((..., D) int8, (...,) float32 scale): symmetric
     round-to-nearest per-row quantization, in the reference's order of
     arithmetic (cast to float32; s = max(max|x|, 1e-8) / 127; round(x /
     s) half to even; clip to ±127), so the same float32 input gives the
     reference's payload and scales bit for bit.  A zero row gets the
-    floor scale and a zero payload, which dequantizes to exact zeros."""
+    floor scale and a zero payload, which dequantizes to exact zeros.
+    Both divisions are IEEE divisions on every device: 127 is a 0-dim
+    tensor on x's device, since CUDA divides by a Python number through
+    its reciprocal (G3's q8 epilogue divides the same way)."""
     x = new.float()
-    s = torch.clamp_min(x.abs().amax(dim=-1), _Q8_EPS) / 127.0
+    levels = _LEVELS.get(x.device)
+    if levels is None:
+        levels = _LEVELS[x.device] = torch.tensor(127.0, device=x.device)
+    s = torch.clamp_min(x.abs().amax(dim=-1), _Q8_EPS) / levels
     q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
     return q.to(torch.int8), s
 
@@ -82,6 +97,114 @@ def cache_write_q8(cache, scales, new, pos=0):
     p = int(pos)
     cache[:, :, p:p + new.shape[2]] = q
     scales[:, :, p:p + new.shape[2]] = s
+    return cache, scales
+
+
+# -- the contiguous per-slot cache of the slot engine ----------------------
+# The cache is (B, KV, T_max, D), one row a slot (and an int8 cache's
+# scales (B, KV, T_max)); the float ops index its first three axes only,
+# so one op moves a payload and its scales alike.
+
+def _write_lanes(cache, dst, vals, valid):
+    """``cache[b, :, dst[b, w]] = vals[b, w]`` for the lanes where
+    ``valid`` (B, W) holds, with no host sync: the reference drops the
+    other lanes by scattering them past T_max, which an index_put here
+    refuses.  An invalid lane writes what its row's first valid lane
+    writes, where that lane writes it; in a row with no valid lane, the
+    value already at the row's first clamped position back onto it.
+    Every row's duplicate writes carry one value, so the result does not
+    depend on which lands.  ``vals`` (B, W, ...) is read in full before
+    any write."""
+    B, W = dst.shape
+    rows = torch.arange(B, device=cache.device)[:, None]
+    first = valid.int().argmax(dim=1, keepdim=True)              # (B, 1)
+    some = valid.any(dim=1, keepdim=True)
+    at = torch.where(some, dst.gather(1, first),
+                     dst[:, :1].clamp(0, cache.shape[2] - 1))
+    tail = (1,) * (vals.dim() - 2)
+    anchor = torch.where(some.reshape((B, 1) + tail), vals[rows, first],
+                         cache[rows, :, at])
+    cache[rows, :, torch.where(valid, dst, at)] = torch.where(
+        valid.reshape((B, W) + tail), vals, anchor)
+    return cache
+
+
+def cache_write_rows(cache, new, pos):
+    """Per-slot decode write in place: row b of ``new`` (B, KV, 1, D)
+    lands at position ``pos[b]`` of cache row b."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, :, pos.reshape(-1).long()] = new[:, :, 0].to(cache.dtype)
+    return cache
+
+
+def cache_write_span(cache, new, pos, valid_len):
+    """Speculative-window write in place: row b of ``new`` (B, KV, W, D)
+    lands at positions pos[b] .. pos[b]+W-1 of cache row b, its first
+    ``valid_len[b]`` lanes only; the other lanes, and positions past
+    T_max, write nothing (:func:`_write_lanes`)."""
+    B, W = new.shape[0], new.shape[2]
+    lanes = torch.arange(W, device=cache.device)[None, :]
+    dst = pos.reshape(-1, 1).long() + lanes
+    valid = (lanes < valid_len.reshape(-1, 1).long()) & (dst < cache.shape[2])
+    return _write_lanes(cache, dst, new.transpose(1, 2).to(cache.dtype),
+                        valid)
+
+
+def cache_write_slot(cache, new, slot=0, pos=0):
+    """Copy one sequence's cache block ``new`` (1, KV, T, D) into row
+    ``slot`` of ``cache`` at positions pos .. pos+T-1 (the slot
+    prefill's write)."""
+    p = int(pos)
+    cache[int(slot), :, p:p + new.shape[2]] = new[0].to(cache.dtype)
+    return cache
+
+
+def cache_permute_span(cache, pos, src_lane):
+    """The tree fix-up in place: row b's entry at position pos[b] +
+    src_lane[b, j] moves to pos[b] + j.  Lanes with src_lane < 0, and
+    destinations past T_max, write nothing; every source is read before
+    any write, so a row's sources and destinations may overlap."""
+    B, W = src_lane.shape
+    T = cache.shape[2]
+    sl = src_lane.long()
+    p = pos.reshape(-1, 1).long()
+    rows = torch.arange(B, device=cache.device)[:, None]
+    vals = cache[rows, :, (p + sl.clamp(0, W - 1)).clamp(0, T - 1)]
+    dst = p + torch.arange(W, device=cache.device)[None, :]
+    return _write_lanes(cache, dst, vals, (sl >= 0) & (dst < T))
+
+
+def cache_write_rows_q8(cache, scales, new, pos):
+    """The int8 twin of :func:`cache_write_rows`."""
+    q, s = _q8_quantize(new)
+    cache_write_rows(cache, q, pos)
+    cache_write_rows(scales, s, pos)
+    return cache, scales
+
+
+def cache_write_span_q8(cache, scales, new, pos, valid_len):
+    """The int8 twin of :func:`cache_write_span`: invalid lanes write
+    nothing on the payload and on the scales."""
+    q, s = _q8_quantize(new)
+    cache_write_span(cache, q, pos, valid_len)
+    cache_write_span(scales, s, pos, valid_len)
+    return cache, scales
+
+
+def cache_write_slot_q8(cache, scales, new_q, new_s, slot=0, pos=0):
+    """The int8 twin of :func:`cache_write_slot`: an already quantized
+    block (payload (1, KV, T, D) int8 and its (1, KV, T) scales, the
+    slot prefill's scratch) copied, no requantization."""
+    cache_write_slot(cache, new_q, slot, pos)
+    cache_write_slot(scales, new_s, slot, pos)
+    return cache, scales
+
+
+def cache_permute_span_q8(cache, scales, pos, src_lane):
+    """The int8 twin of :func:`cache_permute_span`: payload and scales
+    move with one index set, no requantization."""
+    cache_permute_span(cache, pos, src_lane)
+    cache_permute_span(scales, pos, src_lane)
     return cache, scales
 
 
@@ -212,6 +335,25 @@ def paged_cache_write_span_q8(pool, scales, new, tables, pos, valid_len):
     q, s = _q8_quantize(new)
     paged_cache_write_span(pool, q, tables, pos, valid_len)
     paged_cache_write_span(scales, s, tables, pos, valid_len)
+    return pool, scales
+
+
+def paged_cache_write_rows_pre_q8(pool, scales, new_q, new_s, tables, pos):
+    """:func:`paged_cache_write_rows_q8` of rows that arrive quantized
+    (G3's q8 epilogue): ``new_q`` (B, KV, 1, D) int8 and ``new_s`` (B,
+    KV, 1) float32 land with the same index math, no requantization."""
+    paged_cache_write_rows(pool, new_q, tables, pos)
+    paged_cache_write_rows(scales, new_s, tables, pos)
+    return pool, scales
+
+
+def paged_cache_write_span_pre_q8(pool, scales, new_q, new_s, tables, pos,
+                                  valid_len):
+    """:func:`paged_cache_write_span_q8` of pre-quantized rows: payload
+    (B, KV, W, D) int8 and scales (B, KV, W) float32, invalid lanes to
+    the null page on both scatters, no requantization."""
+    paged_cache_write_span(pool, new_q, tables, pos, valid_len)
+    paged_cache_write_span(scales, new_s, tables, pos, valid_len)
     return pool, scales
 
 

@@ -1,65 +1,84 @@
-"""Continuous batching over a block-paged KV cache (the port of
+"""Continuous batching (the port of ``ContinuousBatchingEngine`` and
 ``PagedContinuousBatchingEngine`` from ``mxtpu/parallel/serving.py``).
 
-One pool of ``num_blocks`` fixed-size pages per layer serves every
-request: a request holds ceil(need / block_size) pages listed in its
-block table, page 0 being the null page that absorbs dead-lane writes.
-Each ``step()`` is one scheduler iteration:
+Both engines keep ``num_slots`` pool rows and run one scheduler
+iteration a ``step()``: admissions into free rows, then ONE pooled
+decode step over every decoding row and sampling — or, where
+speculation drafted tokens, ONE pooled verify call.
 
-1. one prefill chunk for every slot still prefilling;
-2. admission of queued requests into free slots — a radix prefix lookup
-   shares the full prompt pages another request already computed
-   (refcounted, never recomputed), the partially matching page at the
-   divergence is cloned copy-on-write, pages are allocated, and the
-   first chunk runs at once; a request that cannot get its pages now
-   waits at the queue head (FIFO kept);
-3. ONE pooled decode step over every decoding slot, then sampling —
-   or, where speculation drafted tokens, ONE pooled verify call.
+- :class:`ContinuousBatchingEngine` keeps a contiguous cache row a slot
+  (``TransformerLM.init_cache(num_slots, max_length)``).  Admission
+  prefills the whole prompt (padded to the power-of-two ladder, as the
+  reference pads it) into a scratch cache and copies it into the row
+  (``write_cache_slot``); decode runs ``step_slots``, verification
+  ``verify_slots`` and the tree fix-up ``permute_cache_span``.  The slot
+  path's attention is plain PyTorch, as the reference computes it in
+  XLA.
+- :class:`PagedContinuousBatchingEngine`, its subclass, keeps one pool
+  of ``num_blocks`` fixed-size pages a layer: a request holds
+  ceil(need / block_size) pages listed in its block table, page 0 being
+  the null page that absorbs dead-lane writes.  An iteration first runs
+  one prefill chunk for every slot still prefilling, then admits: a
+  radix prefix lookup shares the full prompt pages another request
+  already computed (refcounted, never recomputed), the partially
+  matching page at the divergence is cloned copy-on-write, pages are
+  allocated, and the first chunk runs at once; a request that cannot
+  get its pages now waits at the queue head (FIFO kept).  Decode runs
+  ``step_pages`` (K1), verification ``verify_pages`` (K1's window or
+  tree mask) and prefill ``prefill_pages`` (K2).  The chunk plan, the
+  table width and the allocation order are the reference's, so page
+  ids and written positions match the JAX engine's step for step.  It
+  overrides the decode hooks (``_decode_state``, ``_run_step``,
+  ``_run_verify``, ``_run_verify_tree``, ``_run_fixup``) and the
+  admission; the scheduler, the sampling and the speculation are the
+  base class's.
 
-The chunk plan, the table width and the allocation order are the
-reference's, so page ids and written positions match the JAX engine's
-step for step.  The first token of a request comes from the last real
-logit row of its last chunk, and sampled requests draw from their own
-``torch.Generator`` seeded after prefill, so an engine stream equals
-the port's isolated ``TransformerLM.generate`` with the same seed.
+The first token of a request comes from the last real logit row of its
+prefill, and sampled requests draw from their own ``torch.Generator``
+seeded after prefill, so an engine stream equals the port's isolated
+``TransformerLM.generate`` with the same seed.
 
-Unlike the reference, which threads a new pool through every compiled
-program, the pools are updated IN PLACE.  Two orderings follow: the
-copy-on-write clone runs before the first chunk's own writes, and a
-shared prefix page is never written (the allocator hands a request only
-pages it owns alone for every position it writes).
+Unlike the reference, which threads new caches through every compiled
+program, caches and pools are updated IN PLACE.  For the paged pool two
+orderings follow: the copy-on-write clone runs before the first chunk's
+own writes, and a shared prefix page is never written (the allocator
+hands a request only pages it owns alone for every position it writes).
 
 Speculative decoding (``spec_k > 0`` and/or ``spec_tree``): a host-side
 n-gram drafter proposes up to ``spec_k`` tokens per slot from the
 request's own prompt and output (``NGramDrafter``), or a small tree of
-alternatives (``TreeDrafter``); ONE pooled ``verify_pages`` call scores
-every slot's window (lane w at pos + w) or tree (lane w on its own
-root-to-node path, through the kernel's ancestor mask).  Each window
-position is drawn with the rule and the draw sequential decode would use
-there — greedy, penalized with the window's earlier tokens, or from the
-request's generator peeked ahead (``sampler.future_states``) and
-advanced by the tokens emitted — and a slot emits its longest matching
-prefix plus one, so every stream equals its non-speculative stream.
-Rejected lanes stay in the slot's pages past its position, behind every
-later mask; rollback is a host position fix-up.  A tree whose accepted
-path took a side branch moves that path's K/V into depth order
-(``permute_pool_span``) before the next step reads it.
+alternatives (``TreeDrafter``; ``spec_tree=None`` reads
+``MXTPU_SPEC_TREE``); or, with ``draft_block``, a small dense draft
+``TransformerLM`` proposes them greedily from its own contiguous slot
+cache (``j + 1`` pooled ``step_slots`` calls for j drafts, so a fully
+accepted window leaves no gap in the draft cache, whose rows mirror the
+target's row and position).  ONE pooled verify call scores every slot's
+window (lane w at pos + w) or tree (lane w on its own root-to-node
+path).  Each window position is drawn with the rule and the draw
+sequential decode would use there — greedy, penalized with the window's
+earlier tokens, or from the request's generator peeked ahead
+(``sampler.future_states``) and advanced by the tokens emitted — and a
+slot emits its longest matching prefix plus one, so every stream equals
+its non-speculative stream.  Rejected lanes stay in the cache past the
+slot's position, behind every later mask; rollback is a host position
+fix-up.  A tree whose accepted path took a side branch moves that
+path's K/V into depth order before the next step reads it.
 
-``cache_dtype="int8"`` (or ``MXTPU_CACHE_DTYPE=int8``) stores the pools
+``cache_dtype="int8"`` (or ``MXTPU_CACHE_DTYPE=int8``) stores the caches
 as int8 payloads with one float32 scale per head and position; every
 write quantizes per row, so the streams are those of the model's
-isolated ``generate(cache_dtype="int8")``.  The engine keeps the status
+isolated ``generate(cache_dtype="int8")``.  The engines keep the status
 of the last ``max(history, 2 * num_slots)`` finished requests.
 
-Not in this slice: draft-model speculation (``draft_block``), the
-``MXTPU_SPEC_TREE`` default, the hierarchical cache and sessions, fault
-sites, tracing, quarantine and retries, deadlines, bounded admission,
-weight hot-swap, tensor parallelism.  ``submit`` and the constructor
-raise ``NotImplementedError`` for their knobs.
+Not in this slice: the hierarchical cache and sessions, fault sites,
+tracing, quarantine and retries, deadlines, bounded admission, weight
+hot-swap, tensor parallelism.  ``submit`` raises
+``NotImplementedError`` for their knobs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -67,10 +86,12 @@ import torch
 
 from ..base import LoadShedError, MXTPUError, resolve_device
 from ..models import sampler
+from ..models.transformer import TransformerLM
 from ..ops.tensor import resolve_cache_dtype
 from .paging import NULL_PAGE, BlockPool, PrefixIndex
 
-__all__ = ["Request", "PagedContinuousBatchingEngine", "resolve_cache_dtype"]
+__all__ = ["Request", "ContinuousBatchingEngine",
+           "PagedContinuousBatchingEngine", "resolve_cache_dtype"]
 
 
 def _bucket(n, base=8):
@@ -106,6 +127,13 @@ def _parse_spec_tree(value):
     if branch < 1:
         raise ValueError("spec_tree branch must be >= 1, got %d" % branch)
     return nodes, branch
+
+
+def _ambient_spec_tree():
+    """The engines' default tree config from ``MXTPU_SPEC_TREE``
+    ("nodes,branch"; unset or empty: no tree drafting)."""
+    v = os.environ.get("MXTPU_SPEC_TREE", "").strip()
+    return _parse_spec_tree(v) if v else None
 
 
 def _tree_paths(parent):
@@ -205,26 +233,23 @@ class _TreeDraft:
 
 
 class _Slot:
-    """Host-side state of one occupied pool row.  ``pos`` is None while
-    the prompt is still prefilling (one chunk per iteration); afterwards
-    it is the cache position of the last sampled token, which the next
-    decode step writes.  ``emitted`` holds references to the pooled
-    (B,) token vector of each plain step (row ``row`` is this slot's
-    token, read back to the host only when the request finishes) and a
-    :class:`_SpecTokens` per verify iteration.  A speculating slot keeps
-    a host mirror of its ``history`` (prompt and emitted tokens), which
-    the drafters propose from."""
+    """Host-side state of one occupied pool row.  ``pos`` is the cache
+    position of the last sampled token, which the next decode step
+    writes (None while a paged prompt is still prefilling).
+    ``emitted`` holds references to the pooled (B,) token vector of each
+    plain step (row ``row`` is this slot's token, read back to the host
+    only when the request finishes) and a :class:`_SpecTokens` per
+    verify iteration.  A speculating slot keeps a host mirror of its
+    ``history`` (prompt and emitted tokens), which the drafters propose
+    from."""
 
-    __slots__ = ("req", "row", "Tp", "chunks", "chunk_i", "cow", "pos",
-                 "emitted", "n_emitted", "gen", "history")
+    __slots__ = ("req", "row", "Tp", "pos", "emitted", "n_emitted", "gen",
+                 "history")
 
-    def __init__(self, req, row, Tp, chunks, cow):
+    def __init__(self, req, row):
         self.req = req
         self.row = row
-        self.Tp = Tp
-        self.chunks = chunks          # [(start, T_actual, T_bucketed)]
-        self.chunk_i = 0
-        self.cow = cow                # (src_page, dst_page) or None
+        self.Tp = req.prompt.shape[1]
         self.pos = None
         self.emitted = []
         self.n_emitted = 0
@@ -234,6 +259,19 @@ class _Slot:
     @property
     def prefilling(self):
         return self.pos is None
+
+
+class _PagedSlot(_Slot):
+    """A paged slot: its chunk plan, the next chunk, and the pending
+    copy-on-write clone (src_page, dst_page) of its first chunk."""
+
+    __slots__ = ("chunks", "chunk_i", "cow")
+
+    def __init__(self, req, row, chunks, cow):
+        super().__init__(req, row)
+        self.chunks = chunks          # [(start, T_actual, T_bucketed)]
+        self.chunk_i = 0
+        self.cow = cow
 
 
 class _AdmissionDeferred(Exception):
@@ -246,22 +284,16 @@ def _same_device(a, b):
                                  or a.index == b.index)
 
 
-class PagedContinuousBatchingEngine:
-    """Iteration-level scheduler over a paged KV pool (module docstring).
+class ContinuousBatchingEngine:
+    """Iteration-level scheduler over a pool of contiguous cache rows
+    (module docstring).
 
     Parameters
     ----------
     model : a port ``TransformerLM`` on ``device``.
-    num_slots : pool lanes B (the pooled decode step's batch).
-    max_length : per-request cap on prompt + new tokens.
-    block_size : tokens per page.
-    num_blocks : pool capacity in pages (page 0 comes on top).  Default
-        ``num_slots * ceil(max_length / block_size)``.
-    prefill_chunk : tokens ingested per iteration while prefilling
-        (power of two >= 8).  Chunk lengths are padded to the
-        power-of-two ladder, as the reference pads them to its compiled
-        shapes, which keeps the chunk plan, and so the page ids,
-        identical to the reference's.
+    num_slots : pool rows B (the pooled decode step's batch).
+    max_length : per-slot cache length; every request fits prompt + new
+        tokens in it.
     spec_k : most drafted tokens per slot per iteration (0, the
         default, drafts nothing unless ``spec_tree`` is set).
     spec_ngram : longest n-gram the drafters match (>= 1).
@@ -270,59 +302,38 @@ class PagedContinuousBatchingEngine:
         ``max_nodes`` <= 31 nodes, ``branch`` children a node.  Requests
         opt out with ``submit(spec_tree=False)`` (linear drafting) or
         name their own; linear windows ride the tree verify call as
-        chains.  None: no tree drafting.
+        chains.  None reads ``MXTPU_SPEC_TREE`` (unset: no trees).
+        Self-drafting only: it cannot be combined with ``draft_block``.
+    draft_block : a small dense port ``TransformerLM`` with the target's
+        vocabulary on the engine's device: drafts come from its pooled
+        greedy decode over its own slot cache instead of the n-gram
+        lookup (the verify side is the same).  Needs ``spec_k >= 1``.
     history : terminal requests whose status the engine remembers: the
         records of all but the last ``max(history, 2 * num_slots)``
         finished requests are dropped (``status`` then answers
-        ``unknown``), so a long-lived engine does not grow without
-        bound.
-    cache_dtype : the KV pools' element type: None (the ambient
-        ``MXTPU_CACHE_DTYPE``, else float32), a float dtype, or
-        ``"int8"`` for int8 payloads with one float32 scale per head
-        and position (:func:`resolve_cache_dtype`).
+        ``unknown``).
+    cache_dtype : the caches' element type: None (the ambient
+        ``MXTPU_CACHE_DTYPE``, else each model's own dtype), a float
+        dtype, or ``"int8"`` for int8 payloads with one float32 scale
+        per head and position (:func:`resolve_cache_dtype`).
     device : where the engine runs; the CUDA card unless named.  With no
         device named and no CUDA present the constructor raises.
     """
 
     def __init__(self, model, num_slots: int = 4, max_length: int = 256,
-                 block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefill_chunk: int = 64, spec_k: int = 0,
-                 spec_ngram: int = 3, spec_tree=None, draft_block=None,
-                 history: int = 1024, cache_dtype=None, device=None):
-        if draft_block is not None:
-            raise NotImplementedError(
-                "draft-model speculation (draft_block=) is not ported to "
-                "mxtpu_torch yet")
+                 spec_k: int = 0, spec_ngram: int = 3, spec_tree=None,
+                 draft_block=None, history: int = 1024, cache_dtype=None,
+                 device=None):
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0, got %d" % spec_k)
         self._device = resolve_device(device)
         if not _same_device(model.device, self._device):
             raise MXTPUError("the model is on %s, the engine on %s"
                              % (model.device, self._device))
-        bs = int(block_size)
-        chunk = int(prefill_chunk)
-        if bs < 1:
-            raise ValueError("block_size must be >= 1, got %d" % bs)
-        if chunk < 8 or (chunk & (chunk - 1)):
-            raise ValueError("prefill_chunk must be a power of two >= 8, "
-                             "got %d" % chunk)
         self._model = model
         self._num_slots = int(num_slots)
         self._max_length = int(max_length)
-        self._bs = bs
-        self._chunk = chunk
-        # table width: every request's pages plus headroom for the last
-        # chunk's bucket padding (padded writes stay inside the request's
-        # own pages)
-        self._M = -(-(self._max_length + chunk) // bs)
-        if num_blocks is None:
-            num_blocks = self._num_slots * (-(-self._max_length // bs))
-        self._prefix = PrefixIndex(bs)
-        self._bp = BlockPool(int(num_blocks), bs, on_free=self._prefix.evict)
         self._cache_dtype = resolve_cache_dtype(cache_dtype, model.dtype)
-        self._pools = model.init_block_pool(self._bp.capacity + 1, bs,
-                                            self._cache_dtype)
-        self._slot_pages: List[Optional[List[int]]] = [None] * self._num_slots
         self._slots: List[Optional[_Slot]] = [None] * self._num_slots
         self._queue: List[Request] = []
         self._results: Dict[int, torch.Tensor] = {}
@@ -337,19 +348,45 @@ class PagedContinuousBatchingEngine:
         self._seen = None                # (B, V) bool, penalized rows
         self._steps = 0
         self._tokens_generated = 0
-        self._prefill_chunks = 0
-        self._prefill_tokens = 0
-        self._prefix_hits = 0
-        self._cow_copies = 0
         self._shed = 0
         # -- speculative decoding ----------------------------------------
         self._spec_k = int(spec_k)
         self._spec_ngram = int(spec_ngram)
+        if spec_tree is None:
+            spec_tree = _ambient_spec_tree()
         self._spec_tree = (None if spec_tree is None
                            else _parse_spec_tree(spec_tree))
+        if self._spec_tree is not None and draft_block is not None:
+            raise ValueError(
+                "spec_tree drafting is self-drafted (n-gram tree lookup): "
+                "it cannot be combined with draft_block; pick one proposal "
+                "source")
         self._spec_on = self._spec_k > 0 or self._spec_tree is not None
+        self._draft = draft_block
+        self._draft_pool = None
+        if draft_block is not None:
+            if self._spec_k < 1:
+                raise ValueError("draft_block needs spec_k >= 1 (it bounds "
+                                 "the drafted window)")
+            if not isinstance(draft_block, TransformerLM):
+                raise ValueError(
+                    "draft_block must be a dense port TransformerLM, not %s"
+                    % type(draft_block).__name__)
+            if draft_block.vocab_size != model.vocab_size:
+                raise ValueError(
+                    "draft_block's vocabulary (%d) is not the target's (%d)"
+                    % (draft_block.vocab_size, model.vocab_size))
+            if not _same_device(draft_block.device, self._device):
+                raise MXTPUError("the draft model is on %s, the engine on %s"
+                                 % (draft_block.device, self._device))
+            # rows and length of the target's: the draft cache mirrors the
+            # target row and position-wise, so rollback is one host fix-up
+            self._draft_cache_dtype = resolve_cache_dtype(cache_dtype,
+                                                          draft_block.dtype)
+            self._draft_pool = draft_block.init_cache(
+                self._num_slots, self._max_length, self._draft_cache_dtype)
         self._drafter = (sampler.NGramDrafter(max_ngram=self._spec_ngram)
-                         if self._spec_on else None)
+                         if self._spec_on and draft_block is None else None)
         self._tree_drafters: Dict[tuple, sampler.TreeDrafter] = {}
         self._drafted_tokens = 0
         self._accepted_tokens = 0
@@ -359,8 +396,19 @@ class PagedContinuousBatchingEngine:
         self._slot_iterations = 0      # slot participations in decode
         #                                calls: tokens per slot-iteration
         #                                is the speculation multiplier
+        self._init_cache()
+
+    def _init_cache(self):
+        """The target's cache: one contiguous row a slot."""
+        self._pool = self._model.init_cache(self._num_slots,
+                                            self._max_length,
+                                            self._cache_dtype)
 
     # -- introspection ---------------------------------------------------
+    @property
+    def free_slots(self):
+        return sum(1 for s in self._slots if s is None)
+
     @property
     def pending(self):
         return len(self._queue)
@@ -374,17 +422,7 @@ class PagedContinuousBatchingEngine:
         return {
             "steps": self._steps,
             "generated_tokens": self._tokens_generated,
-            "prefill_chunks": self._prefill_chunks,
-            "prefill_tokens": self._prefill_tokens,
             "shed_requests": self._shed,
-            "blocks_in_use": self._bp.in_use,
-            "blocks_free": self._bp.free_count,
-            "blocks_shared": self._bp.shared_count,
-            "shared_extra_refs": self._bp.shared_extra_refs,
-            "prefix_hit_requests": self._prefix_hits,
-            "cow_copied_blocks": self._cow_copies,
-            "block_size": self._bs,
-            "num_blocks": self._bp.capacity,
             "drafted_tokens": self._drafted_tokens,
             "accepted_tokens": self._accepted_tokens,
             "tree_nodes_drafted": self._tree_nodes_drafted,
@@ -400,30 +438,6 @@ class PagedContinuousBatchingEngine:
         return self._status.get(rid, "unknown")
 
     # -- request intake --------------------------------------------------
-    def _plan_chunks(self, start, Tp):
-        """Chunk schedule over prompt positions [start, Tp), the
-        reference's: chunk shapes stay on the power-of-two ladder
-        (<= prefill_chunk) and descend it where bucket padding would
-        spill past the slot extent.  Returns the schedule and the padded
-        extent (the last position any chunk's padding writes)."""
-        cap = -(-self._max_length // self._bs) * self._bs
-        chunks, extent = [], 0
-        while start < Tp:
-            rem = Tp - start
-            Tb = min(_bucket(rem), self._chunk)
-            while Tb > 8 and start + Tb > cap:
-                Tb //= 2
-            Tact = min(rem, Tb)
-            chunks.append((start, Tact, Tb))
-            extent = max(extent, start + Tb)
-            start += Tact
-        return chunks, extent
-
-    def _pages_needed(self, Tp, max_new):
-        """Worst-case (share-nothing) page count of one request."""
-        _, extent = self._plan_chunks(0, Tp)
-        return -(-max(Tp + max_new, extent) // self._bs)
-
     def submit(self, prompt_ids, max_new_tokens, temperature=0.0, top_k=0,
                top_p=0.0, repetition_penalty=1.0, seed=None, eos_id=None,
                deadline_s=None, retries=0, speculative=None, session=None,
@@ -432,10 +446,9 @@ class PagedContinuousBatchingEngine:
         temperature 0 is greedy; ``seed`` reproduces a sampled stream.
         ``speculative=False`` opts the request out of the engine's
         speculation; ``spec_tree`` is None (the engine's default), False
-        (linear drafting) or the request's own tree config.  The output
-        is the same in every mode.  A request whose worst-case page need
-        exceeds the whole pool can never be admitted and is shed at once
-        with :class:`~mxtpu_torch.base.LoadShedError`."""
+        (linear drafting) or the request's own tree config (a
+        self-drafting engine only).  The output is the same in every
+        mode."""
         for knob, value, default in (
                 ("deadline_s", deadline_s, None), ("retries", retries, 0),
                 ("session", session, None)):
@@ -444,10 +457,11 @@ class PagedContinuousBatchingEngine:
                     "submit(%s=...) is not ported to mxtpu_torch yet" % knob)
         if spec_tree is not None and spec_tree is not False:
             spec_tree = _parse_spec_tree(spec_tree)
-            if not self._spec_on:
+            if not self._spec_on or self._drafter is None:
                 raise ValueError(
-                    "submit(spec_tree=...) needs a speculation-enabled "
-                    "engine (spec_k > 0 or spec_tree= at construction)")
+                    "submit(spec_tree=...) needs a self-drafting "
+                    "speculation-enabled engine (spec_k > 0 or spec_tree= "
+                    "at construction, and no draft_block)")
         prompt = np.asarray(torch.as_tensor(prompt_ids).cpu(),
                             dtype=np.int32)
         if prompt.ndim != 2 or prompt.shape[0] != 1:
@@ -458,15 +472,7 @@ class PagedContinuousBatchingEngine:
             raise ValueError("request needs %d cache positions > "
                              "max_length %d"
                              % (Tp + int(max_new_tokens), self._max_length))
-        need = self._pages_needed(Tp, int(max_new_tokens))
-        if need > self._bp.capacity:
-            self._shed += 1
-            raise LoadShedError(
-                "request needs %d page(s) > pool capacity %d "
-                "(block_size=%d): can never be admitted — shed"
-                % (need, self._bp.capacity, self._bs),
-                queue_depth=len(self._queue), limit=self._bp.capacity,
-                permanent=True)
+        self._check_capacity(Tp, int(max_new_tokens))
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid, prompt, max_new_tokens, temperature,
@@ -475,64 +481,43 @@ class PagedContinuousBatchingEngine:
         self._status[rid] = "queued"
         return rid
 
+    def _check_capacity(self, Tp, max_new):
+        """Shed a request that can never be admitted (the paged engine's
+        page budget); every request that fits max_length fits a row."""
+
     # -- admission -------------------------------------------------------
-    def _table_row(self, row):
-        t = np.full((self._M,), NULL_PAGE, np.int32)
-        pages = self._slot_pages[row]
-        if pages:
-            t[:len(pages)] = pages
-        return t
+    def _slot_prefill(self, model, cache, cache_dtype, row, prompt):
+        """Prefill ``prompt`` (1, Tp) int32 into row ``row`` of ``cache``
+        (``model``'s): the prompt padded to the power-of-two ladder
+        (capped at max_length) through a fresh batch-1 scratch cache,
+        then copied into the row.  Returns the logits of the prompt's
+        last real position, (1, V)."""
+        Tp = prompt.shape[1]
+        Tb = min(_bucket(Tp), self._max_length)
+        raw = np.zeros((1, Tb), np.int64)
+        raw[0, :Tp] = prompt[0]
+        scratch = model.init_cache(1, Tb, cache_dtype)
+        logits = model.prefill(torch.from_numpy(raw).to(self._device),
+                               scratch)
+        model.write_cache_slot(cache, scratch, row)
+        return logits[:, Tp - 1]
 
     def _admit(self, req, row):
-        """Prefix lookup, page allocation and chunk plan; the first chunk
-        (after the copy-on-write clone) runs at once, so a prompt no
-        longer than one chunk finishes admission this iteration."""
-        Tp = req.prompt.shape[1]
-        full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
-        n_shared = len(full) * self._bs + (partial[1] if partial else 0)
-        chunks, extent = self._plan_chunks(n_shared, Tp)
-        n_pages = -(-max(Tp + req.max_new_tokens, extent) // self._bs)
-        need = n_pages - len(full)
-        if need > self._bp.free_count:
-            raise _AdmissionDeferred()
-        fresh = self._bp.alloc(need)
-        for bid in full:
-            self._bp.retain(bid)
-        pages = list(full) + fresh
-        self._slot_pages[row] = pages
-        cow = None
-        if full or partial:
-            self._prefix_hits += 1
-        if partial:
-            cow = (partial[0], pages[len(full)])
-            self._cow_copies += 1
-        self._slots[row] = _Slot(req, row, Tp, chunks, cow)
+        """Slot prefill of the whole prompt, then the first token."""
+        slot = _Slot(req, row)
+        self._slots[row] = slot
         self._status[req.rid] = "active"
-        self._advance_prefill(row)
+        last = self._slot_prefill(self._model, self._pool, self._cache_dtype,
+                                  row, req.prompt)
+        self._first_token(slot, last)
 
-    def _advance_prefill(self, row):
-        """Run ONE prefill chunk of a prefilling slot.  The last chunk
-        samples the first token from the prompt's last real logit row
-        and registers the prompt's full pages in the prefix index."""
-        slot = self._slots[row]
-        req = slot.req
-        start, Tact, Tb = slot.chunks[slot.chunk_i]
-        raw = np.zeros((1, Tb), np.int64)
-        raw[0, :Tact] = req.prompt[0, start:start + Tact]
-        if slot.cow is not None:
-            # the clone lands before this chunk writes into its page
-            self._model.copy_block(self._pools, *slot.cow)
-            slot.cow = None
-        table = torch.from_numpy(self._table_row(row)).to(self._device)
-        logits = self._model.prefill_pages(
-            torch.from_numpy(raw).to(self._device), self._pools, table,
-            start)
-        slot.chunk_i += 1
-        self._prefill_chunks += 1
-        self._prefill_tokens += Tact
-        if slot.chunk_i < len(slot.chunks):
-            return                           # more chunks next iteration
-        last = logits[:, slot.Tp - 1 - start]          # (1, V)
+    def _first_token(self, slot, last):
+        """The admission tail shared by both engines, from the prompt's
+        last real logit row ``last`` (1, V): the generator of a sampled
+        request (seeded after prefill, as ``generate`` seeds it), the
+        penalty row, the first draw, the drafters' history and the draft
+        model's prefill; a request done after one token finishes."""
+        req, row = slot.req, slot.row
         if req.sampled:
             slot.gen = torch.Generator(device=self._device)
             slot.gen.manual_seed(int(req.seed) if req.seed is not None
@@ -561,11 +546,16 @@ class PagedContinuousBatchingEngine:
             # the drafters' history: prompt and first token (one small
             # host read per admission)
             slot.history = [int(t) for t in req.prompt[0]] + [int(tok[0])]
-        # prompt pages fully below Tp are now immutable
-        self._prefix.register(req.prompt[0],
-                              self._slot_pages[row][:slot.Tp // self._bs])
+            if self._draft is not None:
+                self._slot_prefill(self._draft, self._draft_pool,
+                                   self._draft_cache_dtype, row, req.prompt)
+        self._prefilled(slot)
         if self._slot_done(slot):
             self._finish(row)
+
+    def _prefilled(self, slot):
+        """Called once a slot's prompt is in the cache (the paged engine
+        registers its prompt pages here)."""
 
     # -- decode ----------------------------------------------------------
     def _slot_done(self, slot):
@@ -579,9 +569,8 @@ class PagedContinuousBatchingEngine:
         return False
 
     def _finish(self, row):
-        """Read the slot's tokens back, store the result and release the
-        slot's pages (the last reference frees a page and evicts its
-        prefix-index entry)."""
+        """Read the slot's tokens back, store the result and free the
+        row."""
         slot = self._slots[row]
         req = slot.req
         pooled = [e for e in slot.emitted if not isinstance(e, _SpecTokens)]
@@ -597,9 +586,10 @@ class PagedContinuousBatchingEngine:
             [req.prompt, np.asarray(toks, np.int32).reshape(1, -1)], axis=1))
         self._terminal(req.rid)
         self._slots[row] = None
-        pages, self._slot_pages[row] = self._slot_pages[row], None
-        for bid in pages:
-            self._bp.release(bid)
+        self._release(row)
+
+    def _release(self, row):
+        """Return a finished row's cache (the paged engine's pages)."""
 
     def _terminal(self, rid):
         """Mark a request ``ok``, dropping the status records of the
@@ -611,16 +601,28 @@ class PagedContinuousBatchingEngine:
                 self._status.pop(old, None)
             del self._done[:-self._history]
 
+    # the decode hooks: the slot engine's forms (the paged engine adds
+    # its block tables)
     def _decode_state(self, active):
-        """pos (B,) and tables (B, M) int32 on the device: dead lanes
-        carry all-null tables and position 0."""
+        """pos (B,) int32 on the device: dead lanes at position 0."""
         pos = np.zeros((self._num_slots,), np.int32)
-        tables = np.zeros((self._num_slots, self._M), np.int32)
         for i in active:
             pos[i] = self._slots[i].pos
-            tables[i] = self._table_row(i)
-        return (torch.from_numpy(pos).to(self._device),
-                torch.from_numpy(tables).to(self._device))
+        return torch.from_numpy(pos).to(self._device)
+
+    def _run_step(self, state):
+        return self._model.step_slots(self._last_tokens.reshape(-1, 1),
+                                      self._pool, state)
+
+    def _run_verify(self, state, window, valid_len):
+        return self._model.verify_slots(window, self._pool, state, valid_len)
+
+    def _run_verify_tree(self, state, window, valid_len, perm, depth, anc):
+        return self._model.verify_slots(window, self._pool, state, valid_len,
+                                        tree=(perm, depth))
+
+    def _run_fixup(self, state, src_lane):
+        self._model.permute_cache_span(self._pool, state, src_lane)
 
     def _decode_active(self, active):
         """Draft, then ONE plain pooled step or ONE pooled verify call
@@ -637,9 +639,7 @@ class PagedContinuousBatchingEngine:
     def _decode_plain(self, active):
         """ONE pooled decode step over every decoding slot; speculating
         slots mirror their token into the host history."""
-        pos, tables = self._decode_state(active)
-        logits = self._model.step_pages(
-            self._last_tokens.reshape(-1, 1), self._pools, tables, pos)
+        logits = self._run_step(self._decode_state(active))
         self._sample_pool(logits[:, 0], active)
         self._steps += 1
         self._tokens_generated += len(active)
@@ -659,27 +659,28 @@ class PagedContinuousBatchingEngine:
 
     # -- speculative decoding ----------------------------------------------
     def _speculates(self, req):
-        """Whether a request self-drafts: speculation on and not opted
-        out, and more than one token to generate."""
+        """Whether a request drafts: speculation on and not opted out,
+        and more than one token to generate."""
         return (self._spec_on and req.speculative is not False
                 and req.max_new_tokens > 1)
 
     def _spec_extent(self, slot):
-        """Token capacity of the slot's pages: a drafted window clamps
-        here, so a verify write never needs a page the slot lacks."""
-        return len(self._slot_pages[slot.row]) * self._bs
+        """Token capacity of the slot's cache: a drafted window clamps
+        here, so a verify write never lands past it."""
+        return self._max_length
 
     def _spec_budget(self, slot):
         """Draft tokens one slot may propose this iteration: never past
-        the request's remaining tokens nor its pages."""
+        the request's remaining tokens nor the slot's extent."""
         return min(self._spec_k,
                    slot.req.max_new_tokens - slot.n_emitted - 1,
                    self._spec_extent(slot) - 1 - slot.pos)
 
     def _tree_cfg_for(self, req):
         """The request's (max_nodes, branch) tree config, or None for
-        linear drafting."""
-        if not self._spec_on or req.spec_tree is False:
+        linear drafting (always None with a draft model)."""
+        if not self._spec_on or self._draft is not None \
+                or req.spec_tree is False:
             return None
         if req.spec_tree is not None:
             return req.spec_tree        # validated at submit
@@ -706,11 +707,14 @@ class PagedContinuousBatchingEngine:
         or _TreeDraft}, empty drafts left out."""
         if not self._spec_on:
             return {}
+        rows = [i for i in active if self._slots[i].history is not None]
+        if not rows:
+            return {}
+        if self._draft is not None:
+            return self._propose_model(rows)
         out = {}
-        for i in active:
+        for i in rows:
             s = self._slots[i]
-            if s.history is None:
-                continue
             cfg = self._tree_cfg_for(s.req)
             if cfg is not None:
                 n = self._tree_budget(s, cfg[0])
@@ -732,12 +736,46 @@ class PagedContinuousBatchingEngine:
                 out[i] = d
         return out
 
+    def _propose_model(self, rows):
+        """Pooled greedy drafting with the draft model: j proposals a row
+        from j + 1 pooled ``step_slots`` calls over the draft cache, the
+        last one writing the last draft's K/V, so a fully accepted
+        window leaves no gap.  Rows that do not draft flow through at
+        position 0 (their draft rows are never read); a write past the
+        cache is clamped onto its last position, which the row rewrites
+        before it attends it."""
+        B = self._num_slots
+        j = max(0, min(self._spec_k,
+                       max(self._spec_budget(self._slots[i]) for i in rows)))
+        pos = np.zeros((B,), np.int64)
+        for i in rows:
+            pos[i] = self._slots[i].pos
+        pos = torch.from_numpy(pos).to(self._device)
+        tok = self._last_tokens.reshape(-1, 1)
+        proposals = []
+        for w in range(j + 1):
+            logits = self._draft.step_slots(
+                tok, self._draft_pool,
+                (pos + w).clamp(max=self._max_length - 1))
+            if w < j:
+                nxt = torch.argmax(logits[:, 0], dim=-1)
+                proposals.append(nxt)
+                tok = nxt.reshape(-1, 1)
+        if not proposals:
+            return {}
+        mat = torch.stack(proposals, dim=1).cpu().numpy()
+        out = {}
+        for i in rows:
+            k = self._spec_budget(self._slots[i])
+            if k > 0:
+                out[i] = [int(t) for t in mat[i, :k]]
+        return out
+
     def _window(self, drafts_tokens, W):
         """The (B, W) verify window on the device: each row's last
         sampled token, then its drafted tokens (zeros past them)."""
         dr = torch.from_numpy(drafts_tokens).to(self._device)
         return torch.cat([self._last_tokens.reshape(-1, 1), dr], dim=1)
-
     def _decode_verify(self, active, drafts):
         """Linear speculative iteration: ONE pooled verify call scores
         every row's window (last token + drafts), the candidate draw at
@@ -746,7 +784,7 @@ class PagedContinuousBatchingEngine:
         plus one."""
         B = self._num_slots
         W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
-        pos, tables = self._decode_state(active)
+        state = self._decode_state(active)
         dr = np.zeros((B, W - 1), np.int64)
         vl = np.zeros((B,), np.int32)
         nreal = 0
@@ -756,9 +794,8 @@ class PagedContinuousBatchingEngine:
             dr[i, :len(d)] = d
             nreal += len(d)
         window = self._window(dr, W)
-        logits = self._model.verify_pages(
-            window, self._pools, tables, pos,
-            torch.from_numpy(vl).to(self._device))
+        logits = self._run_verify(state, window,
+                                  torch.from_numpy(vl).to(self._device))
         M, states = self._sample_window(logits, active, window, W)
         # ONE host sync: the candidates and the window
         M_h, win_h = torch.stack([M, window]).cpu().numpy()
@@ -778,10 +815,10 @@ class PagedContinuousBatchingEngine:
         and a row emits its deepest accepted path plus one.  Sibling
         tokens are distinct, so the accepted lanes form one chain.  A
         row whose path took a side branch has that path's K/V moved
-        into depth order (``permute_pool_span``)."""
+        into depth order (``_run_fixup``)."""
         B = self._num_slots
         W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
-        pos, tables = self._decode_state(active)
+        state = self._decode_state(active)
         dr = np.zeros((B, W - 1), np.int64)
         vl = np.zeros((B,), np.int32)
         # padding lanes continue a chain off the previous lane, so every
@@ -805,11 +842,10 @@ class PagedContinuousBatchingEngine:
         depth, anc, perm = _tree_paths(parent)
         window = self._window(dr, W)
         dev = self._device
-        logits = self._model.verify_pages(
-            window, self._pools, tables, pos,
-            torch.from_numpy(vl).to(dev),
-            tree=(torch.from_numpy(depth).to(dev),
-                  torch.from_numpy(anc).to(dev)))
+        logits = self._run_verify_tree(
+            state, window, torch.from_numpy(vl).to(dev),
+            torch.from_numpy(perm).to(dev), torch.from_numpy(depth).to(dev),
+            torch.from_numpy(anc).to(dev))
         M, states = self._sample_window(logits, active, window, W,
                                         perm=perm, depth=depth)
         M_h, win_h = torch.stack([M, window]).cpu().numpy()
@@ -830,11 +866,10 @@ class PagedContinuousBatchingEngine:
             m = int(counts[i])
             if i not in finished and (path_lane[i, :m] != lane[:m]).any():
                 # pos + j must hold lane path[j]'s K/V before the next
-                # step reads it (finished rows release their pages)
+                # step reads it (finished rows release their cache)
                 src[i, :m] = path_lane[i, :m]
         if (src >= 0).any():
-            self._model.permute_pool_span(self._pools, tables, pos,
-                                          torch.from_numpy(src).to(dev))
+            self._run_fixup(state, torch.from_numpy(src).to(dev))
         for i in finished:
             self._finish(i)
 
@@ -968,17 +1003,11 @@ class PagedContinuousBatchingEngine:
         self._last_tokens = next_tokens
 
     # -- one scheduler iteration ------------------------------------------
-    def step(self):
-        """One iteration: ONE prefill chunk per prefilling slot,
-        admissions (deferring at the queue head on transient page
-        exhaustion), then ONE pooled decode step over every decoding
-        slot.  Returns the ids of the requests finished this
-        iteration."""
-        finished_before = set(self._results)
-        for i in range(self._num_slots):
-            s = self._slots[i]
-            if s is not None and s.prefilling:
-                self._advance_prefill(i)
+    def _admit_queued(self):
+        """Admission at the iteration boundary: queued requests into free
+        rows, in order (a request with nothing to generate finishes at
+        once).  The paged engine defers at the queue head while its
+        pages run short."""
         for i in range(self._num_slots):
             if not self._queue:
                 break
@@ -994,6 +1023,19 @@ class PagedContinuousBatchingEngine:
             except _AdmissionDeferred:
                 self._queue.insert(0, req)
                 break
+
+    def _advance_prefills(self):
+        """The paged engine's chunk phase (a slot prefill is whole)."""
+
+    def step(self):
+        """One iteration: ONE prefill chunk per prefilling slot (paged),
+        admissions (the paged engine deferring at the queue head on
+        transient page exhaustion), then ONE pooled decode step or
+        verify call over every decoding slot.  Returns the ids of the
+        requests finished this iteration."""
+        finished_before = set(self._results)
+        self._advance_prefills()
+        self._admit_queued()
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
         if active:
@@ -1005,23 +1047,260 @@ class PagedContinuousBatchingEngine:
         tensor on the CPU."""
         return self._results.pop(rid)
 
+    def _iterations_left(self):
+        """An upper bound on the iterations the queue and the slots still
+        need."""
+        return sum(r.max_new_tokens + 1 for r in self._queue) + sum(
+            s.req.max_new_tokens + 1 - s.n_emitted
+            for s in self._slots if s is not None)
+
     def run(self):
         """Drain the queue and every slot; returns {request id →
         (1, Tp + generated) int32 CPU tensor}."""
-        outstanding = sum(
-            r.max_new_tokens + -(-r.prompt.shape[1] // self._chunk)
-            for r in self._queue) + sum(
-            s.req.max_new_tokens + len(s.chunks) - s.n_emitted
-            for s in self._slots if s is not None)
-        limit = 4 * (outstanding + len(self._queue) + self._num_slots + 1) \
-            + 2 * self._bp.capacity
+        limit = 4 * (self._iterations_left() + len(self._queue)
+                     + self._num_slots + 1)
         guard = 0
         while self._queue or any(s is not None for s in self._slots):
             self.step()
             guard += 1
             if guard > limit:
                 raise RuntimeError(
-                    "paged continuous-batching run() failed to converge — "
-                    "scheduler bug (free pages: %d)" % self._bp.free_count)
+                    "continuous-batching run() failed to converge — "
+                    "scheduler bug")
         out, self._results = self._results, {}
         return out
+
+
+class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
+    """Iteration-level scheduler over a paged KV pool (module docstring).
+
+    Parameters as :class:`ContinuousBatchingEngine`, and:
+
+    block_size : tokens per page.
+    num_blocks : pool capacity in pages (page 0 comes on top).  Default
+        ``num_slots * ceil(max_length / block_size)``.
+    prefill_chunk : tokens ingested per iteration while prefilling
+        (power of two >= 8).  Chunk lengths are padded to the
+        power-of-two ladder, as the reference pads them to its compiled
+        shapes, which keeps the chunk plan, and so the page ids,
+        identical to the reference's.
+
+    A request whose worst-case page need exceeds the whole pool is shed
+    at ``submit`` with :class:`~mxtpu_torch.base.LoadShedError`.  With
+    ``draft_block`` the target verifies the draft's window (its last
+    token and up to spec_k drafts, padded to a power of two) through K1,
+    over float or int8 pools; the draft keeps its own contiguous slot
+    cache.
+    """
+
+    def __init__(self, model, num_slots: int = 4, max_length: int = 256,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_chunk: int = 64, spec_k: int = 0,
+                 spec_ngram: int = 3, spec_tree=None, draft_block=None,
+                 history: int = 1024, cache_dtype=None, device=None):
+        bs = int(block_size)
+        chunk = int(prefill_chunk)
+        if bs < 1:
+            raise ValueError("block_size must be >= 1, got %d" % bs)
+        if chunk < 8 or (chunk & (chunk - 1)):
+            raise ValueError("prefill_chunk must be a power of two >= 8, "
+                             "got %d" % chunk)
+        self._bs = bs
+        self._chunk = chunk
+        self._num_blocks = num_blocks
+        self._prefill_chunks = 0
+        self._prefill_tokens = 0
+        self._prefix_hits = 0
+        self._cow_copies = 0
+        super().__init__(model, num_slots, max_length, spec_k=spec_k,
+                         spec_ngram=spec_ngram, spec_tree=spec_tree,
+                         draft_block=draft_block, history=history,
+                         cache_dtype=cache_dtype, device=device)
+
+    def _init_cache(self):
+        """The page pool, its allocator and the prefix index."""
+        bs = self._bs
+        # table width: every request's pages plus headroom for the last
+        # chunk's bucket padding (padded writes stay inside the request's
+        # own pages)
+        self._M = -(-(self._max_length + self._chunk) // bs)
+        num_blocks = self._num_blocks
+        if num_blocks is None:
+            num_blocks = self._num_slots * (-(-self._max_length // bs))
+        self._prefix = PrefixIndex(bs)
+        self._bp = BlockPool(int(num_blocks), bs, on_free=self._prefix.evict)
+        self._pools = self._model.init_block_pool(self._bp.capacity + 1, bs,
+                                                  self._cache_dtype)
+        self._slot_pages: List[Optional[List[int]]] = [None] * self._num_slots
+
+    @property
+    def stats(self):
+        st = super().stats
+        st.update({
+            "prefill_chunks": self._prefill_chunks,
+            "prefill_tokens": self._prefill_tokens,
+            "blocks_in_use": self._bp.in_use,
+            "blocks_free": self._bp.free_count,
+            "blocks_shared": self._bp.shared_count,
+            "shared_extra_refs": self._bp.shared_extra_refs,
+            "prefix_hit_requests": self._prefix_hits,
+            "cow_copied_blocks": self._cow_copies,
+            "block_size": self._bs,
+            "num_blocks": self._bp.capacity,
+        })
+        return st
+
+    # -- request intake --------------------------------------------------
+    def _plan_chunks(self, start, Tp):
+        """Chunk schedule over prompt positions [start, Tp), the
+        reference's: chunk shapes stay on the power-of-two ladder
+        (<= prefill_chunk) and descend it where bucket padding would
+        spill past the slot extent.  Returns the schedule and the padded
+        extent (the last position any chunk's padding writes)."""
+        cap = -(-self._max_length // self._bs) * self._bs
+        chunks, extent = [], 0
+        while start < Tp:
+            rem = Tp - start
+            Tb = min(_bucket(rem), self._chunk)
+            while Tb > 8 and start + Tb > cap:
+                Tb //= 2
+            Tact = min(rem, Tb)
+            chunks.append((start, Tact, Tb))
+            extent = max(extent, start + Tb)
+            start += Tact
+        return chunks, extent
+
+    def _pages_needed(self, Tp, max_new):
+        """Worst-case (share-nothing) page count of one request."""
+        _, extent = self._plan_chunks(0, Tp)
+        return -(-max(Tp + max_new, extent) // self._bs)
+
+    def _check_capacity(self, Tp, max_new):
+        need = self._pages_needed(Tp, max_new)
+        if need > self._bp.capacity:
+            self._shed += 1
+            raise LoadShedError(
+                "request needs %d page(s) > pool capacity %d "
+                "(block_size=%d): can never be admitted — shed"
+                % (need, self._bp.capacity, self._bs),
+                queue_depth=len(self._queue), limit=self._bp.capacity,
+                permanent=True)
+
+    # -- admission -------------------------------------------------------
+    def _table_row(self, row):
+        t = np.full((self._M,), NULL_PAGE, np.int32)
+        pages = self._slot_pages[row]
+        if pages:
+            t[:len(pages)] = pages
+        return t
+
+    def _admit(self, req, row):
+        """Prefix lookup, page allocation and chunk plan; the first chunk
+        (after the copy-on-write clone) runs at once, so a prompt no
+        longer than one chunk finishes admission this iteration."""
+        Tp = req.prompt.shape[1]
+        full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
+        n_shared = len(full) * self._bs + (partial[1] if partial else 0)
+        chunks, extent = self._plan_chunks(n_shared, Tp)
+        n_pages = -(-max(Tp + req.max_new_tokens, extent) // self._bs)
+        need = n_pages - len(full)
+        if need > self._bp.free_count:
+            raise _AdmissionDeferred()
+        fresh = self._bp.alloc(need)
+        for bid in full:
+            self._bp.retain(bid)
+        pages = list(full) + fresh
+        self._slot_pages[row] = pages
+        cow = None
+        if full or partial:
+            self._prefix_hits += 1
+        if partial:
+            cow = (partial[0], pages[len(full)])
+            self._cow_copies += 1
+        self._slots[row] = _PagedSlot(req, row, chunks, cow)
+        self._status[req.rid] = "active"
+        self._advance_prefill(row)
+
+    def _advance_prefill(self, row):
+        """Run ONE prefill chunk of a prefilling slot; the last chunk
+        samples the first token from the prompt's last real logit row."""
+        slot = self._slots[row]
+        req = slot.req
+        start, Tact, Tb = slot.chunks[slot.chunk_i]
+        raw = np.zeros((1, Tb), np.int64)
+        raw[0, :Tact] = req.prompt[0, start:start + Tact]
+        if slot.cow is not None:
+            # the clone lands before this chunk writes into its page
+            self._model.copy_block(self._pools, *slot.cow)
+            slot.cow = None
+        table = torch.from_numpy(self._table_row(row)).to(self._device)
+        logits = self._model.prefill_pages(
+            torch.from_numpy(raw).to(self._device), self._pools, table,
+            start)
+        slot.chunk_i += 1
+        self._prefill_chunks += 1
+        self._prefill_tokens += Tact
+        if slot.chunk_i < len(slot.chunks):
+            return                           # more chunks next iteration
+        self._first_token(slot, logits[:, slot.Tp - 1 - start])
+
+    def _prefilled(self, slot):
+        # prompt pages fully below Tp are now immutable
+        self._prefix.register(slot.req.prompt[0],
+                              self._slot_pages[slot.row][:slot.Tp // self._bs])
+
+    def _release(self, row):
+        """The last reference frees a page and evicts its prefix-index
+        entry."""
+        pages, self._slot_pages[row] = self._slot_pages[row], None
+        for bid in pages:
+            self._bp.release(bid)
+
+    # -- decode hooks ----------------------------------------------------
+    def _spec_extent(self, slot):
+        """Token capacity of the slot's pages: a drafted window clamps
+        here, so a verify write never needs a page the slot lacks."""
+        return len(self._slot_pages[slot.row]) * self._bs
+
+    def _decode_state(self, active):
+        """pos (B,) and tables (B, M) int32 on the device: dead lanes
+        carry all-null tables and position 0."""
+        pos = np.zeros((self._num_slots,), np.int32)
+        tables = np.zeros((self._num_slots, self._M), np.int32)
+        for i in active:
+            pos[i] = self._slots[i].pos
+            tables[i] = self._table_row(i)
+        return (torch.from_numpy(pos).to(self._device),
+                torch.from_numpy(tables).to(self._device))
+
+    def _run_step(self, state):
+        pos, tables = state
+        return self._model.step_pages(self._last_tokens.reshape(-1, 1),
+                                      self._pools, tables, pos)
+
+    def _run_verify(self, state, window, valid_len):
+        pos, tables = state
+        return self._model.verify_pages(window, self._pools, tables, pos,
+                                        valid_len)
+
+    def _run_verify_tree(self, state, window, valid_len, perm, depth, anc):
+        pos, tables = state
+        return self._model.verify_pages(window, self._pools, tables, pos,
+                                        valid_len, tree=(depth, anc))
+
+    def _run_fixup(self, state, src_lane):
+        pos, tables = state
+        self._model.permute_pool_span(self._pools, tables, pos, src_lane)
+
+    # -- one scheduler iteration ------------------------------------------
+    def _advance_prefills(self):
+        for i in range(self._num_slots):
+            s = self._slots[i]
+            if s is not None and s.prefilling:
+                self._advance_prefill(i)
+
+    def _iterations_left(self):
+        return super()._iterations_left() + sum(
+            -(-r.prompt.shape[1] // self._chunk) for r in self._queue) + sum(
+            len(s.chunks) for s in self._slots if s is not None) \
+            + self._bp.capacity // 2 + 1

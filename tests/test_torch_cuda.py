@@ -49,7 +49,11 @@ and 128, bf16 and float32 x and the 8B's projections, every row
 ``torch.equal`` across row counts and orders; their norm-fused forms
 ``torch.equal`` to G2 then the op; a call that allocates only y and
 runs with the library products made to raise; weights quantized on the
-card to the CPU's bits.
+card to the CPU's bits.  G3's q8 epilogue (``wq_matmul_q8``) ``torch.equal``
+to G3 (or its fused norm) then the cache's quantizer on the V columns,
+at every int8 row class and two 128-row chunks, on the 8B's qkv and on
+V columns that start mid-tile, with heads not a multiple of a warp; no
+payload or scale row written past M.
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -813,6 +817,108 @@ def test_quantize_tensor_on_the_card_equals_the_cpu(cuda):
         qc, sc = quantize_tensor(w, bits)
         qd, sd = quantize_tensor(w.cuda(), bits)
         assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc), bits
+
+
+#: G3's q8 epilogue: (N, K, head_dim, V heads, x dtype).  The 8B's qkv
+#: (its V heads start on a 64-column tile but mid-tile of the 128- and
+#: 192-column classes); V columns that start mid-tile of every class
+#: (1000 - 200 = 800, 12.5 tiles of 64) with a head of 40 or 72 columns
+#: (not a multiple of a warp); the whole output as V (the reference's
+#: wq_matmul_i8_q8); float32 x (the small models' kernel).
+Q8_CASES = [(6144, 4096, 128, 8, torch.bfloat16),
+            (1000, 256, 40, 5, torch.bfloat16),
+            (1008, 528, 72, 3, torch.bfloat16),
+            (512, 256, 128, 4, torch.bfloat16),
+            (1000, 96, 40, 5, torch.float32),
+            (520, 64, 16, 2, torch.float32)]
+
+
+def _q8_unfused(x, q, s, gamma, hd, nv):
+    """The unfused arm: G3 (or its fused norm), then the cache's
+    quantizer on each head of the last nv columns."""
+    from mxtpu_torch.ops.tensor import _q8_quantize
+
+    y = linear.wq_matmul(x, q, s, gamma)
+    N = y.shape[-1]
+    vq, vs = _q8_quantize(y[:, N - nv:].reshape(-1, nv // hd, hd))
+    return y[:, :N - nv], vq.reshape(-1, nv), vs
+
+
+@pytest.mark.parametrize("N,K,hd,heads,dtype", Q8_CASES, ids=[
+    "%dx%d-hd%d-kv%d-%s" % (c[:4] + (str(c[4])[6:],)) for c in Q8_CASES])
+@pytest.mark.parametrize("norm", [False, True], ids=["plain", "norm"])
+def test_wq_matmul_q8_is_g3_then_the_cache_quantizer_bit_for_bit(
+        cuda, N, K, hd, heads, dtype, norm):
+    """G3's q8 epilogue at M = 1, 8, 33, 64, 128 (every int8 row class)
+    and 200 (two 128-row chunks): the first columns, the int8 payload
+    and the scales ``torch.equal`` to the unfused arm; one launch a
+    call, counted as G3 and as the epilogue; the arrival counters are
+    left zero."""
+    x, q, s, gamma = _wq_case(N, K, 8, 0, dtype)
+    nv = hd * heads
+    g = gamma if norm else None
+    for M in (1, 8, 33, 64, 128, 200):
+        base.reset_counts()
+        qk, vq, vs = linear.wq_matmul_q8(x[:M], q, s, hd, nv, gamma=g)
+        want = {linear.I8_KERNEL_NAME: 1, linear.Q8_KERNEL_NAME: 1}
+        if norm:
+            want.update({linear.NORM_KERNEL_NAME: 1,
+                         linear.NORM_Q8_KERNEL_NAME: 1})
+        assert base.counts() == want, M
+        wqk, wvq, wvs = _q8_unfused(x[:M], q, s, g, hd, nv)
+        assert qk.dtype == dtype and vq.dtype == torch.int8 \
+            and vs.dtype == torch.float32
+        assert vq.shape == (M, nv) and vs.shape == (M, heads), M
+        assert torch.equal(qk, wqk), M
+        assert torch.equal(vq, wvq), M
+        assert torch.equal(vs, wvs), M
+    assert not linear._Q8_COUNTERS[x.device].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wq_matmul_q8_writes_no_row_past_m(cuda, dtype):
+    """The launch writes the payload and the scales of rows < M only:
+    buffers of M + 16 rows filled with a sentinel keep it past M, and
+    rows < M equal the wrapper's (padded chunks write nothing)."""
+    N, K, hd, heads = 1000, 256, 40, 5
+    nv = hd * heads
+    x, q, s, gamma = _wq_case(N, K, 8, 0, dtype, M=40)
+    for M in (8, 33):
+        _, wvq, wvs = linear.wq_matmul_q8(x[:M], q, s, hd, nv)
+        y = torch.empty(M, N, dtype=dtype, device="cuda")
+        vq = torch.full((M + 16, nv), 0x55, dtype=torch.int8, device="cuda")
+        vs = torch.full((M + 16, heads), -3.0, device="cuda")
+        ctr = linear._q8_counters(x.device, 8 * heads)
+        ptrs = (x[:M].contiguous().data_ptr(), None, q.data_ptr(),
+                s.data_ptr(), None, y.data_ptr(), vq.data_ptr(),
+                vs.data_ptr(), ctr.data_ptr(), nv, hd, M, N, K, 1e-6)
+        if dtype == torch.bfloat16:
+            p = linear.plan(M, N, K, False, "int8")
+            rc = linear._fns()["q8_bf16"](
+                *ptrs, p["bn"], p["splits"], p["stages"], p["smem"],
+                linear._stream(x))
+        else:
+            rc = linear._fns()["q8_f32"](*ptrs, linear._stream(x))
+        assert rc == 0
+        assert torch.equal(vq[:M], wvq) and torch.equal(vs[:M], wvs)
+        assert (vq[M:] == 0x55).all() and (vs[M:] == -3.0).all()
+        assert not ctr.any()
+
+
+def test_wq_matmul_q8_rejects_what_the_kernel_does_not_take(cuda):
+    from mxtpu_torch.contrib.quantization import quantize_tensor
+
+    w = torch.randn(96, 64, device="cuda")
+    q8, s8 = quantize_tensor(w, 8)
+    q4, s4 = quantize_tensor(w, 4, 32)
+    x = torch.randn(4, 64, device="cuda", dtype=torch.bfloat16)
+    base.reset_counts()
+    for args in [(x, q8, s8, 16, 40), (x, q8, s8, 16, 112),
+                 (x, q8, s8, 0, 32), (x, q4, s4, 16, 32),
+                 (x, q8.cpu(), s8, 16, 32)]:
+        with pytest.raises(base.MXTPUError):
+            linear.wq_matmul_q8(*args)
+    assert base.counts() == {}
 
 
 # (B, H, T, D) of the flash kernels; then K3's tiling edges: T below one

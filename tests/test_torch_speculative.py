@@ -262,9 +262,16 @@ def test_verify_lanes_equal_sequential_steps(models):
 
 def test_engine_speculation_knobs(models):
     port = models[1]
-    with pytest.raises(NotImplementedError, match="draft_block"):
+    # draft_block's refusals, the reference's ValueErrors: no window to
+    # bound, a tree config beside it, a draft that is not a dense LM
+    with pytest.raises(ValueError, match="spec_k"):
+        PagedContinuousBatchingEngine(port, device="cpu", draft_block=port)
+    with pytest.raises(ValueError, match="spec_tree"):
         PagedContinuousBatchingEngine(port, device="cpu", spec_k=2,
-                                      draft_block=port)
+                                      spec_tree=(4, 2), draft_block=port)
+    with pytest.raises(ValueError, match="dense"):
+        PagedContinuousBatchingEngine(port, device="cpu", spec_k=2,
+                                      draft_block=port.layers[0])
     with pytest.raises(ValueError, match="spec_k"):
         PagedContinuousBatchingEngine(port, device="cpu", spec_k=-1)
     with pytest.raises(ValueError, match="max_nodes"):
