@@ -207,7 +207,20 @@ Phases, in order; any failure exits non-zero:
    ``kernels`` line (``conv_bwd[64x56x56]``, ``conv_bwd[128x28x28]``,
    ``conv_bwd[256x14x14]``) with its launches in phase 14 (3, 4 and 6 a
    step) and ``bound_tc_ms``, the bound of K6's 3xTF32 route on the
-   tensor cores, beside ``bound_ms``.
+   tensor cores, beside ``bound_ms``;
+16. int8 inference of phase 14's trained net: ``quantize_net`` with
+   ``calib_mode="naive"`` over 2 batches of 32 synthetic 224x224 images
+   (seed 1), then 1 warm-up and 5 counted forwards at batch 128 (seed
+   2) and one profiled: exactly 53 Q1 and 1 Q2 launches a forward,
+   finite logits ``torch.equal`` to the plain route's (``PlainQuant``:
+   Q1's and Q2's plain versions in their wrappers' place), and the int8
+   logits' error against the float32 net's and their top-1 agreement
+   logged;
+17. one Q1 call per distinct conv geometry captured from phase 16 (20),
+   and the Q2 call, each ``torch.equal`` to its plain version, with the
+   kernel, plain and library times (Q2: ``torch._int_mm`` and the same
+   epilogue; Q1: cuDNN's bf16 convolution of the same shape, labelled,
+   as no PyTorch call computes an int8 convolution on CUDA).
 
 The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
@@ -228,8 +241,11 @@ M = 64 from prefill chunks and W = 8 windows; a fused row at 64 rows
 that the motif traffic never launched is left out), each with its
 ``library`` label, G3's q8 epilogue as ``rows_linear_i8_q8[qkv,M=8]``
 ... and ``rows_norm_linear_i8_q8[qkv,M=8]`` ... (launches: phases 5q
-and 6q over int8 pools, every one norm-fused), and K6 as
-one row per stage shape); the last
+and 6q over int8 pools, every one norm-fused), K6 as
+one row per stage shape, and Q1 as one row per conv geometry,
+``qconv[3->64,7x7s2,224]`` ..., and Q2 as ``qfc[128x2048->1000]``
+(launches: phase 16's, each with its ``library`` label and ``tolerance``
+"torch.equal")); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
@@ -246,6 +262,9 @@ loss makes tiny; K6's float32 dW to 1e-4 of it (``DW_TOL``), since each
 element sums up to N*H*W = 401,408 products in another order on each
 side, and the rounding error of a sum of random-sign terms grows as
 about 2**-24 * sqrt(N*H*W) of its largest partial sum (4e-5 there).
+Q1 and Q2 are exact: their int32 sums are the plain version's in any
+order, and their epilogue rounds each step once as the plain version's
+separate torch ops do, so they are held by ``torch.equal``.
 """
 
 import gc
@@ -259,9 +278,11 @@ import numpy as np
 import torch
 
 #: NVIDIA H100 SXM data sheet: HBM3 bytes/s and dense peak operations/s
-#: by input type (bf16 on the tensor cores, float32 on the CUDA cores)
+#: by input type (bf16 and int8 on the tensor cores, float32 on the CUDA
+#: cores)
 H100_BYTES_PER_S = 3.35e12
-H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                 torch.int8: 1979e12}
 #: dense TF32 on the tensor cores: a 3xTF32 product is three TF32 products
 H100_TF32_OPS = 495e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -326,6 +347,14 @@ KERNEL_SOURCES = {
                   "mxtpu/ops/pallas/flash_attention.py:246"),
     "conv_bwd": ("mxtpu_torch/csrc/conv_bwd.cu",
                  "mxtpu/ops/pallas/conv_bwd.py:101"),
+    "qconv": ("mxtpu_torch/csrc/quantized.cu",
+              "none: no pallas_call (XLA's int8 conv_general_dilated with "
+              "int32 sums in mxtpu/contrib/quantization.py:81, "
+              "quantized_conv)"),
+    "qfc": ("mxtpu_torch/csrc/quantized.cu",
+            "none: no pallas_call (XLA's int8 dot_general with int32 sums "
+            "in mxtpu/contrib/quantization.py:62, "
+            "quantized_fully_connected)"),
 }
 #: flash kernels against plain versions: (B, H, T, D), one shape of each
 #: head_dim class of the kernels (up to 64, 128 and 256)
@@ -350,6 +379,14 @@ SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[16, 32, 64, 128, 256],
 #: the vision main path: ResNet-50 v1, 13 of its 16 3x3 convs take K6
 RESNET = dict(batch=128, size=224, classes=1000, seed=0, warmup=1, steps=5,
               eligible=13)
+#: int8 inference of phase 14's net: calibration batches (seed 1), the
+#: test batch (seed 2), and Q1's and Q2's launches a forward
+QUANT = dict(calib_batches=2, calib_batch=32, calib_seed=1, seed=2,
+             batch=128, warmup=1, forwards=5, qconv=53, qfc=1)
+#: Q1's library yardstick: no PyTorch call computes an int8 convolution
+#: on CUDA, so cuDNN's bf16 one of the same shape (int8 values are exact
+#: in bf16)
+QCONV_LIBRARY = "cuDNN bf16 F.conv2d of the same shape (int8 exact in bf16)"
 
 
 def log(**fields):
@@ -3412,7 +3449,8 @@ def train_resnet50():
     just before and read just after.  One K6 call per stage shape is
     captured from the first counted step, and K6's calls are counted by
     stage shape.  Returns the launches, by kernel and by K6 row name,
-    and the captured inputs by row name."""
+    the captured inputs by row name, and the trained net (phase 16
+    quantizes it)."""
     from mxtpu_torch import base
     from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -3486,7 +3524,7 @@ def train_resnet50():
     if sum(launches[n] for n in names) != want["conv_bwd"]:
         raise AssertionError("K6's launches by stage shape %r do not add up "
                              "to %d" % (by_shape.counts, want["conv_bwd"]))
-    return launches, dict(zip(names, (c.args for c in caps)))
+    return launches, dict(zip(names, (c.args for c in caps))), net
 
 
 def conv_row(Ci, H):
@@ -3526,6 +3564,284 @@ def measure_conv(args, flush):
         # K6's route: both products in 3xTF32 on the tensor cores
         res["bound_tc_ms"] = max(work[0] / H100_BYTES_PER_S,
                                  3 * work[1] / H100_TF32_OPS) * 1e3
+    return res
+
+
+# -- phases 16 and 17: int8 inference of the trained ResNet-50 ---------------
+
+class FirstByKey:
+    """Wraps a kernel wrapper during a run: counts its calls by
+    ``key(args, kwargs)`` and clones the inputs of the first call of
+    each key; every call goes through unchanged."""
+
+    def __init__(self, module, attr, key):
+        self.module, self.attr, self.key = module, attr, key
+        self.inner = None
+        self.counts = {}
+        self.args = {}
+
+    def __call__(self, *args, **kw):
+        k = self.key(args, kw)
+        self.counts[k] = self.counts.get(k, 0) + 1
+        if k not in self.args:
+            self.args[k] = (
+                [a.clone() if torch.is_tensor(a) else a for a in args],
+                {n: a.clone() if torch.is_tensor(a) else a
+                 for n, a in kw.items()})
+        return self.inner(*args, **kw)
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.inner)
+
+
+class PlainQuant:
+    """Puts Q1's and Q2's plain versions in their wrappers' place: the
+    plain route of a quantized net (no other op changes)."""
+
+    def __enter__(self):
+        from mxtpu_torch.ops import quantized as Q
+
+        self.Q, self.saved = Q, (Q.qconv, Q.qfc)
+
+        def qconv(x, w, scale, bias=None, stride=(1, 1), pad=(0, 0),
+                  dilate=(1, 1), groups=1, packed=None):
+            return Q.qconv_plain(x, w, scale, bias, stride, pad, dilate,
+                                 groups)
+        Q.qconv, Q.qfc = qconv, Q.qfc_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.Q.qconv, self.Q.qfc = self.saved
+
+
+def qconv_key(args, kw):
+    """A Q1 call's geometry: (C_in, C_out, kernel, stride, input size)."""
+    x, w, stride = args[0], args[1], args[4]
+    return (int(x.shape[1]), int(w.shape[0]), int(w.shape[2]),
+            int(stride[0]), int(x.shape[2]))
+
+
+def qconv_row(key):
+    """A Q1 row's name in the kernels line: its geometry."""
+    ci, co, k, st, h = key
+    return "qconv[%d->%d,%dx%ds%d,%d]" % (ci, co, k, k, st, h)
+
+
+def qfc_row(key):
+    m, k, n = key
+    return "qfc[%dx%d->%d]" % (m, k, n)
+
+
+def quantize_resnet50(held):
+    """Phase 16: ``quantize_net`` of phase 14's trained ``resnet50_v1``
+    (its weights and running statistics), taken from the one-slot list
+    ``held`` so that the float net is freed before the int8 run's peak
+    memory is read, with ``calib_mode="naive"`` over
+    2 batches of 32 synthetic 224x224 images (seed 1), then int8
+    inference at batch 128 (seed 2): 1 warm-up and 5 counted forwards,
+    and one profiled.  Gates: exactly 53 Q1 and 1 Q2 launches a forward
+    (launch counts zeroed just before, read just after), finite logits,
+    and the kernel route's logits ``torch.equal`` to the plain route's
+    (``PlainQuant``) on the same batch.  Logs the int8 logits' error
+    against the float32 net's and their top-1 agreement, ms a forward
+    (and the float32 net's, eval mode, TF32 off), images/s and peak
+    memory (after the warm-up forward, before any input is captured).
+    Returns the launches by kernel and by row and the first captured
+    inputs of each row."""
+    from mxtpu_torch import base
+    from mxtpu_torch.contrib.quantization import QuantizedConv2D, quantize_net
+    from mxtpu_torch.ops import quantized as Q
+
+    cfg = QUANT
+    n_calib = cfg["calib_batch"] * cfg["calib_batches"]
+    cx, _ = synthetic_images(n_calib, RESNET["size"], RESNET["classes"],
+                             seed=cfg["calib_seed"])
+    calib = [cx[i:i + cfg["calib_batch"]]
+             for i in range(0, n_calib, cfg["calib_batch"])]
+    xs, _ = synthetic_images(cfg["batch"], RESNET["size"], RESNET["classes"],
+                             seed=cfg["seed"])
+    x = torch.from_numpy(xs).cuda()
+    net = held.pop()
+    net.eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qnet = quantize_net(net, calib_mode="naive", calib_data=calib)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    convs = sum(isinstance(m, QuantizedConv2D) for m in qnet.modules())
+    if convs != cfg["qconv"]:
+        raise AssertionError("quantize_net made %d quantized convs, wanted "
+                             "%d" % (convs, cfg["qconv"]))
+
+    def forward():
+        with torch.no_grad():
+            return qnet(x)
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            out.append((s, e))
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in out]
+
+    with torch.no_grad():
+        ref = net(x)
+        float_ms = timed(lambda: net(x), 3)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(cfg["warmup"]):
+        forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_geom = FirstByKey(Q, "qconv", qconv_key)
+    fc = FirstByKey(Q, "qfc", lambda a, kw: (int(a[0].shape[0]),
+                                             int(a[0].shape[1]),
+                                             int(a[1].shape[0])))
+    outs = []
+    with by_geom, fc:
+        base.reset_counts()
+        t_run = time.perf_counter()
+        ms = timed(lambda: outs.append(forward()), cfg["forwards"])
+        wall = time.perf_counter() - t_run
+        launches = base.counts()
+    logits = outs[-1]
+    del outs[:-1]
+    want = {"qconv": cfg["qconv"] * cfg["forwards"],
+            "qfc": cfg["qfc"] * cfg["forwards"]}
+    if launches != want:
+        raise AssertionError("int8 ResNet-50: launches %r, wanted %r"
+                             % (launches, want))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("int8 ResNet-50: logits not finite")
+    t0 = time.perf_counter()
+    with PlainQuant():
+        plain = forward()
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if not torch.equal(logits, plain):
+        raise AssertionError(
+            "int8 ResNet-50: the kernel route's logits differ from the "
+            "plain route's by up to %g" % float((logits - plain).abs().max()))
+    mean_ms = sum(ms) / len(ms)
+    log(phase="quantized_resnet50", calib_mode="naive",
+        calib_images=n_calib, quantize_s=t_quant, launches=launches,
+        ms_per_forward=ms, mean_ms_per_forward=mean_ms,
+        float32_ms_per_forward=float_ms,
+        images_per_forward=cfg["batch"],
+        images_per_s=cfg["batch"] / (mean_ms / 1e3), wall_s=wall,
+        peak_memory_gib=peak, plain_route_s=t_plain,
+        plain_route_equal=True,
+        rel_err_vs_float32=float((logits - ref).abs().max()
+                                 / ref.abs().max()),
+        top1_agreement=float((logits.argmax(1) == ref.argmax(1))
+                             .float().mean()),
+        geometries=len(by_geom.counts))
+    log(phase="profile_resnet50_int8", **profile_device(forward, 1))
+    if sum(by_geom.counts.values()) != want["qconv"]:
+        raise AssertionError("Q1's launches by geometry %r do not add up to "
+                             "%d" % (by_geom.counts, want["qconv"]))
+    rows, captured = {}, {}
+    for key, n in by_geom.counts.items():
+        rows[qconv_row(key)] = n
+        captured[qconv_row(key)] = by_geom.args[key]
+    for key, n in fc.counts.items():
+        rows[qfc_row(key)] = n
+        captured[qfc_row(key)] = fc.args[key]
+    return rows, captured
+
+
+def conv_reach(size, out, k, stride, pad, dilate):
+    """How many input positions along one axis a convolution reads: a
+    1x1 stride-2 conv reads every other one."""
+    taps = {o * stride - pad + r * dilate for o in range(out)
+            for r in range(k)}
+    return sum(0 <= t < size for t in taps)
+
+
+def qconv_work(x, w, bias, out, stride, pad, dilate):
+    """Bytes and operations one Q1 call needs: the pixels of x that the
+    strides and dilation reach and w read once (int8), the bias (float32,
+    where there is one) read once, the float32 output written once;
+    2 * M * C_out * K operations."""
+    N, C, H, W = x.shape
+    KH, KW = w.shape[2:]
+    OH, OW = out.shape[2:]
+    read = (conv_reach(H, OH, KH, stride[0], pad[0], dilate[0])
+            * conv_reach(W, OW, KW, stride[1], pad[1], dilate[1]))
+    nbytes = N * C * read + w.numel() + 4 * out.numel()
+    if bias is not None:
+        nbytes += 4 * bias.numel()
+    return nbytes, 2 * out.numel() * w[0].numel()
+
+
+def measure_quantized(name, args, kw, flush):
+    """Phase 17: one captured Q1 or Q2 call held ``torch.equal`` to its
+    plain version, and the kernel, plain and library times.  The library
+    is ``torch._int_mm`` plus the same epilogue for Q2 and, for Q1,
+    cuDNN's bf16 ``F.conv2d`` of the same shape (no PyTorch call
+    computes an int8 convolution on CUDA)."""
+    from mxtpu_torch.ops import quantized as Q
+
+    F = torch.nn.functional
+    conv = name.startswith("qconv")
+    x, w, scale, bias = args[:4]
+    if conv:
+        stride, pad, dilate, groups = args[4:8]
+
+        def kernel():
+            return Q.qconv(*args, **kw)
+
+        def plain():
+            return Q.qconv_plain(x, w, scale, bias, stride, pad, dilate,
+                                 groups)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+
+        def library():
+            return F.conv2d(xb, wb, stride=stride, padding=pad,
+                            dilation=dilate, groups=groups)
+        label = QCONV_LIBRARY
+    else:
+        def kernel():
+            return Q.qfc(*args, **kw)
+
+        def plain():
+            return Q.qfc_plain(x, w, scale, bias)
+        wt = w.t()
+
+        def library():
+            out = torch._int_mm(x, wt).float() * scale
+            return out if bias is None else out + bias
+        label = "torch._int_mm + the epilogue"
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("%s differs from its plain version by up to %g"
+                             % (name, float((got - want).abs().max())))
+    res = dict(max_abs_err=0.0, err_over_tol=0.0, tolerance="torch.equal",
+               library=label)
+    res["ms"] = cuda_ms(kernel, flush)
+    res["plain_ms"] = cuda_ms(plain, flush)
+    res["library_ms"] = cuda_ms(library, flush)
+    if conv:
+        nbytes, ops = qconv_work(x, w, bias, got, stride, pad, dilate)
+    else:
+        nbytes = x.numel() + w.numel() + 4 * got.numel()
+        if bias is not None:
+            nbytes += 4 * bias.numel()
+        ops = 2 * got.numel() * x.shape[1]
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops, torch.int8)
     return res
 
 
@@ -3645,13 +3961,28 @@ def main():
     torch.cuda.empty_cache()
     conv_kernel_against_plain()
     small_resnet_training_check()
-    trained, captured = train_resnet50()
+    trained, captured, net = train_resnet50()
     torch.cuda.empty_cache()
     launches.update(trained)
     for name, args in captured.items():
         results[name] = measure_conv(args, flush)
         log(phase="resnet_inputs", kernel=name, shape=list(args[0].shape),
             cout=args[1].shape[0], launches=launches[name], **results[name])
+    del captured
+    # phases 16 and 17: int8 inference of the trained net, then Q1 at
+    # each distinct conv geometry and Q2 at the classifier
+    held = [net]
+    del net
+    quantized, captured = quantize_resnet50(held)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(quantized)
+    for name, (args, kw) in captured.items():
+        results[name] = measure_quantized(name, args, kw, flush)
+        log(phase="quantized_inputs", kernel=name,
+            shape=list(args[0].shape), wshape=list(args[1].shape),
+            launches=launches[name], **results[name])
+    del captured
     rows = []
     for name, res in results.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -3663,7 +3994,7 @@ def main():
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
         for key in ("bound_tc_ms", "bwd_ms", "library", "library_error",
-                    "weight_bytes"):
+                    "weight_bytes", "tolerance"):
             if key in res:
                 rows[-1][key] = res[key]
     print(json.dumps({"kernels": rows}), flush=True)

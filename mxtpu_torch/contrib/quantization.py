@@ -1,7 +1,12 @@
-"""Weight-only int8/int4 quantization for serving (the port of the
-weight-only path of ``mxtpu/contrib/quantization.py``: ``pack_int4`` /
-``unpack_int4``, ``_i4_group``, ``wq_matmul_i8``, ``wq_matmul_i8_q8``,
-``wq_matmul_i4``, ``QuantizedDense`` and ``quantize_weights``).
+"""Int8 quantization (the port of ``mxtpu/contrib/quantization.py``):
+weight-only int8/int4 serving (``pack_int4`` / ``unpack_int4``,
+``_i4_group``, ``wq_matmul_i8``, ``wq_matmul_i8_q8``, ``wq_matmul_i4``,
+the reference's ``QuantizedDense`` as :class:`QuantizedLinear`, and
+``quantize_weights``), and int8 post-training quantization of
+activations and weights (``quantize_v2``, ``dequantize_v2``,
+``quantized_fully_connected``, ``quantized_conv``, calibration's
+``optimal_thresholds`` and ``_Collector``, and ``quantize_net``; below
+the weight-only part).
 
 Decode reads every weight once a token, so storing them in int8 halves
 that stream, and int4 at group size 64 cuts it to about 0.56 of bf16
@@ -37,17 +42,26 @@ pair with ``cache_dtype="int8"`` for the int8 cache too.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
 
 from ..base import MXTPUError
+from ..gluon.block import HybridBlock
+from ..gluon.nn import Conv2D, Dense
 from ..ops import linear as _linear
+from ..ops import quantized as _q
 from ..ops.linear import wq_matmul_i4_plain, wq_matmul_i8_plain
+from ..ops.tensor import _levels
 
 __all__ = ["pack_int4", "unpack_int4", "quantize_tensor", "wq_matmul_i8",
            "wq_matmul_i8_q8", "wq_matmul_i4", "wq_matmul_i8_plain",
-           "wq_matmul_i4_plain", "QuantizedLinear", "quantize_weights"]
+           "wq_matmul_i4_plain", "QuantizedLinear", "quantize_weights",
+           "quantize_v2", "dequantize_v2", "quantized_fully_connected",
+           "quantized_conv", "optimal_thresholds", "QuantizedConv2D",
+           "QuantizedDense", "quantize_net"]
 
 
 def pack_int4(q):
@@ -274,3 +288,429 @@ def quantize_weights(model, bits=8, group_size=64, rules=None, exclude=()):
         raise MXTPUError("quantize_weights: no nn.Linear layer found under "
                          "%s" % type(model).__name__)
     return tuple(quantized)
+
+
+# -- int8 post-training quantization of activations and weights ----------
+# The reference's _contrib_quantize_v2 / _contrib_dequantize_v2 /
+# _contrib_quantized_fully_connected / _contrib_quantized_conv, in its
+# order of arithmetic: s = max(max(|mn|, |mx|), 1e-8) / 127 in float32,
+# q = clip(round(x / s), -127, 127) (half to even) as int8, int32 sums,
+# then acc * (s_x * s_w) (the two scales multiplied first) + bias.  The
+# products run Q1 and Q2 (ops/quantized.py) on a CUDA tensor and their
+# plain versions on a CPU one.  Every division is by a 0-dim tensor on
+# the operand's device: CUDA divides by a Python number through its
+# reciprocal.
+
+def _range(v, device):
+    """A range end as a 0-dim float32 tensor on ``device``: a tensor as
+    it is (cast), a number rounded once to float32, as the reference's
+    ``jnp.asarray(v, jnp.float32)``."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32).reshape(())
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def _q_scale(mn, mx):
+    """Symmetric int8 scale of a (possibly asymmetric) float32 range."""
+    return torch.clamp_min(torch.maximum(mn.abs(), mx.abs()), 1e-8) / \
+        _levels(mn.device)
+
+
+def quantize_v2(x, min_calib_range=None, max_calib_range=None):
+    """float → (int8 payload, min, max), symmetric: the range is the
+    calibrated one where given, else the tensor's own min and max (0-dim
+    float32 tensors on x's device)."""
+    x = x.float()
+    if min_calib_range is None and max_calib_range is None:
+        mn, mx = torch.aminmax(x)
+    else:
+        mn = x.amin() if min_calib_range is None else \
+            _range(min_calib_range, x.device)
+        mx = x.amax() if max_calib_range is None else \
+            _range(max_calib_range, x.device)
+    t = x / _q_scale(mn, mx)
+    q = t.round_().clamp_(-127, 127).to(torch.int8)
+    return q, mn, mx
+
+
+def dequantize_v2(q, mn, mx):
+    """The inverse of :func:`quantize_v2`: q * its scale, float32."""
+    return q.float() * _q_scale(_range(mn, q.device), _range(mx, q.device))
+
+
+def _combined_scale(x, x_min, x_max, w_min, w_max):
+    dev = x.device
+    return _q_scale(_range(x_min, dev), _range(x_max, dev)) * \
+        _q_scale(_range(w_min, dev), _range(w_max, dev))
+
+
+def quantized_fully_connected(x, weight, x_min, x_max, w_min, w_max,
+                              bias=None, num_hidden=0, no_bias=False,
+                              flatten=True):
+    """int8 x (..., K) times int8 weight (N, K)ᵀ, int32 sums, scaled by
+    the two ranges' scales, plus the float32 bias (Q2 on the card);
+    ``flatten`` folds every axis after the first."""
+    if flatten and x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
+    scale = _combined_scale(x, x_min, x_max, w_min, w_max)
+    b = None if no_bias or bias is None else bias.float()
+    lead = x.shape[:-1]
+    y = _q.qfc(x.reshape(-1, x.shape[-1]), weight, scale, b)
+    return y.reshape(*lead, weight.shape[0])
+
+
+def quantized_conv(x, weight, x_min, x_max, w_min, w_max, bias=None,
+                   kernel=(), stride=(), dilate=(), pad=(), num_filter=0,
+                   num_group=1, no_bias=False, packed_weight=None):
+    """int8 NCHW convolution with OIHW int8 weights, int32 sums, scaled
+    by the two ranges' scales, plus the float32 bias per channel (Q1 on
+    the card).  2-D only: 1-D and 3-D raise.  ``packed_weight``: the
+    weights as ``ops.quantized.pack_weight`` gives them, which a
+    quantized layer keeps (packed on each call otherwise)."""
+    ndim = len(kernel) if kernel else x.dim() - 2
+    if ndim != 2 or x.dim() != 4:
+        raise MXTPUError("quantized_conv: only 2-D NCHW is ported, got a "
+                         "%d-D kernel on a %d-D input" % (ndim, x.dim()))
+    scale = _combined_scale(x, x_min, x_max, w_min, w_max)
+    b = None if no_bias or bias is None else bias.float()
+    return _q.qconv(x, weight, scale, b, tuple(stride) or (1, 1),
+                    tuple(pad) or (0, 0), tuple(dilate) or (1, 1),
+                    num_group, packed=packed_weight)
+
+
+# -- calibration (host numpy, as the reference's) ------------------------
+
+def optimal_thresholds(hist, hist_edges, num_quantized_bins=255):
+    """KL-divergence-optimal |threshold| from a symmetric histogram
+    (the reference's own search, copied): P is the windowed histogram
+    with clipped outlier mass folded into its edge bins; Q is the window
+    re-binned to num_quantized_bins WITHOUT the outlier mass.  Returns
+    the |edge| minimizing KL(P||Q)."""
+    num_bins = len(hist)
+    zero = num_bins // 2
+    best_kl, best_t = np.inf, abs(hist_edges[-1])
+    for i in range(num_quantized_bins // 2, zero + 1):
+        lo, hi = zero - i, zero + i
+        sliced = hist[lo:hi].astype(np.float64)
+        p = sliced.copy()
+        p[0] += hist[:lo].sum()
+        p[-1] += hist[hi:].sum()
+        if p.sum() == 0:
+            continue
+        # re-bin the (outlier-free) window to the quantized grid, then
+        # expand back over the nonzero support of the window
+        factor = len(sliced) / num_quantized_bins
+        q = np.zeros_like(sliced)
+        for j in range(num_quantized_bins):
+            a = int(np.floor(j * factor))
+            b = min(int(np.ceil((j + 1) * factor)), len(sliced))
+            chunk = sliced[a:b]
+            cnt = (chunk > 0).sum()
+            if cnt:
+                q[a:b][chunk > 0] = chunk.sum() / cnt
+        p_n = p / p.sum()
+        if q.sum() == 0:
+            continue
+        q_n = q / q.sum()
+        support = p_n > 0
+        q_s = np.where(q_n[support] > 0, q_n[support], 1e-10)
+        kl = float(np.sum(p_n[support] * np.log(p_n[support] / q_s)))
+        if kl < best_kl:
+            best_kl = kl
+            best_t = abs(hist_edges[hi])
+    return best_t
+
+
+class _Collector:
+    """Per-layer input statistics over calibration batches.  ``naive``
+    takes each batch's min and max on its device (two floats cross to
+    the host); ``entropy`` also histograms it, on the host."""
+
+    def __init__(self, mode, num_bins=2048):
+        self.mode = mode
+        self.num_bins = num_bins
+        self.minmax = {}
+        self.hists = {}
+
+    def update(self, name, arr):
+        if self.mode == "entropy":
+            arr = arr.detach().float().cpu().numpy()
+            mn, mx = float(arr.min()), float(arr.max())
+        else:
+            mn, mx = (float(v) for v in torch.aminmax(arr.detach()))
+        if name in self.minmax:
+            omn, omx = self.minmax[name]
+            self.minmax[name] = (min(mn, omn), max(mx, omx))
+        else:
+            self.minmax[name] = (mn, mx)
+        if self.mode == "entropy":
+            th = max(abs(mn), abs(mx), 1e-8)
+            hist, edges = np.histogram(arr, bins=self.num_bins,
+                                       range=(-th, th))
+            self.hists.setdefault(name, []).append((hist, edges))
+
+    def ranges(self):
+        out = {}
+        for name, (mn, mx) in self.minmax.items():
+            if self.mode == "entropy":
+                # merge per-batch histograms onto one grid spanning the
+                # global range (midpoint re-binning), then KL-search
+                th = max(abs(mn), abs(mx), 1e-8)
+                edges = np.linspace(-th, th, self.num_bins + 1)
+                grid = np.zeros(self.num_bins, np.int64)
+                for h, e in self.hists[name]:
+                    mids = (e[:-1] + e[1:]) / 2
+                    idx = np.clip(np.searchsorted(edges, mids) - 1, 0,
+                                  self.num_bins - 1)
+                    np.add.at(grid, idx, h)
+                t = optimal_thresholds(grid, edges)
+                out[name] = (-t, t)
+            else:
+                out[name] = (mn, mx)
+        return out
+
+
+# -- the quantized layers and quantize_net -------------------------------
+
+def _quantize_param(w):
+    """``quantize_params``'s arithmetic for one float weight, expression
+    for expression (mxtpu/contrib/quantization.py:522-528), in numpy on
+    the host: (int8 payload, qmin, qmax)."""
+    w = w.detach().float().cpu().numpy()
+    t = max(abs(w.min()), abs(w.max()), 1e-8)
+    scale = t / 127.0
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q, np.float32(-t), np.float32(t)
+
+
+class _QuantizedLayer(HybridBlock):
+    """What the reference's quantized node holds: the int8 payload
+    ``weight_quantized`` and its range ``weight_qmin``/``weight_qmax``
+    (0-dim float32), the float32 ``bias`` (or none), all buffers named
+    as the reference's parameters, and the calibrated input range
+    (``min_calib_range``, ``max_calib_range``: floats, or None for each
+    batch's own; kept on the device once a forward has run there).  It
+    takes the name of the layer it replaces (its prefix, and its alias
+    through ``_alias``), so ``collect_params`` and the weight bridge give
+    the reference's names (``dense0_weight_quantized`` ...)."""
+
+    def __init__(self, wshape, use_bias, calib_range, prefix, device):
+        super().__init__(prefix)
+        self.min_calib_range, self.max_calib_range = \
+            calib_range if calib_range is not None else (None, None)
+        self._calib = (None, None, None)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.register_buffer("weight_quantized",
+                             torch.zeros(wshape, dtype=torch.int8,
+                                         device=device))
+        self.register_buffer("weight_qmin", torch.zeros((), **f32))
+        self.register_buffer("weight_qmax", torch.zeros((), **f32))
+        self.register_buffer("bias", torch.zeros(wshape[0], **f32)
+                             if use_bias else None)
+
+    def _take(self, layer):
+        q, mn, mx = _quantize_param(layer.weight)
+        with torch.no_grad():
+            self.weight_quantized.copy_(torch.from_numpy(q))
+            self.weight_qmin.fill_(float(mn))
+            self.weight_qmax.fill_(float(mx))
+            if self.bias is not None:
+                self.bias.copy_(layer.bias.detach().float())
+        return self
+
+    def _quantize(self, x):
+        if self.min_calib_range is None:
+            return quantize_v2(x)
+        if self._calib[0] != x.device:
+            self._calib = (x.device,
+                           _range(self.min_calib_range, x.device),
+                           _range(self.max_calib_range, x.device))
+        return quantize_v2(x, *self._calib[1:])
+
+    def extra_repr(self):
+        rng = ("runtime range" if self.min_calib_range is None else
+               "calibrated [%g, %g]" % (self.min_calib_range,
+                                        self.max_calib_range))
+        return "%s, int8, %s" % (tuple(self.weight_quantized.shape), rng)
+
+
+class QuantizedConv2D(_QuantizedLayer):
+    """A ``Conv2D`` quantized as the reference's ``_contrib_quantize_v2``
+    then ``_contrib_quantized_conv`` nodes: its input quantized with the
+    calibrated range, then Q1 on the int8 weights.  It keeps the weights
+    packed as Q1 reads them too, repacked when the payload changes."""
+
+    def __init__(self, channels, in_channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), groups=1, use_bias=True,
+                 calib_range=None, prefix=None, device=None):
+        kernel_size = tuple(kernel_size)
+        super().__init__((channels, in_channels // groups) + kernel_size,
+                         use_bias, calib_range, prefix, device)
+        self._kwargs = {"kernel": kernel_size, "stride": tuple(strides),
+                        "dilate": tuple(dilation), "pad": tuple(padding),
+                        "num_filter": channels, "num_group": groups}
+        self._pack = (None, None)
+
+    @classmethod
+    def from_layer(cls, conv, calib_range):
+        kw = conv._kwargs
+        Co, Cg = conv.weight.shape[:2]
+        return cls(Co, Cg * kw["num_group"], kw["kernel"], kw["stride"],
+                   kw["pad"], kw["dilate"], kw["num_group"],
+                   conv.bias is not None, calib_range, conv.prefix,
+                   conv.weight.device)._take(conv)
+
+    def _alias(self):
+        return "conv"
+
+    def _packed(self):
+        w = self.weight_quantized
+        if w.device.type != "cuda":
+            return None
+        key = (w.data_ptr(), w._version)
+        if self._pack[0] != key:
+            self._pack = (key, _q.pack_weight(w))
+        return self._pack[1]
+
+    def forward(self, x):
+        q, mn, mx = self._quantize(x)
+        return quantized_conv(q, self.weight_quantized, mn, mx,
+                              self.weight_qmin, self.weight_qmax, self.bias,
+                              no_bias=self.bias is None,
+                              packed_weight=self._packed(), **self._kwargs)
+
+
+class QuantizedDense(_QuantizedLayer):
+    """A ``Dense`` quantized as the reference's ``_contrib_quantize_v2``
+    then ``_contrib_quantized_fully_connected`` nodes (Q2 on the card).
+    Not the reference's ``QuantizedDense``, the weight-only layer, which
+    is :class:`QuantizedLinear` here."""
+
+    def __init__(self, units, in_units, use_bias=True, flatten=True,
+                 calib_range=None, prefix=None, device=None):
+        super().__init__((units, in_units), use_bias, calib_range, prefix,
+                         device)
+        self._flatten = flatten
+
+    @classmethod
+    def from_layer(cls, dense, calib_range):
+        units, in_units = dense.weight.shape
+        return cls(units, in_units, dense.bias is not None, dense._flatten,
+                   calib_range, dense.prefix, dense.weight.device
+                   )._take(dense)
+
+    def _alias(self):
+        return "dense"
+
+    def forward(self, x):
+        q, mn, mx = self._quantize(x)
+        return quantized_fully_connected(
+            q, self.weight_quantized, mn, mx, self.weight_qmin,
+            self.weight_qmax, self.bias, num_hidden=self.weight_quantized.
+            shape[0], no_bias=self.bias is None, flatten=self._flatten)
+
+
+_QUANTIZED = {Conv2D: ("convolution", QuantizedConv2D),
+              Dense: ("fullyconnected", QuantizedDense)}
+
+
+def _layers(network):
+    """(node name, module path, layer) of every ``Conv2D`` and ``Dense``
+    under ``network``: ``convolution<i>`` and ``fullyconnected<i>``,
+    counted from 0 in the order ``named_modules`` visits them."""
+    counts, out = {}, []
+    for path, mod in network.named_modules():
+        kind = _QUANTIZED.get(type(mod))
+        if kind is not None:
+            i = counts.get(kind[0], 0)
+            counts[kind[0]] = i + 1
+            out.append(("%s%d" % (kind[0], i), path, mod))
+    return out
+
+
+def _calibrate(network, targets, calib_data, mode, num_examples,
+               data_names):
+    """Forwards of the float net in eval mode over the calibration
+    batches, each target layer's INPUT (the tensor it will quantize)
+    collected by a forward hook; stops once ``num_examples`` have run."""
+    collector = _Collector(mode)
+    device = next(network.buffers(), None)
+    device = next(network.parameters()).device if device is None \
+        else device.device
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out, name=name: collector.update(name, args[0]))
+        for name, _, layer in targets]
+    training = network.training
+    network.eval()
+    seen = 0
+    try:
+        with torch.no_grad():
+            for batch in calib_data:
+                if isinstance(batch, dict):
+                    batch = batch[data_names[0]]
+                x = torch.as_tensor(batch).to(device)
+                network(x)
+                seen += x.shape[0]
+                if num_examples and seen >= num_examples:
+                    break
+    finally:
+        for h in hooks:
+            h.remove()
+        network.train(training)
+    return collector.ranges()
+
+
+def quantize_net(network, quantized_dtype="int8", exclude_layers=(),
+                 calib_data=None, calib_mode="naive",
+                 num_calib_examples=None, data_names=("data",), ctx=None,
+                 logger=None):
+    """A quantized copy of a port Gluon block (the reference's
+    ``quantize_net``): every ``Conv2D`` and ``Dense`` not excluded
+    becomes a :class:`QuantizedConv2D` or :class:`QuantizedDense`, whose
+    input is quantized with its calibrated range and multiplied by its
+    int8 weights (Q1 and Q2 on the card); the rest stays float.  The
+    copy is returned in eval mode, on the net's device; ``network`` is
+    left as it was.
+
+    - ``exclude_layers``: layer names to keep float.  A layer is named
+      ``convolution<i>`` or ``fullyconnected<i>``, counted from 0 within
+      the net in the order ``named_modules`` visits them, which is
+      forward order for ``HybridSequential`` and the model zoo's nets.
+      (The reference names its traced nodes by a counter global to the
+      process, so a second net traced there starts past 0.)
+    - ``calib_mode``: ``naive`` (each layer's input min and max over the
+      batches), ``entropy`` (KL-optimal symmetric thresholds of their
+      histograms) or ``none`` (each batch's own range at run time).
+    - ``calib_data``: an iterable of batches (numpy arrays or tensors, or
+      dicts keyed by ``data_names[0]``); ``num_calib_examples``: stop
+      once that many examples have run.  Calibration runs the float net
+      in eval mode (BatchNorm's running statistics, as the reference's
+      executor forward), under ``torch.no_grad``.
+
+    ``ctx`` and ``logger`` are accepted for the reference's signature."""
+    if quantized_dtype != "int8":
+        raise MXTPUError("only int8 quantization is supported")
+    excluded = set(exclude_layers)
+    targets = [t for t in _layers(network) if t[0] not in excluded]
+    if not targets:
+        raise MXTPUError("quantize_net: nothing to quantize")
+    for name, _, layer in targets:
+        if layer.weight.is_meta:
+            raise MXTPUError("quantize_net: layer %s is uninitialized" % name)
+    if calib_mode in ("naive", "entropy"):
+        if calib_data is None:
+            raise MXTPUError("calib_mode=%r needs calib_data" % calib_mode)
+        ranges = _calibrate(network, targets, calib_data, calib_mode,
+                            num_calib_examples, data_names)
+    elif calib_mode == "none":
+        ranges = {name: None for name, _, _ in targets}
+    else:
+        raise MXTPUError("unknown calib_mode %r" % calib_mode)
+    qnet = copy.deepcopy(network)
+    for name, path, layer in targets:
+        qlayer = _QUANTIZED[type(layer)][1].from_layer(layer, ranges[name])
+        if not path:
+            return qlayer.eval()
+        parent, _, attr = path.rpartition(".")
+        setattr(qnet.get_submodule(parent), attr, qlayer)
+    return qnet.eval()

@@ -58,8 +58,11 @@ class BasicBlockV1(HybridBlock):
                                        **factory) if downsample else None)
 
     def forward(self, x):
+        # the body first, as the reference's hybrid_forward: the convs
+        # run in the order they are registered
+        out = self.body(x)
         residual = x if self.downsample is None else self.downsample(x)
-        return ops.activation_op(self.body(x) + residual, act_type="relu")
+        return ops.activation_op(out + residual, act_type="relu")
 
 
 class BottleneckV1(HybridBlock):
@@ -87,8 +90,11 @@ class BottleneckV1(HybridBlock):
                                        **factory) if downsample else None)
 
     def forward(self, x):
+        # the body first, as the reference's hybrid_forward: the convs
+        # run in the order they are registered
+        out = self.body(x)
         residual = x if self.downsample is None else self.downsample(x)
-        return ops.activation_op(self.body(x) + residual, act_type="relu")
+        return ops.activation_op(out + residual, act_type="relu")
 
 
 class ResNetV1(HybridBlock):

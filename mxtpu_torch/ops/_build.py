@@ -37,7 +37,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: kernel sources, one shared library each
 SOURCES = ("paged_attention", "prefill_attention", "flash_attention",
-           "conv_bwd", "rows_linear")
+           "conv_bwd", "rows_linear", "quantized")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -64,6 +64,16 @@ def resolve_cache_dtype(cache_dtype, default=torch.float32):
 _LEVELS: dict = {}  # a 0-dim float32 127 a device
 
 
+def _levels(device):
+    """127, the int8 levels, as a 0-dim float32 tensor on ``device``
+    (cached a device): a divisor that keeps a division IEEE on CUDA,
+    which divides by a Python number through its reciprocal."""
+    levels = _LEVELS.get(device)
+    if levels is None:
+        levels = _LEVELS[device] = torch.tensor(127.0, device=device)
+    return levels
+
+
 def _q8_quantize(new):
     """(..., D) float → ((..., D) int8, (...,) float32 scale): symmetric
     round-to-nearest per-row quantization, in the reference's order of
@@ -75,10 +85,7 @@ def _q8_quantize(new):
     tensor on x's device, since CUDA divides by a Python number through
     its reciprocal (G3's q8 epilogue divides the same way)."""
     x = new.float()
-    levels = _LEVELS.get(x.device)
-    if levels is None:
-        levels = _LEVELS[x.device] = torch.tensor(127.0, device=x.device)
-    s = torch.clamp_min(x.abs().amax(dim=-1), _Q8_EPS) / levels
+    s = torch.clamp_min(x.abs().amax(dim=-1), _Q8_EPS) / _levels(x.device)
     q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
     return q.to(torch.int8), s
 

@@ -53,7 +53,13 @@ card to the CPU's bits.  G3's q8 epilogue (``wq_matmul_q8``) ``torch.equal``
 to G3 (or its fused norm) then the cache's quantizer on the V columns,
 at every int8 row class and two 128-row chunks, on the 8B's qkv and on
 V columns that start mid-tile, with heads not a multiple of a warp; no
-payload or scale row written past M.
+payload or scale row written past M.  Q1 and Q2, the int8 convolution
+and fully-connected products of post-training quantization, ``torch.equal``
+to their plain versions (int32 sums, one rounding a step) at ResNet-50's
+20 conv geometries and its classifier, at batch 1, with tails in M, N
+and K, groups and dilation, the largest sums, packed stem weights and
+rows off a 16-byte boundary; and a quantized narrow ResNet on the card
+``torch.equal`` to its plain route.
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -1206,4 +1212,196 @@ def test_conv_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     for args in bad:
         with pytest.raises(base.MXTPUError):
             cb.conv3x3_s1_backward(*args)
+    assert base.counts() == {}
+
+
+# -- Q1 and Q2, the int8 products of post-training quantization --------------
+
+#: ResNet-50 v1's 20 distinct conv geometries (C_in, C_out, kernel,
+#: stride, pad, input size), as the card's main path runs them at batch 128
+RESNET50_QCONV = [
+    (3, 64, 7, 2, 3, 224), (64, 64, 1, 1, 0, 56), (64, 64, 3, 1, 1, 56),
+    (64, 256, 1, 1, 0, 56), (256, 64, 1, 1, 0, 56), (256, 128, 1, 2, 0, 56),
+    (128, 128, 3, 1, 1, 28), (128, 512, 1, 1, 0, 28), (256, 512, 1, 2, 0, 56),
+    (512, 128, 1, 1, 0, 28), (512, 256, 1, 2, 0, 28), (256, 256, 3, 1, 1, 14),
+    (256, 1024, 1, 1, 0, 14), (512, 1024, 1, 2, 0, 28),
+    (1024, 256, 1, 1, 0, 14), (1024, 512, 1, 2, 0, 14),
+    (512, 512, 3, 1, 1, 7), (512, 2048, 1, 1, 0, 7), (1024, 2048, 1, 2, 0, 14),
+    (2048, 512, 1, 1, 0, 7)]
+#: tails: (N, C_in, C_out, kernel, stride, pad, dilate, groups, H, W)
+QCONV_EDGES = [
+    (1, 3, 64, 7, 2, 3, 1, 1, 224, 224),     # batch 1 stem
+    (1, 512, 2048, 1, 1, 0, 1, 1, 7, 7),     # batch 1, M = 49
+    (3, 5, 72, 3, 1, 1, 1, 1, 13, 11),       # K = 45, N tail at 64
+    (2, 7, 200, 3, 2, 1, 1, 1, 17, 9),       # K = 63, N tail at 128
+    (2, 6, 8, 3, 1, 2, 2, 2, 10, 12),        # dilation 2, 2 groups
+    (2, 256, 256, 3, 1, 1, 1, 4, 9, 9),      # 4 groups of 64
+    (1, 1, 1, 1, 1, 0, 1, 1, 1, 1),          # one pixel, one channel
+]
+#: Q2: (M, K, N) — the ResNet-50 classifier, then tails in M, N and K
+QFC_SHAPES = [(128, 2048, 1000), (1, 2048, 1000), (77, 64, 130),
+              (5, 147, 7), (200, 33, 65), (1, 1, 1)]
+
+
+def _rand_int8(g, *shape):
+    return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                         dtype=torch.int8)
+
+
+def _qconv_case(N, Ci, Co, k, s, p, d, groups, H, W, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _rand_int8(g, N, Ci, H, W)
+    w = _rand_int8(g, Co, Ci // groups, k, k)
+    scale = torch.rand((), generator=g, device="cuda") * 1e-4
+    bias = torch.randn(Co, generator=g, device="cuda")
+    return x, w, scale, bias, dict(stride=(s, s), pad=(p, p),
+                                   dilate=(d, d), groups=groups)
+
+
+def _qconv_equal(x, w, scale, bias, kw):
+    from mxtpu_torch.ops import quantized as Q
+
+    for b in (bias, None):
+        base.reset_counts()
+        got = Q.qconv(x, w, scale, b, **kw)
+        want = Q.qconv_plain(x, w, scale, b, **kw)
+        torch.cuda.synchronize()
+        assert base.counts() == {"qconv": 1}
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("geom", RESNET50_QCONV,
+                         ids=lambda g: "%dto%d-%dx%ds%d-%d" % (
+                             g[0], g[1], g[2], g[2], g[3], g[5]))
+def test_quant_q1_equals_plain_at_resnet50_geometries(cuda, geom):
+    Ci, Co, k, s, p, H = geom
+    _qconv_equal(*_qconv_case(2, Ci, Co, k, s, p, 1, 1, H, H, sum(geom)))
+
+
+@pytest.mark.parametrize("case", QCONV_EDGES,
+                         ids=lambda c: "N%d-%dto%d-k%ds%dp%dd%dg%d-%dx%d" % c)
+def test_quant_q1_equals_plain_at_its_edges(cuda, case):
+    _qconv_equal(*_qconv_case(*case, seed=sum(case)))
+
+
+def test_quant_q1_holds_the_largest_sums(cuda):
+    """Sums of 4608 products of 127 * 127 (ResNet-50's largest K, |acc|
+    ~ 7.4e7 > 2**24: int32 to float32 rounds to nearest even)."""
+    from mxtpu_torch.ops import quantized as Q
+
+    x = torch.full((1, 512, 7, 7), 127, dtype=torch.int8, device="cuda")
+    x[:, ::3] = -127
+    w = torch.full((64, 512, 3, 3), 127, dtype=torch.int8, device="cuda")
+    scale = torch.tensor(3.1e-5, device="cuda")
+    got = Q.qconv(x, w, scale, pad=(1, 1))
+    want = Q.qconv_plain(x, w, scale, pad=(1, 1))
+    assert torch.equal(got, want)
+    acc = Q.qconv_sums(x, w, pad=(1, 1))
+    assert int(acc.abs().max()) > 2 ** 24
+
+
+def test_quant_q1_takes_packed_weights(cuda):
+    """The stem's weights kept packed (K 147 -> 160), as a quantized layer
+    keeps them, give the bits of packing on the call."""
+    from mxtpu_torch.ops import quantized as Q
+
+    x, w, scale, bias, kw = _qconv_case(2, 3, 64, 7, 2, 3, 1, 1, 40, 40, 3)
+    packed = Q.pack_weight(w)
+    assert tuple(packed.shape) == (64, 160)
+    assert torch.equal(Q.qconv(x, w, scale, bias, packed=packed, **kw),
+                       Q.qconv_plain(x, w, scale, bias, **kw))
+
+
+@pytest.mark.parametrize("shape", QFC_SHAPES,
+                         ids=lambda s: "M%d-K%d-N%d" % s)
+def test_quant_q2_equals_plain(cuda, shape):
+    from mxtpu_torch.ops import quantized as Q
+
+    M, K, N = shape
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x, w = _rand_int8(g, M, K), _rand_int8(g, N, K)
+    scale = torch.rand((), generator=g, device="cuda") * 1e-4
+    bias = torch.randn(N, generator=g, device="cuda")
+    for b in (bias, None):
+        base.reset_counts()
+        got = Q.qfc(x, w, scale, b)
+        torch.cuda.synchronize()
+        assert base.counts() == {"qfc": 1}
+        assert torch.equal(got, Q.qfc_plain(x, w, scale, b))
+
+
+def test_quant_q2_copies_unaligned_rows(cuda):
+    """Rows that start off a 16-byte boundary are copied to an aligned
+    buffer before the 16-byte loads."""
+    from mxtpu_torch.ops import quantized as Q
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    buf = _rand_int8(g, 64 * 96 + 1)
+    x = buf[1:].view(64, 96)
+    assert x.data_ptr() % 16
+    w = _rand_int8(g, 40, 96)
+    scale = torch.tensor(2e-5, device="cuda")
+    assert torch.equal(Q.qfc(x, w, scale), Q.qfc_plain(x, w, scale))
+
+
+def test_quantized_net_on_the_card_equals_its_plain_route(cuda, monkeypatch):
+    """A narrow ResNet-v1 quantized on the card: every conv through Q1
+    and the Dense through Q2, exactly once a forward, and its logits
+    ``torch.equal`` to the same net with the plain versions put in the
+    kernels' place."""
+    from mxtpu_torch.contrib import quantization as P
+    from mxtpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+    from mxtpu_torch.initializer import Xavier
+    from mxtpu_torch.ops import quantized as Q
+
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, device="cuda")
+    net.initialize(Xavier(magnitude=2.0),
+                   torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    calib = [torch.rand(4, 3, 64, 64, generator=g, device="cuda")
+             for _ in range(2)]
+    x = torch.rand(4, 3, 64, 64, generator=g, device="cuda")
+    qnet = P.quantize_net(net, calib_data=calib)
+    convs = sum(isinstance(m, P.QuantizedConv2D) for m in qnet.modules())
+    with torch.no_grad():
+        base.reset_counts()
+        got = qnet(x)
+        torch.cuda.synchronize()
+        assert base.counts() == {"qconv": convs, "qfc": 1}
+        monkeypatch.setattr(Q, "qconv", lambda x, w, s, b=None, stride=(
+            1, 1), pad=(0, 0), dilate=(1, 1), groups=1, packed=None:
+            Q.qconv_plain(x, w, s, b, stride, pad, dilate, groups))
+        monkeypatch.setattr(Q, "qfc", Q.qfc_plain)
+        want = qnet(x)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_quant_q1_q2_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mxtpu_torch.ops import quantized as Q
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, w = _rand_int8(g, 2, 4, 6, 6), _rand_int8(g, 5, 4, 3, 3)
+    s = torch.tensor(1e-3, device="cuda")
+    base.reset_counts()
+    for args, kw in [
+            ((x.float(), w, s), {}),                      # float x
+            ((x, w.float(), s), {}),                      # float w
+            ((x, w, s.double()), {}),                     # float64 scale
+            ((x, w, s.cpu()), {}),                        # scale on the CPU
+            ((x, w, s, torch.zeros(4, device="cuda")), {}),   # bias shape
+            ((x, w.cpu(), s), {}),                        # w on the CPU
+            ((x, w, s), dict(groups=3)),                  # groups
+            ((x, w, s), dict(stride=(7, 7), pad=(0, 0),
+                             dilate=(4, 4))),             # no output
+            ((x, w, s), dict(packed=w.reshape(5, 36))),   # K not padded
+    ]:
+        with pytest.raises(base.MXTPUError):
+            Q.qconv(*args, **kw)
+    a, b = _rand_int8(g, 8, 32), _rand_int8(g, 6, 32)
+    for args in [(a.float(), b, s), (a, b[:, :16], s), (a, b, s.cpu()),
+                 (a, b, s, torch.zeros(5, device="cuda"))]:
+        with pytest.raises(base.MXTPUError):
+            Q.qfc(*args)
     assert base.counts() == {}

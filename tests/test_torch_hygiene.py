@@ -43,6 +43,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import mxtpu_torch.ops.flash_attention as fa\n"
         "import mxtpu_torch.ops.conv_bwd as cb, mxtpu_torch.ops.nn\n"
         "import mxtpu_torch.ops.linear as lin\n"
+        "import mxtpu_torch.ops.quantized as qz\n"
+        "import mxtpu_torch.contrib.quantization\n"
         "import mxtpu_torch.gluon.nn, mxtpu_torch.gluon.trainer\n"
         "import mxtpu_torch.gluon.model_zoo.vision, mxtpu_torch.initializer\n"
         "from mxtpu_torch.ops import _build\n"
@@ -52,6 +54,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "assert not _build._LOADED and not pa._FNS and not pf._FNS\n"
         "import mxtpu_torch.ops.contrib as contrib\n"
         "assert not fa._FNS and not cb._FNS and not lin._FNS\n"
+        "assert not qz._FNS\n"
         "assert not contrib._FNS\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
