@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
    torch and CUDA versions; TF32 is switched off for float32 products;
 2. build the CUDA kernels from ``mxtpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into ``mxtpu_torch/_build``, logging ptxas's
-   registers and spill bytes of every G3 and G4 instantiation and
-   failing if one spills; then the timing
+   registers and spill bytes of every G3 and G4 instantiation and of Q1's
+   and Q3's kernels, and failing if one spills; then the timing
    floor on a line of its own (``timing_floor``): an empty captured
    graph and G2 on 8 x 4096 bf16 values, timed as every kernel is
    (``cuda_ms``) under a flush that writes 64 MB and leaves dirty lines
@@ -132,9 +132,10 @@ Phases, in order; any failure exits non-zero:
    traffic (int8 weights over int8 pools, int4 over bf16 pools): every
    speculative stream token-identical to its plain stream, the
    projections' launches exact, ``window_op_bits`` empty over G4;
-6d. draft-model speculation on the paged engine: phase 5's traffic and
-   engine with spec_k = 4 and ``draft_block`` = the 8B model itself (its
-   own contiguous slot cache of 1.07 GB, no second copy of the weights),
+6d. draft-model speculation on the paged engine: every other request of
+   phase 5's traffic (``CUT``: 6 of 12) and its engine with spec_k = 4
+   and ``draft_block`` = the 8B model itself (its own contiguous slot
+   cache of 1.07 GB, no second copy of the weights),
    over bf16 pools and over int8 ones: every stream, greedy and
    sampled, token-identical to phase 5's (5b's) plain stream, the
    greedy requests at 2 or more decode tokens a slot-iteration, the
@@ -142,16 +143,18 @@ Phases, in order; any failure exits non-zero:
    or draft call); tokens a slot-iteration, the draft hit rate and the
    verify calls read;
 6s. the slot engine at 8B (``ContinuousBatchingEngine``, 8 contiguous
-   cache rows of 1024 positions, 1.07 GB): phase 5's 12 requests, the
-   greedy streams held against ``generate`` by the C5 rule; then phase
-   6b's motif traffic without speculation and with spec_k = 4, every
+   cache rows of 1024 positions, 1.07 GB): every other request of phase
+   5's 12, the greedy streams held against ``generate`` by the C5 rule;
+   then one motif request of each kind of phase 6b's (``MOTIF_CUT``: 6
+   of 12) without speculation and with spec_k = 4, every
    speculative stream token-identical to its plain stream; G1 161 a step
    or verify call, no K1 or K2 (the slot path's attention is plain
    PyTorch, as the reference's is XLA's);
 6t. beam search (4 beams) and ``SequenceSampler`` (4 samples) on the 8B
    model, one 64-token prompt and 16 new tokens: finite scores, rows
    sorted by score, the prompt kept, a seed reproducing its samples,
-   and ``beam_size=1`` equal to greedy ``generate``;
+   and ``beam_size=1`` equal to greedy ``generate`` (one request: its
+   count is not cut);
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -211,16 +214,24 @@ Phases, in order; any failure exits non-zero:
 16. int8 inference of phase 14's trained net: ``quantize_net`` with
    ``calib_mode="naive"`` over 2 batches of 32 synthetic 224x224 images
    (seed 1), then 1 warm-up and 5 counted forwards at batch 128 (seed
-   2) and one profiled: exactly 53 Q1 and 1 Q2 launches a forward,
-   finite logits ``torch.equal`` to the plain route's (``PlainQuant``:
-   Q1's and Q2's plain versions in their wrappers' place), and the int8
-   logits' error against the float32 net's and their top-1 agreement
-   logged;
+   2) and one profiled: exactly 53 Q1 launches a forward, 52 of them on
+   the channels-last route (``qconv_nhwc``) and the stem on the NCHW
+   one, 52 Q3 (``quantize_nhwc``) and 1 Q2, finite logits
+   ``torch.equal`` to the plain route's (``PlainQuant``: Q1's, Q2's and
+   Q3's plain versions in their wrappers' place), and the int8 logits'
+   error against the float32 net's and their top-1 agreement logged;
 17. one Q1 call per distinct conv geometry captured from phase 16 (20),
-   and the Q2 call, each ``torch.equal`` to its plain version, with the
-   kernel, plain and library times (Q2: ``torch._int_mm`` and the same
-   epilogue; Q1: cuDNN's bf16 convolution of the same shape, labelled,
-   as no PyTorch call computes an int8 convolution on CUDA).
+   one Q3 call per distinct input shape, and the Q2 call, each
+   ``torch.equal`` to its plain version, with the kernel, plain and
+   library times (Q2, and Q1's 1x1 stride-1 convs on their
+   channels-last payload viewed (N*H*W, C): ``torch._int_mm`` and the
+   same epilogue; Q1's other convs: cuDNN's bf16 convolution of the same
+   shape and layout, labelled, as no PyTorch call computes an int8
+   convolution on CUDA; cuDNN's time stands beside ``_int_mm``'s as
+   ``cudnn_bf16_ms`` too; Q3: none, its plain version is the torch
+   chain the net ran before it).
+
+Each phase's seconds are logged (``phase_seconds``).
 
 The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
@@ -243,9 +254,10 @@ that the motif traffic never launched is left out), each with its
 ... and ``rows_norm_linear_i8_q8[qkv,M=8]`` ... (launches: phases 5q
 and 6q over int8 pools, every one norm-fused), K6 as
 one row per stage shape, and Q1 as one row per conv geometry,
-``qconv[3->64,7x7s2,224]`` ..., and Q2 as ``qfc[128x2048->1000]``
-(launches: phase 16's, each with its ``library`` label and ``tolerance``
-"torch.equal")); the last
+``qconv[3->64,7x7s2,224]`` ... (``form``: ``nhwc`` or the stem's
+``nchw``), Q3 as one row per input shape, ``quantize_nhwc[64x56x56]``
+..., and Q2 as ``qfc[128x2048->1000]`` (launches: phase 16's, each with
+its ``library`` label and ``tolerance`` "torch.equal")); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
@@ -264,7 +276,8 @@ side, and the rounding error of a sum of random-sign terms grows as
 about 2**-24 * sqrt(N*H*W) of its largest partial sum (4e-5 there).
 Q1 and Q2 are exact: their int32 sums are the plain version's in any
 order, and their epilogue rounds each step once as the plain version's
-separate torch ops do, so they are held by ``torch.equal``.
+separate torch ops do, so they are held by ``torch.equal``; so is Q3,
+which rounds each step of the torch chain once, as it does.
 """
 
 import gc
@@ -355,6 +368,11 @@ KERNEL_SOURCES = {
             "none: no pallas_call (XLA's int8 dot_general with int32 sums "
             "in mxtpu/contrib/quantization.py:62, "
             "quantized_fully_connected)"),
+    "quantize_nhwc": ("mxtpu_torch/csrc/quantized.cu",
+                      "none: no pallas_call (XLA's elementwise divide, "
+                      "round, clip and cast in mxtpu/contrib/"
+                      "quantization.py:42-52, quantize_v2); Q1's "
+                      "channels-last input in one pass"),
 }
 #: flash kernels against plain versions: (B, H, T, D), one shape of each
 #: head_dim class of the kernels (up to 64, 128 and 256)
@@ -382,11 +400,49 @@ RESNET = dict(batch=128, size=224, classes=1000, seed=0, warmup=1, steps=5,
 #: int8 inference of phase 14's net: calibration batches (seed 1), the
 #: test batch (seed 2), and Q1's and Q2's launches a forward
 QUANT = dict(calib_batches=2, calib_batch=32, calib_seed=1, seed=2,
-             batch=128, warmup=1, forwards=5, qconv=53, qfc=1)
+             batch=128, warmup=1, forwards=5, qconv=53, qconv_nhwc=52,
+             quantize_nhwc=52, qfc=1)
+#: ResNet-50 v1's 20 distinct conv geometries (C_in, C_out, kernel,
+#: stride, pad, input size) at 224x224 and Q1's launches a forward at
+#: each; phase 16 holds the net's launches to it
+RESNET50_QCONV = [
+    ((3, 64, 7, 2, 3, 224), 1), ((64, 64, 1, 1, 0, 56), 1),
+    ((64, 64, 3, 1, 1, 56), 3), ((64, 256, 1, 1, 0, 56), 4),
+    ((256, 64, 1, 1, 0, 56), 2), ((256, 128, 1, 2, 0, 56), 1),
+    ((128, 128, 3, 1, 1, 28), 4), ((128, 512, 1, 1, 0, 28), 4),
+    ((256, 512, 1, 2, 0, 56), 1), ((512, 128, 1, 1, 0, 28), 3),
+    ((512, 256, 1, 2, 0, 28), 1), ((256, 256, 3, 1, 1, 14), 6),
+    ((256, 1024, 1, 1, 0, 14), 6), ((512, 1024, 1, 2, 0, 28), 1),
+    ((1024, 256, 1, 1, 0, 14), 5), ((1024, 512, 1, 2, 0, 14), 1),
+    ((512, 512, 3, 1, 1, 7), 3), ((512, 2048, 1, 1, 0, 7), 3),
+    ((1024, 2048, 1, 2, 0, 14), 1), ((2048, 512, 1, 1, 0, 7), 2)]
+#: the input shapes (C, H = W) that Q3 quantizes (every conv's but the
+#: stem's) and its launches a forward at each
+RESNET50_Q3 = [((64, 56), 8), ((256, 56), 4), ((128, 28), 8),
+               ((512, 28), 5), ((256, 14), 12), ((1024, 14), 7),
+               ((512, 7), 6), ((2048, 7), 2)]
 #: Q1's library yardstick: no PyTorch call computes an int8 convolution
-#: on CUDA, so cuDNN's bf16 one of the same shape (int8 values are exact
-#: in bf16)
-QCONV_LIBRARY = "cuDNN bf16 F.conv2d of the same shape (int8 exact in bf16)"
+#: on CUDA, so cuDNN's bf16 one of the same shape and layout (int8 values
+#: are exact in bf16); a 1x1 stride-1 conv on a channels-last payload is
+#: one int8 product, ``torch._int_mm``, plus the epilogue
+QCONV_LIBRARY = ("cuDNN bf16 F.conv2d of the same shape and layout (int8 "
+                 "exact in bf16)")
+QCONV_INT_MM = ("torch._int_mm on the channels-last payload viewed "
+                "(N*H*W, C) + the epilogue")
+#: Q3's library yardstick, timed only: PyTorch's one-call quantizer on
+#: the same values already stored channels-last; its bits differ from
+#: the reference's near half-steps of x / scale (it multiplies by the
+#: scale's reciprocal) and below -127 (its range reaches -128)
+Q3_LIBRARY = ("torch.quantize_per_tensor(x, scale, 0, torch.qint8) on x "
+              "stored channels-last (timed only: rounds x * (1 / scale), "
+              "floor -128)")
+#: phases 6d and 6s serve every other request of phase 5's traffic
+#: (greedy and sampled, with and without the shared prefix)
+CUT = slice(None, None, 2)
+#: phase 6s serves 6 of the 12 motif requests, one of each kind
+#: (``motif_kwargs``): greedy tree, sampled tree, penalized tree, sampled
+#: linear, greedy linear, not speculating
+MOTIF_CUT = (0, 2, 4, 7, 8, 11)
 
 
 def log(**fields):
@@ -633,15 +689,21 @@ def card():
 #: the weight types of rows_linear.cu's bf16 kernel (its first template
 #: argument): G3's and G4's names
 WQ_TYPES = {1: "rows_linear_i8", 2: "rows_linear_i4"}
+#: quantized.cu's Q1 and Q3 kernels by their names in ptxas's report
+Q_KERNELS = {"qconv_nhwc_kernel": "qconv[nhwc]",
+             "qconv_kernel": "qconv[nchw]",
+             "quantize_nhwc_kernel": "quantize_nhwc"}
 
 
 def quant_kernel_registers(ptxas_log):
     """[{kernel, template, gain, registers, spill_stores, spill_loads}]
     of every G3 and G4 instantiation of the bf16 kernel in ``ptxas -v``'s
     report of rows_linear.cu (template: its integer arguments WT, CW,
-    NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's), and
-    of each instantiation of the q8 epilogue they call (its frame and
-    spills; no registers of its own)."""
+    NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's), of
+    each instantiation of the q8 epilogue they call (its frame and
+    spills; no registers of its own), and, in quantized.cu's report, of
+    every instantiation of Q1's two kernels (template: BM, BN or BN) and
+    of Q3's."""
     out, cur, entry = [], None, None
     for line in ptxas_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -656,6 +718,15 @@ def quant_kernel_registers(ptxas_log):
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             cur, entry = None, m.group(1)
+            q = re.search(r"\d(%s)(?:I((?:Li\d+E)+)E)?"
+                          % "|".join(Q_KERNELS), m.group(1))
+            if q:
+                cur = dict(kernel=Q_KERNELS[q.group(1)], template=[
+                    int(v) for v in re.findall(r"Li(\d+)E",
+                                               q.group(2) or "")],
+                    gain="none")
+                out.append(cur)
+                continue
             k = re.search(r"rows_linear_bf16_kernelI((?:Li\d+E)+)(\w*?)EEv",
                           m.group(1))
             if k:
@@ -691,19 +762,23 @@ def build():
             if any(w in line for w in ("entry function", "registers",
                                        "smem", "spill")):
                 print("ptxas[%s] %s" % (name, line.strip()), flush=True)
-    # G3's and G4's registers and spills, from ptxas's report of this
-    # build: every instantiation must keep its accumulators in registers
-    if "rows_linear" not in built:
-        log(phase="build", quant_kernels="not built in this run")
-        return
-    kernels = quant_kernel_registers(built["rows_linear"]["log"])
-    for k in kernels:
-        log(phase="build", **k)
-    spilled = [k for k in kernels
-               if k.get("spill_stores", 1) or k.get("spill_loads", 1)]
-    if not kernels or spilled:
-        raise AssertionError("G3/G4 kernels spill registers (or ptxas "
-                             "reported none): %s" % (spilled or kernels))
+    # G3's, G4's, Q1's and Q3's registers and spills, from ptxas's report
+    # of this build: every instantiation must keep its accumulators in
+    # registers
+    for src, what in (("rows_linear", "G3/G4"), ("quantized", "Q1/Q3")):
+        if src not in built:
+            log(phase="build", quant_kernels="%s not built in this run"
+                % what)
+            continue
+        kernels = quant_kernel_registers(built[src]["log"])
+        for k in kernels:
+            log(phase="build", **k)
+        spilled = [k for k in kernels
+                   if k.get("spill_stores", 1) or k.get("spill_loads", 1)]
+        if not kernels or spilled:
+            raise AssertionError("%s kernels spill registers (or ptxas "
+                                 "reported none): %s"
+                                 % (what, spilled or kernels))
 
 
 # -- phase 3: kernels against plain versions --------------------------------
@@ -2370,6 +2445,19 @@ MOTIF_LEN = 128
 PROBE = 400
 
 
+def motif_kwargs(i):
+    """The submit kwargs of motif request i of 12: 0-5 draft trees, 6-10
+    draft linearly, 11 does not speculate; 2 (a tree) and 7 are
+    seeded-sampled, 4 penalized."""
+    kw = {} if i < 6 else (dict(spec_tree=False) if i < 11
+                           else dict(speculative=False))
+    if i in (2, 7):
+        kw.update(temperature=0.8, top_p=0.9, seed=2000 + i)
+    if i == 4:
+        kw.update(repetition_penalty=1.2)
+    return kw
+
+
 def motif_traffic(model, seed=0):
     """12 requests of 256-528 prompt tokens: a seeded random 16-48-token
     motif repeated to 128 tokens with 2 random substitutions (the
@@ -2398,13 +2486,7 @@ def motif_traffic(model, seed=0):
         at = rng.randint(0, MOTIF_LEN, MOTIF_LEN // 64)
         p[at] = rng.randint(0, V, len(at))
         motifs.append(p[None].astype(np.int64))
-        kw = {} if i < 6 else (dict(spec_tree=False) if i < 11
-                               else dict(speculative=False))
-        if i in (2, 7):
-            kw.update(temperature=0.8, top_p=0.9, seed=2000 + i)
-        if i == 4:
-            kw.update(repetition_penalty=1.2)
-        kws.append(kw)
+        kws.append(motif_kwargs(i))
     probe = PagedContinuousBatchingEngine(
         model, **dict(SERVE, num_slots=12))
     rids = [probe.submit(p, PROBE) for p in motifs]
@@ -2685,8 +2767,9 @@ class Emitted:
 
 
 def serve_draft_model(model, cache_dtype, plain_streams):
-    """Draft-model speculation on the paged engine: phase 5's traffic and
-    engine with spec_k = 4 and ``draft_block`` = the model itself (its
+    """Draft-model speculation on the paged engine: every other request of
+    phase 5's traffic (``CUT``) and its engine with spec_k = 4 and
+    ``draft_block`` = the model itself (its
     own contiguous slot cache, no second copy of the weights), over the
     model's pools or int8 ones.  Every stream, greedy and sampled, must
     be token-identical to phase 5's (or 5b's) plain stream, the greedy
@@ -2699,7 +2782,8 @@ def serve_draft_model(model, cache_dtype, plain_streams):
 
     L = len(model.layers)
     k1, k2 = k_names(cache_dtype)
-    reqs = traffic(model.vocab_size)
+    reqs = traffic(model.vocab_size)[CUT]
+    plain_streams = plain_streams[CUT]
     eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype,
                                         draft_block=model, **DRAFT_SERVE)
     eng.submit(np.arange(64)[None], 2)          # warm-up, outside counts
@@ -2822,13 +2906,16 @@ def slot_run(model, reqs, cfg):
 
 
 def serve_slots(model, motif_reqs):
-    """The slot engine at 8B (``SLOT_SERVE``): phase 5's 12 requests, the
-    greedy streams held against ``generate`` by the C5 rule
-    (``streams_vs_generate``); then the motif traffic of phase 6b without
-    speculation and with spec_k = 4, every speculative stream
-    token-identical to its plain stream (a window lane attends with the
-    step's shapes, and G1 rounds its rows as the step's)."""
-    reqs = traffic(model.vocab_size)
+    """The slot engine at 8B (``SLOT_SERVE``): every other request of
+    phase 5's 12 (``CUT``), the greedy streams held against ``generate``
+    by the C5 rule (``streams_vs_generate``); then one request of each
+    kind of phase 6b's motif traffic (``MOTIF_CUT``) without speculation
+    and with spec_k = 4,
+    every speculative stream token-identical to its plain stream (a
+    window lane attends with the step's shapes, and G1 rounds its rows as
+    the step's)."""
+    reqs = traffic(model.vocab_size)[CUT]
+    motif_reqs = [motif_reqs[i] for i in MOTIF_CUT]
     streams, out = slot_run(model, reqs, SLOT_SERVE)
     log(phase="serve_slots", traffic="phase 5", **out)
     streams_vs_generate(model, reqs, streams)
@@ -3600,23 +3687,24 @@ class FirstByKey:
 
 
 class PlainQuant:
-    """Puts Q1's and Q2's plain versions in their wrappers' place: the
-    plain route of a quantized net (no other op changes)."""
+    """Puts Q1's, Q2's and Q3's plain versions in their wrappers' place:
+    the plain route of a quantized net (no other op changes)."""
 
     def __enter__(self):
         from mxtpu_torch.ops import quantized as Q
 
-        self.Q, self.saved = Q, (Q.qconv, Q.qfc)
+        self.Q, self.saved = Q, (Q.qconv, Q.qfc, Q.quantize_nhwc)
 
         def qconv(x, w, scale, bias=None, stride=(1, 1), pad=(0, 0),
                   dilate=(1, 1), groups=1, packed=None):
             return Q.qconv_plain(x, w, scale, bias, stride, pad, dilate,
                                  groups)
-        Q.qconv, Q.qfc = qconv, Q.qfc_plain
+        Q.qconv, Q.qfc, Q.quantize_nhwc = (qconv, Q.qfc_plain,
+                                           Q.quantize_nhwc_plain)
         return self
 
     def __exit__(self, *exc):
-        self.Q.qconv, self.Q.qfc = self.saved
+        self.Q.qconv, self.Q.qfc, self.Q.quantize_nhwc = self.saved
 
 
 def qconv_key(args, kw):
@@ -3637,6 +3725,16 @@ def qfc_row(key):
     return "qfc[%dx%d->%d]" % (m, k, n)
 
 
+def quantize_key(args, kw):
+    """A Q3 call's input shape (N, C, H, W)."""
+    return tuple(int(v) for v in args[0].shape)
+
+
+def quantize_row(key):
+    """A Q3 row's name in the kernels line: C x H x W of its input."""
+    return "quantize_nhwc[%dx%dx%d]" % key[1:]
+
+
 def quantize_resnet50(held):
     """Phase 16: ``quantize_net`` of phase 14's trained ``resnet50_v1``
     (its weights and running statistics), taken from the one-slot list
@@ -3644,10 +3742,11 @@ def quantize_resnet50(held):
     memory is read, with ``calib_mode="naive"`` over
     2 batches of 32 synthetic 224x224 images (seed 1), then int8
     inference at batch 128 (seed 2): 1 warm-up and 5 counted forwards,
-    and one profiled.  Gates: exactly 53 Q1 and 1 Q2 launches a forward
-    (launch counts zeroed just before, read just after), finite logits,
-    and the kernel route's logits ``torch.equal`` to the plain route's
-    (``PlainQuant``) on the same batch.  Logs the int8 logits' error
+    and one profiled.  Gates: exactly 53 Q1 launches a forward, 52 on the
+    channels-last route, 52 Q3 and 1 Q2 (launch counts zeroed just
+    before, read just after), finite logits, and the kernel route's
+    logits ``torch.equal`` to the plain route's (``PlainQuant``) on the
+    same batch.  Logs the int8 logits' error
     against the float32 net's and their top-1 agreement, ms a forward
     (and the float32 net's, eval mode, TF32 off), images/s and peak
     memory (after the warm-up forward, before any input is captured).
@@ -3709,8 +3808,9 @@ def quantize_resnet50(held):
     fc = FirstByKey(Q, "qfc", lambda a, kw: (int(a[0].shape[0]),
                                              int(a[0].shape[1]),
                                              int(a[1].shape[0])))
+    by_shape = FirstByKey(Q, "quantize_nhwc", quantize_key)
     outs = []
-    with by_geom, fc:
+    with by_geom, fc, by_shape:
         base.reset_counts()
         t_run = time.perf_counter()
         ms = timed(lambda: outs.append(forward()), cfg["forwards"])
@@ -3718,8 +3818,8 @@ def quantize_resnet50(held):
         launches = base.counts()
     logits = outs[-1]
     del outs[:-1]
-    want = {"qconv": cfg["qconv"] * cfg["forwards"],
-            "qfc": cfg["qfc"] * cfg["forwards"]}
+    want = {k: cfg[k] * cfg["forwards"]
+            for k in ("qconv", "qconv_nhwc", "quantize_nhwc", "qfc")}
     if launches != want:
         raise AssertionError("int8 ResNet-50: launches %r, wanted %r"
                              % (launches, want))
@@ -3747,15 +3847,24 @@ def quantize_resnet50(held):
                                  / ref.abs().max()),
         top1_agreement=float((logits.argmax(1) == ref.argmax(1))
                              .float().mean()),
-        geometries=len(by_geom.counts))
+        geometries=len(by_geom.counts), q3_shapes=len(by_shape.counts))
     log(phase="profile_resnet50_int8", **profile_device(forward, 1))
-    if sum(by_geom.counts.values()) != want["qconv"]:
-        raise AssertionError("Q1's launches by geometry %r do not add up to "
-                             "%d" % (by_geom.counts, want["qconv"]))
+    n = cfg["forwards"]
+    want_geom = {(ci, co, k, s, h): c * n
+                 for (ci, co, k, s, _, h), c in RESNET50_QCONV}
+    want_shape = {(cfg["batch"], c, h, h): q * n for (c, h), q in RESNET50_Q3}
+    if by_geom.counts != want_geom or by_shape.counts != want_shape:
+        raise AssertionError(
+            "Q1's and Q3's launches by geometry %r, %r are not "
+            "RESNET50_QCONV's and RESNET50_Q3's" % (by_geom.counts,
+                                                    by_shape.counts))
     rows, captured = {}, {}
     for key, n in by_geom.counts.items():
         rows[qconv_row(key)] = n
         captured[qconv_row(key)] = by_geom.args[key]
+    for key, n in by_shape.counts.items():
+        rows[quantize_row(key)] = n
+        captured[quantize_row(key)] = by_shape.args[key]
     for key, n in fc.counts.items():
         rows[qfc_row(key)] = n
         captured[qfc_row(key)] = fc.args[key]
@@ -3786,18 +3895,59 @@ def qconv_work(x, w, bias, out, stride, pad, dilate):
     return nbytes, 2 * out.numel() * w[0].numel()
 
 
+def qconv_int_mm(x, w, scale, bias, stride, pad, dilate, groups):
+    """For a 1x1 stride-1 conv on a channels-last payload (one group, no
+    padding or dilation to speak of), one PyTorch int8 product computing
+    Q1's function: ``torch._int_mm`` of x viewed (N*H*W, C) and w viewed
+    (C_out, C) transposed, then the same epilogue, returned as (N, C_out,
+    H, W) (a view of the channels-last result); else None."""
+    N, C, H, W = x.shape
+    if tuple(w.shape[2:]) != (1, 1) or tuple(stride) != (1, 1) or \
+            tuple(pad) != (0, 0) or groups != 1 or \
+            not x.is_contiguous(memory_format=torch.channels_last):
+        return None
+    x2 = x.permute(0, 2, 3, 1).reshape(N * H * W, C)
+    wt = w.reshape(w.shape[0], C).t()
+
+    def library():
+        out = torch._int_mm(x2, wt).float() * scale
+        out = out if bias is None else out + bias
+        return out.view(N, H, W, -1).permute(0, 3, 1, 2)
+    return library
+
+
 def measure_quantized(name, args, kw, flush):
-    """Phase 17: one captured Q1 or Q2 call held ``torch.equal`` to its
-    plain version, and the kernel, plain and library times.  The library
-    is ``torch._int_mm`` plus the same epilogue for Q2 and, for Q1,
-    cuDNN's bf16 ``F.conv2d`` of the same shape (no PyTorch call
-    computes an int8 convolution on CUDA)."""
+    """Phase 17: one captured Q1, Q2 or Q3 call held ``torch.equal`` to
+    its plain version, and the kernel, plain and library times.  The
+    library is ``torch._int_mm`` plus the same epilogue for Q2 and for
+    Q1's 1x1 stride-1 convs on their channels-last payload, cuDNN's bf16
+    ``F.conv2d`` of the same shape and layout for Q1's others (no PyTorch
+    call computes an int8 convolution on CUDA; its time stands beside
+    ``_int_mm``'s as ``cudnn_bf16_ms`` too), and for Q3
+    ``torch.quantize_per_tensor`` (``Q3_LIBRARY``; timed only, its bits
+    differ)."""
     from mxtpu_torch.ops import quantized as Q
 
     F = torch.nn.functional
-    conv = name.startswith("qconv")
-    x, w, scale, bias = args[:4]
-    if conv:
+    res = dict(max_abs_err=0.0, err_over_tol=0.0, tolerance="torch.equal")
+    if name.startswith("quantize_nhwc"):
+        x, scale = args
+
+        def kernel():
+            return Q.quantize_nhwc(x, scale)
+
+        def plain():
+            return Q.quantize_nhwc_plain(x, scale)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        s_host = float(scale)
+
+        def library():
+            return torch.quantize_per_tensor(x_cl, s_host, 0, torch.qint8)
+        res["library"] = Q3_LIBRARY
+        nbytes, ops = 5 * x.numel(), 0
+        dtype = torch.float32
+    elif name.startswith("qconv"):
+        x, w, scale, bias = args[:4]
         stride, pad, dilate, groups = args[4:8]
 
         def kernel():
@@ -3808,11 +3958,24 @@ def measure_quantized(name, args, kw, flush):
                                  groups)
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
 
-        def library():
+        def cudnn():
             return F.conv2d(xb, wb, stride=stride, padding=pad,
                             dilation=dilate, groups=groups)
-        label = QCONV_LIBRARY
+        library = qconv_int_mm(x, w, scale, bias, stride, pad, dilate,
+                               groups)
+        res["form"] = Q.route(x, groups)
+        if library is None:
+            library, res["library"] = cudnn, QCONV_LIBRARY
+        else:
+            res["library"] = QCONV_INT_MM
+            res["cudnn_bf16_ms"] = cuda_ms(cudnn, flush)
+            if not torch.equal(library(), plain()):
+                raise AssertionError("%s: the _int_mm yardstick differs "
+                                     "from the plain version" % name)
+        dtype = torch.int8
     else:
+        x, w, scale, bias = args[:4]
+
         def kernel():
             return Q.qfc(*args, **kw)
 
@@ -3823,26 +3986,40 @@ def measure_quantized(name, args, kw, flush):
         def library():
             out = torch._int_mm(x, wt).float() * scale
             return out if bias is None else out + bias
-        label = "torch._int_mm + the epilogue"
+        res["library"] = "torch._int_mm + the epilogue"
+        dtype = torch.int8
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("%s differs from its plain version by up to %g"
-                             % (name, float((got - want).abs().max())))
-    res = dict(max_abs_err=0.0, err_over_tol=0.0, tolerance="torch.equal",
-               library=label)
+                             % (name, float((got.float() - want.float())
+                                            .abs().max())))
     res["ms"] = cuda_ms(kernel, flush)
     res["plain_ms"] = cuda_ms(plain, flush)
     res["library_ms"] = cuda_ms(library, flush)
-    if conv:
+    if name.startswith("qconv"):
         nbytes, ops = qconv_work(x, w, bias, got, stride, pad, dilate)
-    else:
+    elif name.startswith("qfc"):
         nbytes = x.numel() + w.numel() + 4 * got.numel()
         if bias is not None:
             nbytes += 4 * bias.numel()
         ops = 2 * got.numel() * x.shape[1]
-    res["bound_ms"], res["bound_by"] = bound(nbytes, ops, torch.int8)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops, dtype)
     return res
+
+
+class PhaseClock:
+    """Logs the seconds since the last mark (and since the first) under a
+    phase's name: ``{"phase": "phase_seconds", "name": ..., ...}``."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        log(phase="phase_seconds", name=name, seconds=now - self.last,
+            total_s=now - self.start)
+        self.last = now
 
 
 def main():
@@ -3852,9 +4029,11 @@ def main():
         return 1
     import mxtpu_torch  # noqa: F401  (fails here outside a checkout)
 
+    tick = PhaseClock()
     card()
     build()
     timing_floor()
+    tick("1-2 card, build, timing floor")
     flush = _L2Flush()
     kernels_against_plain(flush)
     verify_kernels_against_plain()
@@ -3864,15 +4043,18 @@ def main():
     g2 = norm_against_plain(flush)
     fused = norm_linear_against_pair(flush)
     wq_results = quant_linear_against_plain(flush)
+    tick("3, 3b, 3c kernels against plain")
     small_model_reference_check()
     small_model_speculative_check()
     small_model_speculative_check(cache_dtype="int8")
+    tick("4, 4b, 4c small models")
     model = llama_3_8b_model()
     launches, served, streams = serve_llama_3_8b(model)
     streams_vs_generate(model, traffic(model.vocab_size), streams)
     launches_q8, served_q8, streams_q8 = serve_llama_3_8b(model, "int8")
     compare_streams("int8_vs_bf16_streams", traffic(model.vocab_size),
                     streams, streams_q8)
+    tick("5, 5b, 6 serving")
     # G1's launches on the main path are the bf16 run's
     launches.update({k: n for k, n in launches_q8.items()
                      if not k.startswith("rows_linear")})
@@ -3881,12 +4063,16 @@ def main():
         model)
     k1_counts_q8, verify_caps_q8, _, _ = serve_llama_3_8b_speculative(
         model, "int8", reqs)
+    tick("6b, 6c speculative serving")
     # the rest of decoding: draft-model speculation on the paged engine
     # (the model's pools, then int8 ones), the slot engine, the samplers
     serve_draft_model(model, None, streams)
     serve_draft_model(model, "int8", streams_q8)
+    tick("6d draft model")
     serve_slots(model, reqs)
+    tick("6s slot engine")
     samplers_8b(model)
+    tick("6t samplers")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3895,6 +4081,7 @@ def main():
     quant_launches = {}
     for bits in (8, 4):
         quant_launches.update(serve_quantized(bits))
+    tick("5q, 6q weight-only quantized serving")
     for name, res in wq_results.items():
         n = quant_launches.get(name, 0)
         if not n and (name.startswith("rows_norm_linear")
@@ -3948,8 +4135,10 @@ def main():
     launches["rows_rms_norm[M=8]"] = launches.get("rows_rms_norm", 0)
     del served, verify_caps, verify_caps_q8
     torch.cuda.empty_cache()
+    tick("7 serving kernels timed")
     flash_kernels_against_plain()
     small_training_check()
+    tick("8, 9 flash kernels, small training")
     trained, captured = train_llama_3_8b()
     torch.cuda.empty_cache()
     launches.update(trained)
@@ -3959,8 +4148,10 @@ def main():
             shape=list(args[0].shape), **results[name])
     del captured
     torch.cuda.empty_cache()
+    tick("10, 11 Llama training")
     conv_kernel_against_plain()
     small_resnet_training_check()
+    tick("12, 13 conv kernel, small ResNet")
     trained, captured, net = train_resnet50()
     torch.cuda.empty_cache()
     launches.update(trained)
@@ -3969,6 +4160,7 @@ def main():
         log(phase="resnet_inputs", kernel=name, shape=list(args[0].shape),
             cout=args[1].shape[0], launches=launches[name], **results[name])
     del captured
+    tick("14, 15 ResNet training")
     # phases 16 and 17: int8 inference of the trained net, then Q1 at
     # each distinct conv geometry and Q2 at the classifier
     held = [net]
@@ -3976,6 +4168,7 @@ def main():
     quantized, captured = quantize_resnet50(held)
     gc.collect()
     torch.cuda.empty_cache()
+    tick("16 int8 ResNet-50")
     launches.update(quantized)
     for name, (args, kw) in captured.items():
         results[name] = measure_quantized(name, args, kw, flush)
@@ -3983,6 +4176,7 @@ def main():
             shape=list(args[0].shape), wshape=list(args[1].shape),
             launches=launches[name], **results[name])
     del captured
+    tick("17 int8 kernels timed")
     rows = []
     for name, res in results.items():
         source, replaces = KERNEL_SOURCES[name.split("[")[0]]
@@ -3994,7 +4188,7 @@ def main():
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
         for key in ("bound_tc_ms", "bwd_ms", "library", "library_error",
-                    "weight_bytes", "tolerance"):
+                    "weight_bytes", "tolerance", "form", "cudnn_bf16_ms"):
             if key in res:
                 rows[-1][key] = res[key]
     print(json.dumps({"kernels": rows}), flush=True)

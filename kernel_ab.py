@@ -10,6 +10,7 @@
     python3 kernel_ab.py flash ROOT_A ROOT_B
     python3 kernel_ab.py quant ROOT_A ROOT_B
     python3 kernel_ab.py q8 ROOT_A ROOT_B
+    python3 kernel_ab.py qconv ROOT_A ROOT_B
 
 ``capture k6`` trains ResNet-50 v1 as ``chip_smoke.py`` phase 14 does
 (this tree's port) and saves the first counted step's K6 inputs, one
@@ -82,6 +83,19 @@ device time a step, wall time a step and the idle share, beside the
 first ``Q8_TOKENS`` tokens of each stream, which the two trees must
 share.  A tree with the fused int8 V epilogue runs it there; its parent
 quantizes V at the write.
+
+``qconv`` times Q1 and the activation quantizer of the checkouts at
+ROOT_A and ROOT_B the same way, in turns A, B, B, A, one process each:
+seeded int8 x and w at ResNet-50 v1's 20 conv geometries at batch 128,
+x stored channels-last where the tree has Q1's channels-last route
+(``ops.quantized.route``) and the conv's channels allow it, else NCHW,
+each call by ``device_ms`` with the weights packed as the tree's
+quantized layer keeps them; and at the 8 shapes of the net's quantized
+conv inputs, float32 x = randn and relu(randn) (half zeros), the tree's
+Q3 (``quantize_nhwc``) where it has one, else the torch chain
+``quantize_v2`` runs (divide, round, clamp, cast).  Each turn prints its
+rows and the launch-weighted totals a forward (``chip_smoke.py``'s
+``RESNET50_QCONV``, ``RESNET50_Q3``).
 Needs one CUDA card.
 """
 
@@ -91,6 +105,8 @@ import subprocess
 import sys
 
 import torch
+
+from chip_smoke import RESNET50_Q3, RESNET50_QCONV
 
 #: Llama-3-8B's decode-step projections (name, N, K) and G1's row counts
 G1_PROJECTIONS = [("qkv", 6144, 4096), ("out_proj", 4096, 4096),
@@ -293,6 +309,55 @@ def quant_tree(root, turn):
         del w, x, gamma, forms
 
 
+def qconv_tree(root, turn):
+    """One turn of ``qconv``: the tree at ``root``'s Q1 at ResNet-50's
+    geometries and its quantizer at the net's input shapes."""
+    sys.path.insert(0, root)
+    from mxtpu_torch.ops import quantized as Q
+
+    route = getattr(Q, "route", None)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    scale = torch.tensor(1e-5, device="cuda")
+    totals = dict(qconv_ms=0.0, quantize_randn_ms=0.0, quantize_relu_ms=0.0)
+    for (ci, co, k, s, p, h), n in RESNET50_QCONV:
+        x = torch.randint(-127, 128, (128, ci, h, h), generator=g,
+                          device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (co, ci, k, k), generator=g,
+                          device="cuda", dtype=torch.int8)
+        cl = route is not None and ci % 16 == 0
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        packed = Q.pack_weight(w, cl) if cl else Q.pack_weight(w)
+        args = (x, w, scale, None, (s, s), (p, p), (1, 1), 1)
+        if not torch.equal(Q.qconv(*args, packed=packed),
+                           Q.qconv_plain(*args)):
+            raise AssertionError("%s: Q1 differs from its plain version"
+                                 % root)
+        ms = device_ms(lambda: Q.qconv(*args, packed=packed))
+        totals["qconv_ms"] += n * ms
+        print(json.dumps(dict(turn=turn, tree=root, geometry=[ci, co, k, s,
+                                                              p, h],
+                              channels_last=cl, ms=ms)), flush=True)
+        del x, w, packed
+    qs = torch.tensor(0.02, device="cuda")
+    for (c, h), n in RESNET50_Q3:
+        x = torch.randn(128, c, h, h, generator=g, device="cuda")
+        for kind, xx in (("randn", x), ("relu", x.relu())):
+            if hasattr(Q, "quantize_nhwc"):
+                def fn():
+                    return Q.quantize_nhwc(xx, qs)
+            else:
+                def fn():
+                    return (xx / qs).round_().clamp_(-127, 127).to(
+                        torch.int8)
+            ms = device_ms(fn)
+            totals["quantize_%s_ms" % kind] += n * ms
+            print(json.dumps(dict(turn=turn, tree=root, quantize=[c, h, h],
+                                  input=kind, ms=ms)), flush=True)
+    print(json.dumps(dict(turn=turn, tree=root, per_forward=totals)),
+          flush=True)
+
+
 #: q8's profiled decode steps a turn, and the tokens a stream prints
 Q8_STEPS = 8
 Q8_TOKENS = 16
@@ -395,6 +460,21 @@ def q8(root_a, root_b):
     return turns("q8", root_a, root_b, collect)
 
 
+def qconv(root_a, root_b):
+    """``qconv``'s turns and their summary: each row's ms a turn, and the
+    launch-weighted totals a forward."""
+    def collect(rows, r):
+        if "per_forward" in r:
+            rows.setdefault("per_forward", []).append(r["per_forward"])
+        elif "geometry" in r:
+            rows.setdefault("qconv%s" % r["geometry"], []).append(r["ms"])
+        else:
+            rows.setdefault("quantize%s,%s" % (r["quantize"], r["input"]),
+                            []).append(r["ms"])
+
+    return turns("qconv", root_a, root_b, collect)
+
+
 def flash(root_a, root_b):
     """``flash``'s turns and their summary."""
     def collect(rows, r):
@@ -470,6 +550,11 @@ def main(argv):
         return q8(argv[1], argv[2])
     if len(argv) == 3 and argv[0] == "q8-tree":
         q8_tree(argv[1], int(argv[2]))
+        return 0
+    if len(argv) == 3 and argv[0] == "qconv":
+        return qconv(argv[1], argv[2])
+    if len(argv) == 3 and argv[0] == "qconv-tree":
+        qconv_tree(argv[1], int(argv[2]))
         return 0
     if len(argv) == 3 and argv[0] == "flash":
         return flash(argv[1], argv[2])

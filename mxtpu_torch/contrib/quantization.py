@@ -297,9 +297,10 @@ def quantize_weights(model, bits=8, group_size=64, rules=None, exclude=()):
 # q = clip(round(x / s), -127, 127) (half to even) as int8, int32 sums,
 # then acc * (s_x * s_w) (the two scales multiplied first) + bias.  The
 # products run Q1 and Q2 (ops/quantized.py) on a CUDA tensor and their
-# plain versions on a CPU one.  Every division is by a 0-dim tensor on
-# the operand's device: CUDA divides by a Python number through its
-# reciprocal.
+# plain versions on a CPU one; a quantized conv's input is quantized by
+# Q3 where Q1 reads it channels-last.  Every division is by a 0-dim
+# tensor on the operand's device: CUDA divides by a Python number
+# through its reciprocal.
 
 def _range(v, device):
     """A range end as a 0-dim float32 tensor on ``device``: a tensor as
@@ -316,18 +317,26 @@ def _q_scale(mn, mx):
         _levels(mn.device)
 
 
+def _input_range(x, min_calib_range, max_calib_range):
+    """The range ``quantize_v2`` quantizes float32 x by: the calibrated
+    ends where given, else x's own min and max (0-dim float32 tensors on
+    x's device)."""
+    if min_calib_range is None and max_calib_range is None:
+        return torch.aminmax(x)
+    mn = x.amin() if min_calib_range is None else \
+        _range(min_calib_range, x.device)
+    mx = x.amax() if max_calib_range is None else \
+        _range(max_calib_range, x.device)
+    return mn, mx
+
+
 def quantize_v2(x, min_calib_range=None, max_calib_range=None):
     """float → (int8 payload, min, max), symmetric: the range is the
     calibrated one where given, else the tensor's own min and max (0-dim
-    float32 tensors on x's device)."""
+    float32 tensors on x's device).  The payload keeps x's layout (NCHW
+    for an NCHW x)."""
     x = x.float()
-    if min_calib_range is None and max_calib_range is None:
-        mn, mx = torch.aminmax(x)
-    else:
-        mn = x.amin() if min_calib_range is None else \
-            _range(min_calib_range, x.device)
-        mx = x.amax() if max_calib_range is None else \
-            _range(max_calib_range, x.device)
+    mn, mx = _input_range(x, min_calib_range, max_calib_range)
     t = x / _q_scale(mn, mx)
     q = t.round_().clamp_(-127, 127).to(torch.int8)
     return q, mn, mx
@@ -362,10 +371,11 @@ def quantized_fully_connected(x, weight, x_min, x_max, w_min, w_max,
 def quantized_conv(x, weight, x_min, x_max, w_min, w_max, bias=None,
                    kernel=(), stride=(), dilate=(), pad=(), num_filter=0,
                    num_group=1, no_bias=False, packed_weight=None):
-    """int8 NCHW convolution with OIHW int8 weights, int32 sums, scaled
-    by the two ranges' scales, plus the float32 bias per channel (Q1 on
-    the card).  2-D only: 1-D and 3-D raise.  ``packed_weight``: the
-    weights as ``ops.quantized.pack_weight`` gives them, which a
+    """int8 (N, C, H, W) convolution with OIHW int8 weights, int32 sums,
+    scaled by the two ranges' scales, plus the float32 bias per channel
+    (Q1 on the card; x stored NCHW, or channels-last as Q3 writes it).
+    2-D only: 1-D and 3-D raise.  ``packed_weight``: the weights as
+    ``ops.quantized.pack_weight`` gives them for x's layout, which a
     quantized layer keeps (packed on each call otherwise)."""
     ndim = len(kernel) if kernel else x.dim() - 2
     if ndim != 2 or x.dim() != 4:
@@ -518,14 +528,22 @@ class _QuantizedLayer(HybridBlock):
                 self.bias.copy_(layer.bias.detach().float())
         return self
 
-    def _quantize(self, x):
-        if self.min_calib_range is None:
-            return quantize_v2(x)
-        if self._calib[0] != x.device:
-            self._calib = (x.device,
-                           _range(self.min_calib_range, x.device),
-                           _range(self.max_calib_range, x.device))
-        return quantize_v2(x, *self._calib[1:])
+    def _quantize(self, x, channels_last=False):
+        """``quantize_v2`` of x with the layer's range; ``channels_last``:
+        the payload written channels-last by Q3 (``ops/quantized.py:
+        quantize_nhwc``; float32 NCHW-contiguous x, C a multiple of 16),
+        the same values."""
+        rng = (None, None)
+        if self.min_calib_range is not None:
+            if self._calib[0] != x.device:
+                self._calib = (x.device,
+                               _range(self.min_calib_range, x.device),
+                               _range(self.max_calib_range, x.device))
+            rng = self._calib[1:]
+        if not channels_last:
+            return quantize_v2(x, *rng)
+        mn, mx = _input_range(x, *rng)
+        return _q.quantize_nhwc(x, _q_scale(mn, mx)), mn, mx
 
     def extra_repr(self):
         rng = ("runtime range" if self.min_calib_range is None else
@@ -537,8 +555,12 @@ class _QuantizedLayer(HybridBlock):
 class QuantizedConv2D(_QuantizedLayer):
     """A ``Conv2D`` quantized as the reference's ``_contrib_quantize_v2``
     then ``_contrib_quantized_conv`` nodes: its input quantized with the
-    calibrated range, then Q1 on the int8 weights.  It keeps the weights
-    packed as Q1 reads them too, repacked when the payload changes."""
+    calibrated range, then Q1 on the int8 weights.  x is taken NCHW
+    (copied so if it is stored otherwise); where its input channels a
+    group are a multiple of 16, Q3 writes the payload channels-last and
+    Q1 reads it so (every ResNet-50 conv but the stem); else the payload
+    is NCHW.  It keeps the weights packed as Q1 reads them too, repacked
+    when the payload changes."""
 
     def __init__(self, channels, in_channels, kernel_size, strides=(1, 1),
                  padding=(0, 0), dilation=(1, 1), groups=1, use_bias=True,
@@ -549,6 +571,7 @@ class QuantizedConv2D(_QuantizedLayer):
         self._kwargs = {"kernel": kernel_size, "stride": tuple(strides),
                         "dilate": tuple(dilation), "pad": tuple(padding),
                         "num_filter": channels, "num_group": groups}
+        self._nhwc = (in_channels // groups) % 16 == 0
         self._pack = (None, None)
 
     @classmethod
@@ -563,21 +586,26 @@ class QuantizedConv2D(_QuantizedLayer):
     def _alias(self):
         return "conv"
 
-    def _packed(self):
+    def _packed(self, channels_last):
         w = self.weight_quantized
         if w.device.type != "cuda":
             return None
-        key = (w.data_ptr(), w._version)
+        key = (w.data_ptr(), w._version, channels_last)
         if self._pack[0] != key:
-            self._pack = (key, _q.pack_weight(w))
+            self._pack = (key, _q.pack_weight(w, channels_last))
         return self._pack[1]
 
     def forward(self, x):
-        q, mn, mx = self._quantize(x)
+        # one layout for the payload and the packed weights: x NCHW, then
+        # the payload channels-last by Q3 where the channels allow it
+        x = x.float().contiguous()
+        nhwc = self._nhwc and x.dim() == 4
+        q, mn, mx = self._quantize(x, nhwc)
         return quantized_conv(q, self.weight_quantized, mn, mx,
                               self.weight_qmin, self.weight_qmax, self.bias,
                               no_bias=self.bias is None,
-                              packed_weight=self._packed(), **self._kwargs)
+                              packed_weight=self._packed(nhwc),
+                              **self._kwargs)
 
 
 class QuantizedDense(_QuantizedLayer):

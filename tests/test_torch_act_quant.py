@@ -270,7 +270,23 @@ def test_pack_weight_pads_k_to_32_with_zeros():
 
 
 def test_q1_q2_tiles_follow_the_group_width():
-    assert Q._plan(64) == 64 and Q._plan(128) == 128 and Q._plan(2048) == 128
+    """The stem's kernel: 128 pixels, 64 or 128 channels by the group's
+    width.  The channels-last kernel: 64 channels where a group has 64,
+    and 64 pixels where 128 would leave fewer than two blocks an SM of
+    the H100's 132 (ResNet-50's 7x7 stage at batch 128)."""
+    M56, M28, M14, M7 = (128 * h * h for h in (56, 28, 14, 7))
+    assert Q._plan(M56, 64, "nchw") == (128, 64)
+    assert Q._plan(M56, 128, "nchw") == (128, 128)
+    assert Q._plan(M56, 2048, "nchw") == (128, 128)
+    assert Q._plan(M56, 64) == (128, 64)
+    assert Q._plan(M56, 256) == (128, 128)
+    assert Q._plan(M28, 128) == (128, 128)
+    assert Q._plan(M14, 256) == (128, 128)
+    assert Q._plan(M7, 512) == (64, 128)
+    assert Q._plan(M7, 2048) == (128, 128)
+    for M, Ng in ((M56, 64), (M14, 256), (M7, 512), (M7, 2048)):
+        bm, bn = Q._plan(M, Ng)
+        assert -(-M // bm) * -(-Ng // bn) >= 2 * 132
 
 
 # -- calibration ---------------------------------------------------------------

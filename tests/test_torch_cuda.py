@@ -58,7 +58,13 @@ and fully-connected products of post-training quantization, ``torch.equal``
 to their plain versions (int32 sums, one rounding a step) at ResNet-50's
 20 conv geometries and its classifier, at batch 1, with tails in M, N
 and K, groups and dilation, the largest sums, packed stem weights and
-rows off a 16-byte boundary; and a quantized narrow ResNet on the card
+rows off a 16-byte boundary; Q1's channels-last route at the 19
+non-stem geometries, at each of its four tiles on padding, dilation,
+stride 2, odd sizes, groups of 16-channel multiples and K steps across
+taps, and at the largest sums; Q3, the quantizer that writes its input,
+``torch.equal`` to its plain version at the net's input shapes and at
+W not a multiple of 32, C a multiple of 16 but not 64, runtime ranges,
+half-steps and +-inf; and a quantized narrow ResNet on the card
 ``torch.equal`` to its plain route.
 Also what the wrappers reject on the card.
 
@@ -87,7 +93,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tree_anc
+from chip_smoke import RESNET50_Q3, tree_anc
+from chip_smoke import RESNET50_QCONV as QCONV_TABLE
 from mxtpu_torch import base
 from mxtpu_torch.ops import contrib
 from mxtpu_torch.ops import conv_bwd as cb
@@ -1219,15 +1226,7 @@ def test_conv_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 #: ResNet-50 v1's 20 distinct conv geometries (C_in, C_out, kernel,
 #: stride, pad, input size), as the card's main path runs them at batch 128
-RESNET50_QCONV = [
-    (3, 64, 7, 2, 3, 224), (64, 64, 1, 1, 0, 56), (64, 64, 3, 1, 1, 56),
-    (64, 256, 1, 1, 0, 56), (256, 64, 1, 1, 0, 56), (256, 128, 1, 2, 0, 56),
-    (128, 128, 3, 1, 1, 28), (128, 512, 1, 1, 0, 28), (256, 512, 1, 2, 0, 56),
-    (512, 128, 1, 1, 0, 28), (512, 256, 1, 2, 0, 28), (256, 256, 3, 1, 1, 14),
-    (256, 1024, 1, 1, 0, 14), (512, 1024, 1, 2, 0, 28),
-    (1024, 256, 1, 1, 0, 14), (1024, 512, 1, 2, 0, 14),
-    (512, 512, 3, 1, 1, 7), (512, 2048, 1, 1, 0, 7), (1024, 2048, 1, 2, 0, 14),
-    (2048, 512, 1, 1, 0, 7)]
+RESNET50_QCONV = [g for g, _ in QCONV_TABLE]
 #: tails: (N, C_in, C_out, kernel, stride, pad, dilate, groups, H, W)
 QCONV_EDGES = [
     (1, 3, 64, 7, 2, 3, 1, 1, 224, 224),     # batch 1 stem
@@ -1347,9 +1346,10 @@ def test_quant_q2_copies_unaligned_rows(cuda):
 
 def test_quantized_net_on_the_card_equals_its_plain_route(cuda, monkeypatch):
     """A narrow ResNet-v1 quantized on the card: every conv through Q1
-    and the Dense through Q2, exactly once a forward, and its logits
-    ``torch.equal`` to the same net with the plain versions put in the
-    kernels' place."""
+    and the Dense through Q2, exactly once a forward, every conv of 16
+    input channels or a multiple on Q1's channels-last route with its
+    input quantized by Q3, and its logits ``torch.equal`` to the same net
+    with the plain versions put in the kernels' place."""
     from mxtpu_torch.contrib import quantization as P
     from mxtpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
     from mxtpu_torch.initializer import Xavier
@@ -1365,15 +1365,22 @@ def test_quantized_net_on_the_card_equals_its_plain_route(cuda, monkeypatch):
     x = torch.rand(4, 3, 64, 64, generator=g, device="cuda")
     qnet = P.quantize_net(net, calib_data=calib)
     convs = sum(isinstance(m, P.QuantizedConv2D) for m in qnet.modules())
+    # the convs of 16-channel multiples a group (not the stem's 3, nor the
+    # 8 of the first stage's bottlenecks)
+    nhwc = sum(isinstance(m, P.QuantizedConv2D) and m._nhwc
+               for m in qnet.modules())
+    assert nhwc == convs - 3
     with torch.no_grad():
         base.reset_counts()
         got = qnet(x)
         torch.cuda.synchronize()
-        assert base.counts() == {"qconv": convs, "qfc": 1}
+        assert base.counts() == {"qconv": convs, "qconv_nhwc": nhwc,
+                                 "quantize_nhwc": nhwc, "qfc": 1}
         monkeypatch.setattr(Q, "qconv", lambda x, w, s, b=None, stride=(
             1, 1), pad=(0, 0), dilate=(1, 1), groups=1, packed=None:
             Q.qconv_plain(x, w, s, b, stride, pad, dilate, groups))
         monkeypatch.setattr(Q, "qfc", Q.qfc_plain)
+        monkeypatch.setattr(Q, "quantize_nhwc", Q.quantize_nhwc_plain)
         want = qnet(x)
     assert torch.isfinite(got).all() and torch.equal(got, want)
 
@@ -1404,4 +1411,203 @@ def test_quant_q1_q2_wrappers_reject_what_the_kernels_do_not_take(cuda):
                  (a, b, s, torch.zeros(5, device="cuda"))]:
         with pytest.raises(base.MXTPUError):
             Q.qfc(*args)
+    assert base.counts() == {}
+
+
+# -- Q1's channels-last route and Q3 ------------------------------------------
+
+#: tails on the channels-last route: (N, C_in, C_out, kernel, stride, pad,
+#: dilate, groups, H, W) — K steps across 4, 2 and 4/3 taps (16, 32 and
+#: 48 channels a group), padding past the kernel's reach, dilation,
+#: stride 2 and 3, odd sizes, groups, N and M tails
+QCONV_NHWC_EDGES = [
+    (2, 16, 24, 3, 1, 1, 1, 1, 9, 7),
+    (1, 32, 8, 3, 2, 2, 1, 1, 11, 13),
+    (3, 48, 40, 3, 1, 2, 2, 1, 10, 9),
+    (2, 64, 200, 5, 2, 4, 1, 1, 12, 12),
+    (1, 64, 32, 3, 1, 1, 3, 2, 15, 8),
+    (2, 96, 96, 1, 3, 0, 1, 3, 17, 5),
+    (1, 16, 16, 7, 1, 3, 1, 1, 7, 7),
+    (2, 256, 64, 3, 2, 1, 1, 4, 9, 9),
+    (5, 64, 130, 1, 1, 0, 1, 1, 13, 11),
+]
+#: the net's Q3 input shapes (C, H, W), then edges: W not a multiple of
+#: 32, C a multiple of 16 but not 64, one pixel
+Q3_SHAPES = [(c, h, h) for (c, h), _ in RESNET50_Q3] + [
+    (128, 56, 56), (48, 9, 33), (16, 5, 7), (80, 1, 1)]
+
+
+def _nhwc_equal(x, w, scale, bias, kw):
+    from mxtpu_torch.ops import quantized as Q
+
+    assert Q.route(x, kw["groups"]) == "nhwc"
+    for b in (bias, None):
+        base.reset_counts()
+        got = Q.qconv(x, w, scale, b, **kw)
+        want = Q.qconv_plain(x, w, scale, b, **kw)
+        torch.cuda.synchronize()
+        assert base.counts() == {"qconv": 1, "qconv_nhwc": 1}
+        assert got.is_contiguous() and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("geom", RESNET50_QCONV[1:],
+                         ids=lambda g: "%dto%d-%dx%ds%d-%d" % (
+                             g[0], g[1], g[2], g[2], g[3], g[5]))
+def test_quant_q1_nhwc_equals_plain_at_resnet50_geometries(cuda, geom):
+    Ci, Co, k, s, p, H = geom
+    x, w, scale, bias, kw = _qconv_case(2, Ci, Co, k, s, p, 1, 1, H, H,
+                                        sum(geom))
+    _nhwc_equal(x.contiguous(memory_format=torch.channels_last), w, scale,
+                bias, kw)
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64),
+                                  (128, 128)], ids=lambda t: "%dx%d" % t)
+@pytest.mark.parametrize("case", QCONV_NHWC_EDGES,
+                         ids=lambda c: "N%d-%dto%d-k%ds%dp%dd%dg%d-%dx%d" % c)
+def test_quant_q1_nhwc_equals_plain_at_its_edges(cuda, monkeypatch, case,
+                                                  tile):
+    from mxtpu_torch.ops import quantized as Q
+
+    monkeypatch.setattr(Q, "_plan", lambda M, Ng, kind="nhwc": tile)
+    x, w, scale, bias, kw = _qconv_case(*case, seed=sum(case))
+    _nhwc_equal(x.contiguous(memory_format=torch.channels_last), w, scale,
+                bias, kw)
+
+
+def test_quant_q1_nhwc_takes_its_plan_at_full_size(cuda):
+    """The plan's own tiles at batch 64 and 8: 128 x 128 (512 -> 2048 at
+    7x7), 64 x 128 (512 -> 512 3x3 at 7x7), 128 x 64 (64 -> 64 at 28x28)
+    and 64 x 64 (64 -> 64 at 14x14)."""
+    from mxtpu_torch.ops import quantized as Q
+
+    for N, Ci, Co, k, p, H, tile in [
+            (64, 512, 2048, 1, 0, 7, (128, 128)),
+            (64, 512, 512, 3, 1, 7, (64, 128)),
+            (64, 64, 64, 1, 0, 28, (128, 64)),
+            (8, 64, 64, 3, 1, 14, (64, 64))]:
+        assert Q._plan(N * H * H, Co) == tile
+        x, w, scale, bias, kw = _qconv_case(N, Ci, Co, k, 1, p, 1, 1, H, H,
+                                            N + Co)
+        _nhwc_equal(x.contiguous(memory_format=torch.channels_last), w,
+                    scale, bias, kw)
+
+
+def test_quant_q1_nhwc_holds_the_largest_sums(cuda):
+    """Sums of 4608 products of 127 * 127 on the channels-last route."""
+    from mxtpu_torch.ops import quantized as Q
+
+    x = torch.full((1, 512, 7, 7), 127, dtype=torch.int8, device="cuda")
+    x[:, ::3] = -127
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.full((64, 512, 3, 3), 127, dtype=torch.int8, device="cuda")
+    scale = torch.tensor(3.1e-5, device="cuda")
+    _nhwc_equal(x, w, scale, None, dict(stride=(1, 1), pad=(1, 1),
+                                        dilate=(1, 1), groups=1))
+    assert int(Q.qconv_sums(x, w, pad=(1, 1)).abs().max()) > 2 ** 24
+
+
+def test_quant_q1_nhwc_takes_packed_ohwi_weights(cuda):
+    from mxtpu_torch.ops import quantized as Q
+
+    x, w, scale, bias, kw = _qconv_case(2, 48, 40, 3, 1, 1, 1, 1, 10, 9, 4)
+    x = x.contiguous(memory_format=torch.channels_last)
+    packed = Q.pack_weight(w, channels_last=True)
+    assert tuple(packed.shape) == (40, 448)
+    assert torch.equal(Q.qconv(x, w, scale, bias, packed=packed, **kw),
+                       Q.qconv_plain(x, w, scale, bias, **kw))
+
+
+def test_quant_q1_layer_takes_a_channels_last_float_input(cuda):
+    """A 3x3 quantized conv fed its float input stored channels-last
+    (``x.contiguous(memory_format=torch.channels_last)``) gives the bits
+    it gives for the NCHW input: the payload and the packed weights are
+    laid out alike, whatever the input's layout."""
+    from mxtpu_torch.contrib import quantization as P
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 64, 14, 14, generator=g, device="cuda")
+    for calib in (None, (-2.5, 3.0)):
+        layer = P.QuantizedConv2D(96, 64, (3, 3), padding=(1, 1),
+                                  calib_range=calib, device="cuda")
+        layer.weight_quantized.copy_(_rand_int8(g, 96, 64, 3, 3))
+        layer.weight_qmin.fill_(-0.3)
+        layer.weight_qmax.fill_(0.3)
+        layer.bias.copy_(torch.randn(96, generator=g, device="cuda"))
+        outs = []
+        with torch.no_grad():
+            for xx in (x, x.contiguous(memory_format=torch.channels_last),
+                       x):
+                base.reset_counts()
+                outs.append(layer(xx))
+                torch.cuda.synchronize()
+                assert base.counts() == {"quantize_nhwc": 1, "qconv": 1,
+                                         "qconv_nhwc": 1}
+        assert torch.isfinite(outs[0]).all()
+        assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2],
+                                                             outs[0])
+
+
+def _q3_equal(x, scale):
+    from mxtpu_torch.ops import quantized as Q
+
+    base.reset_counts()
+    got = Q.quantize_nhwc(x, scale)
+    want = Q.quantize_nhwc_plain(x, scale)
+    torch.cuda.synchronize()
+    assert base.counts() == {"quantize_nhwc": 1}
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", Q3_SHAPES, ids=lambda s: "%dx%dx%d" % s)
+def test_quant_q3_equals_plain(cuda, shape):
+    """Calibrated (a range inside x's, so values clamp) and runtime
+    ranges, the scale a 0-dim device tensor as the layer computes it."""
+    from mxtpu_torch.contrib.quantization import _q_scale
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn((2,) + shape, generator=g, device="cuda") * 3
+    for mn, mx in [(torch.tensor(-2.0, device="cuda"),
+                    torch.tensor(1.5, device="cuda")), torch.aminmax(x)]:
+        _q3_equal(x, _q_scale(mn, mx))
+
+
+def test_quant_q3_rounds_half_steps_and_clamps_infinities(cuda):
+    v = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 125.5, 126.5, -126.5,
+                      127.5, 200.0, -300.0, 0.0, -0.0, float("inf"),
+                      -float("inf")], device="cuda")
+    x = v.repeat(2 * 32 * 3 * 5 // 16).reshape(2, 32, 3, 5)
+    _q3_equal(x, torch.tensor(1.0, device="cuda"))
+    _q3_equal(x * 0.37, torch.tensor(0.37, device="cuda"))
+
+
+def test_quant_q1_q3_wrappers_reject_layouts_they_do_not_take(cuda):
+    from mxtpu_torch.ops import quantized as Q
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cl = torch.channels_last
+    s = torch.tensor(1e-3, device="cuda")
+    x, w = _rand_int8(g, 2, 32, 6, 6), _rand_int8(g, 5, 32, 3, 3)
+    base.reset_counts()
+    # channels-last with 8 channels a group; neither layout; off 16 bytes
+    buf = _rand_int8(g, 2 * 32 * 36 + 1)
+    off = buf[1:].view(2, 6, 6, 32).permute(0, 3, 1, 2)
+    assert Q.route(off) == "nhwc" and off.data_ptr() % 16
+    for args, kw in [
+            ((x.contiguous(memory_format=cl), _rand_int8(g, 8, 8, 3, 3), s),
+             dict(groups=4)),
+            ((x[:, :, 1:], w, s), {}),
+            ((off, w, s), {}),
+            ((x.contiguous(memory_format=cl), w, s),
+             dict(packed=w.reshape(5, 288)[:, :100]))]:
+        with pytest.raises(base.MXTPUError):
+            Q.qconv(*args, **kw)
+    f = torch.randn(2, 32, 6, 6, device="cuda")
+    for args in [(f.double(), s), (f.contiguous(memory_format=cl), s),
+                 (f[:, :8].contiguous(), s), (f[:, :, 1:], s),
+                 (f, s.double()), (f, s.cpu()), (f[0], s)]:
+        with pytest.raises(base.MXTPUError):
+            Q.quantize_nhwc(*args)
     assert base.counts() == {}
