@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. build the CUDA kernels from ``mxtpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into ``mxtpu_torch/_build``, logging ptxas's
    registers and spill bytes of every G3 and G4 instantiation and of Q1's
-   and Q3's kernels, and failing if one spills; then the timing
+   (the stem's too), Q2's and Q3's kernels, and failing if one spills;
+   then the timing
    floor on a line of its own (``timing_floor``): an empty captured
    graph and G2 on 8 x 4096 bf16 values, timed as every kernel is
    (``cuda_ms``) under a flush that writes 64 MB and leaves dirty lines
@@ -215,13 +216,17 @@ Phases, in order; any failure exits non-zero:
    ``calib_mode="naive"`` over 2 batches of 32 synthetic 224x224 images
    (seed 1), then 1 warm-up and 5 counted forwards at batch 128 (seed
    2) and one profiled: exactly 53 Q1 launches a forward, 52 of them on
-   the channels-last route (``qconv_nhwc``) and the stem on the NCHW
-   one, 52 Q3 (``quantize_nhwc``) and 1 Q2, finite logits
+   the channels-last route (``qconv_nhwc``) and the stem on the stem's
+   route (``qconv_stem``), 52 Q3 (``quantize_nhwc``) and 1 Q2, finite
+   logits
    ``torch.equal`` to the plain route's (``PlainQuant``: Q1's, Q2's and
    Q3's plain versions in their wrappers' place), and the int8 logits'
    error against the float32 net's and their top-1 agreement logged;
-17. one Q1 call per distinct conv geometry captured from phase 16 (20),
-   one Q3 call per distinct input shape, and the Q2 call, each
+17. one Q1 call per distinct conv geometry captured from phase 16 (20;
+   each row's ``form`` its route, ``stem`` or ``nhwc``), one Q3 call per
+   distinct input shape, and the Q2 call (its ``splits``, the blocks of
+   a cluster that share a tile's K, and ``launch_floor_ms``, an empty
+   kernel replayed from a captured graph in the same run), each
    ``torch.equal`` to its plain version, with the kernel, plain and
    library times (Q2, and Q1's 1x1 stride-1 convs on their
    channels-last payload viewed (N*H*W, C): ``torch._int_mm`` and the
@@ -254,10 +259,11 @@ that the motif traffic never launched is left out), each with its
 ... and ``rows_norm_linear_i8_q8[qkv,M=8]`` ... (launches: phases 5q
 and 6q over int8 pools, every one norm-fused), K6 as
 one row per stage shape, and Q1 as one row per conv geometry,
-``qconv[3->64,7x7s2,224]`` ... (``form``: ``nhwc`` or the stem's
-``nchw``), Q3 as one row per input shape, ``quantize_nhwc[64x56x56]``
-..., and Q2 as ``qfc[128x2048->1000]`` (launches: phase 16's, each with
-its ``library`` label and ``tolerance`` "torch.equal")); the last
+``qconv[3->64,7x7s2,224]`` ... (``form``: ``nhwc``, or ``stem`` for
+the stem's kernel), Q3 as one row per input shape,
+``quantize_nhwc[64x56x56]`` ..., and Q2 as ``qfc[128x2048->1000]``
+(with ``splits`` and ``launch_floor_ms``; launches: phase 16's, each
+with its ``library`` label and ``tolerance`` "torch.equal")); the last
 line is
 ``{"ok": true, "device": {...}}``.  The script needs one CUDA card and
 exits non-zero without one.
@@ -401,7 +407,7 @@ RESNET = dict(batch=128, size=224, classes=1000, seed=0, warmup=1, steps=5,
 #: test batch (seed 2), and Q1's and Q2's launches a forward
 QUANT = dict(calib_batches=2, calib_batch=32, calib_seed=1, seed=2,
              batch=128, warmup=1, forwards=5, qconv=53, qconv_nhwc=52,
-             quantize_nhwc=52, qfc=1)
+             qconv_stem=1, quantize_nhwc=52, qfc=1)
 #: ResNet-50 v1's 20 distinct conv geometries (C_in, C_out, kernel,
 #: stride, pad, input size) at 224x224 and Q1's launches a forward at
 #: each; phase 16 holds the net's launches to it
@@ -689,9 +695,11 @@ def card():
 #: the weight types of rows_linear.cu's bf16 kernel (its first template
 #: argument): G3's and G4's names
 WQ_TYPES = {1: "rows_linear_i8", 2: "rows_linear_i4"}
-#: quantized.cu's Q1 and Q3 kernels by their names in ptxas's report
+#: quantized.cu's Q1, Q2 and Q3 kernels by their names in ptxas's report
 Q_KERNELS = {"qconv_nhwc_kernel": "qconv[nhwc]",
+             "qconv_stem_kernel": "qconv[stem]",
              "qconv_kernel": "qconv[nchw]",
+             "qfc_kernel": "qfc",
              "quantize_nhwc_kernel": "quantize_nhwc"}
 
 
@@ -702,8 +710,8 @@ def quant_kernel_registers(ptxas_log):
     NGW, STAGES, WR; gain: none, bf16 or float32, the fused norm's), of
     each instantiation of the q8 epilogue they call (its frame and
     spills; no registers of its own), and, in quantized.cu's report, of
-    every instantiation of Q1's two kernels (template: BM, BN or BN) and
-    of Q3's."""
+    every instantiation of Q1's three kernels (template: BM, BN, or BN,
+    or none for the stem's), of Q2's and of Q3's."""
     out, cur, entry = [], None, None
     for line in ptxas_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -762,10 +770,10 @@ def build():
             if any(w in line for w in ("entry function", "registers",
                                        "smem", "spill")):
                 print("ptxas[%s] %s" % (name, line.strip()), flush=True)
-    # G3's, G4's, Q1's and Q3's registers and spills, from ptxas's report
-    # of this build: every instantiation must keep its accumulators in
-    # registers
-    for src, what in (("rows_linear", "G3/G4"), ("quantized", "Q1/Q3")):
+    # G3's, G4's, Q1's, Q2's and Q3's registers and spills, from ptxas's
+    # report of this build: every instantiation must keep its
+    # accumulators in registers
+    for src, what in (("rows_linear", "G3/G4"), ("quantized", "Q1-Q3")):
         if src not in built:
             log(phase="build", quant_kernels="%s not built in this run"
                 % what)
@@ -3743,7 +3751,8 @@ def quantize_resnet50(held):
     2 batches of 32 synthetic 224x224 images (seed 1), then int8
     inference at batch 128 (seed 2): 1 warm-up and 5 counted forwards,
     and one profiled.  Gates: exactly 53 Q1 launches a forward, 52 on the
-    channels-last route, 52 Q3 and 1 Q2 (launch counts zeroed just
+    channels-last route and 1 on the stem's, 52 Q3 and 1 Q2 (launch
+    counts zeroed just
     before, read just after), finite logits, and the kernel route's
     logits ``torch.equal`` to the plain route's (``PlainQuant``) on the
     same batch.  Logs the int8 logits' error
@@ -3819,7 +3828,8 @@ def quantize_resnet50(held):
     logits = outs[-1]
     del outs[:-1]
     want = {k: cfg[k] * cfg["forwards"]
-            for k in ("qconv", "qconv_nhwc", "quantize_nhwc", "qfc")}
+            for k in ("qconv", "qconv_nhwc", "qconv_stem", "quantize_nhwc",
+                      "qfc")}
     if launches != want:
         raise AssertionError("int8 ResNet-50: launches %r, wanted %r"
                              % (launches, want))
@@ -3963,7 +3973,7 @@ def measure_quantized(name, args, kw, flush):
                             dilation=dilate, groups=groups)
         library = qconv_int_mm(x, w, scale, bias, stride, pad, dilate,
                                groups)
-        res["form"] = Q.route(x, groups)
+        res["form"] = Q.route(x, groups, tuple(w.shape[2:]), dilate)
         if library is None:
             library, res["library"] = cudnn, QCONV_LIBRARY
         else:
@@ -3987,6 +3997,9 @@ def measure_quantized(name, args, kw, flush):
             out = torch._int_mm(x, wt).float() * scale
             return out if bias is None else out + bias
         res["library"] = "torch._int_mm + the epilogue"
+        res["splits"] = Q._plan_fc(x.shape[0], w.shape[0], x.shape[1])
+        res["launch_floor_ms"] = cuda_ms(lambda: Q._lib().mxtpu_empty(
+            torch.cuda.current_stream().cuda_stream), flush)
         dtype = torch.int8
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -4188,7 +4201,8 @@ def main():
                          bound_by=res["bound_by"],
                          library_ms=res["library_ms"]))
         for key in ("bound_tc_ms", "bwd_ms", "library", "library_error",
-                    "weight_bytes", "tolerance", "form", "cudnn_bf16_ms"):
+                    "weight_bytes", "tolerance", "form", "cudnn_bf16_ms",
+                    "splits", "launch_floor_ms"):
             if key in res:
                 rows[-1][key] = res[key]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -84,18 +84,21 @@ first ``Q8_TOKENS`` tokens of each stream, which the two trees must
 share.  A tree with the fused int8 V epilogue runs it there; its parent
 quantizes V at the write.
 
-``qconv`` times Q1 and the activation quantizer of the checkouts at
+``qconv`` times Q1, Q2 and the activation quantizer of the checkouts at
 ROOT_A and ROOT_B the same way, in turns A, B, B, A, one process each:
 seeded int8 x and w at ResNet-50 v1's 20 conv geometries at batch 128,
 x stored channels-last where the tree has Q1's channels-last route
 (``ops.quantized.route``) and the conv's channels allow it, else NCHW,
 each call by ``device_ms`` with the weights packed as the tree's
-quantized layer keeps them; and at the 8 shapes of the net's quantized
-conv inputs, float32 x = randn and relu(randn) (half zeros), the tree's
-Q3 (``quantize_nhwc``) where it has one, else the torch chain
-``quantize_v2`` runs (divide, round, clamp, cast).  Each turn prints its
-rows and the launch-weighted totals a forward (``chip_smoke.py``'s
-``RESNET50_QCONV``, ``RESNET50_Q3``).
+quantized layer keeps them (for the stem's route where the tree has
+one); Q2 at the classifier, 128 x 2048 -> 1000, with a bias; and at the
+8 shapes of the net's quantized conv inputs, float32 x = randn and
+relu(randn) (half zeros), the tree's Q3 (``quantize_nhwc``) where it has
+one, else the torch chain ``quantize_v2`` runs (divide, round, clamp,
+cast).  Each turn prints its rows and the launch-weighted totals a
+forward (``chip_smoke.py``'s ``RESNET50_QCONV``, ``RESNET50_Q3``): all
+of Q1, the stem, the 19 channels-last geometries, Q2, the stem + Q2,
+and Q3 on each input.
 Needs one CUDA card.
 """
 
@@ -318,7 +321,9 @@ def qconv_tree(root, turn):
     route = getattr(Q, "route", None)
     g = torch.Generator(device="cuda").manual_seed(0)
     scale = torch.tensor(1e-5, device="cuda")
-    totals = dict(qconv_ms=0.0, quantize_randn_ms=0.0, quantize_relu_ms=0.0)
+    totals = dict(qconv_ms=0.0, stem_ms=0.0, qconv_nhwc_ms=0.0, qfc_ms=0.0,
+                  stem_qfc_ms=0.0, quantize_randn_ms=0.0,
+                  quantize_relu_ms=0.0)
     for (ci, co, k, s, p, h), n in RESNET50_QCONV:
         x = torch.randint(-127, 128, (128, ci, h, h), generator=g,
                           device="cuda", dtype=torch.int8)
@@ -327,7 +332,12 @@ def qconv_tree(root, turn):
         cl = route is not None and ci % 16 == 0
         if cl:
             x = x.contiguous(memory_format=torch.channels_last)
-        packed = Q.pack_weight(w, cl) if cl else Q.pack_weight(w)
+        if hasattr(Q, "QCONV_STEM"):     # a tree with the stem's route
+            form = Q.route(x, 1, (k, k))
+            packed = Q.pack_weight(w, form == "nhwc", form == "stem")
+        else:
+            form = "nhwc" if cl else "nchw"
+            packed = Q.pack_weight(w, cl) if cl else Q.pack_weight(w)
         args = (x, w, scale, None, (s, s), (p, p), (1, 1), 1)
         if not torch.equal(Q.qconv(*args, packed=packed),
                            Q.qconv_plain(*args)):
@@ -335,10 +345,26 @@ def qconv_tree(root, turn):
                                  % root)
         ms = device_ms(lambda: Q.qconv(*args, packed=packed))
         totals["qconv_ms"] += n * ms
+        totals["stem_ms" if ci == 3 else "qconv_nhwc_ms"] += n * ms
         print(json.dumps(dict(turn=turn, tree=root, geometry=[ci, co, k, s,
                                                               p, h],
-                              channels_last=cl, ms=ms)), flush=True)
+                              channels_last=cl, form=form, ms=ms)),
+              flush=True)
         del x, w, packed
+    x = torch.randint(-127, 128, (128, 2048), generator=g, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (1000, 2048), generator=g, device="cuda",
+                      dtype=torch.int8)
+    bias = torch.randn(1000, generator=g, device="cuda")
+    if not torch.equal(Q.qfc(x, w, scale, bias),
+                       Q.qfc_plain(x, w, scale, bias)):
+        raise AssertionError("%s: Q2 differs from its plain version" % root)
+    ms = device_ms(lambda: Q.qfc(x, w, scale, bias))
+    totals["qfc_ms"] = ms
+    totals["stem_qfc_ms"] = totals["stem_ms"] + ms
+    print(json.dumps(dict(turn=turn, tree=root, qfc=[128, 2048, 1000],
+                          ms=ms)), flush=True)
+    del x, w
     qs = torch.tensor(0.02, device="cuda")
     for (c, h), n in RESNET50_Q3:
         x = torch.randn(128, c, h, h, generator=g, device="cuda")
@@ -468,6 +494,8 @@ def qconv(root_a, root_b):
             rows.setdefault("per_forward", []).append(r["per_forward"])
         elif "geometry" in r:
             rows.setdefault("qconv%s" % r["geometry"], []).append(r["ms"])
+        elif "qfc" in r:
+            rows.setdefault("qfc%s" % r["qfc"], []).append(r["ms"])
         else:
             rows.setdefault("quantize%s,%s" % (r["quantize"], r["input"]),
                             []).append(r["ms"])

@@ -559,8 +559,10 @@ class QuantizedConv2D(_QuantizedLayer):
     (copied so if it is stored otherwise); where its input channels a
     group are a multiple of 16, Q3 writes the payload channels-last and
     Q1 reads it so (every ResNet-50 conv but the stem); else the payload
-    is NCHW.  It keeps the weights packed as Q1 reads them too, repacked
-    when the payload changes."""
+    is NCHW (the stem's route at most 4 channels a group).  It keeps the
+    weights packed as Q1 reads them too for the payload's route
+    (``ops.quantized.route``), repacked when the route or the weights
+    change."""
 
     def __init__(self, channels, in_channels, kernel_size, strides=(1, 1),
                  padding=(0, 0), dilation=(1, 1), groups=1, use_bias=True,
@@ -586,13 +588,20 @@ class QuantizedConv2D(_QuantizedLayer):
     def _alias(self):
         return "conv"
 
-    def _packed(self, channels_last):
+    def _packed(self, q):
+        """The weights packed for the payload q's route, kept until the
+        weights or the route change; None off the card (the plain route
+        reads w itself)."""
         w = self.weight_quantized
-        if w.device.type != "cuda":
+        if w.device.type != "cuda" or q.dim() != 4:
             return None
-        key = (w.data_ptr(), w._version, channels_last)
+        kw = self._kwargs
+        form = _q.route(q, kw["num_group"], kw["kernel"],
+                        kw["dilate"] or (1, 1))
+        key = (w.data_ptr(), w._version, form)
         if self._pack[0] != key:
-            self._pack = (key, _q.pack_weight(w, channels_last))
+            self._pack = (key, _q.pack_weight(w, form == "nhwc",
+                                              form == "stem"))
         return self._pack[1]
 
     def forward(self, x):
@@ -604,7 +613,7 @@ class QuantizedConv2D(_QuantizedLayer):
         return quantized_conv(q, self.weight_quantized, mn, mx,
                               self.weight_qmin, self.weight_qmax, self.bias,
                               no_bias=self.bias is None,
-                              packed_weight=self._packed(nhwc),
+                              packed_weight=self._packed(q),
                               **self._kwargs)
 
 

@@ -15,18 +15,25 @@ elementwise ops and its int8 ``conv_general_dilated`` and
 
 - :func:`qconv` (Q1): x (N, C, H, W) int8, w (C_out, C / groups, kh, kw)
   int8, 2-D stride, padding, dilation and groups; out (N, C_out, OH, OW)
-  float32, NCHW.  Two kernels, chosen by x's layout (:func:`route`): a
-  channels-last x whose channels a group are a multiple of 16 goes to
-  ``qconv_nhwc_kernel`` (16-byte copies of a pixel's channels, tiles by
-  :func:`_plan`), an NCHW-contiguous x to ``qconv_kernel`` (the stem's
-  3 channels, a byte gather); on the card any other x raises.  The
-  kernels read the weights as (C_out, K padded to 32) rows
-  (:func:`pack_weight`; OHWI order for the channels-last kernel, OIHW
-  for the other); a quantized layer keeps them so and passes
-  ``packed``, else each call packs them.
+  float32, NCHW.  Three kernels, chosen by x's layout and channels
+  (:func:`route`): a channels-last x whose channels a group are a
+  multiple of 16 goes to ``qconv_nhwc_kernel`` (16-byte copies of a
+  pixel's channels, tiles by :func:`_plan`); an NCHW-contiguous x of at
+  most 4 channels a group (the RGB, RGBA and grey stems, any kernel
+  size, stride, padding and dilation whose one-pixel window and weights
+  fit a block's shared memory: :func:`_stem_smem`) to
+  ``qconv_stem_kernel`` (the input patch of whole output rows staged
+  once, a word a pixel, tiles by :func:`_plan_stem`); any other
+  NCHW-contiguous x to ``qconv_kernel`` (a byte gather); on the card any
+  other x raises.  The kernels read the weights as (C_out, K padded to
+  32) rows (:func:`pack_weight`: OHWI order for the channels-last
+  kernel, (r, s padded to 8, c padded to 4) for the stem's, OIHW for
+  the other); a quantized layer keeps them so and passes ``packed``,
+  else each call packs them.
 - :func:`qfc` (Q2): x (M, K) and w (N, K) int8; out (M, N) float32.
   The kernel reads both with K padded to 32 (:func:`pack_weight`; zeros
-  add nothing to the sums), a view where K already is a multiple.
+  add nothing to the sums), a view where K already is a multiple; K is
+  split over a thread-block cluster as :func:`_plan_fc` says.
 - :func:`quantize_nhwc` (Q3): float32 x (N, C, H, W), NCHW-contiguous,
   C a multiple of 16, and the 0-dim float32 scale on x's device: the
   reference's ``clip(round(x / s), -127, 127)`` as int8 (N, C, H, W)
@@ -46,8 +53,8 @@ the channels-last copy.
 Each wrapper runs the plain version on a CPU tensor and, on a CUDA
 tensor, launches its kernel or raises :class:`MXTPUError`; it adds one
 to its counter per call: ``qconv`` for every Q1 call, and ``qconv_nhwc``
-too for one on the channels-last route, ``qfc``, ``quantize_nhwc``.
-Nothing builds at import.
+or ``qconv_stem`` too for one on the channels-last or the stem's route,
+``qfc``, ``quantize_nhwc``.  Nothing builds at import.
 """
 
 from __future__ import annotations
@@ -60,12 +67,13 @@ import torch.nn.functional as F
 from ..base import MXTPUError, bump
 from . import _build
 
-__all__ = ["QCONV", "QCONV_NHWC", "QFC", "QUANTIZE_NHWC", "pack_weight",
-           "conv_out_size", "route", "qconv_sums", "qfc_sums", "qconv_plain",
-           "qconv", "qfc_plain", "qfc", "quantize_nhwc_plain",
+__all__ = ["QCONV", "QCONV_NHWC", "QCONV_STEM", "QFC", "QUANTIZE_NHWC",
+           "pack_weight", "conv_out_size", "route", "qconv_sums", "qfc_sums",
+           "qconv_plain", "qconv", "qfc_plain", "qfc", "quantize_nhwc_plain",
            "quantize_nhwc"]
 
-QCONV, QCONV_NHWC, QFC = "qconv", "qconv_nhwc", "qfc"
+QCONV, QCONV_NHWC, QCONV_STEM, QFC = "qconv", "qconv_nhwc", "qconv_stem", \
+    "qfc"
 QUANTIZE_NHWC = "quantize_nhwc"
 _FNS: dict = {}
 #: the kernel's K step is 64 bytes, over rows padded to 32
@@ -81,9 +89,14 @@ def _lib():
         lib.mxtpu_qconv.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 18 + [ctypes.c_void_p]
         lib.mxtpu_qconv.restype = ctypes.c_int
+        lib.mxtpu_qconv_stem.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 19 + [ctypes.c_void_p]
+        lib.mxtpu_qconv_stem.restype = ctypes.c_int
         lib.mxtpu_qfc.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.mxtpu_qfc.restype = ctypes.c_int
+        lib.mxtpu_empty.argtypes = [ctypes.c_void_p]
+        lib.mxtpu_empty.restype = ctypes.c_int
         lib.mxtpu_qconv_nhwc.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 19 + [ctypes.c_void_p]
         lib.mxtpu_qconv_nhwc.restype = ctypes.c_int
@@ -94,14 +107,23 @@ def _lib():
     return lib
 
 
-def pack_weight(w, channels_last=False):
+def pack_weight(w, channels_last=False, stem=False):
     """int8 rows as Q1 and Q2 read them: (rows, K), zero-padded to a
     multiple of 32 bytes and 16-byte aligned (a view of ``w`` where it
     already is so).  For OIHW weights a row is an output channel, K = C_in
     / groups * kh * kw in (c, r, s) order, or with ``channels_last`` in
-    (r, s, c) order (OHWI, as Q1's channels-last kernel reads them); for
-    Q2's (M, K) or (N, K) operands a row is a row."""
+    (r, s, c) order (OHWI, as Q1's channels-last kernel reads them), or
+    with ``stem`` in (r, s, c) order with s padded to a multiple of 8 taps
+    and c to 4 channels, zeros there (K = kh * 32 * ceil(kw / 8), as the
+    stem's kernel reads them: one 32-byte product step is 8 taps of a
+    kernel row); for Q2's (M, K) or (N, K) operands a row is a row."""
     Co = w.shape[0]
+    if stem:
+        _, Cg, KH, KW = w.shape
+        out = torch.zeros((Co, KH, -(-KW // 8) * 8, 4), dtype=w.dtype,
+                          device=w.device)
+        out[:, :, :KW, :Cg] = w.permute(0, 2, 3, 1)
+        return out.reshape(Co, -1)
     if channels_last and w.dim() == 4:
         w = w.permute(0, 2, 3, 1)
     flat = w.reshape(Co, -1)
@@ -174,11 +196,11 @@ _SMS = 132
 
 def _plan(M, Ng, kind="nhwc"):
     """Q1's tile (BM, BN) for M output pixels and Ng output channels a
-    group.  The stem's kernel (``nchw``): 128 pixels, and 128 channels
-    where a group has as many, else 64.  The channels-last kernel: 64
-    channels where a group has at most 64, else 128, and 128 pixels
-    unless that leaves fewer than two blocks an SM (the 7x7 stage and the
-    stride-2 convs into it at batch 128), then 64."""
+    group.  The NCHW byte-gather kernel (``nchw``): 128 pixels, and 128
+    channels where a group has as many, else 64.  The channels-last
+    kernel: 64 channels where a group has at most 64, else 128, and 128
+    pixels unless that leaves fewer than two blocks an SM (the 7x7 stage
+    and the stride-2 convs into it at batch 128), then 64."""
     if kind == "nchw":
         return 128, 128 if Ng >= 128 else 64
     bn = 64 if Ng <= 64 else 128
@@ -186,15 +208,87 @@ def _plan(M, Ng, kind="nhwc"):
     return bm, bn
 
 
-def route(x, groups=1):
-    """Q1's kernel for an int8 payload x (N, C, H, W) by its layout:
-    ``"nhwc"`` where x is stored channels-last and C / groups is a
-    multiple of 16, else ``"nchw"`` where x is NCHW-contiguous, else None
-    (no kernel reads it; the wrapper raises on the card)."""
-    if (x.shape[1] // groups) % 16 == 0 and \
-            x.is_contiguous(memory_format=torch.channels_last):
+#: a block's shared memory on the H100 (bytes), and the stem kernel's
+#: output channels and most pixels a block
+_SMEM, _STEM_BN, _STEM_PIXELS = 232448, 64, 256
+
+
+def _stem_smem(R, TW, KH, KW, sh, sw, dh, dw):
+    """Shared memory of a stem block of R output rows x TW columns (as the
+    C launcher's ``stem_layout`` computes it): 64 weight rows at a pitch
+    of K + 16 bytes; the input patch, PR = (R - 1) * sh + (KH - 1) * dh +
+    1 rows of PWp 4-byte words, PWp = PW + 15 rounded up to 16 for PW =
+    (TW - 1) * sw + (KW - 1) * dw + 1 input columns (the patch starts at
+    the tile's first column floored to 16); the next tile's fetched raw
+    input, PR x 4 channel rows of PWp bytes; and the staged int32 tile (64
+    channels of the pixels rounded to 32, plus 4)."""
+    PR = (R - 1) * sh + (KH - 1) * dh + 1
+    PWp = -(-((TW - 1) * sw + (KW - 1) * dw + 1 + 15) // 16) * 16
+    weights = _STEM_BN * (KH * -(-KW // 8) * 32 + 16)
+    staged = _STEM_BN * (-(-(R * TW) // 32) * 32 + 4) * 4
+    return weights + 4 * PR * PWp + 4 * PR * PWp + staged
+
+
+def _plan_stem(OH, OW, KH, KW, sh, sw, dh, dw):
+    """The stem kernel's tile (R, TW): output rows and columns of one
+    image a block, at most 256 pixels (a warp's 32 each): columns the
+    whole output row up to 256 (a block's rows then write one run a
+    channel), rows as many as fill 256 pixels (2 x 112 at ResNet-50's
+    stem); halved, rows first, until the block's shared memory fits; None
+    where even one pixel's window does not."""
+    TW = min(OW, _STEM_PIXELS)
+    R = max(1, min(OH, _STEM_PIXELS // TW))
+    while _stem_smem(R, TW, KH, KW, sh, sw, dh, dw) > _SMEM:
+        if R == 1 and TW == 1:
+            return None
+        if R > 1:
+            R //= 2
+        else:
+            TW = -(-TW // 2)
+    return R, TW
+
+
+def route(x, groups=1, kernel=(1, 1), dilate=(1, 1)):
+    """Q1's kernel for an int8 payload x (N, C, H, W) by its layout and
+    channels: ``"nhwc"`` where x is stored channels-last and C / groups is
+    a multiple of 16; where x is NCHW-contiguous, ``"stem"`` if C / groups
+    is at most 4 and one output pixel's window of the kernel (kh, kw) at
+    ``dilate`` fits the stem kernel's shared memory with its weights
+    (:func:`_stem_smem`; any realistic stem does), else ``"nchw"``; else
+    None (no kernel reads it; the wrapper raises on the card)."""
+    Cg = x.shape[1] // groups
+    if Cg % 16 == 0 and x.is_contiguous(memory_format=torch.channels_last):
         return "nhwc"
-    return "nchw" if x.is_contiguous() else None
+    if not x.is_contiguous():
+        return None
+    if Cg <= 4 and _stem_smem(1, 1, *kernel, 1, 1, *dilate) <= _SMEM:
+        return "stem"
+    return "nchw"
+
+
+#: Q2: the most blocks of a cluster that share a tile's K (the portable
+#: limit), and a split's fewest 64-byte steps
+_FC_MAX_SPLITS, _FC_MIN_STEPS = 8, 2
+
+
+def _fc_steps(K):
+    """Q2's 64-byte K steps for K bytes (padded to 32)."""
+    return -(-(-(-K // _KPAD) * _KPAD) // 64)
+
+
+def _plan_fc(M, N, K):
+    """Q2's split of K for an (M, K) x (N, K) product: S, the blocks of a
+    cluster that share each 64 x 64 output tile.  1 where K has fewer
+    than 2 * 2 steps of 64 bytes; else the fewest that bring the grid to
+    the H100's 132 SMs, at most 8 and keeping each split at least 2 steps
+    (5 at ResNet-50's classifier, 128 x 2048 -> 1000: 160 blocks of 6-7
+    steps)."""
+    nk = _fc_steps(K)
+    if nk < 2 * _FC_MIN_STEPS:
+        return 1
+    tiles = -(-M // 64) * -(-N // 64)
+    return max(1, min(_FC_MAX_SPLITS, nk // _FC_MIN_STEPS,
+                      -(-_SMS // tiles)))
 
 
 def _device(name, x):
@@ -209,12 +303,17 @@ def qconv(x, w, scale, bias=None, stride=(1, 1), pad=(0, 0), dilate=(1, 1),
     H, W) int8, channels-last (C / groups a multiple of 16) or
     NCHW-contiguous (:func:`route`), w (C_out, C / groups, kh, kw) int8,
     scale one float32, bias (C_out,) float32 or None; ``packed`` the
-    weights as ``pack_weight(w, channels_last=route(x) == "nhwc")`` gives
-    them, if the caller keeps them.  Out: NCHW float32."""
+    weights as ``pack_weight(w, form == "nhwc", form == "stem")`` gives
+    them for ``form = route(x, groups, (kh, kw), dilate)``, if the caller
+    keeps them.  Out: NCHW float32."""
     if not _device("qconv", x):
         bump(QCONV)
-        if x.dim() == 4 and groups >= 1 and route(x, groups) == "nhwc":
+        kind = route(x, groups, tuple(w.shape[2:]), tuple(dilate)) \
+            if x.dim() == 4 and w.dim() == 4 and groups >= 1 else None
+        if kind == "nhwc":
             bump(QCONV_NHWC)
+        elif kind == "stem":
+            bump(QCONV_STEM)
         return qconv_plain(x, w, scale, bias, stride, pad, dilate, groups)
     if x.dtype != torch.int8 or w.dtype != torch.int8 or x.dim() != 4 or \
             w.dim() != 4:
@@ -238,17 +337,17 @@ def qconv(x, w, scale, bias=None, stride=(1, 1), pad=(0, 0), dilate=(1, 1),
                          " on x %s" % (stride, pad, dilate, tuple(x.shape)))
     if x.numel() >= 2 ** 31 or N * Co * OH * OW >= 2 ** 31:
         raise MXTPUError("qconv: operands of 2**31 elements or more")
-    kind = route(x, groups)
+    kind = route(x, groups, (KH, KW), (dh, dw))
     if kind is None:
         raise MXTPUError(
             "qconv: x %s with strides %s is neither channels-last with C / "
             "groups a multiple of 16 nor NCHW-contiguous"
             % (tuple(x.shape), tuple(x.stride())))
-    nhwc = kind == "nhwc"
+    nhwc, stem = kind == "nhwc", kind == "stem"
     if nhwc and x.data_ptr() % 16:
         raise MXTPUError("qconv: a channels-last x must be 16-byte aligned")
-    wp = pack_weight(w, nhwc) if packed is None else packed
-    K = Cg * KH * KW
+    wp = pack_weight(w, nhwc, stem) if packed is None else packed
+    K = KH * -(-KW // 8) * 32 if stem else Cg * KH * KW
     Kp = wp.shape[1] if wp.dim() == 2 else 0
     if wp.dtype != torch.int8 or wp.dim() != 2 or wp.shape[0] != Co or \
             Kp < K or Kp % _KPAD or not wp.is_contiguous() or \
@@ -262,16 +361,22 @@ def qconv(x, w, scale, bias=None, stride=(1, 1), pad=(0, 0), dilate=(1, 1),
             None if bias is None else bias.contiguous().data_ptr(),
             out.data_ptr(), N, C, H, W, Co, KH, KW, sh, sw, ph, pw, dh, dw,
             groups, OH, OW, Kp)
-    tiles = _plan(N * OH * OW, Co // groups, kind)
-    if nhwc:
-        rc = _lib().mxtpu_qconv_nhwc(*args, *tiles, stream)
+    if stem:
+        rc = _lib().mxtpu_qconv_stem(
+            *args, *_plan_stem(OH, OW, KH, KW, sh, sw, dh, dw), stream)
+    elif nhwc:
+        rc = _lib().mxtpu_qconv_nhwc(
+            *args, *_plan(N * OH * OW, Co // groups), stream)
     else:
-        rc = _lib().mxtpu_qconv(*args, tiles[1], stream)
+        rc = _lib().mxtpu_qconv(
+            *args, _plan(N * OH * OW, Co // groups, kind)[1], stream)
     if rc != 0:
         raise MXTPUError("qconv: CUDA launch failed (cudaError %d)" % rc)
     bump(QCONV)
     if nhwc:
         bump(QCONV_NHWC)
+    elif stem:
+        bump(QCONV_STEM)
     return out
 
 
@@ -300,7 +405,7 @@ def qfc(x, w, scale, bias=None):
     rc = _lib().mxtpu_qfc(
         xp.data_ptr(), wp.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.contiguous().data_ptr(),
-        out.data_ptr(), M, Nn, xp.shape[1], stream)
+        out.data_ptr(), M, Nn, xp.shape[1], _plan_fc(M, Nn, K), stream)
     if rc != 0:
         raise MXTPUError("qfc: CUDA launch failed (cudaError %d)" % rc)
     bump(QFC)

@@ -1237,9 +1237,31 @@ QCONV_EDGES = [
     (2, 256, 256, 3, 1, 1, 1, 4, 9, 9),      # 4 groups of 64
     (1, 1, 1, 1, 1, 0, 1, 1, 1, 1),          # one pixel, one channel
 ]
-#: Q2: (M, K, N) — the ResNet-50 classifier, then tails in M, N and K
+#: Q2: (M, K, N) — the ResNet-50 classifier, then tails in M, N and K,
+#: then the split's edges at the classifier's N: K of one step (one
+#: split), two steps, 33 steps dealt unevenly over 5 splits, and M of 1
+#: (8 splits), 77 and 200
 QFC_SHAPES = [(128, 2048, 1000), (1, 2048, 1000), (77, 64, 130),
-              (5, 147, 7), (200, 33, 65), (1, 1, 1)]
+              (5, 147, 7), (200, 33, 65), (1, 1, 1),
+              (128, 32, 1000), (128, 96, 1000), (128, 2080, 1000),
+              (77, 2048, 1000), (200, 2048, 1000), (1, 2080, 1000)]
+#: the stem's route: (N, C_in, C_out, kernel, stride, pad, dilate, groups,
+#: H, W) — the stem at batch 1 and 3, 1, 2 and 4 channels, odd sizes,
+#: pads 0 and 3, stride 1, dilation 2, groups, a kernel of 11 taps, output
+#: channels past 64, one pixel
+QCONV_STEM = [
+    (1, 3, 64, 7, 2, 3, 1, 1, 224, 224),
+    (3, 3, 64, 7, 2, 3, 1, 1, 224, 224),
+    (2, 3, 64, 7, 2, 3, 1, 1, 225, 223),
+    (2, 1, 32, 3, 1, 1, 1, 1, 17, 19),
+    (1, 2, 64, 7, 2, 3, 1, 1, 30, 31),
+    (2, 4, 72, 5, 2, 0, 1, 1, 21, 26),
+    (1, 3, 8, 3, 1, 0, 2, 1, 15, 13),
+    (1, 3, 64, 7, 1, 3, 2, 1, 37, 29),
+    (2, 6, 10, 3, 1, 2, 2, 2, 10, 12),
+    (1, 3, 130, 11, 4, 2, 1, 1, 35, 37),
+    (1, 4, 24, 1, 1, 0, 1, 1, 9, 7),
+]
 
 
 def _rand_int8(g, *shape):
@@ -1258,16 +1280,22 @@ def _qconv_case(N, Ci, Co, k, s, p, d, groups, H, W, seed):
 
 
 def _qconv_equal(x, w, scale, bias, kw):
+    """Q1 on an NCHW payload ``torch.equal`` to its plain version, on the
+    stem's kernel or the byte gather as ``route`` says."""
     from mxtpu_torch.ops import quantized as Q
 
+    form = Q.route(x, kw["groups"], tuple(w.shape[2:]), kw["dilate"])
+    assert form in ("stem", "nchw")
     for b in (bias, None):
         base.reset_counts()
         got = Q.qconv(x, w, scale, b, **kw)
         want = Q.qconv_plain(x, w, scale, b, **kw)
         torch.cuda.synchronize()
-        assert base.counts() == {"qconv": 1}
+        assert base.counts() == ({"qconv": 1, "qconv_stem": 1}
+                                 if form == "stem" else {"qconv": 1})
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert torch.equal(got, want)
+    return form
 
 
 @pytest.mark.parametrize("geom", RESNET50_QCONV,
@@ -1281,7 +1309,50 @@ def test_quant_q1_equals_plain_at_resnet50_geometries(cuda, geom):
 @pytest.mark.parametrize("case", QCONV_EDGES,
                          ids=lambda c: "N%d-%dto%d-k%ds%dp%dd%dg%d-%dx%d" % c)
 def test_quant_q1_equals_plain_at_its_edges(cuda, case):
-    _qconv_equal(*_qconv_case(*case, seed=sum(case)))
+    form = _qconv_equal(*_qconv_case(*case, seed=sum(case)))
+    # 3 channels a group or fewer take the stem's kernel; the 5- and
+    # 7-channel cases and the 256-channel groups keep the byte gather
+    Cg = case[1] // case[7]
+    assert form == ("stem" if Cg <= 4 else "nchw")
+
+
+@pytest.mark.parametrize("case", QCONV_STEM,
+                         ids=lambda c: "N%d-%dto%d-k%ds%dp%dd%dg%d-%dx%d" % c)
+def test_quant_q1_stem_equals_plain(cuda, case):
+    assert _qconv_equal(*_qconv_case(*case, seed=sum(case))) == "stem"
+
+
+@pytest.mark.parametrize("tile", [(1, 112), (3, 37), (4, 29), (1, 5),
+                                  (16, 16), (7, 1), (2, 113)],
+                         ids=lambda t: "R%dxTW%d" % t)
+def test_quant_q1_stem_equals_plain_at_forced_tiles(cuda, monkeypatch, tile):
+    """Tiles narrower than the image (a run a row, 4-byte stores where a
+    row starts off a 16-byte boundary), a partial last row tile, one
+    column; each at the stem's geometry on a 45 x 47 image."""
+    from mxtpu_torch.ops import quantized as Q
+
+    monkeypatch.setattr(Q, "_plan_stem", lambda *geo: tile)
+    assert _qconv_equal(*_qconv_case(2, 3, 64, 7, 2, 3, 1, 1, 45, 47,
+                                     seed=7)) == "stem"
+
+
+def test_quant_q1_stem_holds_the_largest_sums(cuda):
+    """All +-127: the stem's largest sums (147 products of 127 * 127), and
+    a 4-channel 17x17 kernel's (1156 products, |acc| ~ 1.9e7 > 2**24:
+    int32 to float32 rounds to nearest even)."""
+    from mxtpu_torch.ops import quantized as Q
+
+    scale = torch.tensor(3.1e-5, device="cuda")
+    for C, k, p, H in ((3, 7, 3, 224), (4, 17, 8, 40)):
+        x = torch.full((2, C, H, H), 127, dtype=torch.int8, device="cuda")
+        x[1, :, ::3] = -127
+        w = torch.full((64, C, k, k), 127, dtype=torch.int8, device="cuda")
+        w[::5] = -127
+        _qconv_equal(x, w, scale, None, dict(stride=(2, 2), pad=(p, p),
+                                             dilate=(1, 1), groups=1))
+        acc = Q.qconv_sums(x, w, (2, 2), (p, p))
+        assert int(acc.abs().max()) == C * k * k * 127 * 127
+    assert int(acc.abs().max()) > 2 ** 24
 
 
 def test_quant_q1_holds_the_largest_sums(cuda):
@@ -1301,15 +1372,60 @@ def test_quant_q1_holds_the_largest_sums(cuda):
 
 
 def test_quant_q1_takes_packed_weights(cuda):
-    """The stem's weights kept packed (K 147 -> 160), as a quantized layer
-    keeps them, give the bits of packing on the call."""
+    """The stem's weights kept packed for its route (K 147 -> 7 x 8 x 4 =
+    224), and a 5-channel conv's for the byte gather (K 45 -> 64), as a
+    quantized layer keeps them, give the bits of packing on the call; the
+    stem's route refuses weights packed for the byte gather."""
     from mxtpu_torch.ops import quantized as Q
 
     x, w, scale, bias, kw = _qconv_case(2, 3, 64, 7, 2, 3, 1, 1, 40, 40, 3)
-    packed = Q.pack_weight(w)
-    assert tuple(packed.shape) == (64, 160)
+    packed = Q.pack_weight(w, stem=True)
+    assert tuple(packed.shape) == (64, 224)
     assert torch.equal(Q.qconv(x, w, scale, bias, packed=packed, **kw),
                        Q.qconv_plain(x, w, scale, bias, **kw))
+    with pytest.raises(base.MXTPUError):
+        Q.qconv(x, w, scale, bias, packed=Q.pack_weight(w), **kw)
+    x, w, scale, bias, kw = _qconv_case(2, 5, 72, 3, 1, 1, 1, 1, 13, 11, 4)
+    packed = Q.pack_weight(w)
+    assert tuple(packed.shape) == (72, 64)
+    assert torch.equal(Q.qconv(x, w, scale, bias, packed=packed, **kw),
+                       Q.qconv_plain(x, w, scale, bias, **kw))
+
+
+def test_quant_q1_stem_layer_keeps_its_packing(cuda):
+    """A quantized stem layer keeps its weights packed for the stem's
+    route (packed once, reused), and its output equals the same op with
+    the weights packed on the call; changing the weights repacks."""
+    from mxtpu_torch.contrib import quantization as P
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    layer = P.QuantizedConv2D(64, 3, (7, 7), strides=(2, 2), padding=(3, 3),
+                              calib_range=(-2.0, 2.5), device="cuda")
+    layer.weight_quantized.copy_(_rand_int8(g, 64, 3, 7, 7))
+    layer.weight_qmin.fill_(-0.3)
+    layer.weight_qmax.fill_(0.3)
+    layer.bias.copy_(torch.randn(64, generator=g, device="cuda"))
+    x = torch.randn(2, 3, 56, 56, generator=g, device="cuda")
+    with torch.no_grad():
+        base.reset_counts()
+        got = layer(x)
+        kept = layer._pack[1]
+        again = layer(x)
+        torch.cuda.synchronize()
+        assert base.counts() == {"qconv": 2, "qconv_stem": 2}
+        assert layer._pack[1] is kept and tuple(kept.shape) == (64, 224)
+        q, mn, mx = P.quantize_v2(x, torch.tensor(-2.0, device="cuda"),
+                                  torch.tensor(2.5, device="cuda"))
+        want = P.quantized_conv(q, layer.weight_quantized, mn, mx,
+                                layer.weight_qmin, layer.weight_qmax,
+                                layer.bias, **layer._kwargs)
+        assert torch.equal(got, want) and torch.equal(again, want)
+        layer.weight_quantized.neg_()
+        flipped = layer(x)
+        assert layer._pack[1] is not kept
+        assert torch.equal(flipped, P.quantized_conv(
+            q, layer.weight_quantized, mn, mx, layer.weight_qmin,
+            layer.weight_qmax, layer.bias, **layer._kwargs))
 
 
 @pytest.mark.parametrize("shape", QFC_SHAPES,
@@ -1322,12 +1438,32 @@ def test_quant_q2_equals_plain(cuda, shape):
     x, w = _rand_int8(g, M, K), _rand_int8(g, N, K)
     scale = torch.rand((), generator=g, device="cuda") * 1e-4
     bias = torch.randn(N, generator=g, device="cuda")
+    assert 1 <= Q._plan_fc(M, N, K) <= 8
     for b in (bias, None):
         base.reset_counts()
         got = Q.qfc(x, w, scale, b)
         torch.cuda.synchronize()
         assert base.counts() == {"qfc": 1}
         assert torch.equal(got, Q.qfc_plain(x, w, scale, b))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+def test_quant_q2_equals_plain_at_every_split(cuda, monkeypatch, splits):
+    """The classifier with its K forced over 1 to 8 blocks of a cluster,
+    and the largest sums (2048 products of 127 * 127)."""
+    from mxtpu_torch.ops import quantized as Q
+
+    monkeypatch.setattr(Q, "_plan_fc", lambda M, N, K: splits)
+    g = torch.Generator(device="cuda").manual_seed(splits)
+    x, w = _rand_int8(g, 128, 2048), _rand_int8(g, 1000, 2048)
+    scale = torch.tensor(2e-5, device="cuda")
+    assert torch.equal(Q.qfc(x, w, scale), Q.qfc_plain(x, w, scale))
+    x.fill_(127)
+    w.fill_(127)
+    w[::3] = -127
+    got = Q.qfc(x, w, scale)
+    assert torch.equal(got, Q.qfc_plain(x, w, scale))
+    assert int(Q.qfc_sums(x, w).abs().max()) == 2048 * 127 * 127
 
 
 def test_quant_q2_copies_unaligned_rows(cuda):
@@ -1375,7 +1511,8 @@ def test_quantized_net_on_the_card_equals_its_plain_route(cuda, monkeypatch):
         got = qnet(x)
         torch.cuda.synchronize()
         assert base.counts() == {"qconv": convs, "qconv_nhwc": nhwc,
-                                 "quantize_nhwc": nhwc, "qfc": 1}
+                                 "qconv_stem": 1, "quantize_nhwc": nhwc,
+                                 "qfc": 1}
         monkeypatch.setattr(Q, "qconv", lambda x, w, s, b=None, stride=(
             1, 1), pad=(0, 0), dilate=(1, 1), groups=1, packed=None:
             Q.qconv_plain(x, w, s, b, stride, pad, dilate, groups))
@@ -1404,6 +1541,17 @@ def test_quant_q1_q2_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              dilate=(4, 4))),             # no output
             ((x, w, s), dict(packed=w.reshape(5, 36))),   # K not padded
     ]:
+        with pytest.raises(base.MXTPUError):
+            Q.qconv(*args, **kw)
+    # the stem's route: weights packed short of its K (7 x 32), x not
+    # NCHW-contiguous
+    xs, ws = _rand_int8(g, 2, 3, 20, 20), _rand_int8(g, 8, 3, 7, 7)
+    for args, kw in [
+            ((xs, ws, s), dict(packed=Q.pack_weight(ws))),
+            ((xs, ws, s), dict(packed=Q.pack_weight(ws, stem=True)[:, :192]
+                               .contiguous())),
+            ((xs[:, :, 1:], ws, s), {}),
+            ((xs.contiguous(memory_format=torch.channels_last), ws, s), {})]:
         with pytest.raises(base.MXTPUError):
             Q.qconv(*args, **kw)
     a, b = _rand_int8(g, 8, 32), _rand_int8(g, 6, 32)

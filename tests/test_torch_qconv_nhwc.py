@@ -161,16 +161,19 @@ def test_q1_on_the_channels_last_payload_equals_reference(geom):
                             *[jnp.asarray(v) for v in RANGES],
                             bias=jnp.asarray(b), **kw)
     xt = _t(x) if Ci % 16 else _cl(_t(x))
-    assert Q.route(xt) == ("nchw" if Ci % 16 else "nhwc")
+    form = Q.route(xt, 1, (k, k))
+    assert form == ("stem" if Ci <= 4 else "nchw" if Ci % 16 else "nhwc")
     base.reset_counts()
     got = P.quantized_conv(xt, _t(w), *[torch.tensor(v) for v in RANGES],
                            bias=_t(b),
-                           packed_weight=Q.pack_weight(_t(w), Ci % 16 == 0),
+                           packed_weight=Q.pack_weight(_t(w), form == "nhwc",
+                                                       form == "stem"),
                            **kw)
     assert got.is_contiguous()
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert base.count(Q.QCONV) == 1
-    assert base.count(Q.QCONV_NHWC) == (0 if Ci % 16 else 1)
+    assert base.count(Q.QCONV_NHWC) == (form == "nhwc")
+    assert base.count(Q.QCONV_STEM) == (form == "stem")
 
 
 # -- Q1's channels-last kernel, emulated -------------------------------------
@@ -299,8 +302,8 @@ def test_quantized_conv_layer_takes_q3_where_its_channels_allow():
     Q3 and runs Q1's channels-last route, whatever the input's layout
     (one stored channels-last or strided is copied NCHW first, so the
     payload and the packed weights agree); with the route off, or the
-    stem's 3 channels, the torch chain and NCHW; the outputs are the
-    same bits either way."""
+    stem's 3 channels (the stem's route), the torch chain and NCHW; the
+    outputs are the same bits either way."""
     rng = np.random.RandomState(2)
     x = _t(rng.randn(2, 32, 9, 9).astype("f"))
     for calib in (None, (-2.5, 3.0)):
@@ -335,7 +338,7 @@ def test_quantized_conv_layer_takes_q3_where_its_channels_allow():
     base.reset_counts()
     with torch.no_grad():
         stem(_t(rng.randn(1, 3, 20, 20).astype("f")))
-    assert base.counts() == {Q.QCONV: 1}
+    assert base.counts() == {Q.QCONV: 1, Q.QCONV_STEM: 1}
 
 
 def test_q3_wrapper_counts_on_the_cpu_and_raises_on_other_devices():
@@ -428,6 +431,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112qconv_kernelILi64EE
 ptxas info    : Function properties for _ZN12_GLOBAL__N_112qconv_kernelILi64EEEvNS_8ConvArgsE
     8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 137 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117qconv_stem_kernelENS_8StemArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117qconv_stem_kernelENS_8StemArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120quantize_nhwc_kernelEPKfS2_Paii' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_120quantize_nhwc_kernelEPKfS2_Paii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -436,10 +443,12 @@ ptxas info    : Used 40 registers
 
 
 def test_chip_smoke_reads_q1_and_q3_registers_and_spills():
+    """Every Q1 kernel's (the stem's too), Q2's and Q3's registers and
+    spills are read from ptxas's report."""
     got = chip_smoke.quant_kernel_registers(PTXAS)
     assert [(k["kernel"], k["template"]) for k in got] == [
-        ("qconv[nhwc]", [128, 128]), ("qconv[nchw]", [64]),
-        ("quantize_nhwc", [])]
-    assert [k["registers"] for k in got] == [126, 137, 40]
+        ("qconv[nhwc]", [128, 128]), ("qfc", [64, 64]), ("qconv[nchw]", [64]),
+        ("qconv[stem]", []), ("quantize_nhwc", [])]
+    assert [k["registers"] for k in got] == [126, 94, 137, 110, 40]
     assert [(k["spill_stores"], k["spill_loads"]) for k in got] == [
-        (0, 0), (4, 8), (0, 0)]
+        (0, 0), (0, 0), (4, 8), (0, 0), (0, 0)]
