@@ -156,6 +156,28 @@ Phases, in order; any failure exits non-zero:
    sorted by score, the prompt kept, a seed reproducing its samples,
    and ``beam_size=1`` equal to greedy ``generate`` (one request: its
    count is not cut);
+6h. the hierarchical prefix cache and sessions (``serve_sessions``): 4
+   sessions of 3 turns (one 256-token system prompt, 64-192 tokens of
+   each, every next turn the transcript and 64 new tokens; session 1
+   seeded-sampled; turn 1's first arrival alone), then a lull (a
+   320-token prompt and 4 unrelated requests, then the prompt again),
+   through seven engines on phase 5's settings: no hierarchy, H-dev
+   (everything pinned), H-host (a 76-page pool, no pin budget, a 2 GiB
+   host tier), H-host with ``overlap_swaps`` (80 pages), with spec_k = 4
+   and spec_tree = (15, 2), and H-dev and H-host over int8 pools.  Every
+   H-host stream token-identical to H-dev's (int8 to int8), their waves'
+   prefill tokens and tokens avoided equal, 8 session hits in turns 2-3,
+   every session restored at least once (H-host, int8 H-host), every
+   spill stored (none dropped), deferred restores with ``overlap_swaps``,
+   one
+   ``serving.swap_in`` fault in H-host's turn 3 (one quarantine, one
+   retry), the launches exact (K1 and K2 32 a step or chunk, G1 161 a
+   step, 97 fused), no page in use or pinned after ``close_session`` and
+   ``drop_cache``; the greedy H-dev streams against ``generate`` by the
+   C5 rule; the copies' device time and GB/s, the prefill time and
+   tokens turns 2-3 avoided against the no-hierarchy engine; then 16
+   seeded pages of bf16 and int8 pools read to host and written back
+   into fresh pages, ``torch.equal``;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -286,6 +308,7 @@ separate torch ops do, so they are held by ``torch.equal``; so is Q3,
 which rounds each step of the torch chain once, as it does.
 """
 
+import contextlib
 import gc
 import json
 import re
@@ -2994,6 +3017,456 @@ def samplers_8b(model):
         raise AssertionError("the samplers failed %r" % failed)
 
 
+# -- phase 6h: the hierarchical prefix cache and sessions at 8B ----------------
+
+#: phase 6h's traffic: SESSIONS conversations of TURNS turns, each opening
+#: with one 256-token system prompt and 64-192 tokens of its own, each
+#: next turn the last transcript and 64 new tokens; session 1 seeded-
+#: sampled; then a lull
+SESSIONS, TURNS = 4, 3
+SESSION_KW = {1: dict(temperature=0.8, top_p=0.9, seed=3001)}
+#: H-host's pool, cut from SERVE's 512 pages to 76 so that pool pressure
+#: spills session chains between turns: every session restores at least
+#: once (turns 2-3) and every request shares what H-dev's shares.  With
+#: ``overlap_swaps`` a request defers for a restore once an attempt (the
+#: reference's rule): at 76 pages the last restore of a wave's cascade
+#: does not fit when it runs, and that request recomputes its
+#: transcript, so the overlapped engine gets 80 pages (3 of 4 sessions
+#: restore, 4 deferred restores, every request shares what H-dev's does)
+HOST_POOL, OVERLAP_POOL = 76, 80
+#: the greedy session whose turn-3 restore in H-host meets the fault
+#: plan, the wave's last (the policy is host bookkeeping of token counts
+#: alone, so it restores at turn 3 whatever the model)
+FAULT_SESSION = 3
+#: the hierarchy's engines: H-dev pins everything on the device; H-host
+#: spills every chain it cannot keep to a host tier of 2 GiB
+H_DEV = dict(SERVE, pin_bytes="64GiB")
+H_HOST = dict(SERVE, num_blocks=HOST_POOL, pin_bytes=0,
+              host_cache_bytes="2GiB")
+HIERARCHY_RUNS = (
+    ("none", dict(SERVE), None),
+    ("H-dev", H_DEV, None),
+    ("H-host", H_HOST, None),
+    ("H-host,overlap", dict(H_HOST, num_blocks=OVERLAP_POOL,
+                            overlap_swaps=True), None),
+    ("H-host,spec", dict(H_HOST, spec_k=4, spec_tree=(15, 2)), None),
+    ("H-dev,int8", H_DEV, "int8"),
+    ("H-host,int8", H_HOST, "int8"),
+)
+#: the engine a run is held token-identical to
+IDENTICAL_TO = {"H-host": "H-dev", "H-host,overlap": "H-dev",
+                "H-host,spec": "H-dev", "H-host,int8": "H-dev,int8"}
+
+
+def session_traffic(vocab, seed=6):
+    """Phase 6h's prompts: the turn-1 prompts of SESSIONS sessions (one
+    256-token system prompt, then 64-192 tokens of each), the 64-token
+    messages of turns 2..TURNS, the lull's 320-token prompt and its 4
+    unrelated requests of 64-640 tokens."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, 256)
+    opens = [np.concatenate([system, rng.randint(
+        0, vocab, int(rng.randint(64, 193)))])[None].astype(np.int64)
+             for _ in range(SESSIONS)]
+    follow = [[rng.randint(0, vocab, (1, 64)) for _ in range(TURNS - 1)]
+              for _ in range(SESSIONS)]
+    lull = rng.randint(0, vocab, (1, 320))
+    unrelated = [rng.randint(0, vocab, (1, int(rng.randint(64, 641))))
+                 for _ in range(4)]
+    return opens, follow, lull, unrelated
+
+
+class CopyTimer:
+    """CUDA events around every call of the model's ``read_pages`` or
+    ``write_pages`` (one spilled or restored chain each) and the bytes
+    it moved (its uint8 host buffer)."""
+
+    def __init__(self, model, attr):
+        self.model, self.attr = model, attr
+        self.inner = getattr(model, attr)
+        self.calls = []
+
+    def __call__(self, pools, pages, *rest):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.inner(pools, pages, *rest)
+        e.record()
+        host = out if rest == () else rest[0]
+        self.calls.append((len(pages), host.numel(), s, e))
+        return out
+
+    def summary(self):
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for _, _, s, e in self.calls]
+        pages = sum(c[0] for c in self.calls)
+        nbytes = sum(c[1] for c in self.calls)
+        return dict(chains=len(ms), pages=pages, bytes=nbytes,
+                    ms=sum(ms), ms_per_chain=sum(ms) / len(ms) if ms else None,
+                    gb_per_s=nbytes / sum(ms) / 1e6 if sum(ms) else None)
+
+    def __enter__(self):
+        setattr(self.model, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.model, self.attr)
+
+
+class Spills:
+    """Records every chain an engine's ``_spill_chain`` is handed: its
+    pages, and whether the host tier took it."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.inner = None
+        self.pages = 0
+        self.stored = 0
+
+    def __call__(self, chain):
+        before = self.eng._swap_outs
+        self.inner(chain)
+        self.pages += len(chain.pages)
+        self.stored += self.eng._swap_outs - before
+
+    def __enter__(self):
+        self.inner = self.eng._spill_chain
+        self.eng._spill_chain = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._spill_chain
+
+
+class Restores:
+    """Records every restore an engine's ``_try_swap_in`` makes: the
+    wave (``label``), the request's session and the pages brought back
+    from host."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.inner = None
+        self.label = None
+        self.events = []
+
+    def __call__(self, req, full):
+        before = self.eng._swap_ins
+        try:
+            return self.inner(req, full)
+        finally:
+            n = self.eng._swap_ins - before
+            if n:
+                self.events.append((self.label, req.session, n))
+
+    def by_session(self):
+        out = {}
+        for _, s, n in self.events:
+            out[str(s)] = out.get(str(s), 0) + n
+        return out
+
+    def __enter__(self):
+        self.inner = self.eng._try_swap_in
+        self.eng._try_swap_in = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._try_swap_in
+
+
+def hierarchy_run(model, name, cfg, cache_dtype, traffic, fault=False):
+    """One engine of phase 6h through the session waves and the lull,
+    with every launch counted (K1 and K2 32 a step or chunk, G1 161 a
+    step and 97 of them fused, exact), the copies timed, the spills and
+    restores recorded, each wave's prefill time, tokens and tokens
+    avoided read, and, after ``close_session`` of every session and
+    ``drop_cache``, no page in use or pinned.  With ``fault`` the turn
+    of the first greedy session whose transcript waits in the host tier
+    at turn 3 is submitted with ``retries=1`` under
+    ``serving.swap_in#<rid>@1:raise=OSError``: one quarantine, one
+    retry.  Returns the streams by (session, turn) and "lull"/"repeat",
+    and the run's record."""
+    from mxtpu_torch import base
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+    from mxtpu_torch.resilience import fault_plan
+
+    L = len(model.layers)
+    k1, k2 = k_names(cache_dtype)
+    opens, follow, lull, unrelated = traffic
+    eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype, **cfg)
+    eng.submit(np.arange(64)[None], 2)           # warm-up, outside counts
+    eng.run()
+    eng.drop_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = eng.stats
+    prompts = list(opens)
+    streams, waves, faulted = {}, [], None
+
+    def wave(label, subs, fault_key=None, lead=False):
+        """Submit ``subs`` and run them out; with ``lead`` the first
+        arrives alone and the others once its prompt is in the pool."""
+        restores.label = label
+        st0 = eng.stats
+        with Timed(model, "prefill_pages") as t_pre:
+            rids = {}
+            for key, (p, kw) in subs.items():
+                rids[key] = eng.submit(p, NEW_TOKENS, **kw)
+                if lead:
+                    eng.step()
+                    while any(s is not None and s.prefilling
+                              for s in eng._slots):
+                        eng.step()
+                    lead = False
+            plan = contextlib.nullcontext()
+            if fault_key is not None:
+                plan = fault_plan("serving.swap_in#%d@1:raise=OSError(copy "
+                                  "lost)" % rids[fault_key])
+            with plan as armed:
+                res = eng.run()
+            torch.cuda.synchronize()
+        if armed is not None and armed.stats() != {
+                "serving.swap_in": {"hits": 2, "fired": 1}}:
+            raise AssertionError("%s: the fault plan read %r"
+                                 % (name, armed.stats()))
+        st1 = eng.stats
+        for key, rid in rids.items():
+            streams[key] = res[rid].numpy()
+            if eng.status(rid) != "ok":
+                raise AssertionError("%s: request %r ended %s"
+                                     % (name, key, eng.status(rid)))
+        waves.append(dict(wave=label, prefill_ms=t_pre.ms(), **{
+            k: st1[k] - st0[k] for k in (
+                "prefill_tokens", "prefill_tokens_avoided", "prefill_chunks",
+                "prefix_hit_requests", "session_hit_requests",
+                "swapped_in_blocks", "swapped_out_blocks", "steps")}))
+        return rids
+
+    with Spills(eng) as spills, Restores(eng) as restores, \
+            CopyTimer(model, "read_pages") as t_out, \
+            CopyTimer(model, "write_pages") as t_in:
+        torch.cuda.synchronize()
+        base.reset_counts()
+        t_run = time.perf_counter()
+        for turn in range(TURNS):
+            subs = {(s, turn): (prompts[s], dict(
+                SESSION_KW.get(s, {}), **({} if name == "none"
+                                          else dict(session=s))))
+                    for s in range(SESSIONS)}
+            if fault and turn == TURNS - 1:
+                faulted = FAULT_SESSION
+                subs[(faulted, turn)][1]["retries"] = 1
+            wave("turn %d" % (turn + 1), subs,
+                 None if faulted is None else (faulted, turn), lead=turn == 0)
+            if turn + 1 < TURNS:
+                prompts = [np.concatenate([streams[(s, turn)],
+                                           follow[s][turn]], axis=1)
+                           for s in range(SESSIONS)]
+        wave("lull", dict([("lull", (lull, {}))] + [
+            (("unrelated", j), (u, {})) for j, u in enumerate(unrelated)]))
+        wave("repeat", {"repeat": (lull, {})})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = base.counts()
+    after = eng.stats
+    d = {k: after[k] - before[k] for k in (
+        "steps", "prefill_chunks", "prefill_tokens", "prefill_tokens_avoided",
+        "session_hit_requests", "prefix_hit_requests", "swapped_in_blocks",
+        "swapped_out_blocks", "swap_out_failures", "deferred_swap_in_requests",
+        "quarantined_requests", "retried_requests", "generated_tokens")}
+    want = {k1: L * d["steps"], k2: L * d["prefill_chunks"]}
+    want.update(projection_launches(model, d["steps"], d["prefill_chunks"]))
+    if launches != want:
+        raise AssertionError("%s: launches %r, wanted exactly %r"
+                             % (name, launches, want))
+    for s in range(SESSIONS):
+        eng.close_session(s)
+    eng.drop_cache()
+    closed = eng.stats
+    rec = dict(engine=name, cache_dtype=str(eng._cache_dtype),
+               num_blocks=eng._bp.capacity,
+               pin_blocks=eng._hc.pin_blocks, host_blocks=eng._hc.host_blocks,
+               waves=waves, launches=launches, spilled_pages=spills.pages,
+               spilled_pages_stored=spills.stored,
+               restored_pages_by_session=restores.by_session(),
+               restores=restores.events,
+               spill=t_out.summary(), restore=t_in.summary(), wall_s=wall,
+               blocks_in_use_after_close=closed["blocks_in_use"],
+               pinned_blocks_after_close=closed["pinned_blocks"],
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               faulted_session=faulted, **d)
+    log(phase="hierarchy", **rec)
+    if closed["blocks_in_use"] or closed["pinned_blocks"]:
+        raise AssertionError("%s: pages left after close_session and "
+                             "drop_cache: %r" % (name, closed))
+    if d["swap_out_failures"] or spills.stored != spills.pages:
+        raise AssertionError("%s: a spill dropped its chain (%d of %d pages "
+                             "stored, %d failures)"
+                             % (name, spills.stored, spills.pages,
+                                d["swap_out_failures"]))
+    if d["swapped_out_blocks"] != spills.pages:
+        raise AssertionError("%s: swapped_out_blocks %d != pages spilled %d"
+                             % (name, d["swapped_out_blocks"], spills.pages))
+    del eng
+    torch.cuda.empty_cache()
+    return streams, rec
+
+
+def serve_sessions(model):
+    """Phase 6h: the hierarchical prefix cache and sessions on the main
+    path's model (``HIERARCHY_RUNS``).  Each engine serves
+    ``session_traffic``'s waves and the lull.  Held: every stream of
+    H-host, H-host with ``overlap_swaps`` and H-host with spec_k = 4
+    token-identical to H-dev's (int8 H-host to int8 H-dev), and their
+    session waves' prefill tokens and tokens avoided equal; the greedy
+    H-dev streams against ``generate`` by the C5 rule; 8 session hits
+    a run in turns 2-3 but in the no-hierarchy engine; spills and
+    restores in every H-host run, every session restored at least once
+    in H-host and int8 H-host, no spill dropped;
+    deferred restores with ``overlap_swaps``; H-dev never spilling; the
+    lull's repeat a prefix hit; the one faulted restore in H-host: one
+    quarantine, one retry.  Then a page round trip on 16 seeded pages of
+    bf16 and int8 pools, ``torch.equal``."""
+    traffic = session_traffic(model.vocab_size)
+    runs, recs = {}, {}
+    for name, cfg, cache_dtype in HIERARCHY_RUNS:
+        runs[name], recs[name] = hierarchy_run(
+            model, name, cfg, cache_dtype, traffic, fault=name == "H-host" and FAULT_SESSION is not None)
+    problems = []
+    session_waves = ["turn %d" % (t + 1) for t in range(TURNS)] + ["lull"]
+    for name, ref in IDENTICAL_TO.items():
+        a, b = runs[ref], runs[name]
+        parted = sorted(str(k) for k in a if k != "repeat"
+                        and not np.array_equal(a[k], b[k]))
+        if parted:
+            problems.append("%s parts from %s at %s" % (name, ref, parted))
+        for key in ("prefill_tokens", "prefill_tokens_avoided"):
+            x = [w[key] for w in recs[ref]["waves"]
+                 if w["wave"] in session_waves]
+            y = [w[key] for w in recs[name]["waves"]
+                 if w["wave"] in session_waves]
+            if x != y:
+                problems.append("%s's %s by wave %r != %s's %r"
+                                % (name, key, y, ref, x))
+        rec = recs[name]
+        if rec["swapped_in_blocks"] <= 0 or rec["swapped_out_blocks"] <= 0:
+            problems.append("%s restored %d and spilled %d pages"
+                            % (name, rec["swapped_in_blocks"],
+                               rec["swapped_out_blocks"]))
+        missing = [s for s in range(SESSIONS)
+                   if not rec["restored_pages_by_session"].get(str(s))]
+        if missing and name in ("H-host", "H-host,int8"):
+            # (the overlapped engine's larger pool spares one session;
+            # the speculative one's timing may spare one)
+            problems.append("%s: sessions %r never restored" % (name, missing))
+    for name, rec in recs.items():
+        # turns 2-3: every session's transcript (turn 1's later arrivals
+        # hit the system prompt too, and are read apart)
+        want_hits = 0 if name == "none" else SESSIONS * (TURNS - 1)
+        hits = sum(w["session_hit_requests"] for w in rec["waves"]
+                   if w["wave"] not in ("turn 1", "lull", "repeat"))
+        if hits != want_hits:
+            problems.append("%s: %d session hits in turns 2-%d, wanted %d"
+                            % (name, hits, TURNS, want_hits))
+        repeat = rec["waves"][-1]
+        if name != "none" and (repeat["prefix_hit_requests"] != 1
+                               or repeat["prefill_tokens_avoided"] < 304):
+            problems.append("%s: the lull's repeat was no prefix hit: %r"
+                            % (name, repeat))
+        if name.startswith("H-dev") and rec["spilled_pages"]:
+            problems.append("%s spilled %d pages" % (name,
+                                                     rec["spilled_pages"]))
+    if recs["H-host,overlap"]["deferred_swap_in_requests"] <= 0:
+        problems.append("no restore was deferred with overlap_swaps")
+    if (recs["H-host"]["quarantined_requests"],
+            recs["H-host"]["retried_requests"]) != (1, 1):
+        problems.append("the faulted restore gave %d quarantines and %d "
+                        "retries" % (recs["H-host"]["quarantined_requests"],
+                                     recs["H-host"]["retried_requests"]))
+    if recs["H-dev"]["prefill_chunks"] >= recs["none"]["prefill_chunks"]:
+        problems.append("the hierarchy ran no fewer chunks than none")
+    # the repeat of the lull's prompt: a pinned hit shares 319 tokens (19
+    # pages and a 15-token copy-on-write clone), a restore 304 (whole
+    # pages): another chunk plan.  Every restoring engine's repeat is
+    # H-host's (int8: int8 H-host's), held by the C5 rule where it parts
+    # from H-dev's
+    for name, ref in (("H-host", "H-dev"), ("H-host,int8", "H-dev,int8")):
+        for other in IDENTICAL_TO:
+            if other.endswith("int8") == name.endswith("int8") and not \
+                    np.array_equal(runs[name]["repeat"],
+                                   runs[other]["repeat"]):
+                problems.append("%s's repeat parts from %s's"
+                                % (other, name))
+        parts = not np.array_equal(runs[ref]["repeat"], runs[name]["repeat"])
+        log(phase="hierarchy_repeat", engine=name, parts_from=ref,
+            parted=parts)
+        if parts:
+            streams_vs_generate(model, [(traffic[2], {})],
+                                [runs[name]["repeat"]],
+                                "int8" if name.endswith("int8") else None)
+    keys = [(s, t) for t in range(TURNS) for s in range(SESSIONS)
+            if s not in SESSION_KW]
+    reqs, greedy = [], []
+    for s, t in keys:
+        reqs.append((runs["H-dev"][(s, t)][:, :-NEW_TOKENS], {}))
+        greedy.append(runs["H-dev"][(s, t)])
+    reqs.append((traffic[2], {}))
+    greedy.append(runs["H-dev"]["lull"])
+    streams_vs_generate(model, reqs, greedy)
+    # turn 1 and the lull: the same prompts with and without the
+    # hierarchy (a reading; later turns follow each engine's transcript)
+    first = [k for k in keys if k[1] == 0]
+    compare_streams("hierarchy_vs_none", [(runs["H-dev"][k][:, :-NEW_TOKENS],
+                                           {}) for k in first]
+                    + [(traffic[2], {})],
+                    [runs["none"][k] for k in first] + [runs["none"]["lull"]],
+                    [runs["H-dev"][k] for k in first] + [runs["H-dev"]["lull"]])
+    turn_ms = {name: sum(w["prefill_ms"] for w in rec["waves"]
+                         if w["wave"] in ("turn 2", "turn 3"))
+               for name, rec in recs.items()}
+    turn_tokens = {name: sum(w["prefill_tokens"] for w in rec["waves"]
+                             if w["wave"] in ("turn 2", "turn 3"))
+                   for name, rec in recs.items()}
+    log(phase="hierarchy_avoided", turns="2-3", prefill_ms=turn_ms,
+        prefill_tokens=turn_tokens,
+        avoided_ms={n: turn_ms["none"] - v for n, v in turn_ms.items()},
+        avoided_tokens={n: turn_tokens["none"] - v
+                        for n, v in turn_tokens.items()})
+    page_round_trip()
+    if problems:
+        raise AssertionError("phase 6h: " + "; ".join(problems))
+
+
+def page_round_trip(n=16, seed=7):
+    """``read_pages`` then ``write_pages`` of 16 seeded pages of the 8B
+    geometry's pools (one layer's k and v, 8 kv heads, block 16, head_dim
+    128), bf16 and int8, into 16 fresh pages: every pool tensor's rows
+    ``torch.equal`` to the originals, the host rows pinned."""
+    from mxtpu_torch.models.transformer import TransformerLM, pool_tensors
+
+    model = TransformerLM(256, 4096, 64, 1, 32, 8, device="cuda",
+                          dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dtype in ("bfloat16", "int8"):
+        pools = model.init_block_pool(4 * n, 16, dtype)
+        for t in pool_tensors(pools):
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        perm = np.random.RandomState(seed).permutation(4 * n - 1) + 1
+        src, dst = [int(b) for b in perm[:n]], [int(b) for b in perm[n:2 * n]]
+        host = model.read_pages(pools, src)
+        model.write_pages(pools, dst, host)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(t[dst], t[src]) for t in pool_tensors(pools))
+        pinned = host.is_pinned()
+        log(phase="page_round_trip", dtype=dtype, pages=n, equal=equal,
+            pinned=pinned, bytes_a_page=host.shape[1])
+        if not (equal and pinned):
+            raise AssertionError("page round trip (%s): equal %s, pinned %s"
+                                 % (dtype, equal, pinned))
+
+
 def lane_invariant(args, kw):
     """K1 invariant (b) on a captured main-path window (``kw``: an int8
     pool's scales): lane w equals a W = 1 call at pos + w, bit for
@@ -4086,6 +4559,8 @@ def main():
     tick("6s slot engine")
     samplers_8b(model)
     tick("6t samplers")
+    serve_sessions(model)
+    tick("6h hierarchical cache and sessions")
     del model
     gc.collect()
     torch.cuda.empty_cache()

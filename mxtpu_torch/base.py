@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MXTPUError", "LoadShedError", "resolve_device", "bump",
-           "count", "counts", "reset_counts"]
+__all__ = ["MXTPUError", "LoadShedError", "resolve_device", "parse_bytes",
+           "bump", "count", "counts", "reset_counts"]
 
 
 class MXTPUError(RuntimeError):
@@ -19,17 +19,38 @@ class MXTPUError(RuntimeError):
 
 
 class LoadShedError(MXTPUError):
-    """Typed rejection of a request the serving engine can never admit
-    (it needs more pages than the whole pool).  ``permanent`` is True
-    when no amount of backoff can admit it; ``limit`` is the bound that
-    tripped."""
+    """Typed rejection of a request by the serving engine's admission
+    bounds: the queue is at ``max_pending``, or the request needs more
+    pages than the whole pool.  ``queue_depth`` is the queue at shed
+    time, ``limit`` the bound that tripped, ``retry_after_ticks`` a
+    suggested backoff in scheduler iterations (None when retrying cannot
+    help), and ``permanent`` True when no backoff can admit it."""
 
     def __init__(self, message, queue_depth=None, limit=None,
-                 permanent=False):
+                 retry_after_ticks=None, permanent=False):
         super().__init__(message)
         self.queue_depth = queue_depth
         self.limit = limit
+        self.retry_after_ticks = retry_after_ticks
         self.permanent = bool(permanent)
+
+
+def parse_bytes(text) -> int:
+    """'8GB' / '512MiB' / '1e9' -> bytes (decimal suffixes are powers of
+    1024 too); a copy of ``mxtpu/analysis/memory_estimate.parse_bytes``."""
+    if isinstance(text, (int, float)):
+        return int(text)
+    s = str(text).strip().lower()
+    mult = 1
+    for suf, m in (("tib", 1024 ** 4), ("tb", 1024 ** 4),
+                   ("gib", 1024 ** 3), ("gb", 1024 ** 3),
+                   ("mib", 1024 ** 2), ("mb", 1024 ** 2),
+                   ("kib", 1024), ("kb", 1024), ("b", 1)):
+        if s.endswith(suf):
+            mult = m
+            s = s[:-len(suf)].strip()
+            break
+    return int(float(s) * mult)
 
 
 def resolve_device(device=None) -> torch.device:

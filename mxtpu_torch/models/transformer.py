@@ -17,7 +17,8 @@ Two cache forms, both under ``torch.no_grad``:
 
 - the paged pool (``init_block_pool`` / ``prefill_pages`` /
   ``step_pages`` / ``verify_pages`` / ``permute_pool_span`` /
-  ``copy_block``), what the paged serving engine runs.  Its
+  ``copy_block`` / ``read_pages`` / ``write_pages``), what the paged
+  serving engine runs.  Its
   attention always goes through the two kernel wrappers
   (``ops.paged_attention``, ``ops.prefill_attention``), which alone
   pick the plain version on a CPU tensor or the CUDA kernel on the card;
@@ -96,7 +97,7 @@ from ..ops.tensor import (cache_dequant, cache_permute_span,
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
-           "TransformerLM", "llama_tiny", "llama_3_8b"]
+           "TransformerLM", "llama_tiny", "llama_3_8b", "pool_tensors"]
 
 
 class RMSNorm(nn.Module):
@@ -169,6 +170,14 @@ def _normed_linear(norm, layer, x, rows):
     if isinstance(layer, QuantizedLinear):
         return layer.normed(x, norm.weight)
     return rows_norm_linear(x, norm.weight, layer.weight)
+
+
+def pool_tensors(pools):
+    """Every tensor of per-layer (k, v) pools in one order: a layer's k
+    then v, an int8 leaf's payload then its scales.  Each holds one page
+    a row of its first axis."""
+    return [t for pair in pools for leaf in pair
+            for t in (leaf if _q8(leaf) else (leaf,))]
 
 
 def _float_view(leaf):
@@ -693,9 +702,46 @@ class TransformerLM(nn.Module):
         """Copy page ``src`` onto page ``dst`` in every layer's pools —
         the copy-on-write of prefix sharing; ``src == dst`` does
         nothing."""
-        for leaf in (leaf for pair in pools for leaf in pair):
-            for t in (leaf if _q8(leaf) else (leaf,)):
-                paged_block_copy(t, src, dst)
+        for t in pool_tensors(pools):
+            paged_block_copy(t, src, dst)
+
+    @torch.no_grad()
+    def read_pages(self, pools, pages):
+        """Copy pages ``pages`` of every layer's pools to host memory: one
+        gather a pool tensor into one device buffer that holds a page a
+        row (the pool tensors' rows side by side as bytes, in
+        :func:`pool_tensors` order), then ONE copy of it to host.
+        Returns the (len(pages), bytes a page) uint8 CPU tensor.  From the
+        card the copy lands in pinned memory, ``non_blocking`` on the
+        current stream, so it is ordered before any later write to those
+        pages; the caller keeps the buffer alive until it is done."""
+        tensors = pool_tensors(pools)
+        n = len(pages)
+        idx = torch.tensor(pages, dtype=torch.long, device=tensors[0].device)
+        rows = torch.cat([t.index_select(0, idx).reshape(n, -1)
+                          .view(torch.uint8) for t in tensors], dim=1)
+        if not rows.is_cuda:
+            return rows
+        host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        return host
+
+    @torch.no_grad()
+    def write_pages(self, pools, pages, host):
+        """Write ``host`` (:meth:`read_pages`' form, a page a row) into
+        pages ``pages`` of every layer's pools, in place: ONE copy to the
+        device (``non_blocking`` from pinned memory, on the current
+        stream), then one ``index_copy_`` a pool tensor."""
+        tensors = pool_tensors(pools)
+        n = len(pages)
+        idx = torch.tensor(pages, dtype=torch.long, device=tensors[0].device)
+        rows = host.to(tensors[0].device, non_blocking=True)
+        at = 0
+        for t in tensors:
+            nb = t[0].numel() * t.element_size()
+            src = rows[:, at:at + nb].contiguous().view(t.dtype)
+            t.index_copy_(0, idx, src.reshape(n, *t.shape[1:]))
+            at += nb
 
     @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens, max_length=None,

@@ -70,25 +70,62 @@ write quantizes per row, so the streams are those of the model's
 isolated ``generate(cache_dtype="int8")``.  The engines keep the status
 of the last ``max(history, 2 * num_slots)`` finished requests.
 
-Not in this slice: the hierarchical cache and sessions, fault sites,
-tracing, quarantine and retries, deadlines, bounded admission, weight
-hot-swap, tensor parallelism.  ``submit`` raises
-``NotImplementedError`` for their knobs.
+Failure paths (both engines, the reference's contract): an exception in
+a per-request path — admission and its prefill chunks, the fault sites
+``serving.admit``, ``serving.step``, ``serving.draft`` and
+``serving.verify`` (``mxtpu_torch.resilience.faults``), the paged
+engine's ``serving.prefix_lookup``, ``serving.block_alloc`` and
+``serving.swap_in``, the per-slot eos read — quarantines only that
+request: its row is scrubbed (the paged engine releases its pages) and
+it re-queues from scratch while it has ``retries`` left, else finishes
+``failed`` with its partial output and an error record (``error``).
+Every other stream is untouched: each request draws from its own
+generator and penalty row.  ``deadline_s`` evicts a request at the next
+iteration boundary as ``expired`` (the engine's ``clock``), and
+``max_pending`` bounds the queue with a typed
+:class:`~mxtpu_torch.base.LoadShedError`.  A failure of a pooled call
+itself propagates to the caller.
+
+Hierarchical prefix cache (the paged engine): a finished request's
+full-page chain stays pinned in the pool (``pin_bytes``, an LRU budget),
+spills to pinned host memory under budget or pool pressure
+(``host_cache_bytes``) and comes back on a later radix miss, so a
+popular prompt survives a lull and a session's next turn (``session=``)
+prefills only its new suffix.  The policy is
+:class:`~mxtpu_torch.parallel.paging.HierarchicalCache`; the copies are
+``TransformerLM.read_pages`` / ``write_pages`` (a chain's pages as one
+buffer a page a row: one gather or scatter a pool tensor and one copy
+between the card and host), all on the engine's stream: a spill's
+device-to-host copy is ordered before any later write into the pages it
+frees, and a restore's host-to-device copy before any read of the pages
+it fills.  The host buffers are pinned and stay referenced until an
+event after their copy completes, whatever the host tier drops
+meanwhile.  With
+``overlap_swaps`` a restore runs at the end of the iteration, after the
+pooled decode step was issued (stream order, no side stream), and the
+request admits at the next one; a request defers so once an attempt, so
+one whose restore does not fit then recomputes its prefix.
+
+Not in this slice: tracing, ``cancel``, weight hot-swap (``adopt`` /
+``rollback``), tensor parallelism.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..base import LoadShedError, MXTPUError, resolve_device
+from ..base import LoadShedError, MXTPUError, parse_bytes, resolve_device
 from ..models import sampler
-from ..models.transformer import TransformerLM
+from ..models.transformer import TransformerLM, pool_tensors
 from ..ops.tensor import resolve_cache_dtype
-from .paging import NULL_PAGE, BlockPool, PrefixIndex
+from ..resilience.counters import bump as _bump
+from ..resilience.faults import inject as _inject
+from .paging import NULL_PAGE, BlockPool, HierarchicalCache, PrefixIndex
 
 __all__ = ["Request", "ContinuousBatchingEngine",
            "PagedContinuousBatchingEngine", "resolve_cache_dtype"]
@@ -163,11 +200,13 @@ class Request:
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_k",
                  "top_p", "repetition_penalty", "seed", "eos_id",
-                 "speculative", "spec_tree")
+                 "deadline_at", "retries_left", "speculative", "session",
+                 "spec_tree")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature=0.0, top_k=0,
                  top_p=0.0, repetition_penalty=1.0, seed=None, eos_id=None,
-                 speculative=None, spec_tree=None):
+                 deadline_at=None, retries=0, speculative=None, session=None,
+                 spec_tree=None):
         self.rid = rid
         self.prompt = prompt            # (1, Tp) int32 numpy
         self.max_new_tokens = int(max_new_tokens)
@@ -177,7 +216,10 @@ class Request:
         self.repetition_penalty = float(repetition_penalty or 1.0)
         self.seed = seed
         self.eos_id = eos_id
+        self.deadline_at = deadline_at  # absolute clock() value or None
+        self.retries_left = int(retries)
         self.speculative = speculative  # None = engine default
+        self.session = session          # paged engine only
         self.spec_tree = spec_tree      # None = engine default;
         #                                 False = linear drafting
 
@@ -318,12 +360,20 @@ class ContinuousBatchingEngine:
         per head and position (:func:`resolve_cache_dtype`).
     device : where the engine runs; the CUDA card unless named.  With no
         device named and no CUDA present the constructor raises.
+    max_pending : bound of the admission queue (None: unbounded); a
+        submit past it sheds with :class:`LoadShedError`.
+    clock : the deadlines' clock, seconds (``time.monotonic`` unless
+        given).
     """
+
+    #: whether ``submit(session=...)`` is honoured (the paged engine's
+    #: hierarchical cache; the slot engine has no page chains to pin)
+    _supports_sessions = False
 
     def __init__(self, model, num_slots: int = 4, max_length: int = 256,
                  spec_k: int = 0, spec_ngram: int = 3, spec_tree=None,
                  draft_block=None, history: int = 1024, cache_dtype=None,
-                 device=None):
+                 device=None, max_pending: Optional[int] = None, clock=None):
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0, got %d" % spec_k)
         self._device = resolve_device(device)
@@ -348,6 +398,13 @@ class ContinuousBatchingEngine:
         self._seen = None                # (B, V) bool, penalized rows
         self._steps = 0
         self._tokens_generated = 0
+        # -- resilience --------------------------------------------------
+        self._max_pending = None if max_pending is None else int(max_pending)
+        self._clock = clock if clock is not None else time.monotonic
+        self._errors: Dict[int, dict] = {}    # rid -> last error record
+        self._quarantined = 0
+        self._retries = 0
+        self._deadline_evictions = 0
         self._shed = 0
         # -- speculative decoding ----------------------------------------
         self._spec_k = int(spec_k)
@@ -422,6 +479,9 @@ class ContinuousBatchingEngine:
         return {
             "steps": self._steps,
             "generated_tokens": self._tokens_generated,
+            "quarantined_requests": self._quarantined,
+            "retried_requests": self._retries,
+            "expired_requests": self._deadline_evictions,
             "shed_requests": self._shed,
             "drafted_tokens": self._drafted_tokens,
             "accepted_tokens": self._accepted_tokens,
@@ -434,8 +494,25 @@ class ContinuousBatchingEngine:
         }
 
     def status(self, rid) -> str:
-        """``queued`` / ``active`` / ``ok`` (``unknown`` otherwise)."""
+        """``queued`` / ``active`` / ``ok`` / ``failed`` / ``expired``
+        (``unknown`` for a rid not issued or no longer remembered)."""
         return self._status.get(rid, "unknown")
+
+    def error(self, rid) -> Optional[dict]:
+        """The last error record of a quarantined request (``{"type",
+        "error", "site", "step", "emitted"}``) or None; kept after a
+        successful retry."""
+        return self._errors.get(rid)
+
+    def prefix_probe(self, prompt_ids) -> int:
+        """How many of a prompt's tokens this engine would skip
+        prefilling if it were admitted now: 0 here (no prefix reuse)."""
+        return 0
+
+    def drop_cache(self) -> int:
+        """Release every cached page chain beyond the live requests;
+        returns the device pages freed (0 here: no cache tiers)."""
+        return 0
 
     # -- request intake --------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens, temperature=0.0, top_k=0,
@@ -444,17 +521,24 @@ class ContinuousBatchingEngine:
                spec_tree=None) -> int:
         """Queue one request, prompt_ids (1, Tp); returns its id.
         temperature 0 is greedy; ``seed`` reproduces a sampled stream.
+        ``deadline_s``: seconds on the engine's clock, past which the
+        request is evicted at the next iteration boundary as ``expired``
+        with its partial output.  ``retries``: how many times a
+        quarantined request restarts from scratch (the same stream as a
+        fresh submit) before it finishes ``failed``.
         ``speculative=False`` opts the request out of the engine's
         speculation; ``spec_tree`` is None (the engine's default), False
         (linear drafting) or the request's own tree config (a
         self-drafting engine only).  The output is the same in every
-        mode."""
-        for knob, value, default in (
-                ("deadline_s", deadline_s, None), ("retries", retries, 0),
-                ("session", session, None)):
-            if value != default:
-                raise NotImplementedError(
-                    "submit(%s=...) is not ported to mxtpu_torch yet" % knob)
+        mode.  ``session``: a conversation handle (the paged engine
+        only): the finished request's page chain stays pinned so the
+        next turn prefills only its new suffix, until
+        ``close_session``."""
+        if session is not None and not self._supports_sessions:
+            raise ValueError(
+                "submit(session=...) needs the paged engine's hierarchical "
+                "cache (PagedContinuousBatchingEngine): the slot engine has "
+                "no page chains to pin")
         if spec_tree is not None and spec_tree is not False:
             spec_tree = _parse_spec_tree(spec_tree)
             if not self._spec_on or self._drafter is None:
@@ -473,11 +557,26 @@ class ContinuousBatchingEngine:
                              "max_length %d"
                              % (Tp + int(max_new_tokens), self._max_length))
         self._check_capacity(Tp, int(max_new_tokens))
+        if self._max_pending is not None and \
+                len(self._queue) >= self._max_pending:
+            self._shed += 1
+            _bump("shed_requests")
+            raise LoadShedError(
+                "admission queue full (%d pending >= max_pending=%d): "
+                "request shed — back off and resubmit"
+                % (len(self._queue), self._max_pending),
+                queue_depth=len(self._queue), limit=self._max_pending,
+                retry_after_ticks=max(
+                    1, -(-len(self._queue) // self._num_slots)))
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(rid, prompt, max_new_tokens, temperature,
-                                   top_k, top_p, repetition_penalty, seed,
-                                   eos_id, speculative, spec_tree))
+        deadline_at = (None if deadline_s is None
+                       else self._clock() + float(deadline_s))
+        self._queue.append(Request(
+            rid, prompt, max_new_tokens, temperature, top_k, top_p,
+            repetition_penalty, seed, eos_id, deadline_at=deadline_at,
+            retries=retries, speculative=speculative, session=session,
+            spec_tree=spec_tree))
         self._status[rid] = "queued"
         return rid
 
@@ -504,6 +603,7 @@ class ContinuousBatchingEngine:
 
     def _admit(self, req, row):
         """Slot prefill of the whole prompt, then the first token."""
+        _inject("serving.admit", key=req.rid)
         slot = _Slot(req, row)
         self._slots[row] = slot
         self._status[req.rid] = "active"
@@ -569,37 +669,119 @@ class ContinuousBatchingEngine:
         return False
 
     def _finish(self, row):
-        """Read the slot's tokens back, store the result and free the
-        row."""
+        """Store a finished slot's result and free the row."""
         slot = self._slots[row]
-        req = slot.req
-        pooled = [e for e in slot.emitted if not isinstance(e, _SpecTokens)]
+        self._store_result(slot.req, slot.emitted, row, "ok")
+        self._slots[row] = None
+        self._retire(row, slot.req)
+
+    def _store_result(self, req, emitted, row, status):
+        """Read a request's emitted tokens back (row ``row`` of each
+        pooled vector, and the verify iterations' own lists), store the
+        prompt and them as its result and mark it ``status``."""
+        pooled = [e for e in emitted if not isinstance(e, _SpecTokens)]
         col = iter(torch.stack(pooled)[:, row].cpu().numpy()
                    if pooled else ())
         toks = []
-        for e in slot.emitted:
+        for e in emitted:
             if isinstance(e, _SpecTokens):
                 toks.extend(int(t) for t in e.toks)
             else:
                 toks.append(int(next(col)))
         self._results[req.rid] = torch.from_numpy(np.concatenate(
             [req.prompt, np.asarray(toks, np.int32).reshape(1, -1)], axis=1))
-        self._terminal(req.rid)
-        self._slots[row] = None
+        self._terminal(req.rid, status)
+
+    def _retire(self, row, req):
+        """Return a row that finished ``ok`` (the paged engine first
+        offers its page chain to the hierarchical cache)."""
         self._release(row)
 
     def _release(self, row):
-        """Return a finished row's cache (the paged engine's pages)."""
+        """Return a row's cache (the paged engine's pages); idempotent."""
 
-    def _terminal(self, rid):
-        """Mark a request ``ok``, dropping the status records of the
-        oldest terminal requests past ``history``."""
-        self._status[rid] = "ok"
+    def _terminal(self, rid, status="ok"):
+        """Mark a request terminal, dropping the status and error records
+        of the oldest terminal requests past ``history``."""
+        self._status[rid] = status
         self._done.append(rid)
         if len(self._done) > self._history:
             for old in self._done[:-self._history]:
                 self._status.pop(old, None)
+                self._errors.pop(old, None)
             del self._done[:-self._history]
+
+    # -- failure paths -----------------------------------------------------
+    def _scrub_row(self, row):
+        """Return a row after a failure: clear its penalty row and its
+        cache (the next admission overwrites the contents)."""
+        if self._seen is not None:
+            self._seen[row] = False
+        self._release(row)
+
+    @staticmethod
+    def _emitted_count(emitted):
+        return sum(len(e.toks) if isinstance(e, _SpecTokens) else 1
+                   for e in emitted or [])
+
+    def _requeue_or_fail(self, req, exc, site, emitted=None, row=0):
+        """Record the error, then re-queue the request while it has
+        retries left (a restart from scratch), else finish it
+        ``failed`` with its partial output."""
+        self._errors[req.rid] = {
+            "type": type(exc).__name__, "error": str(exc), "site": site,
+            "step": self._steps, "emitted": self._emitted_count(emitted)}
+        if req.retries_left > 0:
+            req.retries_left -= 1
+            self._retries += 1
+            _bump("retries")
+            self._status[req.rid] = "queued"
+            self._queue.append(req)
+        else:
+            self._store_result(req, emitted or [], row, "failed")
+
+    def _quarantine_request(self, req, exc, site, row, emitted=None):
+        """Scrub the row and fail or re-queue the request (an occupied
+        slot and a failed admission alike)."""
+        self._scrub_row(row)
+        self._quarantined += 1
+        _bump("quarantined_slots")
+        self._requeue_or_fail(req, exc, site, emitted=emitted, row=row)
+
+    def _quarantine(self, row, exc, site):
+        """Evict only the offending slot; every other slot's generator,
+        penalty row and cache stay as they were."""
+        slot = self._slots[row]
+        self._slots[row] = None
+        self._quarantine_request(slot.req, exc, site, row,
+                                 emitted=slot.emitted)
+
+    def _evict_expired(self):
+        """Iteration-boundary deadline sweep over the slots and the
+        queue: an expired request finishes ``expired`` with its partial
+        output."""
+        now = self._clock()
+
+        def expired(req):
+            return req.deadline_at is not None and now >= req.deadline_at
+
+        for i, slot in enumerate(self._slots):
+            if slot is not None and expired(slot.req):
+                self._slots[i] = None
+                self._scrub_row(i)
+                self._deadline_evictions += 1
+                _bump("deadline_evictions")
+                self._store_result(slot.req, slot.emitted, i, "expired")
+        if any(expired(r) for r in self._queue):
+            keep = []
+            for req in self._queue:
+                if expired(req):
+                    self._deadline_evictions += 1
+                    _bump("deadline_evictions")
+                    self._store_result(req, [], 0, "expired")
+                else:
+                    keep.append(req)
+            self._queue = keep
 
     # the decode hooks: the slot engine's forms (the paged engine adds
     # its block tables)
@@ -627,8 +809,11 @@ class ContinuousBatchingEngine:
     def _decode_active(self, active):
         """Draft, then ONE plain pooled step or ONE pooled verify call
         for every decoding slot: a tree verify when any slot drafted a
-        tree (linear windows ride it as chains), else a linear one."""
+        tree (linear windows ride it as chains), else a linear one.
+        Drafting may quarantine slots out of ``active``."""
         drafts = self._draft_phase(active)
+        if not active:
+            return
         if not drafts:
             self._decode_plain(active)
         elif any(isinstance(d, _TreeDraft) for d in drafts.values()):
@@ -654,7 +839,12 @@ class ContinuousBatchingEngine:
             s.pos += 1
             s.n_emitted += 1
             s.emitted.append(self._last_tokens)
-            if self._slot_done(s):
+            try:
+                done = self._slot_done(s)
+            except Exception as exc:        # the per-slot eos host read
+                self._quarantine(i, exc, "serving.step")
+                continue
+            if done:
                 self._finish(i)
 
     # -- speculative decoding ----------------------------------------------
@@ -704,10 +894,23 @@ class ContinuousBatchingEngine:
 
     def _draft_phase(self, active):
         """Draft proposals of every speculating slot: {row: token list
-        or _TreeDraft}, empty drafts left out."""
+        or _TreeDraft}, empty drafts left out.  The ``serving.draft``
+        site fires once a speculating slot before its proposal; a raise
+        there or in the drafter quarantines the slot and removes it from
+        ``active``."""
         if not self._spec_on:
             return {}
-        rows = [i for i in active if self._slots[i].history is not None]
+        rows = []
+        for i in list(active):
+            if self._slots[i].history is None:
+                continue
+            try:
+                _inject("serving.draft", key=self._slots[i].req.rid)
+            except Exception as exc:
+                self._quarantine(i, exc, "serving.draft")
+                active.remove(i)
+                continue
+            rows.append(i)
         if not rows:
             return {}
         if self._draft is not None:
@@ -715,26 +918,45 @@ class ContinuousBatchingEngine:
         out = {}
         for i in rows:
             s = self._slots[i]
-            cfg = self._tree_cfg_for(s.req)
-            if cfg is not None:
-                n = self._tree_budget(s, cfg[0])
-                if n <= 0:
+            try:
+                cfg = self._tree_cfg_for(s.req)
+                if cfg is not None:
+                    n = self._tree_budget(s, cfg[0])
+                    toks = []
+                    if n > 0:
+                        toks, par, _ = self._tree_drafter_for(
+                            cfg).propose_tree(s.history, n, n)
+                    if toks:
+                        d = _TreeDraft(toks, par)
+                        self._tree_nodes_drafted += len(toks)
+                        # leaves: nodes no other node names as parent
+                        self._tree_paths += len(toks) - len(
+                            {p for p in d.parent if p > 0})
+                        out[i] = d
                     continue
-                toks, par, _ = self._tree_drafter_for(cfg).propose_tree(
-                    s.history, n, n)
-                if toks:
-                    d = _TreeDraft(toks, par)
-                    self._tree_nodes_drafted += len(toks)
-                    # leaves: nodes no other node names as parent
-                    self._tree_paths += len(toks) - len(
-                        {p for p in d.parent if p > 0})
-                    out[i] = d
+                k = self._spec_budget(s)
+                d = self._drafter.propose(s.history, k) if k > 0 else []
+            except Exception as exc:
+                self._quarantine(i, exc, "serving.draft")
+                active.remove(i)
                 continue
-            k = self._spec_budget(s)
-            d = self._drafter.propose(s.history, k) if k > 0 else []
             if d:
                 out[i] = d
         return out
+
+    def _verify_faults(self, active, drafts):
+        """The ``serving.verify`` site, once a slot of a pooled verify
+        call before it: a raise quarantines the slot.  Returns whether
+        any drafted slot is left (else the iteration is a plain
+        step)."""
+        for i in list(active):
+            try:
+                _inject("serving.verify", key=self._slots[i].req.rid)
+            except Exception as exc:
+                self._quarantine(i, exc, "serving.verify")
+                active.remove(i)
+                drafts.pop(i, None)
+        return bool(drafts)
 
     def _propose_model(self, rows):
         """Pooled greedy drafting with the draft model: j proposals a row
@@ -782,6 +1004,10 @@ class ContinuousBatchingEngine:
         each window position uses the rule and the draw sequential
         decode would use there, and each row emits its accepted prefix
         plus one."""
+        if not self._verify_faults(active, drafts):
+            if active:
+                self._decode_plain(active)
+            return
         B = self._num_slots
         W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
         state = self._decode_state(active)
@@ -816,6 +1042,10 @@ class ContinuousBatchingEngine:
         tokens are distinct, so the accepted lanes form one chain.  A
         row whose path took a side branch has that path's K/V moved
         into depth order (``_run_fixup``)."""
+        if not self._verify_faults(active, drafts):
+            if active:
+                self._decode_plain(active)
+            return
         B = self._num_slots
         W = _bucket(max(len(d) for d in drafts.values()) + 1, base=2)
         state = self._decode_state(active)
@@ -1023,23 +1253,42 @@ class ContinuousBatchingEngine:
             except _AdmissionDeferred:
                 self._queue.insert(0, req)
                 break
+            except Exception as exc:
+                # a failed admission leaves the row free
+                if self._slots[i] is not None and self._slots[i].req is req:
+                    self._slots[i] = None
+                self._quarantine_request(req, exc, "serving.admit", row=i)
 
     def _advance_prefills(self):
         """The paged engine's chunk phase (a slot prefill is whole)."""
 
+    def _after_decode(self):
+        """The iteration's tail after the pooled call (the paged engine
+        runs a deferred restore here)."""
+
     def step(self):
-        """One iteration: ONE prefill chunk per prefilling slot (paged),
-        admissions (the paged engine deferring at the queue head on
-        transient page exhaustion), then ONE pooled decode step or
-        verify call over every decoding slot.  Returns the ids of the
-        requests finished this iteration."""
+        """One iteration: the deadline sweep, ONE prefill chunk per
+        prefilling slot (paged), admissions (the paged engine deferring
+        at the queue head on transient page exhaustion), the
+        ``serving.step`` site once a decoding slot, then ONE pooled
+        decode step or verify call over every decoding slot.  Returns
+        the ids of the requests that reached a terminal status this
+        iteration."""
         finished_before = set(self._results)
+        self._evict_expired()
         self._advance_prefills()
         self._admit_queued()
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
+        for i in list(active):
+            try:
+                _inject("serving.step", key=self._slots[i].req.rid)
+            except Exception as exc:
+                self._quarantine(i, exc, "serving.step")
+                active.remove(i)
         if active:
             self._decode_active(active)
+        self._after_decode()
         return [r for r in self._results if r not in finished_before]
 
     def take_result(self, rid):
@@ -1049,9 +1298,10 @@ class ContinuousBatchingEngine:
 
     def _iterations_left(self):
         """An upper bound on the iterations the queue and the slots still
-        need."""
-        return sum(r.max_new_tokens + 1 for r in self._queue) + sum(
-            s.req.max_new_tokens + 1 - s.n_emitted
+        need (a request with retries may restart as often)."""
+        return sum((1 + r.retries_left) * r.max_new_tokens
+                   for r in self._queue) + sum(
+            (1 + s.req.retries_left) * s.req.max_new_tokens - s.n_emitted
             for s in self._slots if s is not None)
 
     def run(self):
@@ -1071,6 +1321,17 @@ class ContinuousBatchingEngine:
         return out
 
 
+class _HostPage:
+    """One page of a spilled chain in host memory: row ``index`` of the
+    chain's host buffer (``TransformerLM.read_pages``' form)."""
+
+    __slots__ = ("buf", "index")
+
+    def __init__(self, buf, index):
+        self.buf = buf
+        self.index = index
+
+
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     """Iteration-level scheduler over a paged KV pool (module docstring).
 
@@ -1084,6 +1345,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         power-of-two ladder, as the reference pads them to its compiled
         shapes, which keeps the chunk plan, and so the page ids,
         identical to the reference's.
+    pin_bytes : the pinned tier's budget: finished requests' full-page
+        chains stay pinned in the pool under an LRU policy holding at
+        most ``pin_bytes // bytes_per_block`` distinct pages.  An int or
+        a "16MiB"-style string; None reads ``MXTPU_PIN_BYTES`` (unset:
+        0, off).  Session chains pin regardless of it.
+    host_cache_bytes : the host tier's budget: chains evicted from the
+        pinned tier spill to pinned host memory (``serving.swap_out``)
+        and are restored on a radix miss (``serving.swap_in``).  Same
+        forms; None reads ``MXTPU_HOST_CACHE_BYTES`` (unset: 0, off).
+    overlap_swaps : restore at the iteration boundary instead of inside
+        admission: a request whose prompt the host tier matches defers
+        once, the pooled decode step is issued first, and the restore
+        runs after it.  The streams are the same as without it wherever
+        that restore fits when it runs; a request defers for a restore
+        once an attempt (the reference's rule), so under sustained pool
+        pressure one whose restore does not fit recomputes its prefix
+        instead (another chunk plan: other bits in bf16).
 
     A request whose worst-case page need exceeds the whole pool is shed
     at ``submit`` with :class:`~mxtpu_torch.base.LoadShedError`.  With
@@ -1093,11 +1371,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     cache.
     """
 
+    _supports_sessions = True
+
     def __init__(self, model, num_slots: int = 4, max_length: int = 256,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 64, spec_k: int = 0,
                  spec_ngram: int = 3, spec_tree=None, draft_block=None,
-                 history: int = 1024, cache_dtype=None, device=None):
+                 history: int = 1024, cache_dtype=None, device=None,
+                 max_pending: Optional[int] = None, clock=None,
+                 pin_bytes=None, host_cache_bytes=None,
+                 overlap_swaps: bool = False):
         bs = int(block_size)
         chunk = int(prefill_chunk)
         if bs < 1:
@@ -1112,13 +1395,30 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefill_tokens = 0
         self._prefix_hits = 0
         self._cow_copies = 0
+        # -- hierarchical prefix cache -----------------------------------
+        self._pin_bytes = self._budget_bytes(pin_bytes, "MXTPU_PIN_BYTES")
+        self._host_bytes = self._budget_bytes(host_cache_bytes,
+                                              "MXTPU_HOST_CACHE_BYTES")
+        self._sessions: Dict[Any, int] = {}   # sid -> turns submitted
+        self._swap_ins = 0              # pages restored host -> device
+        self._swap_outs = 0             # pages spilled device -> host
+        self._swap_out_failures = 0     # spills whose copy raised
+        self._session_hits = 0
+        self._prefill_tokens_avoided = 0
+        self._in_flight: List[tuple] = []   # (event, host buffer)
+        self._overlap_swaps = bool(overlap_swaps)
+        self._swap_pending: Optional[Request] = None
+        self._swap_attempted: set = set()   # rids already deferred once
+        self._deferred_swap_ins = 0
         super().__init__(model, num_slots, max_length, spec_k=spec_k,
                          spec_ngram=spec_ngram, spec_tree=spec_tree,
                          draft_block=draft_block, history=history,
-                         cache_dtype=cache_dtype, device=device)
+                         cache_dtype=cache_dtype, device=device,
+                         max_pending=max_pending, clock=clock)
 
     def _init_cache(self):
-        """The page pool, its allocator and the prefix index."""
+        """The page pool, its allocator, the prefix index and the
+        hierarchical cache's policy."""
         bs = self._bs
         # table width: every request's pages plus headroom for the last
         # chunk's bucket padding (padded writes stay inside the request's
@@ -1132,6 +1432,24 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._pools = self._model.init_block_pool(self._bp.capacity + 1, bs,
                                                   self._cache_dtype)
         self._slot_pages: List[Optional[List[int]]] = [None] * self._num_slots
+        # a page priced from the pools as allocated: every pool tensor's
+        # row, the (k, v) leaves of each layer, an int8 leaf's payload
+        # and scales both.  One device: the pinned tier's (per-device)
+        # price and the host tier's are the same.
+        self._bytes_per_block = sum(t[0].numel() * t.element_size()
+                                    for t in pool_tensors(self._pools))
+        self._hc = HierarchicalCache(
+            self._bp, self._prefix,
+            pin_blocks=self._pin_bytes // self._bytes_per_block,
+            host_blocks=self._host_bytes // self._bytes_per_block)
+
+    @staticmethod
+    def _budget_bytes(value, env):
+        """One tier's budget: an int or "16MiB"-style string, else the
+        environment variable, else 0 (the tier off)."""
+        if value is None:
+            value = os.environ.get(env, 0)
+        return int(parse_bytes(value))
 
     @property
     def stats(self):
@@ -1147,8 +1465,212 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             "cow_copied_blocks": self._cow_copies,
             "block_size": self._bs,
             "num_blocks": self._bp.capacity,
+            "pinned_blocks": self._hc.pinned_blocks,
+            "spilled_blocks": self._hc.spilled_blocks,
+            "swapped_in_blocks": self._swap_ins,
+            "swapped_out_blocks": self._swap_outs,
+            "swap_out_failures": self._swap_out_failures,
+            "deferred_swap_in_requests": self._deferred_swap_ins,
+            "session_hit_requests": self._session_hits,
+            "sessions_open": len(self._sessions),
+            "prefill_tokens_avoided": self._prefill_tokens_avoided,
         })
         return st
+
+    # -- hierarchical prefix cache -----------------------------------------
+    def _hierarchy_on(self):
+        """Whether finished chains are worth pinning: an auto-pin
+        budget, a host tier, or at least one open session."""
+        return (self._hc.pin_blocks > 0 or self._hc.host_blocks > 0
+                or bool(self._sessions))
+
+    def _hold(self, buf):
+        """Keep the host buffer of a copy just issued alive until an
+        event after it completes, whatever the host tier drops
+        meanwhile."""
+        if self._device.type != "cuda":
+            return
+        self._in_flight = [(e, b) for e, b in self._in_flight
+                           if not e.query()]
+        ev = torch.cuda.Event()
+        ev.record()
+        self._in_flight.append((ev, buf))
+
+    def _read_pages(self, pages):
+        """Device-to-host copy of pages (one gather a pool tensor, one
+        copy): one host entry a page, each a row of the same buffer."""
+        buf = self._model.read_pages(self._pools, pages)
+        self._hold(buf)
+        return [_HostPage(buf, i) for i in range(len(pages))]
+
+    def _write_pages(self, pages, content):
+        """Host-to-device restore of ``content`` (consecutive entries of
+        one spill, so one slice of its buffer) into ``pages``."""
+        first = content[0]
+        assert all(e.buf is first.buf and e.index == first.index + j
+                   for j, e in enumerate(content))
+        host = first.buf[first.index:first.index + len(content)]
+        self._model.write_pages(self._pools, pages, host)
+        self._hold(host)
+
+    def _spill_chain(self, chain):
+        """Evict one pinned chain from the device tier: copy its pages
+        to host (budget permitting), then unpin.  The
+        ``serving.swap_out`` site fires once a spill; a raise there or in
+        the copy drops the chain without a host copy (a recompute on the
+        next miss, never a wrong page) and counts in
+        ``swap_out_failures``."""
+        content = None
+        if self._hc.host_blocks >= len(chain.pages):
+            try:
+                _inject("serving.swap_out")
+                content = self._read_pages(chain.pages)
+            except Exception:
+                self._swap_out_failures += 1
+                content = None
+        if content is not None:
+            self._hc.spill(chain, content)
+            self._swap_outs += len(chain.pages)
+        else:
+            self._hc.drop_chain(chain)
+
+    def _enforce_pin_budget(self):
+        while True:
+            victim = self._hc.pick_budget_victim()
+            if victim is None:
+                return
+            self._spill_chain(victim)
+
+    def _reclaim(self, short):
+        """Pool pressure: spill pinned chains (non-session LRU first,
+        sessions last) until ``short`` pages freed or nothing evictable
+        remains — live admissions beat cached prefixes."""
+        while short > 0:
+            victim = self._hc.pick_pressure_victim()
+            if victim is None:
+                return
+            before = self._bp.free_count
+            self._spill_chain(victim)
+            short -= self._bp.free_count - before
+
+    def _try_swap_in(self, req, full):
+        """Host-tier lookup at admission: when a spilled chain matches
+        more of the prompt than the device walk's ``full`` pages,
+        restore the missing pages, index them and pin the chain.
+        Returns True whenever the pool was touched (pages restored, or a
+        reclaim ran for a restore that then could not fit): the caller
+        re-walks the index, since a reclaim may have freed pages of the
+        first walk.  The ``serving.swap_in`` site fires before the
+        restore; a raise releases the pages it allocated and propagates
+        to the admission's quarantine."""
+        if not self._hc.host_chains:
+            return False
+        Tp = req.prompt.shape[1]
+        match = self._hc.host_match(req.prompt[0], limit=Tp - 1)
+        if match is None or match[1] <= len(full):
+            return False
+        chain, npages = match
+        extra = npages - len(full)
+        # hold the device-matched prefix across the reclaim below: a
+        # spill may otherwise free (and recycle) exactly these pages
+        for bid in full:
+            self._bp.retain(bid)
+        try:
+            if extra > self._bp.free_count:
+                self._reclaim(extra - self._bp.free_count)
+            if extra > self._bp.free_count:
+                return True
+            _inject("serving.swap_in", key=req.rid)
+            fresh = self._bp.alloc(extra)
+            try:
+                self._write_pages(fresh, chain.content[len(full):npages])
+            except Exception:
+                for bid in fresh:
+                    self._bp.release(bid)
+                raise
+            tokens = chain.tokens[:npages * self._bs]
+            self._prefix.register(tokens, list(full) + fresh)
+            pages, _ = self._prefix.lookup(tokens, limit=len(tokens))
+            self._hc.pin_chain(tokens, pages, sid=chain.sid)
+            if npages == len(chain.content):
+                self._hc.drop_host(chain)
+            # else a partial restore keeps the host copy: a session's
+            # unrestored tail stays recoverable for its next turn.  The
+            # allocation's reference hands over to the pin.
+            for bid in fresh:
+                self._bp.release(bid)
+        finally:
+            for bid in full:
+                self._bp.release(bid)
+        self._swap_ins += len(fresh)
+        return True
+
+    def _offer_chain(self, row, req):
+        """Finish-time tail of a request that ended ``ok``: register the
+        full written pages of its final sequence (prompt and emitted
+        tokens) and pin the chain.  The last token's K/V is never
+        written, so only pages fully below ``len(seq) - 1`` count; a
+        speculative window's rejected lanes lie past it too.  A session
+        closed while the request was in flight degrades to an ordinary
+        budget-governed pin."""
+        sid = req.session
+        if sid is not None and sid not in self._sessions:
+            sid = None
+        if sid is None and self._hc.pin_blocks <= 0 \
+                and self._hc.host_blocks <= 0:
+            return
+        pages = self._slot_pages[row]
+        seq = self._results[req.rid][0].tolist()
+        fullp = min((len(seq) - 1) // self._bs, len(pages))
+        if fullp <= 0:
+            return
+        self._prefix.register(seq, pages[:fullp])
+        tokens = tuple(seq[:fullp * self._bs])
+        chain_pages, _ = self._prefix.lookup(tokens, limit=len(tokens))
+        if len(chain_pages) < fullp:
+            return                      # raced an eviction: nothing to pin
+        self._hc.pin_chain(tokens, chain_pages, sid=sid)
+        self._enforce_pin_budget()
+
+    def close_session(self, sid) -> int:
+        """Release one conversation's chains from both tiers (device pins
+        unpin, host copies drop).  Unknown sids are a no-op; in-flight
+        requests of the session keep their own pages.  Returns the device
+        pages freed."""
+        self._sessions.pop(sid, None)
+        return self._hc.close_session(sid)
+
+    def prefix_probe(self, prompt_ids) -> int:
+        """The radix walk's hit length or, when a spilled chain would
+        beat it, the host tier's page-aligned match.  Read-only: no
+        refcount, tick or restore."""
+        arr = np.asarray(torch.as_tensor(prompt_ids).cpu())
+        if arr.ndim != 2 or arr.shape[0] != 1:
+            raise ValueError("prefix_probe takes ONE prompt: (1, T), got %r"
+                             % (arr.shape,))
+        Tp = arr.shape[1]
+        n = self._prefix.probe(arr[0], limit=Tp - 1)
+        if self._hc.host_chains:
+            m = self._hc.host_match(arr[0], limit=Tp - 1)
+            if m is not None:
+                n = max(n, m[1] * self._bs)
+        return n
+
+    def drop_cache(self) -> int:
+        """Release both tiers and every open session: pinned chains drop
+        without a host copy, host copies drop, and the index entries
+        evict as their pages return.  Returns the device pages freed."""
+        self._sessions.clear()
+        self._swap_pending = None
+        self._swap_attempted.clear()
+        freed = 0
+        for chain in list(self._hc._chains.values()):
+            before = self._bp.free_count
+            self._hc.drop_chain(chain)
+            freed += self._bp.free_count - before
+        for host in list(self._hc._host.values()):
+            self._hc.drop_host(host)
+        return freed
 
     # -- request intake --------------------------------------------------
     def _plan_chunks(self, start, Tp):
@@ -1179,12 +1701,27 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         need = self._pages_needed(Tp, max_new)
         if need > self._bp.capacity:
             self._shed += 1
+            _bump("shed_requests")
             raise LoadShedError(
                 "request needs %d page(s) > pool capacity %d "
                 "(block_size=%d): can never be admitted — shed"
                 % (need, self._bp.capacity, self._bs),
                 queue_depth=len(self._queue), limit=self._bp.capacity,
                 permanent=True)
+
+    def submit(self, prompt_ids, max_new_tokens, temperature=0.0, top_k=0,
+               top_p=0.0, repetition_penalty=1.0, seed=None, eos_id=None,
+               deadline_s=None, retries=0, speculative=None, session=None,
+               spec_tree=None) -> int:
+        """The base ``submit``; a ``session`` handle is counted open until
+        ``close_session``."""
+        rid = super().submit(prompt_ids, max_new_tokens, temperature, top_k,
+                             top_p, repetition_penalty, seed, eos_id,
+                             deadline_s, retries, speculative, session,
+                             spec_tree)
+        if session is not None:
+            self._sessions[session] = self._sessions.get(session, 0) + 1
+        return rid
 
     # -- admission -------------------------------------------------------
     def _table_row(self, row):
@@ -1195,30 +1732,65 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return t
 
     def _admit(self, req, row):
-        """Prefix lookup, page allocation and chunk plan; the first chunk
-        (after the copy-on-write clone) runs at once, so a prompt no
-        longer than one chunk finishes admission this iteration."""
+        """Prefix lookup (with the host tier), page allocation and chunk
+        plan; the first chunk (after the copy-on-write clone) runs at
+        once, so a prompt no longer than one chunk finishes admission
+        this iteration.  The matched pages and the copy-on-write donor
+        are held before any reclaim, so a spill cannot free them."""
+        _inject("serving.admit", key=req.rid)
         Tp = req.prompt.shape[1]
+        _inject("serving.prefix_lookup", key=req.rid)
         full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
+        if self._overlap_swaps:
+            # restores run only at the iteration boundary
+            # (_service_pending_swap): a cold-chain admission defers once
+            if req.rid not in self._swap_attempted and self._hc.host_chains:
+                m = self._hc.host_match(req.prompt[0], limit=Tp - 1)
+                if m is not None and m[1] > len(full):
+                    self._swap_pending = req
+                    raise _AdmissionDeferred()
+        elif self._try_swap_in(req, full):
+            # a restore adds pages and its reclaim may have freed some of
+            # the first walk's: walk again
+            full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
         n_shared = len(full) * self._bs + (partial[1] if partial else 0)
         chunks, extent = self._plan_chunks(n_shared, Tp)
         n_pages = -(-max(Tp + req.max_new_tokens, extent) // self._bs)
         need = n_pages - len(full)
-        if need > self._bp.free_count:
-            raise _AdmissionDeferred()
-        fresh = self._bp.alloc(need)
-        for bid in full:
+        _inject("serving.block_alloc", key=req.rid)
+        held = list(full) + ([partial[0]] if partial else [])
+        for bid in held:
             self._bp.retain(bid)
-        pages = list(full) + fresh
+        try:
+            if need > self._bp.free_count:
+                self._reclaim(need - self._bp.free_count)
+            if need > self._bp.free_count:
+                raise _AdmissionDeferred()
+            fresh = self._bp.alloc(need)
+        except BaseException:
+            for bid in held:
+                self._bp.release(bid)
+            raise
+        if partial:
+            # the donor's hold only had to span the reclaim: the clone
+            # runs in this admission's first chunk
+            self._bp.release(partial[0])
+        pages = list(full) + fresh      # the holds on `full` are its refs
         self._slot_pages[row] = pages
         cow = None
         if full or partial:
             self._prefix_hits += 1
+        if n_shared:
+            self._prefill_tokens_avoided += n_shared
+            self._hc.touch_prefix(req.prompt[0], Tp - 1)
+            if req.session is not None:
+                self._session_hits += 1
         if partial:
             cow = (partial[0], pages[len(full)])
             self._cow_copies += 1
         self._slots[row] = _PagedSlot(req, row, chunks, cow)
         self._status[req.rid] = "active"
+        self._swap_attempted.discard(req.rid)
         self._advance_prefill(row)
 
     def _advance_prefill(self, row):
@@ -1249,12 +1821,24 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix.register(slot.req.prompt[0],
                               self._slot_pages[slot.row][:slot.Tp // self._bs])
 
+    def _retire(self, row, req):
+        """Pin the finished request's chain (before the row's release, so
+        its pages never transiently free), then release the row."""
+        if self._hierarchy_on():
+            self._offer_chain(row, req)
+        self._release(row)
+
     def _release(self, row):
         """The last reference frees a page and evicts its prefix-index
-        entry."""
+        entry; a row already released is left as it is."""
         pages, self._slot_pages[row] = self._slot_pages[row], None
-        for bid in pages:
+        for bid in pages or ():
             self._bp.release(bid)
+
+    def _terminal(self, rid, status="ok"):
+        super()._terminal(rid, status)
+        # a deferred restore's rid that ends on any path is forgotten
+        self._swap_attempted.discard(rid)
 
     # -- decode hooks ----------------------------------------------------
     def _spec_extent(self, slot):
@@ -1294,13 +1878,55 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     # -- one scheduler iteration ------------------------------------------
     def _advance_prefills(self):
+        """One chunk a prefilling slot; a failing chunk quarantines its
+        request under the admission site."""
         for i in range(self._num_slots):
             s = self._slots[i]
             if s is not None and s.prefilling:
-                self._advance_prefill(i)
+                try:
+                    self._advance_prefill(i)
+                except Exception as exc:
+                    self._quarantine(i, exc, "serving.admit")
+
+    def _after_decode(self):
+        self._service_pending_swap()
+
+    def _service_pending_swap(self):
+        """With ``overlap_swaps``: run the restore an admission deferred,
+        after the pooled decode step was issued.  The request waits at
+        the queue head and shares the restored pages at the next
+        iteration's lookup.  A ``serving.swap_in`` fault quarantines
+        only that request (a retry defers and restores again); each rid
+        defers at most once an attempt."""
+        req = self._swap_pending
+        if req is None:
+            return
+        self._swap_pending = None
+        self._swap_attempted.add(req.rid)
+        if all(q.rid != req.rid for q in self._queue):
+            return                      # evicted while deferred
+        full, _ = self._prefix.lookup(req.prompt[0],
+                                      limit=req.prompt.shape[1] - 1)
+        try:
+            if self._try_swap_in(req, full):
+                self._deferred_swap_ins += 1
+        except Exception as exc:
+            # the admission-fault contract without the row scrub: the
+            # request never left the queue
+            self._queue = [q for q in self._queue if q.rid != req.rid]
+            self._swap_attempted.discard(req.rid)
+            self._quarantined += 1
+            _bump("quarantined_slots")
+            self._requeue_or_fail(req, exc, "serving.admit")
 
     def _iterations_left(self):
-        return super()._iterations_left() + sum(
-            -(-r.prompt.shape[1] // self._chunk) for r in self._queue) + sum(
-            len(s.chunks) for s in self._slots if s is not None) \
-            + self._bp.capacity // 2 + 1
+        """The base bound with every request's prefill chunks, plus
+        room for the deferrals of a full pool (4 * capacity // 2)."""
+        def iters(req, emitted=0):
+            chunks = -(-req.prompt.shape[1] // self._chunk)
+            return (1 + req.retries_left) * (
+                req.max_new_tokens + chunks) - emitted
+
+        return sum(iters(r) for r in self._queue) + sum(
+            iters(s.req, s.n_emitted) for s in self._slots
+            if s is not None) + self._bp.capacity // 2

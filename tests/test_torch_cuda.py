@@ -66,6 +66,13 @@ taps, and at the largest sums; Q3, the quantizer that writes its input,
 W not a multiple of 32, C a multiple of 16 but not 64, runtime ranges,
 half-steps and +-inf; and a quantized narrow ResNet on the card
 ``torch.equal`` to its plain route.
+The hierarchical prefix cache's page copies (``read_pages`` into pinned
+host rows, ``write_pages`` back) ``torch.equal`` over four pool
+geometries in float32, bfloat16 and int8, with the source pages
+overwritten right after the read; and the hierarchical engine on a tiny
+float32 model (a restore round trip, sessions under pool pressure, an
+overlapped restore, a ``serving.swap_in`` fault) giving on the card the
+CPU's streams, stats and page bookkeeping.
 Also what the wrappers reject on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
@@ -1759,3 +1766,147 @@ def test_quant_q1_q3_wrappers_reject_layouts_they_do_not_take(cuda):
         with pytest.raises(base.MXTPUError):
             Q.quantize_nhwc(*args)
     assert base.counts() == {}
+
+
+# -- the hierarchical prefix cache: page copies and the engine ---------------
+
+#: (layers, kv heads, block size, head_dim) of the page round trips
+PAGE_GEOMS = [(1, 2, 8, 16), (2, 8, 16, 128), (3, 4, 32, 64), (1, 1, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("geom", PAGE_GEOMS,
+                         ids=lambda g: "L%d-KV%d-bs%d-D%d" % g)
+def test_page_round_trip_is_exact_on_the_card(cuda, geom, dtype):
+    """read_pages into pinned host rows, an in-place overwrite of the
+    source pages issued right after (the stream orders it behind the
+    copy), then write_pages into fresh pages: every pool tensor's rows
+    ``torch.equal`` to the originals, every other page untouched."""
+    from mxtpu_torch.models.transformer import TransformerLM, pool_tensors
+
+    L, KV, bs, D = geom
+    model = TransformerLM(64, KV * D, 32, L, KV, KV, device=cuda)
+    n = 24
+    pools = model.init_block_pool(n, bs, dtype)
+    g = torch.Generator(device="cuda").manual_seed(sum(geom))
+    for t in pool_tensors(pools):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device="cuda", dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    before = [t.clone() for t in pool_tensors(pools)]
+    src, dst = [5, 17, 2, 9, 23, 1], [3, 22, 11, 4, 7, 20]
+    host = model.read_pages(pools, src)
+    for t in pool_tensors(pools):
+        t[src] = 0
+    model.write_pages(pools, dst, host)
+    torch.cuda.synchronize()
+    assert host.device.type == "cpu" and host.is_pinned()
+    rest = [p for p in range(n) if p not in src + dst]
+    for t, b in zip(pool_tensors(pools), before):
+        assert torch.equal(t[dst], b[src])
+        assert torch.equal(t[rest], b[rest])
+
+
+def _tiny_pair():
+    from mxtpu_torch.models.transformer import llama_tiny
+
+    torch.manual_seed(0)
+    cpu = llama_tiny(vocab_size=50, device="cpu")
+    card = llama_tiny(vocab_size=50, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _scenario(eng, name):
+    """One hierarchy scenario on one engine; returns its streams, stats
+    and the pool's page bookkeeping after every drain."""
+    from mxtpu_torch.resilience import fault_plan
+
+    rng = np.random.RandomState(5)
+    out = []
+
+    def drain(plan=None):
+        with (fault_plan(plan) if plan else _nullcontext()):
+            res = eng.run()
+        out.append(({r: t.numpy().tolist() for r, t in res.items()},
+                    eng.stats, list(eng._bp._free), dict(eng._bp._pins),
+                    sorted((c.tick, list(c.pages), c.sid)
+                           for c in eng._hc._chains.values())))
+        return res
+
+    p = rng.randint(0, 50, (1, 19)).astype(np.int32)
+    if name == "round_trip":
+        for _ in range(2):
+            eng.submit(p, 5)
+            drain()
+    elif name == "sessions":
+        prompts = [rng.randint(0, 50, (1, 10 + 3 * s)).astype(np.int32)
+                   for s in range(3)]
+        for turn in range(3):
+            rids = [eng.submit(prompts[s], 6, session=s) for s in range(3)]
+            res = drain()
+            prompts = [np.concatenate([res[r].numpy(), rng.randint(
+                0, 50, (1, 4)).astype(np.int32)], 1) for r in rids]
+        for s in range(3):
+            eng.close_session(s)
+        eng.drop_cache()
+        drain()
+    elif name == "overlap":
+        eng.submit(p[:, :16], 4)
+        drain()
+        eng.submit(rng.randint(0, 50, (1, 6)).astype(np.int32), 12)
+        for _ in range(3):
+            eng.step()
+        eng.submit(np.concatenate([p[:, :16], p[:, 16:]], 1), 4)
+        drain()
+    else:                                           # a swap_in fault
+        eng.submit(p, 5)
+        drain()
+        r = eng.submit(p, 5, retries=1)
+        # (greedy: a sampled neighbour draws from the card's generator)
+        eng.submit(rng.randint(0, 50, (1, 6)).astype(np.int32), 4)
+        drain("serving.swap_in#%d@1:raise=OSError(copy lost)" % r)
+    return out
+
+
+def _nullcontext():
+    import contextlib
+    return contextlib.nullcontext()
+
+
+HIERARCHY_SCENARIOS = {
+    "round_trip": dict(pin_bytes=1, host_cache_bytes="1MiB"),
+    "sessions": dict(max_length=96, num_blocks=10, pin_bytes=0,
+                     host_cache_bytes="1MiB"),
+    "overlap": dict(max_length=48, pin_bytes=0, host_cache_bytes="4MiB",
+                    overlap_swaps=True),
+    "fault": dict(pin_bytes=1, host_cache_bytes="1MiB"),
+}
+
+
+@pytest.mark.parametrize("name", list(HIERARCHY_SCENARIOS))
+def test_hierarchical_engine_on_the_card_equals_the_cpu(cuda, name):
+    """The paged engine with the hierarchical cache on a tiny float32
+    model: the card's run (K1 and K2, copies through pinned memory) and
+    the CPU's give the same streams, stats and page bookkeeping after
+    every drain."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    cfg = dict(dict(num_slots=2, max_length=48, block_size=8,
+                    prefill_chunk=8), **HIERARCHY_SCENARIOS[name])
+    cpu, card = _tiny_pair()
+    got = _scenario(PagedContinuousBatchingEngine(card, **cfg), name)
+    want = _scenario(PagedContinuousBatchingEngine(cpu, device="cpu", **cfg),
+                     name)
+    assert got == want
+    st = got[-1][1]
+    assert st["swapped_in_blocks"] > 0 and st["swapped_out_blocks"] > 0
+    assert st["swap_out_failures"] == 0
+    if name == "fault":
+        assert (st["quarantined_requests"], st["retried_requests"]) == (1, 1)
+    if name == "overlap":
+        assert st["deferred_swap_in_requests"] == 1
+    if name == "sessions":
+        assert st["blocks_in_use"] == st["pinned_blocks"] == 0

@@ -200,9 +200,17 @@ def test_request_edge_cases(models, eng):
         eng.submit(p, MAXLEN)
     with pytest.raises(ValueError):         # one request at a time
         eng.submit(np.zeros((2, 3), np.int32), 2)
-    for knob in (dict(deadline_s=1.0), dict(retries=1), dict(session="s")):
-        with pytest.raises(NotImplementedError):
-            eng.submit(p, 2, **knob)
+    # the fault contract's knobs and sessions are honoured: a request
+    # that meets no fault or deadline streams as it would without them
+    for knob in (dict(deadline_s=600.0), dict(retries=1), dict(session="s")):
+        r = eng.submit(p, 2, **knob)
+        np.testing.assert_array_equal(
+            eng.run()[r].numpy(),
+            models[1].generate(torch.from_numpy(p), 2).numpy())
+        assert eng.status(r) == "ok"
+    assert eng.stats["sessions_open"] == 1 and eng.stats["pinned_blocks"] == 0
+    eng.close_session("s")
+    assert eng.stats["sessions_open"] == 0
     # the speculative knobs follow the reference: speculative= is a
     # request's opt-in/out of the engine's speculation (none here, so the
     # stream is the plain one); a tree config needs a speculating engine

@@ -350,7 +350,7 @@ def test_slot_engine_knobs(models):
         eng.submit(np.zeros((1, 10), np.int32), 8)
     with pytest.raises(ValueError, match="ONE request"):
         eng.submit(np.zeros((2, 4), np.int32), 2)
-    with pytest.raises(NotImplementedError, match="session"):
+    with pytest.raises(ValueError, match="session"):    # paged engine only
         eng.submit(np.zeros((1, 4), np.int32), 2, session="s")
     with pytest.raises(ValueError, match="self-drafting"):
         eng.submit(np.zeros((1, 4), np.int32), 2, spec_tree=(4, 2))
