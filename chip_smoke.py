@@ -178,6 +178,25 @@ Phases, in order; any failure exits non-zero:
    tokens turns 2-3 avoided against the no-hierarchy engine; then 16
    seeded pages of bf16 and int8 pools read to host and written back
    into fresh pages, ``torch.equal``;
+6e. tracing, live weight hot-swap and cancel: (a) phase 5's engine and
+   traffic on the resident 8B model, untraced and under ``tracing()``
+   and ``flight_recording()`` in turns, every stream token-identical to
+   phase 5's and every run's launches phase 5's, each traced request's
+   timeline from ``engine.admit`` to ``engine.finish``, no event
+   dropped, one traced iteration under ``torch.profiler`` holding an
+   ``engine.iteration`` range; the ms a decode step traced and untraced
+   and the chrome trace's bytes; (b) after the 8B model is freed,
+   ``llama_3_8b(depth_factor=0.125)`` in bf16 (full width, 4 of 32
+   layers) on phase 5's settings: generation B (seed 1) written as the
+   reference's checkpoint (float32 arrays pickled, ``write_verified``)
+   into a temporary directory, ``adopt`` with 8 of phase 5's requests in
+   flight (they finish equal to an engine that never adopts), the other
+   4 after the install equal to a fresh engine on B, ``rollback`` back
+   to A, a copy of B with three bytes flipped refused
+   (``CorruptCheckpointError``) with the generation kept, and ``cancel``
+   of an active request (its pages back, the others A's streams); the
+   ms to read and verify, to place (GB/s) and to install, the stage →
+   install iterations and the peak memory;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -311,6 +330,7 @@ which rounds each step of the torch chain once, as it does.
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -698,12 +718,17 @@ def synthetic_images(n, size, classes, seed):
 
 # -- phase 1 and 2 ----------------------------------------------------------
 
-def card():
+def card_line():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    line = out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()[0]
+
+
+def card():
+    line = card_line()
     print(line, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1922,6 +1947,11 @@ def q8_rows(counts):
     return out
 
 
+#: phase 5's bf16 run, read by phase 6e: its launches, decode steps, wall
+#: seconds and device ms per decode step
+MAIN_PATH = {}
+
+
 def serve_llama_3_8b(model, cache_dtype=None):
     """The main path: ``traffic`` through the paged engine on SERVE's
     settings (pools of the model's dtype, or int8 with ``cache_dtype``),
@@ -1984,6 +2014,10 @@ def serve_llama_3_8b(model, cache_dtype=None):
     after = eng.stats
     steps = after["steps"] - before["steps"]
     chunks = after["prefill_chunks"] - before["prefill_chunks"]
+    if cache_dtype is None and bits is None:
+        # what phase 6e's traced rerun of this run is held to
+        MAIN_PATH.update(launches=dict(launches), steps=steps, wall_s=wall,
+                         ms_per_decode_step=t_dec.ms() / steps)
     for rid, (p, _) in zip(rids, reqs):
         if tuple(res[rid].shape) != (1, p.shape[1] + NEW_TOKENS):
             raise AssertionError("request %d returned %s, wanted %d tokens"
@@ -3467,6 +3501,353 @@ def page_round_trip(n=16, seed=7):
                                  % (dtype, equal, pinned))
 
 
+# -- phase 6e: tracing, live weight hot-swap and cancel ---------------------
+
+#: phase 6e(b)'s model: phase 10's cut of llama_3_8b (full width, 4 of 32
+#: layers, 1.92 B parameters).  A whole-8B checkpoint in the reference's
+#: format (float32 arrays in a pickle) is 32 GB on the host, and the phase
+#: reads it twice.
+HOTSWAP_DEPTH = 0.125
+#: phase 5's traffic split for 6e(b): the first 8 requests (one a slot,
+#: so all are admitted before adopt()) and the 4 submitted after it
+HOTSWAP_SPLIT = 8
+
+
+def timeline_problems(tracer, rids, tag="eng"):
+    """Each request's trace timeline must open with ``engine.admit`` and
+    close with ``engine.finish``: the requests where it does not."""
+    out = []
+    for rid in rids:
+        kinds = [e.etype for e in tracer.timeline("%s:%d" % (tag, rid))]
+        if kinds[:1] != ["engine.admit"] or kinds[-1:] != ["engine.finish"]:
+            out.append("request %d's timeline runs %s .. %s"
+                       % (rid, kinds[:1], kinds[-1:]))
+    return out
+
+
+def serve_traced(model, streams):
+    """Phase 6e(a): phase 5's engine settings and traffic on the resident
+    8B model, untraced and under ``tracing()`` and ``flight_recording()``
+    in turns (untraced, traced, traced, untraced) on one engine, warmed
+    up as phase 5's: every run's streams token-identical to phase 5's,
+    its launches phase 5's exactly (tracing adds no device work), each
+    traced request's timeline from ``engine.admit`` to ``engine.finish``,
+    no event dropped, no postmortem.  Logs each run's device ms a decode
+    step (CUDA events around ``step_pages``) and wall ms a decode step
+    (the run's host time over its decode steps) beside phase 5's, the
+    events recorded and the bytes of one ``export_chrome_trace``; then
+    one traced iteration under ``torch.profiler``, which must hold an
+    ``engine.iteration`` range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxtpu_torch import base
+    from mxtpu_torch.observability import (export_chrome_trace,
+                                           flight_recording, tracing)
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    eng = PagedContinuousBatchingEngine(model, **SERVE)
+    eng.submit(np.arange(64)[None], 2)           # warm-up, as phase 5's
+    eng.run()
+    reqs = traffic(model.vocab_size)
+    runs, problems = [], []
+    for traced in (False, True, True, False):
+        with contextlib.ExitStack() as stack:
+            if traced:
+                tr = stack.enter_context(tracing())
+                fl = stack.enter_context(flight_recording(256))
+            t_dec = stack.enter_context(Timed(model, "step_pages"))
+            torch.cuda.synchronize()
+            rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+            base.reset_counts()
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = len(t_dec.events)
+            run = dict(traced=traced, launches=base.counts(), steps=steps,
+                       wall_ms_per_decode_step=wall * 1e3 / steps,
+                       ms_per_decode_step=t_dec.ms() / steps)
+            parted = [j for j, r in enumerate(rids)
+                      if not np.array_equal(res[r].numpy(), streams[j])]
+            if parted:
+                problems.append("run %d: streams %r part from phase 5's"
+                                % (len(runs), parted))
+            if traced:
+                problems += timeline_problems(tr, rids)
+                run.update(events=len(tr.events()),
+                           dropped_events=tr.dropped_events,
+                           chrome_trace_bytes=len(
+                               export_chrome_trace().encode()),
+                           postmortems=len(fl.postmortems))
+            runs.append(run)
+    with tracing():
+        eng.submit(reqs[1][0], 4)
+        eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        eng.run()
+    # the host's ranges; the profiler mirrors each on the device's timeline
+    ranges = sum(1 for e in prof.events() if e.name == "engine.iteration"
+                 and e.device_type == DeviceType.CPU)
+    for run in runs:
+        log(phase="traced_rerun", **run)
+
+    def mean(key, traced):
+        vals = [r[key] for r in runs if r["traced"] == traced]
+        return sum(vals) / len(vals)
+
+    log(phase="traced_rerun_summary", card=card_line(),
+        profiled_iteration_ranges=ranges,
+        ms_per_decode_step=dict(traced=mean("ms_per_decode_step", True),
+                                untraced=mean("ms_per_decode_step", False),
+                                phase5=MAIN_PATH.get("ms_per_decode_step")),
+        wall_ms_per_decode_step=dict(
+            traced=mean("wall_ms_per_decode_step", True),
+            untraced=mean("wall_ms_per_decode_step", False),
+            phase5=MAIN_PATH["wall_s"] * 1e3 / MAIN_PATH["steps"]
+            if MAIN_PATH else None))
+    want = MAIN_PATH.get("launches", runs[0]["launches"])
+    for j, run in enumerate(runs):
+        if run["launches"] != want or (MAIN_PATH and run["steps"]
+                                       != MAIN_PATH["steps"]):
+            problems.append("run %d: launches %r in %d steps, phase 5's %r"
+                            % (j, run["launches"], run["steps"], want))
+        if run["traced"] and (run["dropped_events"] or run["postmortems"]):
+            problems.append("run %d: %d events dropped, %d postmortems"
+                            % (j, run["dropped_events"], run["postmortems"]))
+    if ranges < 1:
+        problems.append("no engine.iteration range in the profiled step")
+    if problems:
+        raise AssertionError("phase 6e(a): " + "; ".join(problems))
+
+
+def write_generation(named, path):
+    """One weight generation in the reference's checkpoint form: the
+    arrays of ``export_mxtpu_params`` (float32) → ``pickle.dumps({"params":
+    ...})`` → ``write_verified``.  Returns the bytes written."""
+    import pickle
+
+    from mxtpu_torch.resilience import write_verified
+
+    blob = pickle.dumps({"params": named})
+    write_verified(path, blob)
+    return len(blob)
+
+
+def corrupt_copy(src, dst, at=10, n=3):
+    """A copy of a verified checkpoint (payload and manifest) with ``n``
+    bytes flipped at byte ``at``."""
+    import shutil
+
+    shutil.copyfile(src, dst)
+    shutil.copyfile(src + ".mxmf", dst + ".mxmf")
+    with open(dst, "r+b") as f:
+        f.seek(at)
+        flipped = bytes(b ^ 0xFF for b in f.read(n))
+        f.seek(at)
+        f.write(flipped)
+
+
+def _sync(model):
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_streams(eng, reqs, n):
+    """Submit ``reqs`` at once and drain: their streams, in order."""
+    rids = [eng.submit(p, n, **kw) for p, kw in reqs]
+    res = eng.run()
+    return [res[r].numpy() for r in rids]
+
+
+def hotswap_run(model, fresh_b, path, reqs, cfg, n, split=HOTSWAP_SPLIT):
+    """Phase 6e(b)'s schedule on ``model`` (generation A), with the
+    verified checkpoint of generation B at ``path`` and ``fresh_b``, a
+    model that ``load_mxtpu_params`` gave B's arrays.  The references: an
+    engine on A that never adopts serving ``reqs[:split]``, one on
+    ``fresh_b`` serving ``reqs[split:]``.  Then one engine on A: the
+    first requests admitted, ``adopt(path)``, the rest submitted while B
+    is staged: the first finish equal to A's streams, the rest equal to
+    B's; ``rollback()``, and the first requests again equal A's; a copy
+    of B with three bytes flipped raises ``CorruptCheckpointError`` and
+    leaves the generation as it was; the first requests once more, one
+    of them cancelled after its second token: the others equal A's, its
+    output a prefix of A's stream, the pages in use back to their count
+    before.  Returns the record (times in ms on the host clock, the
+    model's device synchronized) and the problems found."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+    from mxtpu_torch.resilience import CorruptCheckpointError
+
+    first, second = reqs[:split], reqs[split:]
+    want_a = serve_streams(PagedContinuousBatchingEngine(model, **cfg),
+                           first, n)
+    want_b = serve_streams(PagedContinuousBatchingEngine(fresh_b, **cfg),
+                           second, n)
+    eng = PagedContinuousBatchingEngine(model, **cfg)
+    problems, rec = [], {}
+
+    def held(name, got, want):
+        parted = [i for i, (g, w) in enumerate(zip(got, want))
+                  if not np.array_equal(g, w)]
+        if parted or len(got) != len(want):
+            problems.append("%s: streams %r part" % (name, parted))
+
+    place = []
+    prepare = model.prepare_adoption
+
+    def timed_prepare(named):
+        t = time.perf_counter()
+        leaves = prepare(named)
+        _sync(model)
+        place.append((time.perf_counter() - t,
+                      sum(x.numel() * x.element_size() for x in leaves),
+                      sum(np.asarray(a).nbytes for a in named.values())))
+        return leaves
+
+    installs = []
+    install = eng._maybe_install_adoption
+
+    def timed_install():
+        gen = eng.stats["param_generation"]
+        t = time.perf_counter()
+        install()
+        _sync(model)
+        if eng.stats["param_generation"] != gen:
+            installs.append(time.perf_counter() - t)
+
+    eng._maybe_install_adoption = timed_install
+    model.prepare_adoption = timed_prepare
+    try:
+        rids = [eng.submit(p, n, **kw) for p, kw in first]
+        eng.step()                      # every one admitted, on A
+        t = time.perf_counter()
+        if eng.adopt(path) != 1:
+            problems.append("adopt staged another generation than 1")
+        rec["adopt_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        del model.prepare_adoption
+    later = [eng.submit(p, n, **kw) for p, kw in second]
+    res = eng.run()
+    held("in flight at adopt vs A", [res[r].numpy() for r in rids], want_a)
+    held("admitted after the install vs B", [res[r].numpy() for r in later],
+         want_b)
+    st = eng.stats
+    rec.update(stage_to_install_steps=st["last_adoption_steps"],
+               install_ms=installs[0] * 1e3 if installs else None,
+               place_ms=place[0][0] * 1e3, placed_bytes=place[0][1],
+               host_bytes=place[0][2],
+               place_gb_per_s=place[0][1] / place[0][0] / 1e9,
+               read_verify_unpickle_ms=rec["adopt_ms"] - place[0][0] * 1e3)
+    if (st["param_generation"], st["adoptions"]) != (1, 1) or not installs:
+        problems.append("after the install: %r" % st)
+    if eng.rollback() != 2:
+        problems.append("rollback staged another generation than 2")
+    held("after rollback vs A", serve_streams(eng, first, n), want_a)
+    bad = path + ".corrupt"
+    corrupt_copy(path, bad)
+    t = time.perf_counter()
+    try:
+        eng.adopt(bad)
+        problems.append("a corrupt checkpoint was adopted")
+    except CorruptCheckpointError:
+        rec["read_verify_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        for f in (bad, bad + ".mxmf"):
+            os.remove(f)
+    st = eng.stats
+    if (st["param_generation"], st["adoption_staged"],
+            st["adoption_failures"]) != (2, 0, 1):
+        problems.append("after the corrupt checkpoint: %r" % st)
+    in_use = st["blocks_in_use"]
+    rids = [eng.submit(p, n, **kw) for p, kw in first]
+    victim = rids[int(np.argmin([p.shape[1] for p, _ in first]))]
+    for _ in range(64 * len(first)):
+        eng.step()
+        slot = [s for s in eng._slots if s is not None and s.req.rid == victim]
+        if slot and slot[0].n_emitted >= 2:
+            break
+    if not eng.cancel(victim) or eng.status(victim) != "cancelled":
+        problems.append("cancel of request %d refused" % victim)
+    res = eng.run()
+    got = [res[r].numpy() for r in rids]
+    v = rids.index(victim)
+    held("beside the cancel vs A", got[:v] + got[v + 1:],
+         want_a[:v] + want_a[v + 1:])
+    cut = got[v].shape[1]
+    if not (first[v][0].shape[1] < cut < want_a[v].shape[1]
+            and np.array_equal(got[v], want_a[v][:, :cut])):
+        problems.append("the cancelled stream (%d tokens) is no prefix of "
+                        "A's" % cut)
+    rec.update(cancelled_tokens=cut - first[v][0].shape[1],
+               blocks_in_use=eng.stats["blocks_in_use"],
+               blocks_in_use_before=in_use)
+    if eng.stats["blocks_in_use"] != in_use:
+        problems.append("cancel left %d pages in use, %d before"
+                        % (eng.stats["blocks_in_use"], in_use))
+    return rec, problems
+
+
+def serve_hotswap():
+    """Phase 6e(b): live weight hot-swap and cancel at full width.
+    Generation A is ``llama_3_8b(depth_factor=0.125)`` in bf16 from seed
+    0, generation B the same from seed 1, written by
+    ``write_generation`` into a temporary directory (removed at the end);
+    ``hotswap_run`` on phase 5's engine settings and traffic, every
+    kernel's count set to 0 before it and K1, K2 and G1 (and the fused
+    norm) required to have launched after.  Logs the write's seconds
+    and bytes, the ms to read and verify B (the corrupt copy's refusal,
+    which reads it whole), the ms and GB/s to place B, the stage →
+    install iterations and the install's ms, and the peak memory."""
+    import shutil
+    import tempfile
+
+    from mxtpu_torch import base
+    from mxtpu_torch.models.convert import (export_mxtpu_params,
+                                            load_mxtpu_params)
+    from mxtpu_torch.models.transformer import llama_3_8b
+
+    torch.cuda.reset_peak_memory_stats()
+    models = []
+    for seed in (0, 1):
+        m = llama_3_8b(depth_factor=HOTSWAP_DEPTH, device="cuda")
+        init_weights(m, torch.Generator(device="cuda").manual_seed(seed),
+                     0.02)
+        models.append(m)
+    model = models[0]
+    named = export_mxtpu_params(models.pop())
+    fresh_b = llama_3_8b(depth_factor=HOTSWAP_DEPTH, device="cuda")
+    load_mxtpu_params(fresh_b, named)
+    tmp = tempfile.mkdtemp(prefix="hotswap-")
+    try:
+        path = os.path.join(tmp, "generation-b.ckpt")
+        t = time.perf_counter()
+        nbytes = write_generation(named, path)
+        write_s = time.perf_counter() - t
+        del named
+        gc.collect()
+        base.reset_counts()
+        rec, problems = hotswap_run(model, fresh_b, path,
+                                    traffic(model.vocab_size), SERVE,
+                                    NEW_TOKENS)
+        launches = base.counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(phase="hotswap", card=card_line(), layers=len(model.layers),
+        params=sum(p.numel() for p in model.parameters()),
+        checkpoint_bytes=nbytes, write_s=write_s, launches=launches,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+    for k in ("paged_attention", "paged_prefill", "rows_linear",
+              "rows_norm_linear"):
+        if not launches.get(k):
+            problems.append("the hot-swap path never launched %s" % k)
+    if problems:
+        raise AssertionError("phase 6e(b): " + "; ".join(problems))
+
+
 def lane_invariant(args, kw):
     """K1 invariant (b) on a captured main-path window (``kw``: an int8
     pool's scales): lane w equals a W = 1 call at pos + w, bit for
@@ -4561,9 +4942,15 @@ def main():
     tick("6t samplers")
     serve_sessions(model)
     tick("6h hierarchical cache and sessions")
+    serve_traced(model, streams)
+    tick("6e(a) traced rerun")
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    serve_hotswap()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tick("6e(b) hot-swap and cancel")
     results = {}
     # phases 5q and 6q: the weight-only int8 and int4 model
     quant_launches = {}

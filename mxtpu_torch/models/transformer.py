@@ -65,6 +65,12 @@ cache write still do.
 
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
+
+Live weight hot-swap (the serving engines' ``adopt``): ``TransformerLM.
+prepare_adoption`` places a checkpoint's arrays on the device beside the
+live weights and ``install_leaves`` points the parameters at them, so
+every later launch reads the new generation; nothing caches a copy or a
+pointer of a weight across calls.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from ..ops.tensor import (cache_dequant, cache_permute_span,
                           paged_cache_write_rows_q8, paged_cache_write_span,
                           paged_cache_write_span_pre_q8,
                           paged_cache_write_span_q8, resolve_cache_dtype)
+from .convert import mxtpu_name, strip_instance_prefix
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
@@ -742,6 +749,65 @@ class TransformerLM(nn.Module):
             src = rows[:, at:at + nb].contiguous().view(t.dtype)
             t.index_copy_(0, idx, src.reshape(n, *t.shape[1:]))
             at += nb
+
+    # -- live weight hot-swap -----------------------------------------------
+    def _adoption_params(self):
+        """[(reference name, parameter)] sorted by name, the reference
+        decoder's order: the prefix-stripped names ``load_mxtpu_params``
+        uses (a quantized layer's int8 payload and ``wscale`` included;
+        a tied head is the embedding, named once)."""
+        return sorted(((mxtpu_name(n), p) for n, p in self.named_parameters()),
+                      key=lambda np_: np_[0])
+
+    def _live_param_leaves(self):
+        """The tensors every later call reads, in ``_adoption_params``
+        order (rollback keeps them to install again)."""
+        return tuple(p.data for _, p in self._adoption_params())
+
+    def prepare_adoption(self, named):
+        """Validate ``{name: host array}`` against this model's
+        parameters and place each array on the model's device in its
+        parameter's dtype, WITHOUT installing anything (the counterpart
+        of the reference decoder's ``prepare_adoption``): the engines
+        stage a checkpoint while streams are in flight and install it at
+        an empty iteration boundary.  Extra names are ignored.  A name
+        matches exactly first, else with the outermost instance prefix
+        stripped (``transformerlm1_embed_weight``); an ambiguous stripped
+        name is a mismatch.  Raises ``ValueError`` on a missing name or a
+        shape that differs."""
+        stripped = {}
+        for k in named:
+            key = strip_instance_prefix(k)
+            stripped[key] = None if key in stripped else k
+        leaves = []
+        for name, p in self._adoption_params():
+            src = name if name in named else stripped.get(name)
+            if src is None:
+                raise ValueError("checkpoint is missing parameter %r — "
+                                 "architecture mismatch" % name)
+            host = np.asarray(named[src])
+            arr = torch.from_numpy(host if host.flags.writeable
+                                   else host.copy())
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(
+                    "checkpoint parameter %r has shape %r, block expects "
+                    "%r — architecture mismatch"
+                    % (name, tuple(arr.shape), tuple(p.shape)))
+            leaves.append(arr.to(device=p.device, dtype=p.dtype))
+        return tuple(leaves)
+
+    @torch.no_grad()
+    def install_leaves(self, leaves):
+        """Point every parameter at its tensor in ``leaves`` (from
+        :meth:`prepare_adoption`, or a :meth:`_live_param_leaves` kept
+        for rollback): every later call, and so every kernel launch,
+        reads the new tensors; no copy is made."""
+        params = self._adoption_params()
+        if len(leaves) != len(params):
+            raise ValueError("%d leaves for %d parameters"
+                             % (len(leaves), len(params)))
+        for (_, p), leaf in zip(params, leaves):
+            p.data = leaf
 
     @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens, max_length=None,

@@ -106,8 +106,37 @@ pooled decode step was issued (stream order, no side stream), and the
 request admits at the next one; a request defers so once an attempt, so
 one whose restore does not fit then recomputes its prefix.
 
-Not in this slice: tracing, ``cancel``, weight hot-swap (``adopt`` /
-``rollback``), tensor parallelism.
+Observability (both engines, the reference's emit sites): while the
+process tracer or a flight recorder is active
+(``mxtpu_torch.observability``), each iteration is an
+``engine.iteration`` span (a ``torch.profiler.record_function`` range
+under a recording profiler) and each request's path is a timeline of
+typed events under ``"<ledger_tag>:<rid>"`` (``engine.admit``,
+``engine.prefix_hit``, ``engine.cow``, ``engine.prefill_chunk``,
+``engine.draft``, ``engine.decode``, ``engine.verify``,
+``engine.swap_out``, ``engine.swap_in``, ``engine.defer``,
+``engine.quarantine``, ``engine.requeue``, ``engine.shed``,
+``engine.cancel``, ``engine.finish``); quarantines, sheds and failed
+adoptions leave flight-recorder postmortems.  Every site is guarded by
+``tracer.active``: tracing off costs one attribute read a site, and on
+it is host bookkeeping only — the same launches, the same streams.
+
+External control: ``cancel(rid)`` finishes a queued request
+``cancelled`` with an empty output, or evicts an active one through the
+scrub path (the paged engine returns its pages) with its partial output.
+Live weight hot-swap: ``adopt(path)`` reads a verified checkpoint
+(``resilience.checkpoint``; the ``serving.adopt`` site fires first), has
+the model place its arrays beside the live weights
+(``TransformerLM.prepare_adoption``) and stages them; admissions wait
+while a generation is staged, and it installs
+(``TransformerLM.install_leaves``) at the first iteration boundary with
+no occupied slot, so in-flight streams finish on the generation they
+were admitted under and every later admission rides the new one; the
+cached prefix state is dropped at install.  ``rollback()`` stages the
+previous generation the same way; ``MXTPU_HOTSWAP=0`` refuses
+``adopt``.
+
+Not in this slice: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -122,6 +151,8 @@ import torch
 from ..base import LoadShedError, MXTPUError, parse_bytes, resolve_device
 from ..models import sampler
 from ..models.transformer import TransformerLM, pool_tensors
+from ..observability.flight import get_flight as _flight
+from ..observability.trace import get_tracer as _tracer
 from ..ops.tensor import resolve_cache_dtype
 from ..resilience.counters import bump as _bump
 from ..resilience.faults import inject as _inject
@@ -286,11 +317,12 @@ class _Slot:
     from."""
 
     __slots__ = ("req", "row", "Tp", "pos", "emitted", "n_emitted", "gen",
-                 "history")
+                 "history", "param_gen")
 
-    def __init__(self, req, row):
+    def __init__(self, req, row, param_gen=0):
         self.req = req
         self.row = row
+        self.param_gen = param_gen    # weight generation at admission
         self.Tp = req.prompt.shape[1]
         self.pos = None
         self.emitted = []
@@ -309,8 +341,8 @@ class _PagedSlot(_Slot):
 
     __slots__ = ("chunks", "chunk_i", "cow")
 
-    def __init__(self, req, row, chunks, cow):
-        super().__init__(req, row)
+    def __init__(self, req, row, chunks, cow, param_gen=0):
+        super().__init__(req, row, param_gen)
         self.chunks = chunks          # [(start, T_actual, T_bucketed)]
         self.chunk_i = 0
         self.cow = cow
@@ -364,6 +396,9 @@ class ContinuousBatchingEngine:
         submit past it sheds with :class:`LoadShedError`.
     clock : the deadlines' clock, seconds (``time.monotonic`` unless
         given).
+    ledger_tag : the engine's correlation-id scope in traces: its
+        requests' events carry ``"<ledger_tag>:<rid>"`` (``"eng"`` unless
+        given; engines traced side by side need distinct tags).
     """
 
     #: whether ``submit(session=...)`` is honoured (the paged engine's
@@ -373,7 +408,8 @@ class ContinuousBatchingEngine:
     def __init__(self, model, num_slots: int = 4, max_length: int = 256,
                  spec_k: int = 0, spec_ngram: int = 3, spec_tree=None,
                  draft_block=None, history: int = 1024, cache_dtype=None,
-                 device=None, max_pending: Optional[int] = None, clock=None):
+                 device=None, max_pending: Optional[int] = None, clock=None,
+                 ledger_tag: Optional[str] = None):
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0, got %d" % spec_k)
         self._device = resolve_device(device)
@@ -453,6 +489,18 @@ class ContinuousBatchingEngine:
         self._slot_iterations = 0      # slot participations in decode
         #                                calls: tokens per slot-iteration
         #                                is the speculation multiplier
+        # -- live weight hot-swap ------------------------------------------
+        self._param_gen = 0                 # current weight generation
+        self._staged_adoption = None        # placed leaves awaiting an
+        #                                     empty iteration boundary
+        self._prev_leaves = None            # rollback target
+        self._adoption_staged_step = None   # _steps when staged
+        self._adoptions = 0
+        self._adoption_failures = 0
+        self._rollbacks = 0
+        self._last_adoption_steps = 0       # stage -> install, iterations
+        # -- observability -------------------------------------------------
+        self._trace_tag = ledger_tag or "eng"
         self._init_cache()
 
     def _init_cache(self):
@@ -460,6 +508,28 @@ class ContinuousBatchingEngine:
         self._pool = self._model.init_cache(self._num_slots,
                                             self._max_length,
                                             self._cache_dtype)
+
+    # -- observability plumbing --------------------------------------------
+    def _trace_key(self, rid) -> str:
+        """Correlation id of one engine request: ``"<tag>:<rid>"``."""
+        return "%s:%s" % (self._trace_tag, rid)
+
+    def _emit(self, etype, rid, **fields):
+        """Record one trace event of request ``rid`` (None: the engine's
+        own); a no-op while tracing and flight recording are both off."""
+        tr = _tracer()
+        if tr.active:
+            tr.emit(etype,
+                    rid=None if rid is None else self._trace_key(rid),
+                    **fields)
+
+    def _flight_failure(self, kind, rid=None, **context):
+        """A flight-recorder postmortem of a failure path (no-op while the
+        recorder is off)."""
+        fl = _flight()
+        if fl.active:
+            rids = () if rid is None else (self._trace_key(rid),)
+            fl.failure(kind, rids=rids, engine=self._trace_tag, **context)
 
     # -- introspection ---------------------------------------------------
     @property
@@ -491,11 +561,19 @@ class ContinuousBatchingEngine:
             "draft_hit_rate": (self._accepted_tokens / self._drafted_tokens
                                if self._drafted_tokens else 0.0),
             "verify_calls": self._verify_calls,
+            # live weight hot-swap
+            "param_generation": self._param_gen,
+            "adoptions": self._adoptions,
+            "adoption_failures": self._adoption_failures,
+            "rollbacks": self._rollbacks,
+            "adoption_staged": int(self._staged_adoption is not None),
+            "last_adoption_steps": self._last_adoption_steps,
         }
 
     def status(self, rid) -> str:
-        """``queued`` / ``active`` / ``ok`` / ``failed`` / ``expired``
-        (``unknown`` for a rid not issued or no longer remembered)."""
+        """``queued`` / ``active`` / ``ok`` / ``failed`` / ``expired`` /
+        ``cancelled`` (``unknown`` for a rid not issued or no longer
+        remembered)."""
         return self._status.get(rid, "unknown")
 
     def error(self, rid) -> Optional[dict]:
@@ -561,6 +639,10 @@ class ContinuousBatchingEngine:
                 len(self._queue) >= self._max_pending:
             self._shed += 1
             _bump("shed_requests")
+            self._emit("engine.shed", None, queue_depth=len(self._queue),
+                       limit=self._max_pending)
+            self._flight_failure("shed", queue_depth=len(self._queue),
+                                 limit=self._max_pending)
             raise LoadShedError(
                 "admission queue full (%d pending >= max_pending=%d): "
                 "request shed — back off and resubmit"
@@ -604,7 +686,8 @@ class ContinuousBatchingEngine:
     def _admit(self, req, row):
         """Slot prefill of the whole prompt, then the first token."""
         _inject("serving.admit", key=req.rid)
-        slot = _Slot(req, row)
+        self._emit("engine.admit", req.rid, prompt_tokens=req.prompt.shape[1])
+        slot = _Slot(req, row, self._param_gen)
         self._slots[row] = slot
         self._status[req.rid] = "active"
         last = self._slot_prefill(self._model, self._pool, self._cache_dtype,
@@ -691,6 +774,7 @@ class ContinuousBatchingEngine:
         self._results[req.rid] = torch.from_numpy(np.concatenate(
             [req.prompt, np.asarray(toks, np.int32).reshape(1, -1)], axis=1))
         self._terminal(req.rid, status)
+        self._emit("engine.finish", req.rid, status=status, emitted=len(toks))
 
     def _retire(self, row, req):
         """Return a row that finished ``ok`` (the paged engine first
@@ -735,6 +819,8 @@ class ContinuousBatchingEngine:
             req.retries_left -= 1
             self._retries += 1
             _bump("retries")
+            self._emit("engine.requeue", req.rid,
+                       retries_left=req.retries_left, site=site)
             self._status[req.rid] = "queued"
             self._queue.append(req)
         else:
@@ -746,6 +832,10 @@ class ContinuousBatchingEngine:
         self._scrub_row(row)
         self._quarantined += 1
         _bump("quarantined_slots")
+        self._emit("engine.quarantine", req.rid, site=site,
+                   error=type(exc).__name__, step=self._steps)
+        self._flight_failure("quarantine", rid=req.rid, site=site,
+                             error=type(exc).__name__, step=self._steps)
         self._requeue_or_fail(req, exc, site, emitted=emitted, row=row)
 
     def _quarantine(self, row, exc, site):
@@ -814,6 +904,10 @@ class ContinuousBatchingEngine:
         drafts = self._draft_phase(active)
         if not active:
             return
+        if drafts and _tracer().active:
+            for i, d in sorted(drafts.items()):
+                self._emit("engine.draft", self._slots[i].req.rid,
+                           proposed=len(d))
         if not drafts:
             self._decode_plain(active)
         elif any(isinstance(d, _TreeDraft) for d in drafts.values()):
@@ -834,11 +928,15 @@ class ContinuousBatchingEngine:
             toks = self._last_tokens.cpu().numpy()
             for i in hist:
                 self._slots[i].history.append(int(toks[i]))
+        trace_on = _tracer().active
         for i in active:
             s = self._slots[i]
             s.pos += 1
             s.n_emitted += 1
             s.emitted.append(self._last_tokens)
+            if trace_on:
+                self._emit("engine.decode", s.req.rid, pos=s.pos,
+                           emitted=s.n_emitted)
             try:
                 done = self._slot_done(s)
             except Exception as exc:        # the per-slot eos host read
@@ -1028,8 +1126,7 @@ class ContinuousBatchingEngine:
         match = (M_h[:, :W - 1] == win_h[:, 1:]) & \
             (np.arange(W - 1)[None, :] < (vl - 1)[:, None])
         counts = 1 + np.cumprod(match, axis=1).sum(axis=1)
-        for i in self._commit(active, M_h, counts, states, nreal):
-            self._finish(i)
+        self._commit(active, M_h, counts, states, nreal, vl, finish=True)
 
     def _decode_verify_tree(self, active, drafts):
         """Tree speculative iteration: ONE pooled verify call scores
@@ -1090,7 +1187,8 @@ class ContinuousBatchingEngine:
         path_lane = (((depth[:, :, None] == lane[None, None, :])
                       & accepted[:, :, None]) * lane[None, :, None]).sum(1)
         path_M = np.take_along_axis(M_h, path_lane, axis=1)
-        finished = self._commit(active, path_M, counts, states, nreal)
+        finished = self._commit(active, path_M, counts, states, nreal, vl,
+                                tree=drafts)
         src = np.full((B, W), -1, np.int64)
         for i in active:
             m = int(counts[i])
@@ -1103,11 +1201,15 @@ class ContinuousBatchingEngine:
         for i in finished:
             self._finish(i)
 
-    def _commit(self, active, M_h, counts, states, nreal):
+    def _commit(self, active, M_h, counts, states, nreal, vl, finish=False,
+                tree=None):
         """Emit each row's first counts[b] candidates M_h[b] (cut at
         eos): advance its position, draw stream, history and penalty
-        row.  Returns the rows that are done, for the caller to finish
-        (after the tree fix-up, which reads their tables)."""
+        row.  With ``finish`` a row that is done finishes at once (the
+        linear window); else the done rows are returned for the caller
+        to finish (after the tree fix-up, which reads their tables).
+        ``vl`` (B,) is each row's valid window length and ``tree`` the
+        drafts of a tree iteration, for the ``engine.verify`` events."""
         W = M_h.shape[1]
         rows = np.arange(len(counts))
         last = M_h[rows, np.clip(counts - 1, 0, W - 1)]
@@ -1118,6 +1220,7 @@ class ContinuousBatchingEngine:
         self._drafted_tokens += nreal
         self._slot_iterations += len(active)
         finished = []
+        trace_on = _tracer().active
         for i in active:
             s = self._slots[i]
             m = int(counts[i])
@@ -1130,6 +1233,11 @@ class ContinuousBatchingEngine:
                 if hits.size:           # stop AT eos, as sequential does
                     m = int(hits[0]) + 1
                     toks = toks[:m]
+            if trace_on:
+                fields = dict(drafted=int(vl[i]) - 1, accepted=m - 1)
+                if tree is not None:
+                    fields["tree"] = isinstance(tree.get(i), _TreeDraft)
+                self._emit("engine.verify", s.req.rid, **fields)
             self._accepted_tokens += m - 1
             self._tokens_generated += m
             s.pos += m
@@ -1140,7 +1248,10 @@ class ContinuousBatchingEngine:
                 s.history.extend(int(t) for t in toks)
             s.emitted.append(_SpecTokens(toks.copy()))
             if self._slot_done(s):
-                finished.append(i)
+                if finish:
+                    self._finish(i)
+                else:
+                    finished.append(i)
         return finished
 
     def _sample_window(self, logits, active, window, W, perm=None,
@@ -1239,18 +1350,21 @@ class ContinuousBatchingEngine:
         once).  The paged engine defers at the queue head while its
         pages run short."""
         for i in range(self._num_slots):
-            if not self._queue:
+            # a staged weight generation waits for an empty boundary: a
+            # fresh admission would pin the old one and starve the install
+            if not self._queue or self._staged_adoption is not None:
                 break
             if self._slots[i] is not None:
                 continue
             req = self._queue.pop(0)
             if req.max_new_tokens <= 0:
-                self._results[req.rid] = torch.from_numpy(req.prompt.copy())
-                self._terminal(req.rid)
+                self._store_result(req, [], 0, "ok")
                 continue
             try:
                 self._admit(req, i)
             except _AdmissionDeferred:
+                self._emit("engine.defer", req.rid,
+                           free_pages=self._bp.free_count)
                 self._queue.insert(0, req)
                 break
             except Exception as exc:
@@ -1267,19 +1381,34 @@ class ContinuousBatchingEngine:
         runs a deferred restore here)."""
 
     def step(self):
-        """One iteration: the deadline sweep, ONE prefill chunk per
-        prefilling slot (paged), admissions (the paged engine deferring
-        at the queue head on transient page exhaustion), the
-        ``serving.step`` site once a decoding slot, then ONE pooled
-        decode step or verify call over every decoding slot.  Returns
-        the ids of the requests that reached a terminal status this
-        iteration."""
+        """One iteration: the deadline sweep, the install of a staged
+        weight generation once no slot is occupied, ONE prefill chunk per
+        prefilling slot (paged), admissions (none while a generation is
+        staged; the paged engine deferring at the queue head on transient
+        page exhaustion), the ``serving.step`` site once a decoding slot,
+        then ONE pooled decode step or verify call over every decoding
+        slot.  Returns the ids of the requests that reached a terminal
+        status this iteration.  While tracing, the iteration is one
+        ``engine.iteration`` span."""
+        tr = _tracer()
+        if not tr.active:
+            return self._step_impl()
+        with tr.span("engine.iteration", tag=self._trace_tag,
+                     step=self._steps):
+            return self._step_impl()
+
+    def _step_impl(self):
         finished_before = set(self._results)
         self._evict_expired()
+        self._maybe_install_adoption()
         self._advance_prefills()
         self._admit_queued()
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
+        # every decoding slot rides the generation it was admitted under
+        # (installs happen only at empty boundaries)
+        assert all(self._slots[i].param_gen == self._param_gen
+                   for i in active), "slot outlived a weight install"
         for i in list(active):
             try:
                 _inject("serving.step", key=self._slots[i].req.rid)
@@ -1295,6 +1424,154 @@ class ContinuousBatchingEngine:
         """Pop one finished request's output: (1, Tp + generated) int32
         tensor on the CPU."""
         return self._results.pop(rid)
+
+    # -- external control --------------------------------------------------
+    def cancel(self, rid) -> bool:
+        """Cancel one non-terminal request now: a queued one finishes
+        ``cancelled`` with an empty output (its prompt); an active one is
+        evicted through the scrub path every failure takes (the paged
+        engine returns its pages) and finishes ``cancelled`` with its
+        partial output.  Every other stream is untouched.  Returns False
+        for a rid that is unknown or already terminal."""
+        for i, req in enumerate(self._queue):
+            if req.rid == rid:
+                del self._queue[i]
+                self._emit("engine.cancel", rid)
+                self._store_result(req, [], 0, "cancelled")
+                return True
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.req.rid == rid:
+                self._slots[i] = None
+                self._scrub_row(i)
+                self._emit("engine.cancel", rid)
+                self._store_result(slot.req, slot.emitted, i, "cancelled")
+                return True
+        return False
+
+    # -- live weight hot-swap ----------------------------------------------
+    @staticmethod
+    def _hotswap_enabled():
+        """``MXTPU_HOTSWAP`` (default on): ``0`` refuses every ``adopt``
+        in the process, so an operator can freeze the weights."""
+        return os.environ.get("MXTPU_HOTSWAP", "1").strip().lower() \
+            not in ("0", "false", "off")
+
+    def adopt(self, checkpoint):
+        """Stage a verified checkpoint as the NEXT weight generation; it
+        installs at the first iteration boundary with no occupied slot.
+        Returns the staged generation number.
+
+        - The checkpoint is CRC-verified on the host
+          (:func:`~mxtpu_torch.resilience.checkpoint.verify`, its
+          manifest required) and its arrays checked against the model's
+          parameters before anything changes: a corrupt or torn file
+          raises :class:`~mxtpu_torch.resilience.CorruptCheckpointError`
+          (a mismatched one ``ValueError``) and the engine keeps serving
+          its generation untouched.
+        - In-flight streams finish on the generation they were admitted
+          under: the install waits for every slot to drain, and no
+          request is admitted while a generation is staged.
+        - Requests admitted after the install ride the new generation;
+          the cached prefix state (index, pinned and host tiers,
+          sessions) is dropped at install, its K/V being the old
+          weights'.
+        - :meth:`rollback` stages the previous generation the same way.
+
+        ``checkpoint`` is the path of a pickle of ``{"params": {name:
+        array}, ...}`` or of ``{name: array}`` (the reference's names,
+        instance prefix or not), written by ``write_verified``.  The
+        ``serving.adopt`` site fires first, keyed by the file's basename:
+        a raise is an adoption that never started."""
+        import pickle
+
+        from ..resilience.checkpoint import (CorruptCheckpointError,
+                                             verify as _ckpt_verify)
+
+        if not self._hotswap_enabled():
+            raise RuntimeError(
+                "live weight hot-swap is disabled (MXTPU_HOTSWAP=0) — "
+                "adopt() refused; the serving generation is frozen")
+        name = os.path.basename(str(checkpoint))
+        try:
+            _inject("serving.adopt", key=name)
+            with open(checkpoint, "rb") as f:
+                payload = f.read()
+            _ckpt_verify(str(checkpoint), required=True, data=payload)
+            try:
+                blob = pickle.loads(payload)
+            except Exception as exc:
+                raise CorruptCheckpointError(
+                    "checkpoint payload failed to unpickle: %s" % exc,
+                    path=str(checkpoint))
+            del payload
+            named = blob.get("params", blob) if isinstance(blob, dict) \
+                else None
+            if not isinstance(named, dict):
+                raise CorruptCheckpointError(
+                    "checkpoint payload is not a params mapping (got %s)"
+                    % type(blob).__name__, path=str(checkpoint))
+            leaves = self._model.prepare_adoption(named)
+        except Exception as exc:
+            self._adoption_failures += 1
+            _bump("adoption_failures")
+            self._emit("serving.adopt", None, stage="failed",
+                       checkpoint=name, error=type(exc).__name__,
+                       param_generation=self._param_gen)
+            self._flight_failure("adoption_failed", checkpoint=name,
+                                 error=type(exc).__name__,
+                                 param_generation=self._param_gen)
+            raise
+        return self._stage_leaves(leaves, name)
+
+    def rollback(self):
+        """Stage the PREVIOUS weight generation (kept on the device until
+        the next install, so no checkpoint is read).  Same boundary
+        semantics as :meth:`adopt`; raises ``RuntimeError`` when no
+        adoption has installed yet."""
+        if self._prev_leaves is None:
+            raise RuntimeError(
+                "rollback() has no previous weight generation — no "
+                "adoption has installed on this engine yet")
+        self._rollbacks += 1
+        _bump("adoption_rollbacks")
+        self._emit("serving.rollback", None,
+                   param_generation=self._param_gen)
+        return self._stage_leaves(self._prev_leaves, "<rollback>")
+
+    def _stage_leaves(self, leaves, name):
+        """The tail of adopt and rollback: park the placed leaves; the
+        admissions wait until the slots drain to an empty boundary."""
+        self._staged_adoption = leaves
+        self._adoption_staged_step = self._steps
+        self._emit("serving.adopt", None, stage="staged", checkpoint=name,
+                   param_generation=self._param_gen,
+                   active_slots=self.active)
+        return self._param_gen + 1
+
+    def _maybe_install_adoption(self):
+        """Iteration-boundary install: with a generation staged and no
+        occupied slot, point the model at the staged leaves (keeping the
+        live ones for rollback), bump the generation and drop every
+        cached prefix (computed under the old weights).  Runs first in
+        the iteration, so its admissions already ride the new
+        generation."""
+        if self._staged_adoption is None:
+            return
+        if any(s is not None for s in self._slots):
+            return                      # streams still on the old one
+        self._prev_leaves = self._model._live_param_leaves()
+        self._model.install_leaves(self._staged_adoption)
+        self._staged_adoption = None
+        self._param_gen += 1
+        self._last_adoption_steps = self._steps - self._adoption_staged_step
+        self._adoption_staged_step = None
+        self._adoptions += 1
+        _bump("adoptions")
+        freed = self.drop_cache()
+        self._emit("serving.adopt", None, stage="installed",
+                   param_generation=self._param_gen,
+                   latency_steps=self._last_adoption_steps,
+                   dropped_pages=freed)
 
     def _iterations_left(self):
         """An upper bound on the iterations the queue and the slots still
@@ -1380,7 +1657,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  history: int = 1024, cache_dtype=None, device=None,
                  max_pending: Optional[int] = None, clock=None,
                  pin_bytes=None, host_cache_bytes=None,
-                 overlap_swaps: bool = False):
+                 overlap_swaps: bool = False,
+                 ledger_tag: Optional[str] = None):
         bs = int(block_size)
         chunk = int(prefill_chunk)
         if bs < 1:
@@ -1414,7 +1692,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          spec_ngram=spec_ngram, spec_tree=spec_tree,
                          draft_block=draft_block, history=history,
                          cache_dtype=cache_dtype, device=device,
-                         max_pending=max_pending, clock=clock)
+                         max_pending=max_pending, clock=clock,
+                         ledger_tag=ledger_tag)
 
     def _init_cache(self):
         """The page pool, its allocator, the prefix index and the
@@ -1530,8 +1809,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 content = None
         if content is not None:
             self._hc.spill(chain, content)
+            self._emit("engine.swap_out", None, pages=len(chain.pages),
+                       dropped=False)
             self._swap_outs += len(chain.pages)
         else:
+            self._emit("engine.swap_out", None, pages=len(chain.pages),
+                       dropped=True)
             self._hc.drop_chain(chain)
 
     def _enforce_pin_budget(self):
@@ -1602,6 +1885,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         finally:
             for bid in full:
                 self._bp.release(bid)
+        self._emit("engine.swap_in", req.rid, pages=len(fresh))
         self._swap_ins += len(fresh)
         return True
 
@@ -1702,6 +1986,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if need > self._bp.capacity:
             self._shed += 1
             _bump("shed_requests")
+            self._emit("engine.shed", None, pages_needed=need,
+                       pool_capacity=self._bp.capacity)
+            self._flight_failure("shed", pages_needed=need,
+                                 pool_capacity=self._bp.capacity)
             raise LoadShedError(
                 "request needs %d page(s) > pool capacity %d "
                 "(block_size=%d): can never be admitted — shed"
@@ -1739,6 +2027,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         are held before any reclaim, so a spill cannot free them."""
         _inject("serving.admit", key=req.rid)
         Tp = req.prompt.shape[1]
+        self._emit("engine.admit", req.rid, prompt_tokens=Tp)
         _inject("serving.prefix_lookup", key=req.rid)
         full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
         if self._overlap_swaps:
@@ -1781,14 +2070,18 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if full or partial:
             self._prefix_hits += 1
         if n_shared:
+            self._emit("engine.prefix_hit", req.rid, tokens=n_shared,
+                       pages=len(full), session=req.session is not None)
             self._prefill_tokens_avoided += n_shared
             self._hc.touch_prefix(req.prompt[0], Tp - 1)
             if req.session is not None:
                 self._session_hits += 1
         if partial:
             cow = (partial[0], pages[len(full)])
+            self._emit("engine.cow", req.rid, src=int(partial[0]),
+                       dst=int(pages[len(full)]))
             self._cow_copies += 1
-        self._slots[row] = _PagedSlot(req, row, chunks, cow)
+        self._slots[row] = _PagedSlot(req, row, chunks, cow, self._param_gen)
         self._status[req.rid] = "active"
         self._swap_attempted.discard(req.rid)
         self._advance_prefill(row)
@@ -1799,6 +2092,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         slot = self._slots[row]
         req = slot.req
         start, Tact, Tb = slot.chunks[slot.chunk_i]
+        self._emit("engine.prefill_chunk", req.rid, index=slot.chunk_i,
+                   start=start, tokens=Tact)
         raw = np.zeros((1, Tb), np.int64)
         raw[0, :Tact] = req.prompt[0, start:start + Tact]
         if slot.cow is not None:

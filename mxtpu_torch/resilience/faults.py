@@ -6,7 +6,7 @@ Every injection is counter-driven: a plan names a site, a hit number and
 an action, and the Nth matching ``inject()`` call fires it, identically
 on every rerun.  No randomness anywhere.
 
-Sites woven into the port's serving engines (``SITES`` below):
+Sites woven into the port (``SITES`` below):
 
 ==========================  ==============================================
 site                        fires at
@@ -33,14 +33,25 @@ site                        fires at
                             keyed by request id, before its proposal
 ``serving.verify``          once per slot in a pooled verify call, keyed
                             by request id, before the call
+``serving.adopt``           first thing in an engine's ``adopt()``, keyed
+                            by the checkpoint's basename: a raise is an
+                            adoption that never started
+``ckpt.write``              before a verified checkpoint's first byte
+                            lands (``resilience.checkpoint``), keyed by
+                            basename
+``ckpt.verify``             at each checkpoint verification, keyed by
+                            basename
 ==========================  ==============================================
 
 ``inject(site, key=...)`` takes any site name: the table is the
-documented surface, not a closed set.
+documented surface, not a closed set.  The reference declares more sites
+(gateway, transport, training); the port declares the ones its code
+fires.
 
-A plan that fires emits no trace event here: the reference's
-``_trace_fired`` hook records each firing in its tracer and flight
-recorder, which wait for the port of ``mxtpu/observability``.
+Every firing (raise or delay) is also a trace event: ``fault.<site>``
+for a site with a registered event type, ``fault.unregistered`` with
+the site in its fields otherwise (``_trace_fired``; recorded only while
+the tracer or a flight recorder is active).
 
 Plan grammar (one or more ``;``-separated rules)::
 
@@ -90,7 +101,8 @@ __all__ = ["InjectedFault", "FaultRule", "FaultPlan", "fault_plan",
 #: the documented injection sites (see module docstring for locations)
 SITES = ("serving.step", "serving.admit", "serving.prefix_lookup",
          "serving.block_alloc", "serving.swap_out", "serving.swap_in",
-         "serving.draft", "serving.verify")
+         "serving.draft", "serving.verify", "serving.adopt",
+         "ckpt.write", "ckpt.verify")
 
 
 class InjectedFault(MXTPUError):
@@ -229,6 +241,27 @@ class FaultRule:
             self.site, self.action, self.hits, self.fired)
 
 
+def _trace_fired(site: str, key: Optional[str], rule: "FaultRule",
+                 action: str) -> None:
+    """The trace event of a PLAN FIRING: a fired raise or delay lands in
+    the structured trace and the flight recorder's rings as
+    ``fault.<site>``, so the postmortem of a faulted run names which rule
+    hit where.  A site outside the taxonomy emits ``fault.unregistered``
+    with the site in its fields.  Imported lazily so this module stays
+    import-light."""
+    from ..observability.trace import EVENT_TYPES, get_tracer
+    tr = get_tracer()
+    if not tr.active:
+        return
+    etype = "fault." + site
+    fields = {"site": site, "action": action, "hit": rule.hits}
+    if key is not None:
+        fields["key"] = str(key)
+    if etype not in EVENT_TYPES:
+        etype = "fault.unregistered"
+    tr.emit(etype, **fields)
+
+
 class FaultPlan:
     """A parsed set of rules plus the per-activation hit counters.
 
@@ -258,9 +291,11 @@ class FaultPlan:
             rule.fired += 1
             if rule.action == "delay":
                 bump("faults_delayed")
+                _trace_fired(site, key, rule, "delay")
                 self._sleep(rule.seconds)
                 continue
             bump("faults_injected")
+            _trace_fired(site, key, rule, "raise")
             raise rule.make_exc()
 
     # -- introspection ----------------------------------------------------

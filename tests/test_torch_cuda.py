@@ -96,6 +96,8 @@ length, about 2**-24 * sqrt(N*H*W) of the largest partial sum for terms
 of random sign (4e-5 at 401,408 terms).  This file imports neither JAX nor
 ``mxtpu``."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1910,3 +1912,98 @@ def test_hierarchical_engine_on_the_card_equals_the_cpu(cuda, name):
         assert st["deferred_swap_in_requests"] == 1
     if name == "sessions":
         assert st["blocks_in_use"] == st["pinned_blocks"] == 0
+
+
+# -- observability, live weight hot-swap and cancel -------------------------
+
+def _tiny_generation(seed, dtype=torch.bfloat16, hidden=172):
+    """llama_tiny's geometry from ``seed``; ``hidden`` its FFN width (G1's
+    bf16 kernel takes K % 8 == 0, which llama_tiny's 172 is not, so the
+    bf16 case widens it to 176)."""
+    from mxtpu_torch.models.transformer import TransformerLM
+
+    torch.manual_seed(seed)
+    return TransformerLM(50, units=64, hidden_size=hidden, num_layers=2,
+                         num_heads=4, num_kv_heads=2, device="cuda",
+                         dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,hidden", [(torch.bfloat16, 176),
+                                          (torch.float32, 172)],
+                         ids=["bf16-ffn176", "f32-llama_tiny"])
+def test_hot_swap_and_cancel_on_the_card(cuda, tmp_path, dtype, hidden):
+    """Phase 6e(b)'s schedule (``chip_smoke.hotswap_run``) at llama_tiny's
+    size on the card: streams in flight at adopt() finish on A and equal
+    an engine that never adopts, later ones equal a fresh engine on B
+    loaded by ``load_mxtpu_params``, rollback returns to A, a corrupt
+    copy is refused with the generation unchanged, a cancelled request's
+    pages come back and the other streams stay A's; K1, K2 and G1
+    launched throughout."""
+    import chip_smoke
+    from mxtpu_torch.models.convert import (export_mxtpu_params,
+                                            load_mxtpu_params)
+
+    a, b = (_tiny_generation(s, dtype, hidden) for s in (0, 1))
+    named = export_mxtpu_params(b)
+    fresh_b = load_mxtpu_params(_tiny_generation(2, dtype, hidden), named)
+    path = str(tmp_path / "generation-b.ckpt")
+    chip_smoke.write_generation(named, path)
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, 50, (1, t)), kw) for t, kw in (
+        (9, {}), (4, dict(temperature=0.8, seed=11)), (17, {}), (6, {}),
+        (12, {}), (5, dict(temperature=0.7, top_p=0.9, seed=2)))]
+    cfg = dict(num_slots=4, max_length=48, block_size=8, prefill_chunk=8)
+    base.reset_counts()
+    rec, problems = chip_smoke.hotswap_run(a, fresh_b, path, reqs, cfg, 8,
+                                           split=4)
+    assert problems == []
+    counts = base.counts()
+    for k in ("paged_attention", "paged_prefill", "rows_linear",
+              "rows_norm_linear"):
+        assert counts.get(k, 0) > 0, (k, counts)
+    assert rec["placed_bytes"] == sum(p.numel() * p.element_size()
+                                      for p in a.parameters())
+    p = torch.from_numpy(reqs[0][0]).cuda()
+    assert not torch.equal(a.generate(p, 8), fresh_b.generate(p, 8))
+
+
+def test_engine_spans_are_profiler_ranges_on_the_card(cuda):
+    """Under a recording ``torch.profiler`` each traced iteration is one
+    ``engine.iteration`` range; an untraced one opens none; tracing
+    leaves the streams and the launches as they were."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxtpu_torch.observability import tracing
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    model = _tiny_generation(0, torch.float32)
+    prompts = [np.random.RandomState(s).randint(0, 50, (1, 11 + s))
+               for s in range(3)]
+    out = {}
+    for traced in (False, True):
+        eng = PagedContinuousBatchingEngine(model, num_slots=2,
+                                            max_length=48, block_size=8,
+                                            prefill_chunk=8)
+        rids = [eng.submit(p, 5) for p in prompts]
+        base.reset_counts()
+        with (tracing() if traced else contextlib.nullcontext()) as tr, \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            steps = 0
+            while eng.pending or eng.active:
+                eng.step()
+                steps += 1
+            torch.cuda.synchronize()
+        res = eng.run()
+        # the host's ranges (the profiler also mirrors each on the device's
+        # timeline as a user annotation)
+        ranges = sum(1 for e in prof.events() if e.name == "engine.iteration"
+                     and e.device_type == DeviceType.CPU)
+        out[traced] = ([res[r].numpy() for r in rids], base.counts())
+        assert ranges == (steps if traced else 0)
+        if traced:
+            assert tr.span_count() == steps
+    for x, y in zip(out[False][0], out[True][0]):
+        np.testing.assert_array_equal(x, y)
+    assert out[False][1] == out[True][1]

@@ -37,6 +37,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import mxtpu_torch\n"
         "import mxtpu_torch.parallel.serving, mxtpu_torch.models.convert\n"
         "import mxtpu_torch.resilience, mxtpu_torch.resilience.faults\n"
+        "import mxtpu_torch.resilience.checkpoint, mxtpu_torch.observability\n"
         "import mxtpu_torch.parallel.trainer, mxtpu_torch.gluon.loss\n"
         "import mxtpu_torch.optimizer\n"
         "import mxtpu_torch.ops.paged_attention as pa\n"
