@@ -110,8 +110,9 @@ Phases, in order; any failure exits non-zero:
 6c. phase 6b's traffic and engines with an int8 cache: every speculative
    stream token-identical to the int8 plain stream, K1 int8's launches
    by (W, tree);
-5q. the weight-only quantized main path: phase 5's model rebuilt from
-   its seed and quantized in place on the card by ``quantize_weights``
+5q. the weight-only quantized main path: phase 5's model cut to 4 of
+   its 32 layers at full width (``CUT_DEPTH``) and rebuilt from its seed,
+   quantized in place on the card by ``quantize_weights``
    (int8; then again with int4 at group size 64), layer 0's qkv and the
    lm_head first held ``torch.equal`` to the same weights quantized on
    the CPU; served phase 5's traffic over bf16 pools and, int8, over
@@ -156,10 +157,12 @@ Phases, in order; any failure exits non-zero:
    sorted by score, the prompt kept, a seed reproducing its samples,
    and ``beam_size=1`` equal to greedy ``generate`` (one request: its
    count is not cut);
-6h. the hierarchical prefix cache and sessions (``serve_sessions``): 4
-   sessions of 3 turns (one 256-token system prompt, 64-192 tokens of
-   each, every next turn the transcript and 64 new tokens; session 1
-   seeded-sampled; turn 1's first arrival alone), then a lull (a
+6h. the hierarchical prefix cache and sessions (``serve_sessions``) on
+   phase 5's model cut to 4 of its 32 layers at full width
+   (``CUT_DEPTH``, seed 0): 4 sessions of 3 turns (one 256-token
+   system prompt, 64-192 tokens of each, every next turn the
+   transcript and 64 new tokens; session 1 seeded-sampled; turn 1's
+   first arrival alone), then a lull (a
    320-token prompt and 4 unrelated requests, then the prompt again),
    through seven engines on phase 5's settings: no hierarchy, H-dev
    (everything pinned), H-host (a 76-page pool, no pin budget, a 2 GiB
@@ -171,8 +174,9 @@ Phases, in order; any failure exits non-zero:
    spill stored (none dropped), deferred restores with ``overlap_swaps``,
    one
    ``serving.swap_in`` fault in H-host's turn 3 (one quarantine, one
-   retry), the launches exact (K1 and K2 32 a step or chunk, G1 161 a
-   step, 97 fused), no page in use or pinned after ``close_session`` and
+   retry), the launches exact (K1 and K2 one a layer a step or chunk, G1
+   5 a layer and the head a step, 3 a layer and the head fused), no
+   page in use or pinned after ``close_session`` and
    ``drop_cache``; the greedy H-dev streams against ``generate`` by the
    C5 rule; the copies' device time and GB/s, the prefill time and
    tokens turns 2-3 avoided against the no-hierarchy engine; then 16
@@ -197,6 +201,35 @@ Phases, in order; any failure exits non-zero:
    of an active request (its pages back, the others A's streams); the
    ms to read and verify, to place (GB/s) and to install, the stage →
    install iterations and the peak memory;
+6r. the replica service layer (``mxtpu_torch.serving``): (a) after
+   6e(a), on the resident 8B model, three paged replicas sharing it
+   (phase 5's settings) behind a ``Gateway`` with the locality router
+   serve phase 5's 12 requests three times (``replicas_run``): clean;
+   faulted under one plan (``replica.health#r1`` declares r1 dead while
+   it holds streams that have emitted tokens, its requests drained and
+   requeued; one ``router.dispatch`` raise rerouted; one request hedged
+   under a tick deadline; one low-class request shed by ``max_pending``
+   and resubmitted after r1's probation revival, which serves it); and
+   under an ``Autoscaler`` from 1 replica to 3 on the backlog and back
+   to 1 after idle ticks.  Every completed stream token-identical to
+   phase 5's, each stream's tokens its output's suffix, the dead and the
+   retired replicas at zero pages and every replica at ``blocks_in_use
+   == pinned_blocks``, the launches exact (K1 and K2 32 a replica step
+   or chunk, G1 161 a step, 97 fused), one death, one revive and one
+   reroute; wall ms a gateway tick against the replicas' step ms in it,
+   TTFT ticks, death-to-requeue ticks, prefix hits a replica, the
+   autoscaler's decisions and their ticks, the peak memory; one profiled
+   pump holding a ``gateway.pump`` range; (b) after 6e(b), on its cut,
+   two ``SubprocessReplica`` workers (``chip_smoke:replica_engine``,
+   each building the cut from seed 0 on the card) behind a ``Gateway``
+   serve phase 5's traffic while a ``transport.worker_death`` rule
+   SIGKILLs r1 mid-decode; probation respawns it and it serves again;
+   both shut down gracefully.  Every stream token-identical to
+   generation A's in-process one (6e(b)'s first 8, the other 4 served
+   here), the kill's exit code -9 and its requests requeued, the
+   shutdowns' 0; each worker's spawn seconds, the median RPC ms of
+   ``step`` and ``poll``, wall ms a tick against the in-process ms a
+   step, the kill-to-requeue ticks;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -359,6 +392,12 @@ TINY = dict(D=16, bs=8, KV=2, rep=2, B=4, T=8, ctx=40)
 LLAMA_8B = dict(D=128, bs=16, KV=8, rep=4, B=8, T=64, ctx=640)
 SERVE = dict(num_slots=8, max_length=1024, block_size=16, prefill_chunk=64)
 NEW_TOKENS = 32
+#: the depth of phases 5q/6q and 6h: full width, 4 of 32 layers (the cut
+#: of phases 6e(b), 6r(b) and 10).  Serving runs at the host's pace,
+#: about 2000 launches a full-depth step, and at full depth these two
+#: phases took 326 s and 166 s of a 990 s run against the 1200 s limit;
+#: phase 5 holds the main path at full depth
+CUT_DEPTH = 0.125
 KERNEL_SOURCES = {
     "paged_attention": ("mxtpu_torch/csrc/paged_attention.cu",
                         "mxtpu/ops/pallas/paged_attention.py:117"),
@@ -1765,13 +1804,14 @@ class Timed:
         delattr(self.model, self.attr)
 
 
-def llama_3_8b_model():
-    """The main path's model: llama_3_8b at full width and depth, bf16,
-    Normal(0, 0.02) weights from seed 0."""
+def llama_3_8b_model(depth_factor=1.0):
+    """The main path's model: llama_3_8b at full width and depth (or
+    ``depth_factor`` of its layers), bf16, Normal(0, 0.02) weights from
+    seed 0."""
     from mxtpu_torch.models.transformer import llama_3_8b
 
     t0 = time.perf_counter()
-    model = llama_3_8b(device="cuda")
+    model = llama_3_8b(depth_factor=depth_factor, device="cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(0), 0.02)
     torch.cuda.synchronize()
     log(phase="model", layers=len(model.layers), dtype="bfloat16",
@@ -2196,16 +2236,17 @@ def profile_decode_steps(eng, vocab, steps=4, quantized=False):
 
 # -- phases 5q and 6q: weight-only int8 and int4 serving ----------------------
 
-def llama_3_8b_quantized(bits):
+def llama_3_8b_quantized(bits, depth_factor=1.0):
     """Phases 5q and 6q's model: phase 5's (llama_3_8b at full width and
-    depth, bf16, Normal(0, 0.02) weights from seed 0) quantized in place
+    depth, or ``depth_factor`` of its layers, bf16, Normal(0, 0.02)
+    weights from seed 0) quantized in place
     on the card by ``quantize_weights`` (int4 at group size 64).  First
     layer 0's qkv and the lm_head are quantized on the card and on the
     CPU, and the two must be ``torch.equal``."""
     from mxtpu_torch.contrib.quantization import (quantize_tensor,
                                                   quantize_weights)
 
-    model = llama_3_8b_model()
+    model = llama_3_8b_model(depth_factor)
     for lin in (model.layers[0].attn.qkv, model.lm_head):
         qd, sd = quantize_tensor(lin.weight, bits, QUANT_GROUP)
         qc, sc = quantize_tensor(lin.weight.cpu(), bits, QUANT_GROUP)
@@ -2294,7 +2335,8 @@ def streams_vs_generate(model, reqs, streams, cache_dtype=None):
 
 
 def serve_quantized(bits):
-    """Phase 5q: the quantized 8B model (``llama_3_8b_quantized``) served
+    """Phase 5q: the quantized 8B model at ``CUT_DEPTH``
+    (``llama_3_8b_quantized``) served
     phase 5's traffic on its engine settings over bf16 pools and, with
     int8 weights, over int8 pools too, every launch count exact (G3 or
     G4 5 a layer and the head a step and a chunk, 3 a layer and the head
@@ -2305,7 +2347,7 @@ def serve_quantized(bits):
     with int8 weights and over bf16 pools with int4 weights, every
     speculative stream token-identical to its plain stream.  Returns G3's or G4's launches
     by kernels-line row over these runs."""
-    model = llama_3_8b_quantized(bits)
+    model = llama_3_8b_quantized(bits, CUT_DEPTH)
     rows = {}
     reqs = traffic(model.vocab_size)
     runs = {}
@@ -3051,7 +3093,7 @@ def samplers_8b(model):
         raise AssertionError("the samplers failed %r" % failed)
 
 
-# -- phase 6h: the hierarchical prefix cache and sessions at 8B ----------------
+# -- phase 6h: the hierarchical prefix cache and sessions ----------------------
 
 #: phase 6h's traffic: SESSIONS conversations of TURNS turns, each opening
 #: with one 256-token system prompt and 64-192 tokens of its own, each
@@ -3209,8 +3251,9 @@ class Restores:
 
 def hierarchy_run(model, name, cfg, cache_dtype, traffic, fault=False):
     """One engine of phase 6h through the session waves and the lull,
-    with every launch counted (K1 and K2 32 a step or chunk, G1 161 a
-    step and 97 of them fused, exact), the copies timed, the spills and
+    with every launch counted (K1 and K2 one a layer a step or chunk, G1
+    5 a layer and the head a step, 3 a layer and the head fused, exact),
+    the copies timed, the spills and
     restores recorded, each wave's prefill time, tokens and tokens
     avoided read, and, after ``close_session`` of every session and
     ``drop_cache``, no page in use or pinned.  With ``fault`` the turn
@@ -3344,9 +3387,9 @@ def hierarchy_run(model, name, cfg, cache_dtype, traffic, fault=False):
     return streams, rec
 
 
-def serve_sessions(model):
+def serve_sessions():
     """Phase 6h: the hierarchical prefix cache and sessions on the main
-    path's model (``HIERARCHY_RUNS``).  Each engine serves
+    path's model at ``CUT_DEPTH`` (``HIERARCHY_RUNS``).  Each engine serves
     ``session_traffic``'s waves and the lull.  Held: every stream of
     H-host, H-host with ``overlap_swaps`` and H-host with spec_k = 4
     token-identical to H-dev's (int8 H-host to int8 H-dev), and their
@@ -3359,6 +3402,7 @@ def serve_sessions(model):
     lull's repeat a prefix hit; the one faulted restore in H-host: one
     quarantine, one retry.  Then a page round trip on 16 seeded pages of
     bf16 and int8 pools, ``torch.equal``."""
+    model = llama_3_8b_model(CUT_DEPTH)
     traffic = session_traffic(model.vocab_size)
     runs, recs = {}, {}
     for name, cfg, cache_dtype in HIERARCHY_RUNS:
@@ -3664,7 +3708,8 @@ def serve_streams(eng, reqs, n):
     return [res[r].numpy() for r in rids]
 
 
-def hotswap_run(model, fresh_b, path, reqs, cfg, n, split=HOTSWAP_SPLIT):
+def hotswap_run(model, fresh_b, path, reqs, cfg, n, split=HOTSWAP_SPLIT,
+                keep=None):
     """Phase 6e(b)'s schedule on ``model`` (generation A), with the
     verified checkpoint of generation B at ``path`` and ``fresh_b``, a
     model that ``load_mxtpu_params`` gave B's arrays.  The references: an
@@ -3678,13 +3723,16 @@ def hotswap_run(model, fresh_b, path, reqs, cfg, n, split=HOTSWAP_SPLIT):
     of them cancelled after its second token: the others equal A's, its
     output a prefix of A's stream, the pages in use back to their count
     before.  Returns the record (times in ms on the host clock, the
-    model's device synchronized) and the problems found."""
+    model's device synchronized) and the problems found; ``keep``, a
+    dict, receives A's streams of the first requests as ``want_a``."""
     from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
     from mxtpu_torch.resilience import CorruptCheckpointError
 
     first, second = reqs[:split], reqs[split:]
     want_a = serve_streams(PagedContinuousBatchingEngine(model, **cfg),
                            first, n)
+    if keep is not None:
+        keep["want_a"] = want_a
     want_b = serve_streams(PagedContinuousBatchingEngine(fresh_b, **cfg),
                            second, n)
     eng = PagedContinuousBatchingEngine(model, **cfg)
@@ -3801,7 +3849,9 @@ def serve_hotswap():
     norm) required to have launched after.  Logs the write's seconds
     and bytes, the ms to read and verify B (the corrupt copy's refusal,
     which reads it whole), the ms and GB/s to place B, the stage →
-    install iterations and the install's ms, and the peak memory."""
+    install iterations and the install's ms, and the peak memory.
+    Returns generation A's model and its streams of the first 8 requests
+    (phase 6r(b)'s references)."""
     import shutil
     import tempfile
 
@@ -3830,9 +3880,10 @@ def serve_hotswap():
         del named
         gc.collect()
         base.reset_counts()
+        keep = {}
         rec, problems = hotswap_run(model, fresh_b, path,
                                     traffic(model.vocab_size), SERVE,
-                                    NEW_TOKENS)
+                                    NEW_TOKENS, keep=keep)
         launches = base.counts()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3846,6 +3897,626 @@ def serve_hotswap():
             problems.append("the hot-swap path never launched %s" % k)
     if problems:
         raise AssertionError("phase 6e(b): " + "; ".join(problems))
+    return model, keep["want_a"]
+
+
+# -- phase 6r: the replica service layer -------------------------------------
+
+#: phase 6r(a)'s faulted run on phase 5's traffic (``replicas_run``): r1's
+#: health probe at this hit (a gateway tick) declares it dead, with
+#: fail_threshold 1; by then it holds streams that have emitted tokens
+#: (the run checks it)
+REPLICA_DEATH_HIT = 8
+#: probation: r1 is revived this many gateway ticks after its death
+REPLICA_REVIVE_TICKS = 6
+#: the request whose first dispatch raises ReplicaDownError (rerouted)
+REPLICA_REROUTED = 4
+#: the request with a tick deadline (609 tokens, 10 chunks), hedged once
+#: REPLICA_HEDGE_FRACTION of it has passed unfinished
+REPLICA_HEDGED = 5
+REPLICA_DEADLINE = 400
+REPLICA_HEDGE_FRACTION = 0.05
+#: the gateway queue's bound: 11 low-class requests fill it and the
+#: high-class 12th displaces the newest of them (request 10), which is
+#: resubmitted once r1 is back
+REPLICA_MAX_PENDING = 11
+#: the autoscaled run: engines of 4 slots (phase 5's settings otherwise),
+#: one arrival a tick, so that 12 requests need 3 replicas; quiet ticks
+#: after a decision
+AUTOSCALE_SLOTS = 4
+AUTOSCALE_COOLDOWN = 4
+
+
+class HostTimer:
+    """Host seconds of every call of one attribute (a method of a class
+    or an instance), by call, while entered; nothing synchronizes."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.inner = None
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return self.inner(*args, **kw)
+        finally:
+            self.calls.append(time.perf_counter() - t)
+
+    def __enter__(self):
+        self.inner = getattr(self.owner, self.attr)
+        wrapper = self
+        if isinstance(self.owner, type):
+            def method(obj, *args, **kw):
+                return wrapper(obj, *args, **kw)
+            setattr(self.owner, self.attr, method)
+        else:
+            setattr(self.owner, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        if isinstance(self.owner, type):
+            setattr(self.owner, self.attr, self.inner)
+        else:
+            delattr(self.owner, self.attr)
+
+    def take(self):
+        """The seconds recorded since the last take."""
+        out, self.calls = sum(self.calls), []
+        return out
+
+
+def engine_work(engines):
+    """(decode steps, prefill chunks) the engines ran so far."""
+    return (sum(e.stats["steps"] for e in engines),
+            sum(e.stats["prefill_chunks"] for e in engines))
+
+
+def gateway_loop(gw, done, limit, on_tick=None, autoscaler=None):
+    """Pump ``gw`` until ``done()`` (at most ``limit`` pumps); per tick the
+    wall seconds, the host seconds inside the replicas' ``step`` and in
+    the pooled tokens' host read (``_host_rows``, where a poll waits for
+    the card).  ``on_tick()`` runs after each pump (and the autoscaler's
+    tick)."""
+    from mxtpu_torch.serving import InProcessReplica
+
+    ticks = []
+    with HostTimer(InProcessReplica, "step") as st, \
+            HostTimer(InProcessReplica, "_host_rows") as rows:
+        for _ in range(limit):
+            if done():
+                break
+            t = time.perf_counter()
+            gw.pump()
+            wall = time.perf_counter() - t
+            ticks.append((wall, st.take(), rows.take()))
+            if autoscaler is not None:
+                autoscaler.tick()
+            if on_tick is not None:
+                on_tick()
+        else:
+            raise AssertionError("the gateway did not finish in %d ticks"
+                                 % limit)
+    return ticks
+
+
+def tick_summary(ticks):
+    """ms a gateway tick: wall, the replicas' step (host), the host read
+    of the pooled tokens, and the rest (the service layer's own)."""
+    n = len(ticks)
+    wall, step, rows = (sum(t[k] for t in ticks) * 1e3 / n for k in range(3))
+    return dict(ticks=n, wall_ms_per_tick=wall, step_ms_per_tick=step,
+                token_read_ms_per_tick=rows,
+                service_ms_per_tick=wall - step - rows)
+
+
+def replicas_run(model, reqs, want, cfg, n):
+    """Phase 6r(a)'s three runs of ``reqs`` through the service layer on
+    ``model``: three paged replicas (``cfg``) sharing it behind a
+    ``Gateway`` with the locality router (clean, then faulted), then an
+    ``Autoscaler`` from 1 replica of AUTOSCALE_SLOTS to 3 and back.
+    ``want`` are the requests' streams from one engine.  Every completed
+    stream must equal its ``want`` and its streamed tokens its suffix,
+    each run's kernel launches be exact (``projection_launches`` and 32 a
+    layer a step or chunk), every replica end at ``blocks_in_use ==
+    pinned_blocks``; the faulted run must see one death of r1 while it
+    held emitted tokens (its drained pages 0, its requests requeued and
+    served), one reroute, one hedge, one QoS shed (resubmitted after the
+    revive, which r1 serves) and one revive; the autoscaled run must grow
+    and retire back to one replica, the retired ones at zero pages.
+    Returns the record and the problems found."""
+    from mxtpu_torch import base
+    from mxtpu_torch.observability import tracing
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+    from mxtpu_torch.resilience import QosShedError, fault_plan
+    from mxtpu_torch.serving import Autoscaler, Gateway, replica_pool
+
+    L = len(model.layers)
+    problems, rec = [], {}
+    sync = torch.cuda.synchronize if model.device.type == "cuda" \
+        else (lambda: None)
+
+    def held(run, gw, rids):
+        """Streams against ``want`` (``rids[i]`` serves request i)."""
+        for i, rid in rids.items():
+            if gw.status(rid) != "ok":
+                problems.append("%s: request %d ended %s" % (
+                    run, i, gw.status(rid)))
+                continue
+            out = gw.result(rid).numpy()
+            if not np.array_equal(out, want[i]):
+                parted = np.nonzero(out[0] != want[i][0])[0]
+                problems.append("%s: request %d parts at %d" % (
+                    run, i, int(parted[0]) if len(parted) else -1))
+                log(phase="replicas_parted", run=run, request=i,
+                    prompt_tokens=int(reqs[i][0].shape[1]),
+                    at=int(parted[0]) if len(parted) else None)
+            tp = reqs[i][0].shape[1]
+            if gw.streamed(rid) != out[0, tp:].tolist():
+                problems.append("%s: request %d's streamed tokens are not "
+                                "its output's suffix" % (run, i))
+
+    def launches_exact(run, engines, before, counts):
+        steps, chunks = (a - b for a, b in zip(engine_work(engines), before))
+        want_l = {"paged_attention": L * steps, "paged_prefill": L * chunks}
+        want_l.update(projection_launches(model, steps, chunks))
+        if model.device.type == "cuda" and counts != want_l:
+            problems.append("%s: launches %r, wanted exactly %r"
+                            % (run, counts, want_l))
+        return dict(steps=steps, chunks=chunks, launches=counts)
+
+    def pages_settled(run, engines):
+        for j, e in enumerate(engines):
+            st = e.stats
+            if st["blocks_in_use"] != st["pinned_blocks"]:
+                problems.append("%s: replica %d ends with %d pages in use, "
+                                "%d pinned" % (run, j, st["blocks_in_use"],
+                                               st["pinned_blocks"]))
+
+    engines = [PagedContinuousBatchingEngine(model, ledger_tag="r%d" % i,
+                                             **cfg) for i in range(3)]
+    limit = 40 * (n + 16)
+
+    # -- clean --------------------------------------------------------------
+    before = engine_work(engines)
+    hits0 = [e.stats["prefix_hit_requests"] for e in engines]
+    gw = Gateway(engines, hedge_fraction=None)
+    rids = {i: gw.submit(p, n, **kw) for i, (p, kw) in enumerate(reqs)}
+    sync()
+    base.reset_counts()
+    ticks = gateway_loop(gw, lambda: all(gw.status(r) not in (
+        "queued", "dispatched") for r in rids.values()), limit)
+    sync()
+    held("clean", gw, rids)
+    rec["clean"] = dict(
+        tick_summary(ticks), **launches_exact("clean", engines, before,
+                                              base.counts()),
+        ttft_ticks=sorted(gw.stats["ttft_ticks"].values()),
+        prefix_hits=[e.stats["prefix_hit_requests"] - h
+                     for e, h in zip(engines, hits0)])
+    pages_settled("clean", engines)
+
+    # -- faulted ------------------------------------------------------------
+    before = engine_work(engines)
+    gw = Gateway(engines, fail_threshold=1,
+                 revive_after_ticks=REPLICA_REVIVE_TICKS,
+                 hedge_fraction=REPLICA_HEDGE_FRACTION, qos_classes=2,
+                 max_pending=REPLICA_MAX_PENDING)
+    rids = {}
+    for i, (p, kw) in enumerate(reqs):
+        extra = dict(deadline_ticks=REPLICA_DEADLINE) \
+            if i == REPLICA_HEDGED else {}
+        rids[i] = gw.submit(p, n, qos=0 if i == len(reqs) - 1 else 1,
+                            **extra, **kw)
+    shed = [i for i, r in rids.items() if gw.status(r) == "shed"]
+    retry_after = [gw.error(rids[i])["exception"].retry_after_ticks
+                   for i in shed]
+    plan = ("replica.health#r1@%d:raise=OSError(replica r1 lost);"
+            "router.dispatch#%d@1:raise=mxtpu_torch.serving.transport."
+            "ReplicaDownError(link flap)" % (REPLICA_DEATH_HIT,
+                                             rids[REPLICA_REROUTED]))
+    state = dict(prev_on_r1={}, death=None, redispatch={}, resubmitted=None,
+                 resub_replica=None)
+
+    def on_r1():
+        return {i: len(gw.streamed(r)) for i, r in rids.items()
+                if r in gw._reqs and "r1" in gw._reqs[r].gens.values()}
+
+    def watch():
+        sup = gw.supervisor.stats
+        if sup["deaths"] and state["death"] is None:
+            st = engines[1].stats
+            requeued = [i for i, r in rids.items()
+                        if r in gw._reqs and gw._reqs[r].requeues]
+            state["death"] = dict(
+                tick=gw.tick_count, requeued=requeued,
+                emitted_before={i: state["prev_on_r1"].get(i, 0)
+                                for i in requeued},
+                pages=(st["blocks_in_use"], st["pinned_blocks"]))
+        elif state["death"] is None:
+            state["prev_on_r1"] = on_r1()
+        if state["death"] is not None:
+            for i in state["death"]["requeued"]:
+                if i not in state["redispatch"] and gw._reqs[rids[i]].gens:
+                    state["redispatch"][i] = gw.tick_count
+        if sup["revivals"] and state["resubmitted"] is None:
+            p, kw = reqs[shed[0]]
+            state["resubmitted"] = gw.submit(p, n, qos=1, **kw)
+            state["resub_tick"] = gw.tick_count
+        r = state["resubmitted"]
+        if r is not None and state["resub_replica"] is None and \
+                gw._reqs[r].gens:
+            state["resub_replica"] = sorted(gw._reqs[r].gens.values())[0]
+
+    def faulted_done():
+        return state["resubmitted"] is not None and all(
+            gw.status(r) not in ("queued", "dispatched")
+            for r in list(rids.values()) + [state["resubmitted"]])
+
+    hits0 = [e.stats["prefix_hit_requests"] for e in engines]
+    sync()
+    base.reset_counts()
+    with tracing() as tr, fault_plan(plan):
+        ticks = gateway_loop(gw, faulted_done, limit, on_tick=watch)
+    sync()
+    counts = base.counts()
+    if len(shed) != 1:
+        problems.append("faulted: %d requests shed, wanted 1" % len(shed))
+    else:
+        rids[shed[0]] = state["resubmitted"]
+    held("faulted", gw, rids)
+    st = gw.stats
+    sup = st["supervisor"]
+    death = state["death"] or {}
+    if (sup["deaths"], sup["revivals"], st["router"]["reroutes"],
+            st["hedged_requests"], st["qos_shed_requests"]) != (1, 1, 1, 1, 1):
+        problems.append("faulted: deaths %d, revivals %d, reroutes %d, "
+                        "hedges %d, QoS sheds %d; wanted one each"
+                        % (sup["deaths"], sup["revivals"],
+                           st["router"]["reroutes"], st["hedged_requests"],
+                           st["qos_shed_requests"]))
+    if not any(death.get("emitted_before", {}).values()):
+        problems.append("faulted: r1 died holding no stream with emitted "
+                        "tokens (%r)" % (death,))
+    if death.get("pages") != (0, 0):
+        problems.append("faulted: the dead r1 holds pages %r after its "
+                        "drain" % (death.get("pages"),))
+    if state["resub_replica"] != "r1":
+        problems.append("faulted: the revived r1 served nothing (the "
+                        "resubmitted request went to %r)"
+                        % (state["resub_replica"],))
+    requeue_events = [e for e in tr.events(types=["gateway.requeue"])]
+    if len(requeue_events) != len(death.get("requeued", ())) or \
+            not requeue_events:
+        problems.append("faulted: %d gateway.requeue events for %d requeued "
+                        "requests" % (len(requeue_events),
+                                      len(death.get("requeued", ()))))
+    rec["faulted"] = dict(
+        tick_summary(ticks), **launches_exact("faulted", engines, before,
+                                              counts),
+        death_tick=death.get("tick"), requeued=death.get("requeued"),
+        emitted_before_death=death.get("emitted_before"),
+        death_to_requeue_ticks=0 if requeue_events else None,
+        death_to_redispatch_ticks={
+            i: t - death["tick"] for i, t in state["redispatch"].items()}
+        if death else None,
+        shed=shed, retry_after_ticks=retry_after,
+        resubmitted_at_tick=state.get("resub_tick"),
+        resubmitted_to=state["resub_replica"],
+        ttft_ticks=sorted(st["ttft_ticks"].values()),
+        prefix_hits=[e.stats["prefix_hit_requests"] - h
+                     for e, h in zip(engines, hits0)],
+        events=len(tr.events()))
+    pages_settled("faulted", engines)
+
+    # -- autoscaled ---------------------------------------------------------
+    made = []
+
+    def factory(i):
+        eng = PagedContinuousBatchingEngine(
+            model, ledger_tag="a%d" % i,
+            **dict(cfg, num_slots=AUTOSCALE_SLOTS))
+        made.append(eng)
+        return eng
+
+    gw = Gateway(replica_pool(factory, n=1, transport="inprocess"),
+                 hedge_fraction=None)
+    asc = Autoscaler(gw, factory, min_replicas=1, max_replicas=3,
+                     cooldown_ticks=AUTOSCALE_COOLDOWN)
+    rids, decisions = {}, []
+    sync()
+    base.reset_counts()
+    orig_tick = asc.tick
+
+    def asc_tick():
+        out = orig_tick()
+        if out is not None:
+            decisions.append((gw.tick_count, out,
+                              len(gw.supervisor.replicas)))
+        return out
+
+    asc.tick = asc_tick
+
+    def arrive():
+        if len(rids) < len(reqs):
+            i = len(rids)
+            p, kw = reqs[i]
+            rids[i] = gw.submit(p, n, **kw)
+
+    arrive()
+    ticks = gateway_loop(
+        gw, lambda: len(rids) == len(reqs) and len(gw.supervisor.replicas)
+        == 1 and all(gw.status(r) not in ("queued", "dispatched")
+                     for r in rids.values()),
+        limit, on_tick=arrive, autoscaler=asc)
+    sync()
+    counts = base.counts()
+    held("autoscaled", gw, rids)
+    a = asc.stats
+    if a["scale_ups"] != 2 or a["retired_replicas"] != 2 or \
+            len(gw.supervisor.replicas) != 1:
+        problems.append("autoscaled: %d scale-ups, %d retired, %d replicas "
+                        "left; wanted 2, 2, 1" % (
+                            a["scale_ups"], a["retired_replicas"],
+                            len(gw.supervisor.replicas)))
+    live = {id(r.engine) for r in gw.supervisor.replicas}
+    for eng in made:
+        if id(eng) not in live and (eng.stats["blocks_in_use"]
+                                    or eng.stats["pinned_blocks"]):
+            problems.append("autoscaled: a retired replica holds pages %r"
+                            % ((eng.stats["blocks_in_use"],
+                                eng.stats["pinned_blocks"]),))
+    served = [e.stats["generated_tokens"] for e in made]
+    if len(made) != 3 or not all(served):
+        problems.append("autoscaled: replicas made %d, tokens each %r"
+                        % (len(made), served))
+    rec["autoscaled"] = dict(
+        tick_summary(ticks), **launches_exact("autoscaled", made, (0, 0),
+                                              counts),
+        decisions=decisions, tokens_by_replica=served,
+        ttft_ticks=sorted(gw.stats["ttft_ticks"].values()),
+        autoscaler=a)
+    pages_settled("autoscaled", [r.engine for r in gw.supervisor.replicas])
+    rec["engines"] = engines
+    return rec, problems
+
+
+def serve_replicas(model, streams):
+    """Phase 6r(a): ``replicas_run`` on the resident 8B model with phase
+    5's settings and traffic, held to phase 5's streams; then one traced
+    gateway pump under ``torch.profiler``, which must hold a
+    ``gateway.pump`` range.  Logs each run's record with the card's name
+    and power limit and the peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxtpu_torch.observability import tracing
+    from mxtpu_torch.serving import Gateway
+
+    torch.cuda.reset_peak_memory_stats()
+    reqs = traffic(model.vocab_size)
+    rec, problems = replicas_run(model, reqs, streams, SERVE, NEW_TOKENS)
+    engines = rec.pop("engines")
+    with tracing():
+        gw = Gateway(engines[:1], hedge_fraction=None)
+        gw.submit(reqs[1][0], 4)
+        gw.pump()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            gw.pump()
+            torch.cuda.synchronize()
+        gw.run()
+    ranges = sum(1 for e in prof.events() if e.name == "gateway.pump"
+                 and e.device_type == DeviceType.CPU)
+    for run, r in rec.items():
+        log(phase="replicas", run=run, card=card_line(), **r)
+    log(phase="replicas_summary", card=card_line(),
+        profiled_pump_ranges=ranges,
+        phase5_ms_per_decode_step=MAIN_PATH.get("ms_per_decode_step"),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if ranges < 1:
+        problems.append("no gateway.pump range in the profiled pump")
+    if problems:
+        raise AssertionError("phase 6r(a): " + "; ".join(problems))
+
+
+def replica_engine(seed=0, device="cuda", ledger_tag="r0", dtype=None,
+                   **model_kw):
+    """Phase 6r(b)'s worker factory (``"chip_smoke:replica_engine"``, run
+    in each ``SubprocessReplica`` worker): 6e(b)'s cut of llama_3_8b
+    (``model_kw`` override its arguments; ``dtype`` a torch dtype's
+    name) with Normal(0, 0.02) weights from a generator on ``device``
+    seeded with ``seed`` — generation A of 6e(b) bit for bit — behind a
+    paged engine on phase 5's settings."""
+    from mxtpu_torch.models.transformer import llama_3_8b
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    kw = dict(depth_factor=HOTSWAP_DEPTH)
+    kw.update(model_kw)
+    if dtype is not None:
+        kw["dtype"] = getattr(torch, dtype)
+    model = llama_3_8b(device=device, **kw)
+    init_weights(model, torch.Generator(device=device).manual_seed(seed),
+                 0.02)
+    return PagedContinuousBatchingEngine(model, ledger_tag=ledger_tag,
+                                         device=device, **SERVE)
+
+
+#: phase 6r(b): r1's RPC at this hit (its worker's RPCs counted from its
+#: spawn) is turned into a SIGKILL by the ``transport.worker_death`` rule,
+#: mid-decode; probation revives (and respawns) it this many ticks later
+WORKER_KILL_HIT = 60
+WORKER_REVIVE_TICKS = 2
+
+
+def subprocess_run(reqs, want, n, factory_kw, in_process_ms=None,
+                   first=HOTSWAP_SPLIT):
+    """Phase 6r(b)'s run: two ``SubprocessReplica`` workers of
+    ``replica_engine`` (``factory_kw`` its kwargs) behind a ``Gateway``
+    serve ``reqs[:first]`` while a ``transport.worker_death`` rule
+    SIGKILLs r1; probation respawns it and the other requests arrive
+    then; both workers shut down at the end.  Every stream must equal
+    ``want``, the kill's exit code be -9 with r1's streams (some with
+    emitted tokens) requeued, the respawned r1 serve at least one
+    request, and both shutdowns exit 0.  Returns the record and the
+    problems found.  A tick's wall time includes any respawn that ran in
+    it (``median_ms_per_tick`` leaves it out)."""
+    from mxtpu_torch.resilience import fault_plan
+    from mxtpu_torch.serving import Gateway, SubprocessReplica
+
+    problems, rec = [], {}
+    reps, spawn_s = [], []
+    try:
+        for i in range(2):
+            t = time.perf_counter()
+            reps.append(SubprocessReplica(
+                "chip_smoke:replica_engine", replica_id="r%d" % i,
+                kwargs=dict(factory_kw, ledger_tag="r%d" % i)))
+            spawn_s.append(time.perf_counter() - t)
+        rpc = {}
+        real_rpc = SubprocessReplica._rpc
+
+        def timed_rpc(self, method, params=None, budget=None):
+            t = time.perf_counter()
+            try:
+                return real_rpc(self, method, params, budget)
+            finally:
+                rpc.setdefault(method, []).append(time.perf_counter() - t)
+
+        gw = Gateway(reps, fail_threshold=1, hedge_fraction=None,
+                     revive_after_ticks=WORKER_REVIVE_TICKS)
+        rids = {i: gw.submit(p, n, **kw)
+                for i, (p, kw) in enumerate(reqs[:first])}
+        state = dict(prev={}, death=None, redispatch={}, respawn_s=None,
+                     after_revive=set())
+        respawn = reps[1].respawn
+
+        def timed_respawn():
+            t = time.perf_counter()
+            respawn()
+            state["respawn_s"] = time.perf_counter() - t
+
+        reps[1].respawn = timed_respawn
+
+        def watch():
+            sup = gw.supervisor.stats
+            if sup["deaths"] and state["death"] is None:
+                requeued = [i for i, r in rids.items()
+                            if gw._reqs[r].requeues]
+                state["death"] = dict(
+                    tick=gw.tick_count, requeued=requeued,
+                    exit_code=reps[1].exit_code,
+                    emitted_before={i: state["prev"].get(i, 0)
+                                    for i in requeued})
+            elif state["death"] is None:
+                state["prev"] = {
+                    i: len(gw.streamed(r)) for i, r in rids.items()
+                    if "r1" in gw._reqs[r].gens.values()}
+            if state["death"] is not None:
+                for i in state["death"]["requeued"]:
+                    if i not in state["redispatch"] and \
+                            gw._reqs[rids[i]].gens:
+                        state["redispatch"][i] = gw.tick_count
+            if sup["revivals"]:
+                for i in range(len(rids), len(reqs)):
+                    rids[i] = gw.submit(reqs[i][0], n, **reqs[i][1])
+                state["after_revive"] |= {
+                    i for i, r in rids.items()
+                    if "r1" in gw._reqs[r].gens.values()}
+
+        ticks = []
+        SubprocessReplica._rpc = timed_rpc
+        try:
+            with fault_plan("transport.worker_death#r1@%d:raise="
+                            "OSError(planned kill)" % WORKER_KILL_HIT):
+                for _ in range(40 * (n + 16)):
+                    if len(rids) == len(reqs) and all(
+                            gw.status(r) not in ("queued", "dispatched")
+                            for r in rids.values()):
+                        break
+                    t = time.perf_counter()
+                    gw.pump()
+                    ticks.append(time.perf_counter() - t)
+                    watch()
+        finally:
+            SubprocessReplica._rpc = real_rpc
+        for i, r in rids.items():
+            out = gw.result(r).numpy() if gw.status(r) == "ok" else None
+            if out is None or not np.array_equal(out, want[i]):
+                problems.append("request %d (%s) parts from generation A's "
+                                "in-process stream" % (i, gw.status(r)))
+        death = state["death"] or {}
+        if death.get("exit_code") != -9 or not death.get("requeued"):
+            problems.append("the kill: exit code %r, requeued %r"
+                            % (death.get("exit_code"),
+                               death.get("requeued")))
+        if not any(death.get("emitted_before", {}).values()):
+            problems.append("r1 was killed holding no stream with emitted "
+                            "tokens")
+        sup = gw.supervisor.stats
+        if (sup["deaths"], sup["revivals"]) != (1, 1) or \
+                not state["after_revive"]:
+            problems.append("deaths %d, revivals %d, requests served by the "
+                            "respawned r1 %r" % (sup["deaths"],
+                                                 sup["revivals"],
+                                                 sorted(state[
+                                                     "after_revive"])))
+        codes = []
+        for rep in reps:
+            rep.shutdown()
+            codes.append(rep.exit_code)
+        if codes != [0, 0]:
+            problems.append("shutdown exit codes %r" % codes)
+
+        def median_ms(method):
+            v = sorted(rpc.get(method, []))
+            return v[len(v) // 2] * 1e3 if v else None
+
+        rec = dict(
+            spawn_s=spawn_s, respawn_s=state["respawn_s"],
+            step_rpc_ms=median_ms("step"), poll_rpc_ms=median_ms("poll"),
+            rpcs={m: len(v) for m, v in rpc.items()},
+            ticks=len(ticks), wall_ms_per_tick=sum(ticks) * 1e3 / len(ticks),
+            median_ms_per_tick=sorted(ticks)[len(ticks) // 2] * 1e3,
+            in_process_ms_per_step=in_process_ms,
+            kill_tick=death.get("tick"), requeued=death.get("requeued"),
+            emitted_before_kill=death.get("emitted_before"),
+            kill_to_requeue_ticks=0 if death.get("requeued") else None,
+            kill_to_redispatch_ticks={
+                i: t - death["tick"] for i, t in state["redispatch"].items()}
+            if death else None,
+            served_after_respawn=sorted(state["after_revive"]),
+            exit_codes=dict(kill=death.get("exit_code"), shutdown=codes),
+            supervisor=dict(deaths=sup["deaths"], revivals=sup["revivals"],
+                            transport_failures=sup["transport_failures"]))
+    finally:
+        for rep in reps:
+            rep.close()
+    return rec, problems
+
+
+def serve_subprocess_replicas(model, want_a):
+    """Phase 6r(b): ``subprocess_run`` on 6e(b)'s cut (``model``,
+    generation A) with phase 5's traffic: the first 8 streams are
+    6e(b)'s ``want_a``, the other 4 served here on an in-process engine
+    over ``model`` (its ms a step timed on the host, the device
+    synchronized).  Logs the record with the card's name and power
+    limit."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    reqs = traffic(model.vocab_size)
+    eng = PagedContinuousBatchingEngine(model, **SERVE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rest = serve_streams(eng, reqs[HOTSWAP_SPLIT:], NEW_TOKENS)
+    torch.cuda.synchronize()
+    in_process_ms = (time.perf_counter() - t) * 1e3 / eng.stats["steps"]
+    rec, problems = subprocess_run(reqs, list(want_a) + rest, NEW_TOKENS,
+                                   {"seed": 0}, in_process_ms)
+    log(phase="subprocess_replicas", card=card_line(), **rec)
+    if problems:
+        raise AssertionError("phase 6r(b): " + "; ".join(problems))
 
 
 def lane_invariant(args, kw):
@@ -4940,17 +5611,26 @@ def main():
     tick("6s slot engine")
     samplers_8b(model)
     tick("6t samplers")
-    serve_sessions(model)
+    serve_sessions()
+    gc.collect()
+    torch.cuda.empty_cache()
     tick("6h hierarchical cache and sessions")
     serve_traced(model, streams)
     tick("6e(a) traced rerun")
+    serve_replicas(model, streams)
+    tick("6r(a) in-process replicas")
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    serve_hotswap()
+    model_a, want_a = serve_hotswap()
     gc.collect()
     torch.cuda.empty_cache()
     tick("6e(b) hot-swap and cancel")
+    serve_subprocess_replicas(model_a, want_a)
+    del model_a, want_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    tick("6r(b) subprocess replicas")
     results = {}
     # phases 5q and 6q: the weight-only int8 and int4 model
     quant_launches = {}

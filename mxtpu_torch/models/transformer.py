@@ -69,8 +69,11 @@ through each call, every cache and pool here is updated IN PLACE.
 Live weight hot-swap (the serving engines' ``adopt``): ``TransformerLM.
 prepare_adoption`` places a checkpoint's arrays on the device beside the
 live weights and ``install_leaves`` points the parameters at them, so
-every later launch reads the new generation; nothing caches a copy or a
-pointer of a weight across calls.
+every later launch reads them; nothing caches a copy or a pointer of a
+weight across calls.  A generation is the engine's, not the model's: an
+adopting engine binds its leaves for the length of its own iteration
+and puts the model's own back after, so engines sharing one model adopt
+apart.
 """
 
 from __future__ import annotations
@@ -755,9 +758,17 @@ class TransformerLM(nn.Module):
         """[(reference name, parameter)] sorted by name, the reference
         decoder's order: the prefix-stripped names ``load_mxtpu_params``
         uses (a quantized layer's int8 payload and ``wscale`` included;
-        a tied head is the embedding, named once)."""
-        return sorted(((mxtpu_name(n), p) for n, p in self.named_parameters()),
-                      key=lambda np_: np_[0])
+        a tied head is the embedding, named once).  Kept until the
+        parameter objects change (``quantize_weights`` replaces
+        layers), since an adopting engine rebinds through it twice an
+        iteration."""
+        key = tuple(map(id, self.parameters()))
+        if getattr(self, "_adoption_key", None) != key:
+            self._adoption_order = sorted(
+                ((mxtpu_name(n), p) for n, p in self.named_parameters()),
+                key=lambda np_: np_[0])
+            self._adoption_key = key
+        return self._adoption_order
 
     def _live_param_leaves(self):
         """The tensors every later call reads, in ``_adoption_params``
@@ -800,8 +811,12 @@ class TransformerLM(nn.Module):
     def install_leaves(self, leaves):
         """Point every parameter at its tensor in ``leaves`` (from
         :meth:`prepare_adoption`, or a :meth:`_live_param_leaves` kept
-        for rollback): every later call, and so every kernel launch,
-        reads the new tensors; no copy is made."""
+        for rollback): every later call, and so every kernel launch
+        (the kernels read ``data_ptr()`` at each launch), reads the new
+        tensors; no copy is made.  The serving engines hold their weight
+        generation apart from the model and bind it with this for the
+        length of one iteration, putting the model's own leaves back
+        after, so engines sharing the model adopt apart."""
         params = self._adoption_params()
         if len(leaves) != len(params):
             raise ValueError("%d leaves for %d parameters"

@@ -127,20 +127,29 @@ scrub path (the paged engine returns its pages) with its partial output.
 Live weight hot-swap: ``adopt(path)`` reads a verified checkpoint
 (``resilience.checkpoint``; the ``serving.adopt`` site fires first), has
 the model place its arrays beside the live weights
-(``TransformerLM.prepare_adoption``) and stages them; admissions wait
-while a generation is staged, and it installs
-(``TransformerLM.install_leaves``) at the first iteration boundary with
-no occupied slot, so in-flight streams finish on the generation they
-were admitted under and every later admission rides the new one; the
-cached prefix state is dropped at install.  ``rollback()`` stages the
-previous generation the same way; ``MXTPU_HOTSWAP=0`` refuses
-``adopt``.
+(``TransformerLM.prepare_adoption``, a copy of the engine's own) and
+stages them; admissions wait while a generation is staged, and it
+installs at the first iteration boundary with no occupied slot, so
+in-flight streams finish on the generation they were admitted under and
+every later admission rides the new one; the cached prefix state is
+dropped at install.  ``rollback()`` stages the previous generation the
+same way; ``MXTPU_HOTSWAP=0`` refuses ``adopt``.  A weight generation
+belongs to the engine, as each reference engine's decoder holds its
+own: engines sharing one model adopt, install and roll back apart.  An
+engine that installed a generation binds its leaves onto the model
+(``TransformerLM.install_leaves``, pointer rebinds, no copy) for the
+length of each of its iterations and puts the model's own back after,
+so every forward call it makes reads its generation, and a model no
+engine adopted on serves its own parameters.  A draft model that is the
+target itself keeps drafting with the model's own parameters, as the
+reference's separate draft decoder does.
 
 Not in this slice: tensor parallelism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -491,6 +500,9 @@ class ContinuousBatchingEngine:
         #                                is the speculation multiplier
         # -- live weight hot-swap ------------------------------------------
         self._param_gen = 0                 # current weight generation
+        self._leaves = None                 # this engine's installed
+        #                                     leaves (None: the model's)
+        self._own_leaves = None             # the model's, while bound
         self._staged_adoption = None        # placed leaves awaiting an
         #                                     empty iteration boundary
         self._prev_leaves = None            # rollback target
@@ -532,6 +544,10 @@ class ContinuousBatchingEngine:
             fl.failure(kind, rids=rids, engine=self._trace_tag, **context)
 
     # -- introspection ---------------------------------------------------
+    @property
+    def num_slots(self):
+        return self._num_slots
+
     @property
     def free_slots(self):
         return sum(1 for s in self._slots if s is None)
@@ -730,8 +746,10 @@ class ContinuousBatchingEngine:
             # host read per admission)
             slot.history = [int(t) for t in req.prompt[0]] + [int(tok[0])]
             if self._draft is not None:
-                self._slot_prefill(self._draft, self._draft_pool,
-                                   self._draft_cache_dtype, row, req.prompt)
+                with self._draft_leaves():
+                    self._slot_prefill(self._draft, self._draft_pool,
+                                       self._draft_cache_dtype, row,
+                                       req.prompt)
         self._prefilled(slot)
         if self._slot_done(slot):
             self._finish(row)
@@ -1073,14 +1091,15 @@ class ContinuousBatchingEngine:
         pos = torch.from_numpy(pos).to(self._device)
         tok = self._last_tokens.reshape(-1, 1)
         proposals = []
-        for w in range(j + 1):
-            logits = self._draft.step_slots(
-                tok, self._draft_pool,
-                (pos + w).clamp(max=self._max_length - 1))
-            if w < j:
-                nxt = torch.argmax(logits[:, 0], dim=-1)
-                proposals.append(nxt)
-                tok = nxt.reshape(-1, 1)
+        with self._draft_leaves():
+            for w in range(j + 1):
+                logits = self._draft.step_slots(
+                    tok, self._draft_pool,
+                    (pos + w).clamp(max=self._max_length - 1))
+                if w < j:
+                    nxt = torch.argmax(logits[:, 0], dim=-1)
+                    proposals.append(nxt)
+                    tok = nxt.reshape(-1, 1)
         if not proposals:
             return {}
         mat = torch.stack(proposals, dim=1).cpu().numpy()
@@ -1401,6 +1420,13 @@ class ContinuousBatchingEngine:
         finished_before = set(self._results)
         self._evict_expired()
         self._maybe_install_adoption()
+        with self._bound_leaves():
+            self._iterate()
+        return [r for r in self._results if r not in finished_before]
+
+    def _iterate(self):
+        """The iteration after the install: chunks, admissions, the
+        ``serving.step`` site, the pooled decode call and its tail."""
         self._advance_prefills()
         self._admit_queued()
         active = [i for i, s in enumerate(self._slots)
@@ -1418,7 +1444,38 @@ class ContinuousBatchingEngine:
         if active:
             self._decode_active(active)
         self._after_decode()
-        return [r for r in self._results if r not in finished_before]
+
+    @contextlib.contextmanager
+    def _bound_leaves(self):
+        """This engine's weight generation on the model for the block:
+        its installed leaves rebound onto the model's parameters, the
+        model's own put back after (nothing while it serves the model's
+        own)."""
+        if self._leaves is None:
+            yield
+            return
+        own = self._model._live_param_leaves()
+        self._model.install_leaves(self._leaves)
+        self._own_leaves = own
+        try:
+            yield
+        finally:
+            self._own_leaves = None
+            self._model.install_leaves(own)
+
+    @contextlib.contextmanager
+    def _draft_leaves(self):
+        """The draft model's own parameters for the block: where the
+        draft is the target itself and this engine's generation is bound
+        on it, the model's own leaves are put back meanwhile."""
+        if self._draft is not self._model or self._own_leaves is None:
+            yield
+            return
+        self._model.install_leaves(self._own_leaves)
+        try:
+            yield
+        finally:
+            self._model.install_leaves(self._leaves)
 
     def take_result(self, rid):
         """Pop one finished request's output: (1, Tp + generated) int32
@@ -1550,17 +1607,19 @@ class ContinuousBatchingEngine:
 
     def _maybe_install_adoption(self):
         """Iteration-boundary install: with a generation staged and no
-        occupied slot, point the model at the staged leaves (keeping the
-        live ones for rollback), bump the generation and drop every
-        cached prefix (computed under the old weights).  Runs first in
-        the iteration, so its admissions already ride the new
-        generation."""
+        occupied slot, make the staged leaves this engine's generation
+        (keeping the live ones, the model's own before any install, for
+        rollback), bump the generation and drop every cached prefix
+        (computed under the old weights).  Runs first in the iteration,
+        so its admissions already ride the new generation; the model
+        itself is left as it is (``_bound_leaves``)."""
         if self._staged_adoption is None:
             return
         if any(s is not None for s in self._slots):
             return                      # streams still on the old one
-        self._prev_leaves = self._model._live_param_leaves()
-        self._model.install_leaves(self._staged_adoption)
+        self._prev_leaves = (self._leaves if self._leaves is not None
+                             else self._model._live_param_leaves())
+        self._leaves = self._staged_adoption
         self._staged_adoption = None
         self._param_gen += 1
         self._last_adoption_steps = self._steps - self._adoption_staged_step

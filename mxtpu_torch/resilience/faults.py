@@ -36,6 +36,26 @@ site                        fires at
 ``serving.adopt``           first thing in an engine's ``adopt()``, keyed
                             by the checkpoint's basename: a raise is an
                             adoption that never started
+``gateway.admit``           top of ``Gateway.submit``, keyed by the
+                            gateway request id, before any queue or
+                            quota state changes
+``router.dispatch``         before a routed submit, keyed by the gateway
+                            request id: a ``ReplicaDownError`` reroutes
+``replica.health``          each supervisor health probe, keyed by
+                            replica id
+``replica.stream``          each replica ``poll``, keyed by replica id
+``transport.rpc``           before a subprocess replica's RPC frame is
+                            written, keyed by replica id
+``transport.encode``        before a subprocess submit encodes its spec,
+                            keyed by replica id
+``transport.worker_death``  before each subprocess RPC, keyed by replica
+                            id: a raise is turned into a SIGKILL of the
+                            worker
+``autoscale.spawn``         before the autoscaler spawns a replica, keyed
+                            by the new replica id: a raise keeps the
+                            pool's capacity
+``autoscale.retire``        at a retiring replica's release, keyed by its
+                            id: a raise reopens it intact
 ``ckpt.write``              before a verified checkpoint's first byte
                             lands (``resilience.checkpoint``), keyed by
                             basename
@@ -45,8 +65,7 @@ site                        fires at
 
 ``inject(site, key=...)`` takes any site name: the table is the
 documented surface, not a closed set.  The reference declares more sites
-(gateway, transport, training); the port declares the ones its code
-fires.
+(kvstore, training); the port declares the ones its code fires.
 
 Every firing (raise or delay) is also a trace event: ``fault.<site>``
 for a site with a registered event type, ``fault.unregistered`` with
@@ -102,6 +121,9 @@ __all__ = ["InjectedFault", "FaultRule", "FaultPlan", "fault_plan",
 SITES = ("serving.step", "serving.admit", "serving.prefix_lookup",
          "serving.block_alloc", "serving.swap_out", "serving.swap_in",
          "serving.draft", "serving.verify", "serving.adopt",
+         "gateway.admit", "router.dispatch", "replica.health",
+         "replica.stream", "transport.rpc", "transport.encode",
+         "transport.worker_death", "autoscale.spawn", "autoscale.retire",
          "ckpt.write", "ckpt.verify")
 
 

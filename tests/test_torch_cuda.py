@@ -2007,3 +2007,117 @@ def test_engine_spans_are_profiler_ranges_on_the_card(cuda):
     for x, y in zip(out[False][0], out[True][0]):
         np.testing.assert_array_equal(x, y)
     assert out[False][1] == out[True][1]
+
+
+# -- the replica service layer on the card --------------------------------
+
+def _serve_alone(model, prompts, n, **cfg):
+    """Each prompt's stream from one paged engine over ``model``."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    eng = PagedContinuousBatchingEngine(model, **cfg)
+    rids = [eng.submit(p, n) for p in prompts]
+    res = eng.run()
+    return [res[r].numpy() for r in rids]
+
+
+def test_gateway_replica_death_on_the_card(cuda):
+    """Two paged replicas sharing one bf16 model behind a ``Gateway``;
+    ``replica.health#r1`` declares r1 dead mid-decode: its requests are
+    drained and requeued, every stream equals one engine's alone, r1
+    holds no page, and K1, K2 and G1 launched."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+    from mxtpu_torch.resilience import fault_plan
+    from mxtpu_torch.serving import Gateway
+
+    model = _tiny_generation(0, torch.bfloat16, 176)
+    cfg = dict(num_slots=2, max_length=48, block_size=8, prefill_chunk=8)
+    prompts = [np.random.RandomState(s).randint(0, 50, (1, 5 + 3 * s))
+               for s in range(4)]
+    want = _serve_alone(model, prompts, 8, **cfg)
+    engines = [PagedContinuousBatchingEngine(model, ledger_tag="r%d" % i,
+                                             **cfg) for i in range(2)]
+    gw = Gateway(engines, fail_threshold=1, hedge_fraction=None)
+    rids = [gw.submit(p, 8) for p in prompts]
+    base.reset_counts()
+    with fault_plan("replica.health#r1@4:raise=OSError(lost)"):
+        res = gw.run()
+    counts = base.counts()
+    for rid, w in zip(rids, want):
+        np.testing.assert_array_equal(res[rid].numpy(), w)
+    st = gw.stats
+    assert st["supervisor"]["deaths"] == 1 and st["requeued_requests"] >= 1
+    assert (engines[1].stats["blocks_in_use"],
+            engines[1].stats["pinned_blocks"]) == (0, 0)
+    for k in ("paged_attention", "paged_prefill", "rows_linear",
+              "rows_norm_linear"):
+        assert counts.get(k, 0) > 0, (k, counts)
+
+
+def test_subprocess_worker_on_the_card(cuda):
+    """One ``SubprocessReplica`` worker whose engine runs on the card
+    (the demo factory, no device named): its streams equal the
+    in-process engine's over the same seeded net, and it exits 0."""
+    from mxtpu_torch.serving import Gateway, SubprocessReplica
+    from mxtpu_torch.serving.worker import seeded_llama_tiny
+
+    prompts = [np.random.RandomState(s).randint(0, 50, (1, 4 + s))
+               for s in range(3)]
+    want = _serve_alone(seeded_llama_tiny(77, 50, "cuda"), prompts, 6,
+                        num_slots=2, max_length=32, block_size=8,
+                        prefill_chunk=8, pin_bytes="1MiB")
+    rep = SubprocessReplica("mxtpu_torch.serving.worker:demo_paged_engine")
+    try:
+        gw = Gateway([rep])
+        rids = [gw.submit(p, 6) for p in prompts]
+        res = gw.run()
+        for rid, w in zip(rids, want):
+            np.testing.assert_array_equal(res[rid].numpy(), w)
+        rep.shutdown()
+        assert rep.exit_code == 0
+    finally:
+        rep.close()
+
+
+def test_engines_sharing_one_model_adopt_apart_on_the_card(cuda, tmp_path):
+    """Two paged engines over ONE bf16 model: e1 adopts generation B while
+    e2 decodes; e2's streams equal an engine that never adopts, e1's
+    after the install equal an engine over a fresh B, and the model
+    itself still serves A."""
+    import chip_smoke
+    from mxtpu_torch.models.convert import (export_mxtpu_params,
+                                            load_mxtpu_params)
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    a = _tiny_generation(0, torch.bfloat16, 176)
+    named = export_mxtpu_params(_tiny_generation(1, torch.bfloat16, 176))
+    fresh_b = load_mxtpu_params(_tiny_generation(2, torch.bfloat16, 176),
+                                named)
+    path = str(tmp_path / "b.ckpt")
+    chip_smoke.write_generation(named, path)
+    cfg = dict(num_slots=2, max_length=48, block_size=8, prefill_chunk=8)
+    prompts = [np.random.RandomState(s).randint(0, 50, (1, 6 + s))
+               for s in range(2)]
+    want_a = _serve_alone(a, prompts, 12, **cfg)
+    want_b = _serve_alone(fresh_b, prompts, 12, **cfg)
+    e1, e2 = (PagedContinuousBatchingEngine(a, ledger_tag=t, **cfg)
+              for t in ("e1", "e2"))
+    r2 = e2.submit(prompts[0], 12)
+    e2.step()
+    assert e1.adopt(path) == 1
+    r1 = e1.submit(prompts[0], 12)
+    while e1.status(r1) in ("queued", "active") or \
+            e2.status(r2) in ("queued", "active"):
+        e1.step()
+        e2.step()
+    np.testing.assert_array_equal(e2.take_result(r2).numpy(), want_a[0])
+    np.testing.assert_array_equal(e1.take_result(r1).numpy(), want_b[0])
+    assert (e1.stats["param_generation"], e2.stats["param_generation"]) == \
+        (1, 0)
+    r2 = e2.submit(prompts[1], 12)
+    r1 = e1.submit(prompts[1], 12)
+    np.testing.assert_array_equal(e2.run()[r2].numpy(), want_a[1])
+    np.testing.assert_array_equal(e1.run()[r1].numpy(), want_b[1])
+    p = torch.from_numpy(prompts[1]).cuda()
+    assert torch.equal(a.generate(p, 12), _tiny_generation(
+        0, torch.bfloat16, 176).generate(p, 12))
