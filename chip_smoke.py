@@ -230,6 +230,33 @@ Phases, in order; any failure exits non-zero:
    shutdowns' 0; each worker's spawn seconds, the median RPC ms of
    ``step`` and ``poll``, wall ms a tick against the in-process ms a
    step, the kill-to-requeue ticks;
+6p. tensor parallelism (``mesh=make_mesh(tp=2)``,
+   ``rules=transformer_lm_sharding_rules()``) after 6r(b), on its cut
+   (``CUT_DEPTH``, seed 0): phase 5's 12 requests through in-process
+   tp=1 engines over bf16 and int8 pools, and 6b's motif requests
+   (``MOTIF_CUT``) plainly; then two ranks spawned on ``cuda:0`` (gloo,
+   a file rendezvous; NCCL refuses two ranks on one GPU), each building
+   the cut and keeping its shard (16 of the 32 query heads, 4 of the 8
+   KV heads, the local halves of every projection), rank 0 running the
+   engines and the other following it (``ShardedDecoder.follow``): the
+   same traffic over bf16 and int8 pools, and the motif requests plainly
+   and with spec_k = 4, spec_tree = (15, 2) over both.  Every tp=2
+   greedy stream equals tp=1's or parts within ``PARTING_ULPS`` of
+   tp=1's top logit (logged); every speculative tp=2 stream equals the
+   plain tp=2 one; each rank's launches exact (K1 a layer a step, K2 a
+   layer a chunk, G1 and the fused norm as phase 5 counts them) and its
+   heads KV/2; layer 0's K1 (W = 1, the window, the tree) and K2 inputs,
+   captured on rank 0 at the per-shard geometry over bf16 and int8
+   pools, against their plain versions (K1 at W = 1 and K2 timed as the
+   ``kernels`` rows ``paged_attention[tp=2]`` and
+   ``paged_prefill[tp=2]``).  Logs each rank's ms a step and a chunk
+   and decode tokens/s at tp=2 against tp=1, both sides on one clock
+   (host wall time, the card synchronized before and after each step
+   and chunk, no other instrumentation); then, from a second bf16 pass
+   with every collective timed (the card synchronized around each),
+   the ms a step and a chunk in collectives and that pass's own ms a
+   step; the controller's broadcast ms a call, each rank's peak memory
+   and the phase's seconds, with the card's name and power limit;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -316,7 +343,9 @@ The second-to-last line is ``{"kernels": [...]}`` (K1's verify and tree
 inputs as rows of their own, ``paged_attention[W=8]`` and
 ``paged_attention[tree,W=16]``, the int8 forms as
 ``paged_attention[int8]``, ``paged_attention[int8,W=8]``,
-``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, K2 at
+``paged_attention[int8,tree,W=16]`` and ``paged_prefill[int8]``, K1
+and K2 at phase 6p's per-shard geometry as ``paged_attention[tp=2]`` and
+``paged_prefill[tp=2]`` (launches: rank 0's in 6p's bf16 run), K2 at
 the long chunk as ``paged_prefill[long]`` and ``paged_prefill[int8,long]``
 (launches: the main runs' K2 calls at 512 or later), G1
 as one row per projection and row count, ``rows_linear[qkv,M=8]``,
@@ -4519,6 +4548,393 @@ def serve_subprocess_replicas(model, want_a):
         raise AssertionError("phase 6r(b): " + "; ".join(problems))
 
 
+# -- phase 6p: tensor parallelism ---------------------------------------------
+
+#: phase 6p: the tp axis, and how long a rank waits on a collective (or
+#: the parent on a rank) before it fails
+TP = 2
+TP_TIMEOUT_S = 600.0
+
+
+class SyncedCalls:
+    """Host wall time of every call of some model methods, the card
+    synchronized before and after each: phase 6p times tp=1 and each
+    tp=2 rank's steps and chunks so, on one clock."""
+
+    def __init__(self, model, attrs):
+        self.model, self.attrs = model, attrs
+        self.seconds = dict.fromkeys(attrs, 0.0)
+
+    def _wrap(self, attr):
+        inner = getattr(self.model, attr)
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[attr] += time.perf_counter() - t
+            return out
+        return call
+
+    def __enter__(self):
+        for a in self.attrs:
+            setattr(self.model, a, self._wrap(a))
+        return self
+
+    def __exit__(self, *exc):
+        for a in self.attrs:
+            delattr(self.model, a)
+
+
+def tp_cut_model(seed=0):
+    """6e(b)'s cut (full width, ``CUT_DEPTH`` of the layers, bf16) with
+    Normal(0, 0.02) weights from a CUDA generator seeded with ``seed``:
+    ``llama_3_8b_model(CUT_DEPTH)`` bit for bit, built without its log
+    line (every rank of phase 6p builds one)."""
+    from mxtpu_torch.models.transformer import llama_3_8b
+
+    model = llama_3_8b(depth_factor=CUT_DEPTH, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed),
+                 0.02)
+    return model
+
+
+def tp_rank(rank, store, out, reqs, motif):
+    """One rank of phase 6p's world (spawned): gloo over a file
+    rendezvous, two ranks on ``cuda:0``.  Each builds the cut from seed 0
+    and keeps its shard; rank 0 runs ``tp_controller`` and saves its
+    record to ``out``, the other rank follows it.  Each rank's steps and
+    chunks are timed as tp=1's (``SyncedCalls``)."""
+    import torch.distributed as dist
+
+    from mxtpu_torch.parallel.decode import ShardedDecoder
+    from mxtpu_torch.parallel.mesh import init_process_group, make_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 6p: rank %d finds no GPU" % rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_process_group("file://" + store, TP, rank, timeout=TP_TIMEOUT_S)
+    mesh = make_mesh(tp=TP)
+    model = tp_cut_model()
+    with SyncedCalls(model, ("step_pages", "prefill_pages")):
+        if rank:
+            ShardedDecoder.follow(mesh, model)
+        else:
+            torch.save(tp_controller(mesh, model, reqs, motif), out)
+    dist.destroy_process_group()
+
+
+def tp_layer0(kind, L):
+    """A ``Capture`` test for layer 0's first K1 call of ``kind`` (``1``
+    a decode step after 20 model calls, ``"window"`` a linear verify
+    window, ``"tree"``; every model call makes one a layer)."""
+    def want(n, a, kw):
+        if n % L or (kind == 1 and n < 20 * L):
+            return False
+        W, tree = int(a[0].shape[2]), kw.get("anc") is not None
+        return {1: W == 1, "window": W > 1 and not tree,
+                "tree": tree}[kind]
+    return want
+
+
+def tp_collective_pass(mesh, model, rules, reqs, streams):
+    """Phase 6p's second bf16 pass, apart from the timed one: the same
+    traffic through a fresh engine with every collective timed on both
+    ranks (the card synchronized before and after each).  Its streams
+    must equal the timed pass's ``streams``.  Returns each rank's ms a
+    step and a chunk (this instrumented pass's) and the ms of them in
+    collectives."""
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    eng = PagedContinuousBatchingEngine(model, mesh=mesh, rules=rules,
+                                        **SERVE)
+    dec = eng._dec
+    eng.submit(np.arange(64)[None], 2)              # warm-up, not counted
+    eng.run()
+    before = eng.stats
+    dec.rank_report(reset=True, timing=True)
+    got = serve_streams(eng, reqs, NEW_TOKENS)
+    report = dec.rank_report(reset=True, timing=False)
+    after = eng.stats
+    if any(not np.array_equal(a, b) for a, b in zip(got, streams)):
+        raise AssertionError("phase 6p: the collective-timed pass's streams "
+                             "differ from the timed pass's")
+    steps = after["steps"] - before["steps"]
+    chunks = after["prefill_chunks"] - before["prefill_chunks"]
+    return [dict(
+        rank=r["rank"],
+        ms_per_step=r["calls"]["step_pages"][1] * 1e3 / steps,
+        collective_ms_per_step=r["calls"]["step_pages"][2] * 1e3 / steps,
+        ms_per_chunk=r["calls"]["prefill_pages"][1] * 1e3 / chunks,
+        collective_ms_per_chunk=r["calls"]["prefill_pages"][2] * 1e3
+        / chunks,
+        collective_calls=r["collectives"]["calls"]) for r in report]
+
+
+def tp_controller(mesh, model, reqs, motif):
+    """Rank 0 of phase 6p: phase 5's traffic over bf16 and int8 pools,
+    then the motif requests plainly and with 6b's speculation (bf16 and
+    int8), every engine over the tp=2 mesh; each rank's launches held
+    exact, its pools' heads KV/2; layer 0's K1 (W = 1, window, tree) and
+    K2 inputs captured here at the per-shard geometry and held against
+    their plain versions (bf16's W = 1 and K2 timed as kernels-line
+    rows).  Returns the record."""
+    from mxtpu_torch.models.transformer import transformer_lm_sharding_rules
+    from mxtpu_torch.ops import paged_attention as pa
+    from mxtpu_torch.ops import prefill_attention as pf
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    rules = transformer_lm_sharding_rules()
+    L = len(model.layers)
+    # each rank's share of the heads (the model is whole until the first
+    # engine shards it)
+    kv, heads = (model.layers[0].attn.kv_heads // TP,
+                 model.layers[0].attn.heads // TP)
+    rec = {"runs": {}, "motif": {}, "caps": {}, "checks": {}}
+    for cache_dtype in (None, "int8"):
+        k1, k2 = k_names(cache_dtype)
+        eng = PagedContinuousBatchingEngine(
+            model, mesh=mesh, rules=rules, cache_dtype=cache_dtype, **SERVE)
+        dec = eng._dec
+        eng.submit(np.arange(64)[None], 2)          # warm-up, not counted
+        eng.run()
+        before = eng.stats
+        b0 = dec.broadcast_stats()
+        dec.rank_report(reset=True)
+        d_cap = Capture(pa, "paged_decode_attention", tp_layer0(1, L))
+        p_cap = Capture(pf, "paged_prefill_attention",
+                        lambda n, a, kw: n % L == 0 and a[4] >= 256)
+        with d_cap, p_cap:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            streams = serve_streams(eng, reqs, NEW_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        report = dec.rank_report()
+        b1 = dec.broadcast_stats()
+        after = eng.stats
+        steps = after["steps"] - before["steps"]
+        chunks = after["prefill_chunks"] - before["prefill_chunks"]
+        want = {k1: L * steps, k2: L * chunks}
+        want.update(projection_launches(model, steps, chunks))
+        for r in report:
+            if r["counts"] != want or not steps or not chunks:
+                raise AssertionError(
+                    "phase 6p: rank %d launched %r, wanted exactly %r"
+                    % (r["rank"], r["counts"], want))
+            if (r["kv_heads"], r["heads"]) != (kv, heads):
+                raise AssertionError("phase 6p: rank %d holds %d query and "
+                                     "%d KV heads, wanted %d and %d"
+                                     % (r["rank"], r["heads"], r["kv_heads"],
+                                        heads, kv))
+        leaf = eng._pools[0][0]
+        pool_heads = (leaf[0] if isinstance(leaf, tuple) else leaf).shape[1]
+        if pool_heads != kv or after["blocks_in_use"]:
+            raise AssertionError("phase 6p: rank 0's pools hold %d KV heads "
+                                 "(wanted %d), %d pages in use"
+                                 % (pool_heads, kv, after["blocks_in_use"]))
+        decode_tokens = after["generated_tokens"] - before["generated_tokens"]
+        calls = b1["calls"] - b0["calls"]
+        rec["runs"][str(cache_dtype)] = dict(
+            streams=streams, steps=steps, chunks=chunks, wall_s=wall,
+            decode_tokens=decode_tokens, launches=report[0]["counts"],
+            broadcast_calls=calls,
+            broadcast_ms_per_call=(b1["seconds"] - b0["seconds"]) * 1e3
+            / calls,
+            broadcast_bytes_per_call=(b1["bytes"] - b0["bytes"]) / calls,
+            ranks=[dict(
+                rank=r["rank"],
+                ms_per_step=r["calls"]["step_pages"][1] * 1e3 / steps,
+                ms_per_chunk=r["calls"]["prefill_pages"][1] * 1e3 / chunks,
+                peak_memory_gib=r["peak_bytes"] / 2**30) for r in report])
+        for cap, name in ((d_cap, k1), (p_cap, k2)):
+            if cap.args is None:
+                raise AssertionError("phase 6p: no %s input captured" % name)
+            rec["caps"][name] = (cap.args, cap.kwargs)
+        del eng, dec, d_cap, p_cap
+        gc.collect()
+        if cache_dtype is None:
+            rec["collectives"] = tp_collective_pass(mesh, model, rules, reqs,
+                                                    streams)
+    for cache_dtype in (None, "int8"):
+        k1 = k_names(cache_dtype)[0]
+        plain = serve_streams(PagedContinuousBatchingEngine(
+            model, mesh=mesh, rules=rules, cache_dtype=cache_dtype, **SERVE),
+            motif, NEW_TOKENS)
+        eng = PagedContinuousBatchingEngine(
+            model, mesh=mesh, rules=rules, cache_dtype=cache_dtype,
+            **SPEC_SERVE)
+        w_cap = Capture(pa, "paged_decode_attention", tp_layer0("window", L))
+        t_cap = Capture(pa, "paged_decode_attention", tp_layer0("tree", L))
+        with w_cap, t_cap:
+            spec = serve_streams(eng, motif, NEW_TOKENS)
+        st = eng.stats
+        differ = [j for j, (a, b) in enumerate(zip(plain, spec))
+                  if not np.array_equal(a, b)]
+        if differ:
+            raise AssertionError("phase 6p: speculative tp=2 streams %r "
+                                 "differ from the plain tp=2 streams (%s)"
+                                 % (differ, cache_dtype))
+        rec["motif"][str(cache_dtype)] = dict(
+            streams=plain, accepted_tokens=st["accepted_tokens"],
+            drafted_tokens=st["drafted_tokens"],
+            verify_calls=st["verify_calls"])
+        for cap, kind in ((w_cap, "W=%d"), (t_cap, "tree,W=%d")):
+            if cap.args is None:
+                raise AssertionError("phase 6p: no K1 %s input captured (%s)"
+                                     % (kind % 0, cache_dtype))
+            W = int(cap.args[0].shape[2])
+            tag = "int8," if cache_dtype else ""
+            rec["caps"]["paged_attention[%s%s]" % (tag, kind % W)] = (
+                cap.args, cap.kwargs)
+        del eng, w_cap, t_cap
+        gc.collect()
+    flush = _L2Flush()
+    rows = {"paged_attention": "paged_attention[tp=2]",
+            "paged_prefill": "paged_prefill[tp=2]"}
+    rec["rows"] = {}
+    for name, (args, kw) in rec.pop("caps").items():
+        res = measure(name, args, flush, timed=name in rows, kw=kw)
+        rec["checks"][name] = dict(shape=list(args[0].shape),
+                                   pool_heads=int(args[1].shape[1]),
+                                   max_abs_err=res["max_abs_err"])
+        if name in rows:
+            rec["rows"][rows[name]] = res
+    from mxtpu_torch.parallel.decode import ShardedDecoder
+    ShardedDecoder.shutdown(mesh)
+    return rec
+
+
+def tp_partings(model, reqs, tp1, tp2, cache_dtype):
+    """The tp=2 streams against the tp=1 engine's: where a greedy stream
+    parts, the gap between the two tokens in tp=1's own logits (those of
+    ``generate`` over the tp=1 stream's prefix), in bf16 ulps of its top
+    logit.  Sampled streams are read only.  Returns the partings."""
+    parted = []
+    for j, ((p, kw), a, b) in enumerate(zip(reqs, tp1, tp2)):
+        diff = np.nonzero(a[0] != b[0])[0]
+        if not diff.size:
+            continue
+        at = int(diff[0])
+        entry = dict(request=j, sampled="temperature" in kw,
+                     token=at - p.shape[1])
+        if not entry["sampled"]:
+            lg = generate_logits(model, a[:, :at], p.shape[1], cache_dtype)
+            top = float(lg.max())
+            ulp = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+            gap = float(lg[a[0, at]]) - float(lg[b[0, at]])
+            entry.update(gap=gap, gap_ulps=gap / ulp)
+        parted.append(entry)
+    return parted
+
+
+def serve_tensor_parallel(model):
+    """Phase 6p: tensor parallelism (``mesh=make_mesh(tp=2)``,
+    ``rules=transformer_lm_sharding_rules()``) over two gloo ranks on the
+    one card, spawned (``tp_rank``), on ``model``, 6e(b)'s cut; the same
+    traffic through in-process tp=1 engines on ``model`` first.  Every
+    greedy tp=2 stream must equal tp=1's or part within
+    ``PARTING_ULPS`` of tp=1's top logit, every speculative tp=2 stream
+    its plain tp=2 stream; each rank's launches exact (checked on rank
+    0).  Logs each rank's ms a step and decode tokens/s against tp=1,
+    both timed by ``SyncedCalls``; the ms a step in collectives from a
+    second pass (``tp_collective_pass``); the controller's broadcast ms
+    a call, each rank's peak memory, with the card's name and power
+    limit.  Returns
+    the kernels-line rows (K1 at W = 1 and K2 at the per-shard
+    geometry) and their launches (rank 0's, the bf16 run's)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from mxtpu_torch.parallel.serving import PagedContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    reqs = traffic(model.vocab_size)
+    motif_all, confirmed = motif_traffic(model)
+    motif = [motif_all[i] for i in MOTIF_CUT]
+    tp1 = {}
+    for cache_dtype in (None, "int8"):
+        eng = PagedContinuousBatchingEngine(model, cache_dtype=cache_dtype,
+                                            **SERVE)
+        eng.submit(np.arange(64)[None], 2)
+        eng.run()
+        before = eng.stats
+        with SyncedCalls(model, ("step_pages",)) as t_dec:
+            streams = serve_streams(eng, reqs, NEW_TOKENS)
+        after = eng.stats
+        steps = after["steps"] - before["steps"]
+        dec_s = t_dec.seconds["step_pages"]
+        tp1[str(cache_dtype)] = dict(
+            streams=streams, ms_per_step=dec_s * 1e3 / steps,
+            decode_tokens_per_s=(after["generated_tokens"]
+                                 - before["generated_tokens"]) / dec_s)
+        del eng
+    tp1_motif = serve_streams(PagedContinuousBatchingEngine(model, **SERVE),
+                              motif, NEW_TOKENS)
+    t_spawn = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        procs = [ctx.Process(target=tp_rank,
+                             args=(r, os.path.join(tmp, "store"), out, reqs,
+                                   motif))
+                 for r in range(TP)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * TP:
+            raise AssertionError("phase 6p: the ranks exited %r" % codes)
+        rec = torch.load(out, weights_only=False)
+    world_s = time.perf_counter() - t_spawn
+    problems, partings = [], {}
+    for cache_dtype in ("None", "int8"):
+        got = rec["runs"][cache_dtype]
+        parted = tp_partings(model, reqs, tp1[cache_dtype]["streams"],
+                             got.pop("streams"),
+                             None if cache_dtype == "None" else "int8")
+        partings[cache_dtype] = parted
+        problems += ["%s request %d parts %.1f ulps from tp=1"
+                     % (cache_dtype, e["request"], e["gap_ulps"])
+                     for e in parted if e.get("gap_ulps", 0) > PARTING_ULPS]
+        dec_s = sum(r["ms_per_step"] for r in got["ranks"][:1]) \
+            * got["steps"] / 1e3
+        got["decode_tokens_per_s"] = got["decode_tokens"] / dec_s
+        got["tp1_decode_tokens_per_s"] = tp1[cache_dtype][
+            "decode_tokens_per_s"]
+        got["tp1_ms_per_step"] = tp1[cache_dtype]["ms_per_step"]
+    motif_parted = tp_partings(model, motif, tp1_motif,
+                               rec["motif"]["None"]["streams"], None)
+    for m in rec["motif"].values():
+        m.pop("streams")
+    problems += ["motif request %d parts %.1f ulps from tp=1"
+                 % (e["request"], e["gap_ulps"])
+                 for e in motif_parted if e.get("gap_ulps", 0) > PARTING_ULPS]
+    log(phase="tensor_parallel", card=card_line(), tp=TP, backend="gloo",
+        ranks_on="cuda:0", clock="host, card synchronized a step",
+        runs=rec["runs"], collectives_pass=rec["collectives"],
+        motif=rec["motif"],
+        motif_confirmed=confirmed, kernel_checks=rec["checks"],
+        partings=partings, motif_partings=motif_parted,
+        bound_ulps=PARTING_ULPS, world_s=world_s,
+        seconds=time.perf_counter() - t0)
+    if problems:
+        raise AssertionError("phase 6p: " + "; ".join(problems))
+    launches = rec["runs"]["None"]["launches"]
+    return rec["rows"], {
+        "paged_attention[tp=2]": launches["paged_attention"],
+        "paged_prefill[tp=2]": launches["paged_prefill"]}
+
+
 def lane_invariant(args, kw):
     """K1 invariant (b) on a captured main-path window (``kw``: an int8
     pool's scales): lane w equals a W = 1 call at pos + w, bit for
@@ -5627,11 +6043,15 @@ def main():
     torch.cuda.empty_cache()
     tick("6e(b) hot-swap and cancel")
     serve_subprocess_replicas(model_a, want_a)
-    del model_a, want_a
+    del want_a
+    tick("6r(b) subprocess replicas")
+    tp_rows, tp_launches = serve_tensor_parallel(model_a)
+    del model_a
     gc.collect()
     torch.cuda.empty_cache()
-    tick("6r(b) subprocess replicas")
-    results = {}
+    tick("6p tensor parallelism")
+    results = dict(tp_rows)
+    launches.update(tp_launches)
     # phases 5q and 6q: the weight-only int8 and int4 model
     quant_launches = {}
     for bits in (8, 4):

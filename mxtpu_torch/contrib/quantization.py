@@ -259,15 +259,26 @@ def quantize_weights(model, bits=8, group_size=64, rules=None, exclude=()):
     the reference's ``quantized_params``).  Raises on an uninitialized
     (meta or lazy) weight and when nothing was quantized.
 
-    ``rules`` (the reference's tensor-parallel ShardingRules) waits for
-    the port's sharding (ROADMAP A6): anything but None raises."""
+    ``rules``: the model's tensor-parallel ``ShardingRules``; then the
+    return is a NEW ``ShardingRules`` extending them with an exact-name
+    rule for each ``wscale`` (an int8 scale splits with its weight's
+    output channels; int4 group scales split the output channels and
+    keep the group axis whole), its ``quantized_params`` the names
+    above, as the reference returns it.  The whole weight is quantized
+    before any split, so each shard's payload and scales are the slice
+    of the unsharded ones (``parallel.sharding``: a row-parallel int4
+    weight's scales are cut with its input groups)."""
+    import re
+
     from ..models.convert import mxtpu_name
+    from ..parallel.sharding import PartitionSpec, ShardingRules
 
     if bits not in (8, 4):
         raise MXTPUError("weight-only bits must be 8 or 4, got %r" % (bits,))
-    if rules is not None:
-        raise MXTPUError("quantize_weights: rules= (tensor-parallel "
-                         "sharding) is not ported yet")
+    if rules is not None and not isinstance(rules, ShardingRules):
+        raise MXTPUError("quantize_weights: rules must be ShardingRules, not "
+                         "%s" % type(rules).__name__)
+    out_rules = None if rules is None else ShardingRules(rules.iter_rules())
     quantized = []
 
     def walk(parent, prefix):
@@ -280,6 +291,13 @@ def quantize_weights(model, bits=8, group_size=64, rules=None, exclude=()):
                 setattr(parent, name,
                         QuantizedLinear.from_linear(child, bits, group_size))
                 quantized.append(pname)
+                if out_rules is not None:
+                    wspec = tuple(rules.spec_for(pname, 2))
+                    col = wspec[0] if wspec else None
+                    sname = pname[:-len("weight")] + "wscale"
+                    out_rules.add(re.escape(sname) + "$",
+                                  PartitionSpec(col) if bits == 8
+                                  else PartitionSpec(col, None))
             else:
                 walk(child, path + ".")
 
@@ -287,7 +305,10 @@ def quantize_weights(model, bits=8, group_size=64, rules=None, exclude=()):
     if not quantized:
         raise MXTPUError("quantize_weights: no nn.Linear layer found under "
                          "%s" % type(model).__name__)
-    return tuple(quantized)
+    if out_rules is None:
+        return tuple(quantized)
+    out_rules.quantized_params = tuple(quantized)
+    return out_rules
 
 
 # -- int8 post-training quantization of activations and weights ----------

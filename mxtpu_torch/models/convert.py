@@ -16,7 +16,9 @@ weights have the same layout in both frameworks and copy as they are.
 
 ``export_mxtpu_params`` is the inverse: a port model's parameters (and
 running statistics) as ``{prefix-stripped reference name: numpy array}``,
-which ``load_mxtpu_params`` takes back as they are.
+which ``load_mxtpu_params`` takes back as they are.  Under tensor
+parallelism a sharded ``TransformerLM`` loads each rank's slice of the
+whole arrays and exports the whole arrays gathered from every rank.
 
 A model quantized by ``contrib.quantization.quantize_weights`` carries
 each quantized layer's int8 payload and float32 scales under the
@@ -67,11 +69,20 @@ def _named_tensors(model):
     return {mxtpu_name(n): p for n, p in model.named_parameters()}
 
 
-def load_mxtpu_params(model, params):
+def load_mxtpu_params(model, params, mesh=None, rules=None):
     """Copy the reference's parameters ``{name: array}`` into ``model``
     in place (cast to each parameter's dtype and device).  Raises
     :class:`MXTPUError` on a missing name, an extra name or a shape
-    that differs."""
+    that differs.
+
+    Tensor parallelism: with ``mesh`` and ``rules`` a ``TransformerLM``
+    is first sharded by them (``TransformerLM.shard``); a sharded model
+    loads this rank's slice of each whole reference array."""
+    if mesh is not None and hasattr(model, "shard"):
+        model.shard(mesh, rules)
+    local = getattr(model, "_local_slice", None)
+    if getattr(model, "_tp_shard", None) is None:
+        local = None
     wanted = _named_tensors(model)
     # a name that is already the port's (export_mxtpu_params's output)
     # keeps its form: stripping would cut ``layer0_`` off it
@@ -86,7 +97,8 @@ def load_mxtpu_params(model, params):
         raise MXTPUError("parameter names differ: missing %s, extra %s"
                          % (missing, extra))
     for name, p in wanted.items():
-        src = torch.as_tensor(np.array(given[name]))
+        src = (local(name, given[name]) if local is not None
+               else torch.as_tensor(np.array(given[name])))
         if tuple(src.shape) != tuple(p.shape):
             raise MXTPUError("parameter %s: reference shape %s, port shape "
                              "%s" % (name, tuple(src.shape), tuple(p.shape)))
@@ -98,9 +110,14 @@ def load_mxtpu_params(model, params):
 def export_mxtpu_params(model):
     """``{reference name: numpy array}`` of ``model``'s parameters, names
     without an instance prefix (what :func:`load_mxtpu_params` takes);
-    bfloat16 parameters come out as float32."""
+    bfloat16 parameters come out as float32.  A sharded ``TransformerLM``
+    gathers its whole arrays first (a collective: every rank of its tp
+    axis calls this, and every rank gets the whole arrays)."""
     out = {}
-    for name, p in _named_tensors(model).items():
+    named = (model.gathered_params()
+             if getattr(model, "_tp_shard", None) is not None
+             else _named_tensors(model))
+    for name, p in named.items():
         t = p.detach().cpu()
         out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out

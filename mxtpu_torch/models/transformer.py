@@ -66,6 +66,20 @@ cache write still do.
 Unlike the reference, whose caches are immutable arrays threaded
 through each call, every cache and pool here is updated IN PLACE.
 
+Tensor parallelism (``TransformerLM.shard``, driven by
+``parallel.decode.ShardedDecoder``): each rank keeps its slice of every
+weight by ``transformer_lm_sharding_rules()`` (the fused qkv by head
+group, so a rank runs H/n query and KV/n KV heads), and the layers
+gather or reduce across the ``tp`` axis: the embedding's hidden split
+is gathered after the lookup, out_proj's and down's partial sums are
+reduced, the head's vocabulary split is gathered after the logits.  A
+partial sum leaves its kernel already rounded to the activations' dtype
+(G1, G3 and G4 write x's dtype); the reduce adds the partials in rank
+order in float32 and rounds the sum again, so a bf16 model rounds twice
+where tp = 1 rounds once.  The order is per element, so a row's sum
+does not depend on the row count and a verify window still equals its
+steps.  Every kernel runs on the rank's local shapes.
+
 Live weight hot-swap (the serving engines' ``adopt``): ``TransformerLM.
 prepare_adoption`` places a checkpoint's arrays on the device beside the
 live weights and ``install_leaves`` points the parameters at them, so
@@ -88,7 +102,7 @@ from torch.nn import functional as F
 from ..base import resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.contrib import rms_norm, rope
+from ..ops.contrib import rms_norm, rope, rows_rms_norm
 from ..contrib.quantization import QuantizedLinear
 from ..ops.linear import rows_linear, rows_norm_linear, wq_matmul_q8
 from ..ops.tensor import (cache_dequant, cache_permute_span,
@@ -103,11 +117,15 @@ from ..ops.tensor import (cache_dequant, cache_permute_span,
                           paged_cache_write_rows_q8, paged_cache_write_span,
                           paged_cache_write_span_pre_q8,
                           paged_cache_write_span_q8, resolve_cache_dtype)
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.sharding import (PartitionSpec as P, ShardingRules,
+                                 int4_scale_split)
 from .convert import mxtpu_name, strip_instance_prefix
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
-           "TransformerLM", "llama_tiny", "llama_3_8b", "pool_tensors"]
+           "TransformerLM", "llama_tiny", "llama_3_8b", "pool_tensors",
+           "transformer_lm_sharding_rules"]
 
 
 class RMSNorm(nn.Module):
@@ -203,6 +221,23 @@ def _masked_softmax(scores, valid):
     return torch.softmax(x, dim=-1).to(scores.dtype)
 
 
+class _TP:
+    """The tensor-parallel axis a sharded module reduces or gathers over:
+    the mesh, the axis name, the shard count ``n`` and this rank's chunk
+    ``c``.  Partial sums, each already in the activations' dtype, are
+    added in rank order in float32 and the sum rounded to that dtype
+    (``parallel.collectives.all_reduce``)."""
+
+    def __init__(self, mesh, axis, n, c):
+        self.mesh, self.axis, self.n, self.c = mesh, axis, n, c
+
+    def reduce(self, x):
+        return all_reduce(x, self.axis, mesh=self.mesh)
+
+    def gather(self, x):
+        return all_gather(x, self.axis, axis=-1, mesh=self.mesh)
+
+
 class MultiHeadAttention(nn.Module):
     """Causal self-attention of the Llama decoder: the fused QKV
     projection (no bias), GQA and rotary embedding, in its full forward
@@ -222,6 +257,7 @@ class MultiHeadAttention(nn.Module):
                              dtype=dtype)
         self.out_proj = nn.Linear(units, units, bias=False, device=device,
                                   dtype=dtype)
+        self._tp = None     # tensor parallel: out_proj's partial sums
 
     def _project(self, x, offset, norm=None, rows=False):
         """x (B, T, C) → q (B, H, T, D), k and v (B, KV, T, D), rope
@@ -243,8 +279,9 @@ class MultiHeadAttention(nn.Module):
     def _merge(self, out, rows=False):
         """(B, H, T, D) attention output → (B, T, C) projected."""
         B, H, T, D = out.shape
-        return _linear(self.out_proj, out.transpose(1, 2).reshape(B, T, H * D),
-                       rows)
+        y = _linear(self.out_proj, out.transpose(1, 2).reshape(B, T, H * D),
+                    rows)
+        return y if self._tp is None else self._tp.reduce(y)
 
     def forward(self, x):
         """x (B, T, C) → (B, T, C): rope at offset 0, each kv head
@@ -491,6 +528,7 @@ class LlamaDecoderLayer(nn.Module):
         self.gate_proj = nn.Linear(units, hidden_size, bias=False, **fk)
         self.up_proj = nn.Linear(units, hidden_size, bias=False, **fk)
         self.down_proj = nn.Linear(hidden_size, units, bias=False, **fk)
+        self._tp = None     # tensor parallel: down's partial sums
 
     def _ffn(self, x, rows=False):
         if rows:        # ffn_norm runs inside the gate and up launches
@@ -499,7 +537,8 @@ class LlamaDecoderLayer(nn.Module):
         else:
             h = self.ffn_norm(x)
             gate, up = self.gate_proj(h), self.up_proj(h)
-        return x + _linear(self.down_proj, F.silu(gate) * up, rows)
+        y = _linear(self.down_proj, F.silu(gate) * up, rows)
+        return x + (y if self._tp is None else self._tp.reduce(y))
 
     def forward(self, x):
         return self._ffn(x + self.attn(self.attn_norm(x)))
@@ -557,6 +596,12 @@ class TransformerLM(nn.Module):
         self.tie_weights = bool(tie_weights)
         self.lm_head = None if self.tie_weights else nn.Linear(
             units, vocab_size, bias=False, **fk)
+        # tensor parallel (:meth:`shard`): the embedding's hidden split,
+        # gathered after the lookup, and the head's vocabulary split,
+        # gathered after the logits
+        self._tp_embed = None
+        self._tp_head = None
+        self._tp_shard = None
 
     @property
     def device(self):
@@ -566,17 +611,31 @@ class TransformerLM(nn.Module):
     def dtype(self):
         return self.embed.weight.dtype
 
+    def _embed(self, token_ids):
+        x = self.embed(token_ids)
+        return x if self._tp_embed is None else self._tp_embed.gather(x)
+
     def _logits(self, x, rows=False):
         if self.tie_weights:
             w = self.embed.weight
-            return (rows_norm_linear(x, self.norm.weight, w) if rows
-                    else F.linear(self.norm(x), w))
-        return _normed_linear(self.norm, self.lm_head, x, rows)
+            tp = self._tp_embed
+            if tp is None:
+                return (rows_norm_linear(x, self.norm.weight, w) if rows
+                        else F.linear(self.norm(x), w))
+            # the head reads the embedding's hidden split: row parallel,
+            # its partial logits over the whole vocabulary reduced
+            h = rows_rms_norm(x, self.norm.weight) if rows else self.norm(x)
+            k = w.shape[1]
+            h = h[..., tp.c * k:(tp.c + 1) * k].contiguous()
+            return tp.reduce(rows_linear(h, w) if rows else F.linear(h, w))
+        y = _normed_linear(self.norm, self.lm_head, x, rows)
+        return y if self._tp_head is None else self._tp_head.gather(y)
 
     def forward(self, token_ids):
         """token_ids (B, T) → logits (B, T, V), differentiable: the
         training forward."""
-        x = self.embed(torch.as_tensor(token_ids, device=self.device).long())
+        x = self._embed(torch.as_tensor(token_ids,
+                                        device=self.device).long())
         for layer in self.layers:
             x = layer(x)
         return self._logits(x)
@@ -593,7 +652,7 @@ class TransformerLM(nn.Module):
     def prefill(self, token_ids, caches, start_pos=0):
         """token_ids (B, T) at positions [start_pos, start_pos+T) →
         logits (B, T, V); every layer's cache is written in place."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (ck, cv) in zip(self.layers, caches):
             x = layer.prefill(x, ck, cv, start_pos)
         return self._logits(x)
@@ -609,7 +668,7 @@ class TransformerLM(nn.Module):
         token_ids (B, 1), ``pos`` (B,) int → logits (B, 1, V).  Row b
         writes at pos[b] of its cache row and attends its own [0,
         pos[b]]: the slot engine's pooled step."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (ck, cv) in zip(self.layers, caches):
             x = layer.step_slots(x, ck, cv, pos)
         return self._logits(x, rows=True)
@@ -623,7 +682,7 @@ class TransformerLM(nn.Module):
         ``tree=(perm, depth)``, see ``MultiHeadAttention.verify_slots``).
         ``valid_len`` (B,) counts each row's real lanes; the others
         write nothing."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (ck, cv) in zip(self.layers, caches):
             x = layer.verify_slots(x, ck, cv, pos, valid_len, tree)
         return self._logits(x, rows=True)
@@ -664,7 +723,7 @@ class TransformerLM(nn.Module):
         """One decode token per slot: token_ids (B, 1), ``tables`` (B, M)
         int32, ``pos`` (B,) int32 → logits (B, 1, V).  Row b writes at
         position pos[b] and attends its own [0, pos[b]]."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.step_pages(x, pk, pv, tables, pos)
         return self._logits(x, rows=True)
@@ -680,7 +739,7 @@ class TransformerLM(nn.Module):
         ``MultiHeadAttention.verify_pages``).  ``valid_len`` (B,) int32
         counts each row's real lanes.  Rejection needs only a host
         position roll-back."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.verify_pages(x, pk, pv, tables, pos, valid_len, tree)
         return self._logits(x, rows=True)
@@ -702,7 +761,7 @@ class TransformerLM(nn.Module):
         """One prompt chunk token_ids (1, T) at positions [start_pos,
         start_pos+T) through the block table ``table`` (M,) int32 →
         logits (1, T, V)."""
-        x = self.embed(token_ids)
+        x = self._embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
             x = layer.prefill_pages(x, pk, pv, table, start_pos)
         return self._logits(x)
@@ -770,6 +829,173 @@ class TransformerLM(nn.Module):
             self._adoption_key = key
         return self._adoption_order
 
+    # -- tensor parallelism -------------------------------------------------
+    def _fused_groups(self):
+        """{name: row groups} of the fused weights: each layer's qkv
+        weight (and its int8 or int4 scales), ``(H*D, KV*D, KV*D)``."""
+        out = {}
+        for i, layer in enumerate(self.layers):
+            a = layer.attn
+            g = (a.heads * a.head_dim, a.kv_heads * a.head_dim,
+                 a.kv_heads * a.head_dim)
+            out["layer%d_attn_qkv_weight" % i] = g
+            out["layer%d_attn_qkv_wscale" % i] = g
+        return out
+
+    @torch.no_grad()
+    def shard(self, mesh, rules):
+        """Keep only this rank's shard of every parameter, in place, by
+        ``rules`` on ``mesh`` (``parallel.sharding``: the fused qkv split
+        by head group), and turn on the layers' tensor-parallel forms:
+
+        - the embedding split on hidden: lookup, then ``all_gather``;
+        - qkv, gate and up column parallel on the local heads or hidden;
+          the attention then runs H/n query and KV/n KV heads;
+        - out_proj and down row parallel, their partial sums
+          ``all_reduce``d (partials in the activations' dtype, added
+          in rank order in float32, the sum rounded again);
+        - the head split on vocabulary: local logits, then
+          ``all_gather``; a tied head (the embedding's hidden split) is
+          row parallel, its partial logits over the whole vocabulary
+          reduced.
+
+        A layer's projections are split together or not at all, and
+        every split is over one mesh axis; anything else raises.  A mesh
+        whose axes the rules do not split leaves the model as it is.
+        Sharding again by equal rules on the same mesh does nothing."""
+        key = (id(mesh), tuple(rules.iter_rules()))
+        if self._tp_shard is not None:
+            if self._tp_shard["key"] == key:
+                return self
+            raise MXTPUError("this model is already sharded on another mesh "
+                             "or by other rules")
+        params = self._adoption_params()
+        full = {name: p.data for name, p in params}
+        groups = self._fused_groups()
+        plan, shard, axis = {}, None, None
+        for name, t in full.items():
+            split_k = None
+            if name.endswith("wscale"):
+                wname = name[:-len("wscale")] + "weight"
+                split_k = int4_scale_split(rules, wname, full[wname], t, mesh)
+            spec = rules.spec_for(name, t.dim())
+            cuts = rules.split_dims(name, t.dim(), mesh)
+            for d, n, c in cuts:
+                entry = spec[d]
+                if not isinstance(entry, str) or shard not in (None, (n, c)):
+                    raise MXTPUError(
+                        "tensor parallel: every split must be over the same "
+                        "single mesh axis; %s is split by %r" % (name, spec))
+                shard, axis = (n, c), entry
+            plan[name] = (groups.get(name), split_k, [d for d, _, _ in cuts])
+        if shard is None:
+            return self
+        dims = {name: p[2] for name, p in plan.items()}
+
+        def form(names, want):
+            got = [dims[nm] for nm in names]
+            if all(g == [] for g in got):
+                return False
+            if got == [[w] for w in want]:
+                return True
+            raise MXTPUError(
+                "tensor parallel: %s must be split on dims %s together or "
+                "not at all; the rules give %s" % (names, want, got))
+
+        tp = _TP(mesh, axis, *shard)
+        n = tp.n
+        seen = set()
+        for i, layer in enumerate(self.layers):
+            pre = "layer%d_" % i
+            attn = [pre + "attn_qkv_weight", pre + "attn_out_weight"]
+            ffn = [pre + "gate_weight", pre + "up_weight", pre + "down_weight"]
+            seen.update(attn + ffn)
+            if form(attn, [0, 1]):
+                a = layer.attn
+                if a.heads % n or a.kv_heads % n:
+                    raise MXTPUError(
+                        "tensor parallel: %d query and %d KV heads do not "
+                        "split over %d shards" % (a.heads, a.kv_heads, n))
+                a.heads //= n
+                a.kv_heads //= n
+                a.qkv.out_features //= n
+                a.out_proj.in_features //= n
+                a._tp = tp
+            if form(ffn, [0, 0, 1]):
+                layer.gate_proj.out_features //= n
+                layer.up_proj.out_features //= n
+                layer.down_proj.in_features //= n
+                layer._tp = tp
+        seen.add("embed_weight")
+        if form(["embed_weight"], [1]):
+            self.embed.embedding_dim //= n
+            self._tp_embed = tp
+        if not self.tie_weights:
+            seen.add("lm_head_weight")
+            if form(["lm_head_weight"], [0]):
+                self.lm_head.out_features //= n
+                self._tp_head = tp
+        for name, (_, _, d) in plan.items():
+            if name.endswith("wscale"):
+                wd = dims[name[:-len("wscale")] + "weight"]
+                if (wd == [0]) != (d == [0]) or d not in ([], [0]):
+                    raise MXTPUError(
+                        "tensor parallel: %s must be split with its weight's "
+                        "output dim (%s), the rules give %s" % (name, wd, d))
+            elif d and name not in seen:
+                raise MXTPUError("tensor parallel: %s cannot be split (the "
+                                 "rules give dims %s)" % (name, d))
+        for name, p in params:
+            g, split_k, _ = plan[name]
+            p.data = rules.local(name, p.data, mesh, g, split_k)
+        self._tp_shard = dict(key=key, plan=plan, mesh=mesh, rules=rules,
+                              tp=tp)
+        return self
+
+    @property
+    def tp_size(self):
+        """The shard count of the model's tensor parallelism (1 unless
+        :meth:`shard` split it)."""
+        return 1 if self._tp_shard is None else self._tp_shard["tp"].n
+
+    def _local_slice(self, name, arr):
+        """This rank's slice of the whole reference array ``arr`` of
+        parameter ``name`` (``arr`` itself when the model is not
+        sharded), a CPU tensor."""
+        if self._tp_shard is None:
+            return torch.from_numpy(np.array(arr))
+        sh = self._tp_shard
+        g, split_k, _ = sh["plan"][name]
+        return sh["rules"].local(name, np.asarray(arr), sh["mesh"], g,
+                                 split_k)
+
+    @torch.no_grad()
+    def gathered_params(self):
+        """``{reference name: whole tensor}`` of every parameter,
+        gathered from the shards (collective: every rank of the axis
+        calls it; every rank gets the whole tensors)."""
+        params = self._adoption_params()
+        if self._tp_shard is None:
+            return {name: p.data for name, p in params}
+        sh = self._tp_shard
+        tp = sh["tp"]
+        out = {}
+        for name, p in params:
+            g, split_k, dims = sh["plan"][name]
+            t = p.data
+            for d in reversed(dims + ([1] if split_k else [])):
+                parts = all_gather(t, tp.axis, 0, tiled=False, mesh=tp.mesh)
+                if d == 0 and g is not None:
+                    pieces, at = [], 0
+                    for rows in (x // tp.n for x in g):
+                        pieces += [q.narrow(0, at, rows) for q in parts]
+                        at += rows
+                    t = torch.cat(pieces, 0)
+                else:
+                    t = torch.cat(list(parts.unbind(0)), d)
+            out[name] = t
+        return out
+
     def _live_param_leaves(self):
         """The tensors every later call reads, in ``_adoption_params``
         order (rollback keeps them to install again)."""
@@ -796,9 +1022,7 @@ class TransformerLM(nn.Module):
             if src is None:
                 raise ValueError("checkpoint is missing parameter %r — "
                                  "architecture mismatch" % name)
-            host = np.asarray(named[src])
-            arr = torch.from_numpy(host if host.flags.writeable
-                                   else host.copy())
+            arr = self._local_slice(name, named[src])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(
                     "checkpoint parameter %r has shape %r, block expects "
@@ -903,3 +1127,18 @@ def llama_3_8b(vocab_size=128256, width_factor=1.0, depth_factor=1.0,
                          num_layers=max(1, int(32 * depth_factor)),
                          num_heads=heads, num_kv_heads=max(1, heads // 4),
                          device=device, dtype=dtype)
+
+
+def transformer_lm_sharding_rules():
+    """Tensor-parallel layout of the decoder family (the reference's
+    rules): qkv, gate and up column parallel, out_proj and down row
+    parallel, the embedding split on hidden and the head on vocabulary.
+    The fused qkv splits by head group (``parallel.sharding``)."""
+    return ShardingRules([
+        (r"qkv_weight$", P("tp", None)),
+        (r"attn_out_weight$", P(None, "tp")),
+        (r"(gate|up)_weight$", P("tp", None)),
+        (r"down_weight$", P(None, "tp")),
+        (r"embed_weight$", P(None, "tp")),
+        (r"lm_head_weight$", P("tp", None)),
+    ])

@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..base import MXTPUError, bump
+from .partition import check_head_shard
 from . import _build
 from .tensor import paged_cache_gather, paged_cache_gather_q8
 
@@ -304,6 +305,7 @@ def paged_decode_attention(q, pool_k, pool_v, tables, pos, k_scales=None,
     B, H, W, D = q.shape
     quant = k_scales is not None
     name = KERNEL_NAME_Q8 if quant else KERNEL_NAME
+    check_head_shard("paged_decode_attention", H, pool_k.shape[1])
     if anc is not None and W > 32:
         raise ValueError(
             "paged_decode_attention: K004: tree verify window W=%d exceeds "

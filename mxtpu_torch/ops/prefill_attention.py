@@ -26,6 +26,7 @@ import math
 import torch
 
 from ..base import MXTPUError, bump
+from .partition import check_head_shard
 from . import _build
 from .paged_attention import (CUDA_CORES, MAX_SMEM_BYTES, TENSOR_CORES,
                               _NEG_INF, check_index, check_kernel_geometry,
@@ -146,6 +147,7 @@ def paged_prefill_attention(q, pool_k, pool_v, table, start_pos,
     _, H, T, D = q.shape
     quant = k_scales is not None
     name = KERNEL_NAME_Q8 if quant else KERNEL_NAME
+    check_head_shard("paged_prefill_attention", H, pool_k.shape[1])
     if q.device.type == "cpu":
         bump(name)
         return paged_prefill_attention_plain(q, pool_k, pool_v, table,

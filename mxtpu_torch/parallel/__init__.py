@@ -1,2 +1,4 @@
-"""Serving of the port: the paged continuous-batching engine and its page
-allocator and prefix index."""
+"""Serving and parallelism of the port: the continuous-batching engines,
+their page allocator and prefix index, and tensor parallelism over
+``torch.distributed`` (``mesh``, ``collectives``, ``sharding``,
+``decode.ShardedDecoder``)."""

@@ -127,7 +127,8 @@ scrub path (the paged engine returns its pages) with its partial output.
 Live weight hot-swap: ``adopt(path)`` reads a verified checkpoint
 (``resilience.checkpoint``; the ``serving.adopt`` site fires first), has
 the model place its arrays beside the live weights
-(``TransformerLM.prepare_adoption``, a copy of the engine's own) and
+(``TransformerLM.prepare_adoption``, a copy of the engine's own; over
+a tp mesh each rank reads the file and places its own shard) and
 stages them; admissions wait while a generation is staged, and it
 installs at the first iteration boundary with no occupied slot, so
 in-flight streams finish on the generation they were admitted under and
@@ -144,7 +145,12 @@ engine adopted on serves its own parameters.  A draft model that is the
 target itself keeps drafting with the model's own parameters, as the
 reference's separate draft decoder does.
 
-Not in this slice: tensor parallelism.
+Tensor parallelism (``mesh=``, ``rules=``): every model call goes
+through a :class:`~mxtpu_torch.parallel.decode.ShardedDecoder`, which
+at tp > 1 runs the engine's calls on every rank's shard from rank 0 (the
+engine, its scheduler and its sampling live on rank 0 alone); each
+rank's pools and host page buffers hold its KV heads.  At tp = 1 the
+decoder calls the model directly.
 """
 
 from __future__ import annotations
@@ -165,6 +171,7 @@ from ..observability.trace import get_tracer as _tracer
 from ..ops.tensor import resolve_cache_dtype
 from ..resilience.counters import bump as _bump
 from ..resilience.faults import inject as _inject
+from .decode import DEFAULT_CACHE_SPEC, ShardedDecoder
 from .paging import NULL_PAGE, BlockPool, HierarchicalCache, PrefixIndex
 
 __all__ = ["Request", "ContinuousBatchingEngine",
@@ -408,6 +415,16 @@ class ContinuousBatchingEngine:
     ledger_tag : the engine's correlation-id scope in traces: its
         requests' events carry ``"<ledger_tag>:<rid>"`` (``"eng"`` unless
         given; engines traced side by side need distinct tags).
+    mesh, rules, cache_spec : tensor parallelism: the model served over
+        ``mesh``'s ``tp`` axis, split by ``rules``
+        (``models.transformer.transformer_lm_sharding_rules()``), each
+        rank's caches holding its KV heads (``cache_spec``, only the
+        default head split).  Every model call goes through a
+        :class:`~mxtpu_torch.parallel.decode.ShardedDecoder`: the engine
+        runs on rank 0 of the axis, the other ranks run
+        ``ShardedDecoder.follow(mesh, model[, draft_block])``.  None: one
+        rank.
+    draft_rules : the draft model's rules (``rules`` when None).
     """
 
     #: whether ``submit(session=...)`` is honoured (the paged engine's
@@ -418,7 +435,8 @@ class ContinuousBatchingEngine:
                  spec_k: int = 0, spec_ngram: int = 3, spec_tree=None,
                  draft_block=None, history: int = 1024, cache_dtype=None,
                  device=None, max_pending: Optional[int] = None, clock=None,
-                 ledger_tag: Optional[str] = None):
+                 ledger_tag: Optional[str] = None, mesh=None, rules=None,
+                 cache_spec=DEFAULT_CACHE_SPEC, draft_rules=None):
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0, got %d" % spec_k)
         self._device = resolve_device(device)
@@ -426,6 +444,7 @@ class ContinuousBatchingEngine:
             raise MXTPUError("the model is on %s, the engine on %s"
                              % (model.device, self._device))
         self._model = model
+        self._dec = ShardedDecoder(model, mesh, rules, cache_spec)
         self._num_slots = int(num_slots)
         self._max_length = int(max_length)
         self._cache_dtype = resolve_cache_dtype(cache_dtype, model.dtype)
@@ -465,6 +484,7 @@ class ContinuousBatchingEngine:
                 "source")
         self._spec_on = self._spec_k > 0 or self._spec_tree is not None
         self._draft = draft_block
+        self._draft_dec = None
         self._draft_pool = None
         if draft_block is not None:
             if self._spec_k < 1:
@@ -485,7 +505,10 @@ class ContinuousBatchingEngine:
             # target row and position-wise, so rollback is one host fix-up
             self._draft_cache_dtype = resolve_cache_dtype(cache_dtype,
                                                           draft_block.dtype)
-            self._draft_pool = draft_block.init_cache(
+            self._draft_dec = self._dec if draft_block is model else \
+                ShardedDecoder(draft_block, mesh, draft_rules or rules,
+                               cache_spec)
+            self._draft_pool = self._draft_dec.init_cache(
                 self._num_slots, self._max_length, self._draft_cache_dtype)
         self._drafter = (sampler.NGramDrafter(max_ngram=self._spec_ngram)
                          if self._spec_on and draft_block is None else None)
@@ -517,7 +540,7 @@ class ContinuousBatchingEngine:
 
     def _init_cache(self):
         """The target's cache: one contiguous row a slot."""
-        self._pool = self._model.init_cache(self._num_slots,
+        self._pool = self._dec.init_cache(self._num_slots,
                                             self._max_length,
                                             self._cache_dtype)
 
@@ -683,9 +706,9 @@ class ContinuousBatchingEngine:
         page budget); every request that fits max_length fits a row."""
 
     # -- admission -------------------------------------------------------
-    def _slot_prefill(self, model, cache, cache_dtype, row, prompt):
+    def _slot_prefill(self, dec, cache, cache_dtype, row, prompt):
         """Prefill ``prompt`` (1, Tp) int32 into row ``row`` of ``cache``
-        (``model``'s): the prompt padded to the power-of-two ladder
+        (the model's behind the decoder ``dec``): the prompt padded to the power-of-two ladder
         (capped at max_length) through a fresh batch-1 scratch cache,
         then copied into the row.  Returns the logits of the prompt's
         last real position, (1, V)."""
@@ -693,10 +716,10 @@ class ContinuousBatchingEngine:
         Tb = min(_bucket(Tp), self._max_length)
         raw = np.zeros((1, Tb), np.int64)
         raw[0, :Tp] = prompt[0]
-        scratch = model.init_cache(1, Tb, cache_dtype)
-        logits = model.prefill(torch.from_numpy(raw).to(self._device),
-                               scratch)
-        model.write_cache_slot(cache, scratch, row)
+        scratch = dec.init_cache(1, Tb, cache_dtype)
+        logits = dec.prefill(torch.from_numpy(raw).to(self._device),
+                             scratch)
+        dec.write_cache_slot(cache, scratch, row)
         return logits[:, Tp - 1]
 
     def _admit(self, req, row):
@@ -706,7 +729,7 @@ class ContinuousBatchingEngine:
         slot = _Slot(req, row, self._param_gen)
         self._slots[row] = slot
         self._status[req.rid] = "active"
-        last = self._slot_prefill(self._model, self._pool, self._cache_dtype,
+        last = self._slot_prefill(self._dec, self._pool, self._cache_dtype,
                                   row, req.prompt)
         self._first_token(slot, last)
 
@@ -747,7 +770,7 @@ class ContinuousBatchingEngine:
             slot.history = [int(t) for t in req.prompt[0]] + [int(tok[0])]
             if self._draft is not None:
                 with self._draft_leaves():
-                    self._slot_prefill(self._draft, self._draft_pool,
+                    self._slot_prefill(self._draft_dec, self._draft_pool,
                                        self._draft_cache_dtype, row,
                                        req.prompt)
         self._prefilled(slot)
@@ -901,18 +924,18 @@ class ContinuousBatchingEngine:
         return torch.from_numpy(pos).to(self._device)
 
     def _run_step(self, state):
-        return self._model.step_slots(self._last_tokens.reshape(-1, 1),
+        return self._dec.step_slots(self._last_tokens.reshape(-1, 1),
                                       self._pool, state)
 
     def _run_verify(self, state, window, valid_len):
-        return self._model.verify_slots(window, self._pool, state, valid_len)
+        return self._dec.verify_slots(window, self._pool, state, valid_len)
 
     def _run_verify_tree(self, state, window, valid_len, perm, depth, anc):
-        return self._model.verify_slots(window, self._pool, state, valid_len,
+        return self._dec.verify_slots(window, self._pool, state, valid_len,
                                         tree=(perm, depth))
 
     def _run_fixup(self, state, src_lane):
-        self._model.permute_cache_span(self._pool, state, src_lane)
+        self._dec.permute_cache_span(self._pool, state, src_lane)
 
     def _decode_active(self, active):
         """Draft, then ONE plain pooled step or ONE pooled verify call
@@ -1093,7 +1116,7 @@ class ContinuousBatchingEngine:
         proposals = []
         with self._draft_leaves():
             for w in range(j + 1):
-                logits = self._draft.step_slots(
+                logits = self._draft_dec.step_slots(
                     tok, self._draft_pool,
                     (pos + w).clamp(max=self._max_length - 1))
                 if w < j:
@@ -1454,14 +1477,14 @@ class ContinuousBatchingEngine:
         if self._leaves is None:
             yield
             return
-        own = self._model._live_param_leaves()
-        self._model.install_leaves(self._leaves)
+        own = self._dec._live_param_leaves()
+        self._dec.install_leaves(self._leaves)
         self._own_leaves = own
         try:
             yield
         finally:
             self._own_leaves = None
-            self._model.install_leaves(own)
+            self._dec.install_leaves(own)
 
     @contextlib.contextmanager
     def _draft_leaves(self):
@@ -1471,11 +1494,11 @@ class ContinuousBatchingEngine:
         if self._draft is not self._model or self._own_leaves is None:
             yield
             return
-        self._model.install_leaves(self._own_leaves)
+        self._dec.install_leaves(self._own_leaves)
         try:
             yield
         finally:
-            self._model.install_leaves(self._leaves)
+            self._dec.install_leaves(self._leaves)
 
     def take_result(self, rid):
         """Pop one finished request's output: (1, Tp + generated) int32
@@ -1567,7 +1590,7 @@ class ContinuousBatchingEngine:
                 raise CorruptCheckpointError(
                     "checkpoint payload is not a params mapping (got %s)"
                     % type(blob).__name__, path=str(checkpoint))
-            leaves = self._model.prepare_adoption(named)
+            leaves = self._dec.prepare_adoption(named, path=checkpoint)
         except Exception as exc:
             self._adoption_failures += 1
             _bump("adoption_failures")
@@ -1618,7 +1641,7 @@ class ContinuousBatchingEngine:
         if any(s is not None for s in self._slots):
             return                      # streams still on the old one
         self._prev_leaves = (self._leaves if self._leaves is not None
-                             else self._model._live_param_leaves())
+                             else self._dec._live_param_leaves())
         self._leaves = self._staged_adoption
         self._staged_adoption = None
         self._param_gen += 1
@@ -1717,7 +1740,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  max_pending: Optional[int] = None, clock=None,
                  pin_bytes=None, host_cache_bytes=None,
                  overlap_swaps: bool = False,
-                 ledger_tag: Optional[str] = None):
+                 ledger_tag: Optional[str] = None, mesh=None, rules=None,
+                 cache_spec=DEFAULT_CACHE_SPEC, draft_rules=None):
         bs = int(block_size)
         chunk = int(prefill_chunk)
         if bs < 1:
@@ -1752,7 +1776,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          draft_block=draft_block, history=history,
                          cache_dtype=cache_dtype, device=device,
                          max_pending=max_pending, clock=clock,
-                         ledger_tag=ledger_tag)
+                         ledger_tag=ledger_tag, mesh=mesh, rules=rules,
+                         cache_spec=cache_spec, draft_rules=draft_rules)
 
     def _init_cache(self):
         """The page pool, its allocator, the prefix index and the
@@ -1767,18 +1792,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             num_blocks = self._num_slots * (-(-self._max_length // bs))
         self._prefix = PrefixIndex(bs)
         self._bp = BlockPool(int(num_blocks), bs, on_free=self._prefix.evict)
-        self._pools = self._model.init_block_pool(self._bp.capacity + 1, bs,
+        self._pools = self._dec.init_block_pool(self._bp.capacity + 1, bs,
                                                   self._cache_dtype)
         self._slot_pages: List[Optional[List[int]]] = [None] * self._num_slots
         # a page priced from the pools as allocated: every pool tensor's
         # row, the (k, v) leaves of each layer, an int8 leaf's payload
-        # and scales both.  One device: the pinned tier's (per-device)
-        # price and the host tier's are the same.
-        self._bytes_per_block = sum(t[0].numel() * t.element_size()
-                                    for t in pool_tensors(self._pools))
+        # and scales both.  The two budgets price different memories, as
+        # the reference's do: the pinned tier a device's (one rank's
+        # heads), the host tier the whole page (every rank's heads)
+        per_rank = sum(t[0].numel() * t.element_size()
+                       for t in pool_tensors(self._pools))
+        self._bytes_per_block = per_rank * self._dec.tp
         self._hc = HierarchicalCache(
             self._bp, self._prefix,
-            pin_blocks=self._pin_bytes // self._bytes_per_block,
+            pin_blocks=self._pin_bytes // per_rank,
             host_blocks=self._host_bytes // self._bytes_per_block)
 
     @staticmethod
@@ -1837,7 +1864,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _read_pages(self, pages):
         """Device-to-host copy of pages (one gather a pool tensor, one
         copy): one host entry a page, each a row of the same buffer."""
-        buf = self._model.read_pages(self._pools, pages)
+        buf = self._dec.read_pages(self._pools, pages)
         self._hold(buf)
         return [_HostPage(buf, i) for i in range(len(pages))]
 
@@ -1847,9 +1874,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         first = content[0]
         assert all(e.buf is first.buf and e.index == first.index + j
                    for j, e in enumerate(content))
-        host = first.buf[first.index:first.index + len(content)]
-        self._model.write_pages(self._pools, pages, host)
-        self._hold(host)
+        self._dec.write_pages(self._pools, pages, first.buf, first.index)
+        self._hold(first.buf)
 
     def _spill_chain(self, chain):
         """Evict one pinned chain from the device tier: copy its pages
@@ -2157,10 +2183,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         raw[0, :Tact] = req.prompt[0, start:start + Tact]
         if slot.cow is not None:
             # the clone lands before this chunk writes into its page
-            self._model.copy_block(self._pools, *slot.cow)
+            self._dec.copy_block(self._pools, *slot.cow)
             slot.cow = None
         table = torch.from_numpy(self._table_row(row)).to(self._device)
-        logits = self._model.prefill_pages(
+        logits = self._dec.prefill_pages(
             torch.from_numpy(raw).to(self._device), self._pools, table,
             start)
         slot.chunk_i += 1
@@ -2213,22 +2239,22 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _run_step(self, state):
         pos, tables = state
-        return self._model.step_pages(self._last_tokens.reshape(-1, 1),
+        return self._dec.step_pages(self._last_tokens.reshape(-1, 1),
                                       self._pools, tables, pos)
 
     def _run_verify(self, state, window, valid_len):
         pos, tables = state
-        return self._model.verify_pages(window, self._pools, tables, pos,
+        return self._dec.verify_pages(window, self._pools, tables, pos,
                                         valid_len)
 
     def _run_verify_tree(self, state, window, valid_len, perm, depth, anc):
         pos, tables = state
-        return self._model.verify_pages(window, self._pools, tables, pos,
+        return self._dec.verify_pages(window, self._pools, tables, pos,
                                         valid_len, tree=(depth, anc))
 
     def _run_fixup(self, state, src_lane):
         pos, tables = state
-        self._model.permute_pool_span(self._pools, tables, pos, src_lane)
+        self._dec.permute_pool_span(self._pools, tables, pos, src_lane)
 
     # -- one scheduler iteration ------------------------------------------
     def _advance_prefills(self):

@@ -205,10 +205,18 @@ class InProcessReplica(ReplicaTransport):
     per-slot fault is the ENGINE's failure path (that request retries
     or fails), while an exception escaping :meth:`health` /
     :meth:`step` / :meth:`poll` is a REPLICA-level signal the
-    supervisor counts toward declared death.
+    supervisor counts toward declared death.  An engine over a tp > 1
+    mesh raises: the service layer over tensor-parallel engines is not
+    ported.
     """
 
     def __init__(self, engine, replica_id: str = "r0"):
+        dec = getattr(engine, "_dec", None)
+        if dec is not None and dec.tp > 1:
+            raise MXTPUError(
+                "a replica over a tensor-parallel engine (tp=%d) is not "
+                "ported: the service layer serves one-rank engines (ROADMAP "
+                "A6's leftovers)" % dec.tp)
         self._eng = engine
         self.replica_id = str(replica_id)
         self.alive = True

@@ -196,7 +196,8 @@ def test_quantize_weights_names_shapes_and_refusals():
     """11 quantized names on llama_tiny (qkv, out, gate, up, down a layer
     and lm_head); int4 at group 32 keeps the qkv weight packed (128, 32)
     with (128, 2) scales and the parameter names; the embedding stays
-    float; a meta (uninitialized) model, rules= and bits 3 raise."""
+    float; a meta (uninitialized) model, rules= that are not
+    ShardingRules and bits 3 raise."""
     port = llama_tiny(vocab_size=50, device="cpu")
     names = q.quantize_weights(port, bits=4, group_size=32)
     assert len(names) == 11 and "lm_head_weight" in names
