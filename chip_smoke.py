@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero:
 3c. phases 3 and 3b again over int8 pools and their float32 scales (the
    random pools quantized by the cache's own quantizer): K1 int8 at
    W = 1, windows W = 2..32 and trees, invariants (a) and (b) with
-   ``torch.equal``, and K2 int8 with a chunk starting mid-page; then G1,
+   ``torch.equal``, and K2 int8 with a chunk starting mid-page; K2 at the
+   unbucketed chunk lengths a routed model gives it (T = 1, 37, 97 and
+   641, mid-page, float32 and bf16 queries over float and int8 pools);
+   then G1,
    the row-invariant projection, against its plain version (F.linear)
    at small ragged shapes in float32 and bfloat16 (M up to 200, two
    128-row chunks) and at the six 8B projections in bfloat16, M = 8 and
@@ -77,6 +80,12 @@ Phases, in order; any failure exits non-zero:
    side-branch fix-up runs, no page leaks;
 4c. phase 4b with an int8 cache, every stream equal to the same settings'
    stream without speculation and to int8 ``generate``;
+4m. a small float32 Switch MoE model (``llama_tiny``'s widths, 4 experts,
+   capacity factor 4) served by the paged engine (chunked, unpadded
+   prefill) and the slot engine: greedy and seeded streams
+   token-identical to its ``generate``, no prefix shared, K1 and K2
+   launched; its prefill and full-forward logits within 1e-4 of the
+   same model on the CPU;
 5. the main path: the full-width 32-layer Llama-3-8B in bfloat16 with
    seeded random weights, serving 12 requests (prompts of 64-640
    tokens, 6 sharing a 256-token prefix, 32 new tokens each, 2 of them
@@ -257,6 +266,27 @@ Phases, in order; any failure exits non-zero:
    the ms a step and a chunk in collectives and that pass's own ms a
    step; the controller's broadcast ms a call, each rank's peak memory
    and the phase's seconds, with the card's name and power limit;
+6m. Switch MoE serving at full width (``serve_moe_8b``):
+   ``llama_3_8b(num_experts=8, capacity_factor=1.25)`` cut to 4 of its
+   32 layers, bf16, seeded random weights, serving phase 5's traffic
+   through the paged engine (each prompt one unpadded chunk), the slot
+   engine and a paged engine built with spec_k = 4: no prefix shared,
+   no draft, the spec_k engine's streams identical to the plain
+   engine's, no page leaked, finite logits, K1, K2 and G1 launched
+   (the ``moe_launches`` line); each engine's greedy streams against
+   ``generate`` by C5's rule extended by routing
+   (``moe_streams_vs_generate``: a stream may part where generate's
+   logits near-tie or after a routing flip whose router gap lies
+   within the one-ulp bound of its bf16 input, and every primary flip
+   must lie within it; the routes are recorded in a second run of the
+   paged and slot engines, whose streams must be the timed run's);
+   decode ms a step, the routed FFN's ms a step (CUDA events in the
+   bare run, and its profiler ranges' device time in one profiled
+   step), the experts' float32 upcast bytes a call, prefill tokens/s,
+   peak memory and the share of prompt tokens each layer's capacity
+   dropped; K2 at the longest unpadded chunk becomes the ``kernels`` row
+   ``paged_prefill[unbucketed,T=<n>]``, its launches the paged run's
+   calls of K2's wrapper at that length;
 7. layer 0's kernel inputs captured from the main runs (two prefill
    chunks, the first at position 256 or later and the last chunk of the
    longest prompt, at 576; one decode step, one linear verify window
@@ -282,6 +312,13 @@ Phases, in order; any failure exits non-zero:
    float32, 1 warm-up and 5 counted steps on 1 x 2048 tokens; the flash
    launch counts must be 20 each and the dense rule must not fire;
    torch.profiler over one more step;
+10m. Switch MoE training at full width: ``llama_3_8b(num_experts=8)``
+   cut to one layer, float32, ``return_moe_aux``, one forward and
+   backward (a finite aux, a nonzero gradient on the router and on every
+   expert that received tokens), then SPMDTrainer with Adam and
+   ``NextTokenLoss(moe_aux_weight=0.01)`` for 1 + 5 steps of phase 10's
+   batch: K3-K5 launched once a step each, a finite loss that falls;
+   ms a step and peak memory;
 11. layer 0's flash inputs captured from the first counted step: kernel
    against plain version, and the kernel, plain and library times; each
    row also carries ``bound_tc_ms``, the bound of its 3xTF32 route on
@@ -392,6 +429,7 @@ which rounds each step of the torch chain once, as it does.
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -400,6 +438,9 @@ import time
 
 import numpy as np
 import torch
+
+from mxtpu_torch.parallel.trainer import (  # noqa: E402
+    NextTokenLoss, synthetic_batches)
 
 #: NVIDIA H100 SXM data sheet: HBM3 bytes/s and dense peak operations/s
 #: by input type (bf16 and int8 on the tensor cores, float32 on the CUDA
@@ -742,32 +783,8 @@ def library_prefill(q, pool_k, pool_v, table, start, k_scales=None,
 
 # -- the training path's data and loss ----------------------------------------
 
-def synthetic_batches(batch, seq, steps, vocab, seed=0):
-    """The reference training example's synthetic language
-    (examples/parallel/llama_train.py), with the vocabulary a parameter:
-    arithmetic token sequences with 2% noise, as int32 numpy arrays."""
-    rng = np.random.RandomState(seed)
-    for _ in range(steps):
-        start = rng.randint(0, vocab, (batch, 1))
-        stride = rng.randint(1, 5, (batch, 1))
-        base = (start + stride * np.arange(seq)) % vocab
-        noise = (rng.rand(batch, seq) < 0.02) * rng.randint(0, vocab,
-                                                            (batch, seq))
-        yield ((base + noise) % vocab).astype(np.int32)
-
-
-class NextTokenLoss:
-    """The reference training example's shifted cross-entropy: predict token t+1
-    from the prefix up to t (one loss per predicted token)."""
-
-    def __init__(self):
-        from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-
-        self._ce = SoftmaxCrossEntropyLoss()
-
-    def __call__(self, logits, labels):
-        return self._ce(logits[:, :-1].reshape(-1, logits.shape[-1]),
-                        labels[:, 1:].reshape(-1))
+# synthetic_batches and NextTokenLoss: the reference training example's
+# data and loss, from mxtpu_torch.parallel.trainer (imported above)
 
 
 def synthetic_images(n, size, classes, seed):
@@ -1128,6 +1145,32 @@ def kernels_against_plain(flush, quant=False):
                     log(phase="kernel_vs_plain", kernel=name,
                         geometry=gname, dtype=str(dtype).split(".")[1],
                         shape=list(args[0].shape), seed=seed, **res)
+
+
+#: chunk lengths off K2's power-of-two ladder, as a routed (MoE) model's
+#: unpadded prefill gives them (phase 6m: one chunk a prompt)
+UNBUCKETED_T = (1, 37, 97, 641)
+
+
+def prefill_unbucketed_against_plain(flush):
+    """K2 at ``UNBUCKETED_T``, the 8B geometry and a chunk starting
+    mid-page: float32 and bfloat16 queries (the walk and the tensor-core
+    route), over float pools and over int8 pools with their scales,
+    each within TOL of the plain version (``measure``, untimed; the
+    tensor-core route gives the same bits on a second call)."""
+    for T in UNBUCKETED_T:
+        geom = dict(LLAMA_8B, T=T, ctx=max(LLAMA_8B["ctx"], 2 * T))
+        for dtype in (torch.float32, torch.bfloat16):
+            for quant in (False, True):
+                args, kw = prefill_case(geom, dtype, seed=T), {}
+                name = "paged_prefill"
+                if quant:
+                    args, kw = q8_case(args)
+                    name += "[int8]"
+                res = measure(name, args, flush, timed=False, kw=kw)
+                log(phase="kernel_vs_plain_unbucketed", kernel=name,
+                    dtype=str(dtype).split(".")[1], T=T, start=args[4],
+                    shape=list(args[0].shape), **res)
 
 
 #: the decode step's six projections of llama_3_8b, as (name, N, K)
@@ -5962,6 +6005,648 @@ def measure_quantized(name, args, kw, flush):
     return res
 
 
+# -- phases 4m, 6m and 10m: Switch mixture-of-experts -------------------------
+
+#: phase 4m's routed model: llama_tiny's widths, 4 experts a layer
+MOE_SMALL = dict(num_experts=4, capacity_factor=4.0)
+#: phase 6m's: llama_3_8b's widths, 8 top-1 experts a layer of the
+#: SwiGLU's hidden width (14336), CUT_DEPTH of its layers
+MOE_8B = dict(num_experts=8, capacity_factor=1.25)
+#: phase 6m's paged engine: each prompt (at most 640 tokens) one chunk, so
+#: the engine routes every prompt as generate's one prefill does
+MOE_SERVE = dict(SERVE, prefill_chunk=1024)
+#: phase 10m: one full-width layer of 8 experts, float32
+MOE_TRAIN = dict(num_experts=8, depth_factor=1 / 32, aux_weight=0.01)
+
+
+def small_moe_reference_check():
+    """A 2-layer float32 Switch MoE model (``MOE_SMALL``) on the card:
+    the paged engine (chunked prefill, every chunk budgeting capacity
+    from its prompt's length) and the slot engine give the tokens of
+    the model's own ``generate``, greedy and seeded-sampled, with no
+    prefix shared; the prefill logits and the full forward's are within
+    1e-4 of the same model on the CPU."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models.transformer import llama_tiny
+    from mxtpu_torch.parallel.serving import (ContinuousBatchingEngine,
+                                              PagedContinuousBatchingEngine)
+
+    model = llama_tiny(vocab_size=64, device="cuda", **MOE_SMALL)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(1), 0.1)
+    cpu = llama_tiny(vocab_size=64, device="cpu", **MOE_SMALL)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, 64, 13)
+    prompts = [rng.randint(0, 64, (1, n)) for n in (5, 21, 9)] + [
+        np.concatenate([shared, rng.randint(0, 64, n)])[None]
+        for n in (3, 7)]
+    knobs = [{}, {}, dict(temperature=0.9, top_p=0.9, seed=7), {},
+             dict(repetition_penalty=1.3)]
+    want = [model.generate(torch.from_numpy(p), 10, **kw).cpu().numpy()
+            for p, kw in zip(prompts, knobs)]
+    out = {}
+    for name, eng in (
+            ("paged", PagedContinuousBatchingEngine(
+                model, num_slots=3, max_length=48, block_size=8,
+                prefill_chunk=8)),
+            ("slot", ContinuousBatchingEngine(model, num_slots=3,
+                                              max_length=48))):
+        base.reset_counts()
+        rids = [eng.submit(p, 10, **kw) for p, kw in zip(prompts, knobs)]
+        res = eng.run()
+        for rid, w, kw in zip(rids, want, knobs):
+            if not np.array_equal(res[rid].numpy(), w):
+                raise AssertionError("MoE %s engine stream %r differs from "
+                                     "generate %r (%r)" % (
+                                         name, res[rid].numpy(), w, kw))
+        st = eng.stats
+        if st.get("blocks_in_use", 0) or st.get("prefix_hit_requests", 0):
+            raise AssertionError("MoE %s engine: pages leaked or a prefix "
+                                 "shared: %r" % (name, st))
+        out[name] = base.counts()
+    if not (out["paged"].get("paged_attention")
+            and out["paged"].get("paged_prefill")):
+        raise AssertionError("the MoE paged engine launched no K1 or K2: %r"
+                             % out["paged"])
+    ids = torch.from_numpy(rng.randint(0, 64, (2, 11)))
+    errs = {}
+    with torch.no_grad():
+        for form in ("prefill", "forward"):
+            if form == "prefill":
+                got = model.prefill(ids.cuda(), model.init_cache(2, 11))
+                ref = cpu.prefill(ids, cpu.init_cache(2, 11))
+            else:
+                got, ref = model(ids.cuda()), cpu(ids)
+            errs[form] = float((got.cpu() - ref).abs().max())
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError("MoE logits on the card differ from the CPU: "
+                             "%r > 1e-4" % errs)
+    log(phase="small_moe_reference", requests=len(prompts), ok=True,
+        launches=out, logits_vs_cpu_max_abs=errs)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each element of ``x`` (0 where x is 0)."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+class Routes:
+    """The top-1 routing of every token at every routed layer during a
+    run, recorded by instance overrides of each ``SwitchMoE``'s
+    ``decode_forward`` and ``prefill_forward`` (the package has no
+    switch for it): per (stream, position, layer) the expert chosen, the
+    router's logits and, for each pair of experts (a, b), the bound
+    sum_j ulp(x_j) * |w_a,j - w_b,j| by which their logit difference can
+    move when every element of the router's bf16 input x moves by one
+    ulp.  An engine run names a token by its slot's request and
+    position; ``generate`` by ``stream`` and the step's position.  It
+    also counts the prompt tokens each layer's prefill capacity
+    dropped."""
+
+    def __init__(self, model, eng=None):
+        self.model, self.eng = model, eng
+        self.moes = [layer.moe for layer in model.layers]
+        self.streams = {}          # rid -> stream index (engine runs)
+        self.key = None            # (stream, start) of the prefill running
+        self.pos = None            # generate's step position
+        self.rec = {}              # layer -> [(stream, pos, logits, bounds)]
+        self.drops = [[0, 0] for _ in self.moes]
+        E = self.moes[0].num_experts
+        self.pairs = []
+        for moe in self.moes:
+            w = moe.router_weight.detach().float()
+            self.pairs.append((w, (w[:, None, :] - w[None, :, :]).abs()
+                               .reshape(E * E, -1).t().contiguous()))
+
+    def _record(self, i, x, prefill, total_len=None):
+        w, diff = self.pairs[i]
+        E = w.shape[0]
+        xf = x.reshape(-1, x.shape[-1]).float()
+        if prefill:
+            if self.key is None or self.key[0] is None:
+                return
+            stream, start = self.key
+            T = x.shape[1]
+            streams = torch.full((T,), stream, dtype=torch.long)
+            pos = start + torch.arange(T)
+            keep = slice(None)
+            moe = self.moes[i]
+            total = int(total_len) if total_len is not None else T
+            cap = max(1, math.ceil(moe.top_k * x.shape[0] * total / E
+                                   * moe.capacity_factor))
+            route = torch.argmax(xf @ w.t(), dim=-1)
+            over = torch.clamp(torch.bincount(route, minlength=E) - cap,
+                               min=0)
+            self.drops[i][0] += int(over.sum())
+            self.drops[i][1] += T
+        elif self.eng is not None:
+            rows, streams, pos = [], [], []
+            for b, slot in enumerate(self.eng._slots):
+                if slot is None or slot.prefilling \
+                        or slot.req.rid not in self.streams:
+                    continue
+                rows.append(b)
+                streams.append(self.streams[slot.req.rid])
+                pos.append(slot.pos)
+            if not rows:
+                return
+            keep = torch.tensor(rows, device=x.device)
+            streams, pos = torch.tensor(streams), torch.tensor(pos)
+        else:
+            if self.key is None:
+                return
+            streams = torch.full((xf.shape[0],), self.key[0],
+                                 dtype=torch.long)
+            pos = torch.full((xf.shape[0],), self.pos, dtype=torch.long)
+            keep = slice(None)
+        xk = xf[keep]
+        self.rec.setdefault(i, []).append(
+            (streams, pos, xk @ w.t(), bf16_ulp(xk) @ diff))
+
+    def _override(self, owner, attr, make):
+        """Put ``make(current)`` on ``owner`` as ``attr``; ``__exit__``
+        puts back what was there (another override, or nothing)."""
+        self._saved.append((owner, attr, owner.__dict__.get(attr)))
+        setattr(owner, attr, make(getattr(owner, attr)))
+
+    def _wrap(self, i, moe, name):
+        prefill = name == "prefill_forward"
+
+        def make(inner):
+            def call(x, *a, **kw):
+                self._record(i, x, prefill, *a, **kw)
+                return inner(x, *a, **kw)
+            return call
+
+        self._override(moe, name, make)
+
+    def _engine_key(self, attr, key):
+        def make(inner):
+            def call(*a, **kw):
+                self.key = key(*a)
+                try:
+                    return inner(*a, **kw)
+                finally:
+                    self.key = None
+            return call
+
+        self._override(self.eng, attr, make)
+
+    def __enter__(self):
+        self._saved = []
+        for i, moe in enumerate(self.moes):
+            self._wrap(i, moe, "decode_forward")
+            self._wrap(i, moe, "prefill_forward")
+        if self.eng is None:
+            def make(inner):
+                def step(ids, caches, pos):
+                    self.pos = pos
+                    return inner(ids, caches, pos)
+                return step
+
+            self._override(self.model, "step", make)
+        elif hasattr(self.eng, "_advance_prefill"):
+            def paged_key(row):
+                slot = self.eng._slots[row]
+                return (self.streams.get(slot.req.rid),
+                        slot.chunks[slot.chunk_i][0])
+
+            self._engine_key("_advance_prefill", paged_key)
+        else:
+            self._engine_key("_admit", lambda req, row: (
+                self.streams.get(req.rid), 0))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, prev in reversed(self._saved):
+            if prev is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, prev)
+
+    def table(self):
+        """{(stream, layer): {pos: (route, logits, bounds)}} on the host
+        (a stream of None, a warm-up request, is left out)."""
+        out = {}
+        for i, parts in self.rec.items():
+            for streams, pos, logits, bounds in parts:
+                lg, bd = logits.cpu().numpy(), bounds.cpu().numpy()
+                for k, (s, p) in enumerate(zip(streams.tolist(),
+                                               pos.tolist())):
+                    if s is None or s < 0:
+                        continue
+                    out.setdefault((s, i), {})[p] = (
+                        int(lg[k].argmax()), lg[k], bd[k])
+        return out
+
+    def drop_shares(self):
+        return [d / t if t else 0.0 for d, t in self.drops]
+
+
+def routing_flips(gen, eng, stream, n_layers, upto):
+    """The tokens of ``stream`` at positions below ``upto`` whose expert
+    differs between the ``generate`` run ``gen`` and the engine run
+    ``eng`` (``Routes.table``s): each with generate's gap from its
+    expert's logit to the engine's expert's, the one-ulp bound of that
+    pair, and whether it is primary (no flip at a lower layer and an
+    earlier or equal position, whose changed output would reach it)."""
+    flips = []
+    for i in range(n_layers):
+        g, e = gen.get((stream, i), {}), eng.get((stream, i), {})
+        for p in sorted(set(g) & set(e)):
+            if p >= upto or g[p][0] == e[p][0]:
+                continue
+            a, b = g[p][0], e[p][0]
+            E = len(g[p][1])
+            flips.append(dict(layer=i, pos=p, generate_expert=a,
+                              engine_expert=b,
+                              gap=float(g[p][1][a] - g[p][1][b]),
+                              bound=float(g[p][2][a * E + b]),
+                              engine_gap=float(e[p][1][b] - e[p][1][a])))
+    for f in flips:
+        f["primary"] = not any(o["layer"] < f["layer"]
+                               and o["pos"] <= f["pos"] for o in flips)
+    return flips
+
+
+def moe_streams_vs_generate(name, model, reqs, streams, gen_streams,
+                            gen_routes, routes):
+    """C5's rule extended by routing: a greedy engine stream may part
+    from ``generate`` where generate's top logits lie within
+    ``PARTING_ULPS``, or after a primary routing flip on that stream
+    whose gap lies within its one-ulp bound (``routing_flips``).  Every
+    primary flip on any stream, parted or not, must lie within its
+    bound; flips downstream of one are logged, not held.  Sampled
+    streams are read only."""
+    n_layers = len(model.layers)
+    gen_t, eng_t = gen_routes.table(), routes.table()
+    parted, wide, unexplained, flip_log = [], [], [], []
+    for j, ((p, kw), got, want) in enumerate(zip(reqs, streams,
+                                                 gen_streams)):
+        diff = np.nonzero(want[0] != got[0])[0]
+        at = int(diff[0]) if diff.size else want.shape[1]
+        flips = routing_flips(gen_t, eng_t, j, n_layers, at)
+        primary = [f for f in flips if f["primary"]]
+        wide += [dict(f, request=j) for f in primary
+                 if f["gap"] > f["bound"]]
+        flip_log += [dict(f, request=j) for f in primary]
+        if not diff.size:
+            continue
+        entry = dict(request=j, sampled="temperature" in kw,
+                     token=at - p.shape[1], flips=len(flips),
+                     primary_flips=len(primary))
+        if not entry["sampled"]:
+            lg = generate_logits(model, want[:, :at], p.shape[1], None)
+            top, eng = float(lg[want[0, at]]), float(lg[got[0, at]])
+            ulp = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+            entry.update(gap=top - eng, gap_ulps=(top - eng) / ulp)
+            entry["explained_by"] = (
+                "logits" if entry["gap_ulps"] <= PARTING_ULPS else
+                "routing" if any(f["gap"] <= f["bound"] for f in primary)
+                else None)
+            if entry["explained_by"] is None:
+                unexplained.append(entry)
+        parted.append(entry)
+    shares = [f["gap"] / f["bound"] for f in flip_log if f["bound"] > 0]
+    log(phase="moe_streams_vs_generate", engine=name, requests=len(reqs),
+        identical=len(reqs) - len(parted), parted=parted,
+        bound_ulps=PARTING_ULPS, primary_flips=flip_log,
+        max_primary_gap_share_of_bound=max(shares) if shares else None)
+    if wide or unexplained:
+        raise AssertionError(
+            "MoE %s engine: routing flips wider than their one-ulp bound "
+            "%r, or partings from generate that neither a near-tie of its "
+            "logits nor a routing flip explains %r" % (name, wide,
+                                                       unexplained))
+
+
+def serve_moe_8b():
+    """Phase 6m: ``llama_3_8b(**MOE_8B)`` at full width and CUT_DEPTH,
+    bf16, Normal(0, 0.02) weights from seed 0, served phase 5's traffic
+    by the paged engine (``MOE_SERVE``), the slot engine and a paged
+    engine built with ``spec_k=4``.  Held: no prefix shared, speculation
+    off (0 drafted, streams identical to the plain engine's), no page
+    leaked, finite logits, K1, K2 and G1 launched, and each engine's
+    streams against ``generate`` by ``moe_streams_vs_generate`` (the
+    routes from a second run, held to the timed run's streams).
+    Returns the kernels-line row of K2 at the longest (unpadded) chunk:
+    its name, its launches at that length in the paged run and its
+    captured inputs."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models import sampler
+    from mxtpu_torch.models.transformer import llama_3_8b
+    from mxtpu_torch.ops import prefill_attention as pf
+    from mxtpu_torch.parallel.serving import (ContinuousBatchingEngine,
+                                              PagedContinuousBatchingEngine)
+
+    t0 = time.perf_counter()
+    model = llama_3_8b(depth_factor=CUT_DEPTH, device="cuda", **MOE_8B)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0), 0.02)
+    n_layers = len(model.layers)
+    moe0 = model.layers[0].moe
+    torch.cuda.synchronize()
+    log(phase="moe_model", layers=n_layers, dtype="bfloat16",
+        params=sum(p.numel() for p in model.parameters()),
+        experts=moe0.num_experts, capacity_factor=moe0.capacity_factor,
+        expert_hidden=moe0.experts_w1.shape[-1],
+        seconds=time.perf_counter() - t0)
+    reqs = traffic(model.vocab_size)
+    longest = max(p.shape[1] for p, _ in reqs)
+    gen_routes = Routes(model)
+    gen_streams = []
+    with gen_routes:
+        for j, (p, kw) in enumerate(reqs):
+            gen_routes.key = (j, 0)
+            gen_streams.append(model.generate(torch.from_numpy(p).cuda(),
+                                              NEW_TOKENS, **kw).cpu().numpy())
+    gen_routes.key = None
+    out, streams, routes = {}, {}, {}
+    k2_cap = Capture(pf, "paged_prefill_attention",
+                     lambda n, a, kw: a[0].shape[2] == longest)
+    for name, make in (
+            ("paged", lambda: PagedContinuousBatchingEngine(model,
+                                                            **MOE_SERVE)),
+            ("slot", lambda: ContinuousBatchingEngine(model, **SLOT_SERVE)),
+            ("spec_k=4", lambda: PagedContinuousBatchingEngine(
+                model, spec_k=4, **MOE_SERVE))):
+        # the timed run is bare; the routes are recorded in a second run
+        # on a fresh engine (``Routes`` synchronizes the stream inside
+        # the timed calls), whose streams must be the timed run's
+        eng = make()
+        eng.submit(np.arange(64)[None], 2)         # warm-up, outside counts
+        eng.run()
+        before = eng.stats
+        moe_ms = [Timed(layer.moe, "decode_forward")
+                  for layer in model.layers]
+        step_attr = "step_pages" if name != "slot" else "step_slots"
+        pre_attr = "prefill_pages" if name != "slot" else "prefill"
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            if name == "paged":
+                stack.enter_context(k2_cap)
+                k2_by_len = stack.enter_context(Counted(
+                    pf, "paged_prefill_attention",
+                    lambda a, kw: int(a[0].shape[2])))
+            finite = stack.enter_context(FiniteLogits(sampler))
+            t_dec = stack.enter_context(Timed(model, step_attr))
+            t_pre = stack.enter_context(Timed(model, pre_attr))
+            for t in moe_ms:
+                stack.enter_context(t)
+            torch.cuda.synchronize()
+            rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+            base.reset_counts()
+            t_run = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = base.counts()
+        after = eng.stats
+        steps = after["steps"] - before["steps"]
+        streams[name] = [res[r].numpy() for r in rids]
+        for r, (p, _) in zip(rids, reqs):
+            if tuple(res[r].shape) != (1, p.shape[1] + NEW_TOKENS):
+                raise AssertionError("MoE %s: request %d returned %s" % (
+                    name, r, tuple(res[r].shape)))
+        if finite.ok is None or not bool(finite.ok):
+            raise AssertionError("MoE %s: a sampled logit row was not "
+                                 "finite" % name)
+        if after.get("blocks_in_use", 0) or after.get(
+                "prefix_hit_requests", 0) != before.get(
+                    "prefix_hit_requests", 0):
+            raise AssertionError("MoE %s: pages leaked or a prefix shared: "
+                                 "%r" % (name, after))
+        if after["drafted_tokens"] or after["verify_calls"]:
+            raise AssertionError("MoE %s: the engine speculated: %r"
+                                 % (name, after))
+        pre_tokens = sum(p.shape[1] for p, _ in reqs)
+        expert_elems = moe0.experts_w1.numel() + moe0.experts_w2.numel()
+        out[name] = dict(
+            launches=launches, decode_steps=steps,
+            prefill_calls=len(t_pre.events),
+            mean_ms_per_decode_step=t_dec.ms() / steps,
+            moe_ffn_event_ms_per_decode_step=sum(t.ms() for t in moe_ms)
+            / steps,
+            prefill_tokens_per_s=pre_tokens / (t_pre.ms() / 1e3),
+            wall_s=wall,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            # a call reads both bf16 expert tensors, writes their float32
+            # copies and reads those in the products
+            expert_upcast_bytes_per_layer_call=expert_elems * (2 + 4 + 4))
+        if name == "paged":
+            paged_eng = eng
+            out[name]["paged_prefill_calls_by_chunk_length"] = {
+                str(t): n for t, n in sorted(k2_by_len.counts.items())}
+        del eng
+        if name == "spec_k=4":
+            continue
+        eng = make()
+        eng.submit(np.arange(64)[None], 2)
+        eng.run()
+        rec = Routes(model, eng)
+        with rec:
+            rids = [eng.submit(p, NEW_TOKENS, **kw) for p, kw in reqs]
+            rec.streams = {r: j for j, r in enumerate(rids)}
+            res = eng.run()
+        if not all(np.array_equal(res[r].numpy(), want)
+                   for r, want in zip(rids, streams[name])):
+            raise AssertionError("MoE %s: the routed run's streams differ "
+                                 "from the timed run's" % name)
+        routes[name] = rec
+        out[name]["prompt_tokens_dropped_share_by_layer"] = rec.drop_shares()
+        del eng
+    if not all(np.array_equal(a, b) for a, b in zip(streams["spec_k=4"],
+                                                    streams["paged"])):
+        raise AssertionError("MoE: the spec_k=4 engine's streams differ "
+                             "from the plain engine's")
+    paged = out["paged"]["launches"]
+    want_k = {"paged_attention": n_layers * out["paged"]["decode_steps"],
+              "paged_prefill": n_layers * len(reqs)}
+    if any(paged.get(k) != n for k, n in want_k.items()) or not (
+            paged.get("rows_linear") and paged.get("rows_norm_linear")):
+        raise AssertionError("MoE paged engine launches %r: wanted K1 and "
+                             "K2 %r and G1 launched" % (paged, want_k))
+    moe_launches = {k: paged.get(k, 0) for k in (
+        "paged_attention", "paged_prefill", "rows_linear",
+        "rows_norm_linear", "rows_rms_norm")}
+    for name in ("paged", "slot"):
+        moe_streams_vs_generate(name, model, reqs, streams[name],
+                                gen_streams, gen_routes, routes[name])
+    # one profiled decode step of 8 slots at ~520 tokens: the routed FFN's
+    # device time from its profiler range, beside the step's
+    rng = np.random.RandomState(5)
+    for _ in range(MOE_SERVE["num_slots"]):
+        paged_eng.submit(rng.randint(0, model.vocab_size, (1, 512)), 8)
+    paged_eng.step()                           # every slot prefilled
+    ranged = []
+    for layer in model.layers:
+        inner = layer.moe.decode_forward
+
+        def ranged_call(x, inner=inner):
+            with torch.profiler.record_function("moe_ffn"):
+                return inner(x)
+
+        layer.moe.decode_forward = ranged_call
+        ranged.append(layer.moe)
+    try:
+        prof = profile_moe_step(paged_eng.step)
+    finally:
+        for moe in ranged:
+            del moe.decode_forward
+    paged_eng.run()
+    log(phase="serve_moe", model="llama_3_8b(num_experts=8, "
+        "capacity_factor=1.25, depth_factor=%g)" % CUT_DEPTH,
+        requests=len(reqs), engines=out, moe_launches=moe_launches,
+        profile=prof)
+    k2_name = "paged_prefill[unbucketed,T=%d]" % longest
+    if k2_cap.args is None:
+        raise AssertionError("the MoE main path ran no %d-token chunk"
+                             % longest)
+    # the wrapper's calls by chunk length are its launches: their total
+    # is the launch count the wrapper kept
+    n_k2 = k2_by_len.counts.get(longest, 0)
+    if not n_k2 or sum(k2_by_len.counts.values()) != paged.get(
+            "paged_prefill"):
+        raise AssertionError("MoE paged engine: K2 calls by chunk length "
+                             "%r against %r launches; none at T = %d" % (
+                                 k2_by_len.counts, paged.get("paged_prefill"),
+                                 longest))
+    del model, paged_eng, routes, gen_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return moe_launches, k2_name, n_k2, (k2_cap.args, k2_cap.kwargs)
+
+
+def profile_moe_step(run):
+    """One profiled call of ``run``: ``profile_device``'s record of it,
+    and the device time of its ``moe_ffn`` ranges (the kernels their
+    ops launched), or "not measured" where the profiler gives none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    moe = [e for e in prof.key_averages() if e.key == "moe_ffn"]
+    total = getattr(moe[0], "device_time_total", None) if moe else None
+    if total is None and moe:
+        total = getattr(moe[0], "cuda_time_total", 0)
+    device = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(moe_ffn_device_ms_per_step=total / 1e3 if total
+                else "not measured",
+                moe_ffn_ranges=moe[0].count if moe else 0,
+                device_ms_per_step=device / 1e3 if device
+                else "not measured")
+
+
+def train_moe_8b():
+    """Phase 10m: ``llama_3_8b`` at full width, one layer of 8 experts
+    (``MOE_TRAIN``), float32, returning ``(logits, aux)``, trained by
+    SPMDTrainer with Adam and ``NextTokenLoss(moe_aux_weight=0.01)`` on
+    phase 10's batch: first one forward and backward outside the trainer
+    (a finite aux; a nonzero gradient on the router and on every expert
+    that received tokens), then one warm-up step and 5 steps with the
+    counts zeroed just before: K3, K4 and K5 each launched once a layer
+    a step, a finite loss that falls."""
+    from mxtpu_torch import base
+    from mxtpu_torch.models.transformer import llama_3_8b
+    from mxtpu_torch.parallel.trainer import SPMDTrainer
+
+    t0 = time.perf_counter()
+    model = llama_3_8b(depth_factor=MOE_TRAIN["depth_factor"], device="cuda",
+                       dtype=torch.float32,
+                       num_experts=MOE_TRAIN["num_experts"],
+                       return_moe_aux=True)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0), 0.02)
+    n_layers = len(model.layers)
+    loss_fn = NextTokenLoss(moe_aux_weight=MOE_TRAIN["aux_weight"])
+    batch = next(synthetic_batches(TRAIN["batch"], TRAIN["seq"], 1,
+                                   vocab=model.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    log(phase="train_moe_model", layers=n_layers, dtype="float32",
+        params=sum(p.numel() for p in model.parameters()),
+        seconds=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    routed = []
+    hooks = [layer.ffn_norm.register_forward_hook(
+        lambda mod, args, out, moe=layer.moe: routed.append(torch.bincount(
+            torch.argmax(out.reshape(-1, out.shape[-1]).float()
+                         @ moe.router_weight.float().t(), dim=-1),
+            minlength=moe.num_experts)))
+        for layer in model.layers]
+    ids = torch.from_numpy(batch).cuda()
+    out = model(ids)
+    aux = float(out[1].detach())
+    loss_fn(out, ids).mean().backward()
+    for h in hooks:
+        h.remove()
+    grads = {}
+    for i, layer in enumerate(model.layers):
+        moe = layer.moe
+        got = routed[i].cpu().numpy()
+        g1 = moe.experts_w1.grad.abs().flatten(1).sum(1).cpu().numpy()
+        g2 = moe.experts_w2.grad.abs().flatten(1).sum(1).cpu().numpy()
+        router = float(moe.router_weight.grad.abs().sum())
+        grads[i] = dict(tokens_by_expert=got.tolist(),
+                        router_grad_abs_sum=router,
+                        w1_grad_abs_sum=g1.tolist(),
+                        w2_grad_abs_sum=g2.tolist())
+        if not router > 0 or any(not (a > 0 and b > 0) for a, b, n
+                                 in zip(g1, g2, got) if n > 0):
+            raise AssertionError("MoE training: a zero gradient on the "
+                                 "router or on an expert that received "
+                                 "tokens: %r" % grads[i])
+    if not np.isfinite(aux):
+        raise AssertionError("MoE training: aux %r is not finite" % aux)
+    model.zero_grad(set_to_none=True)
+    del out
+    trainer = SPMDTrainer(model, loss_fn, "adam",
+                          {"learning_rate": TRAIN["lr"]})
+    losses = [trainer.step(batch, batch) for _ in range(TRAIN["warmup"])]
+    torch.cuda.synchronize()
+    events = []
+    base.reset_counts()
+    for _ in range(TRAIN["steps"]):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        losses.append(trainer.step(batch, batch))
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    launches = base.counts()
+    losses = [float(x) for x in losses]
+    timed = losses[TRAIN["warmup"]:]
+    want = n_layers * TRAIN["steps"]
+    if any(launches.get(k, 0) != want
+           for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError("MoE training launches %r: wanted K3-K5 %d "
+                             "each" % (launches, want))
+    if not all(np.isfinite(losses)) or not timed[-1] < timed[0]:
+        raise AssertionError("MoE training losses not finite or not "
+                             "falling: %r" % losses)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    mean_ms = sum(step_ms) / len(step_ms)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    moe_launches = {k: launches.get(k, 0)
+                    for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    log(phase="train_moe", model="llama_3_8b(num_experts=8, "
+        "depth_factor=1/32, return_moe_aux=True)", aux=aux,
+        aux_weight=MOE_TRAIN["aux_weight"], gradients=grads,
+        launches=launches, losses=losses, ms_per_step=step_ms,
+        mean_ms_per_step=mean_ms, tokens_per_s=tokens / (mean_ms / 1e3),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return moe_launches
+
+
 class PhaseClock:
     """Logs the seconds since the last mark (and since the first) under a
     phase's name: ``{"phase": "phase_seconds", "name": ..., ...}``."""
@@ -5993,6 +6678,7 @@ def main():
     verify_kernels_against_plain()
     kernels_against_plain(flush, quant=True)
     verify_kernels_against_plain(quant=True)
+    prefill_unbucketed_against_plain(flush)
     g1 = linear_against_plain(flush)
     g2 = norm_against_plain(flush)
     fused = norm_linear_against_pair(flush)
@@ -6002,6 +6688,8 @@ def main():
     small_model_speculative_check()
     small_model_speculative_check(cache_dtype="int8")
     tick("4, 4b, 4c small models")
+    small_moe_reference_check()
+    tick("4m small MoE model")
     model = llama_3_8b_model()
     launches, served, streams = serve_llama_3_8b(model)
     streams_vs_generate(model, traffic(model.vocab_size), streams)
@@ -6052,6 +6740,15 @@ def main():
     tick("6p tensor parallelism")
     results = dict(tp_rows)
     launches.update(tp_launches)
+    # phase 6m: Switch MoE serving at full width; K2 at its longest
+    # unpadded chunk joins the kernels line
+    moe_serve, k2_name, k2_n, (k2_args, k2_kw) = serve_moe_8b()
+    results[k2_name] = measure(k2_name, k2_args, flush, kw=k2_kw)
+    launches[k2_name] = k2_n
+    log(phase="moe_inputs", kernel=k2_name, shape=list(k2_args[0].shape),
+        launches=k2_n, **results[k2_name])
+    del k2_args, k2_kw
+    tick("6m MoE serving")
     # phases 5q and 6q: the weight-only int8 and int4 model
     quant_launches = {}
     for bits in (8, 4):
@@ -6124,6 +6821,9 @@ def main():
     del captured
     torch.cuda.empty_cache()
     tick("10, 11 Llama training")
+    moe_train = train_moe_8b()
+    log(phase="moe_launches", serve_6m=moe_serve, train_10m=moe_train)
+    tick("10m MoE training")
     conv_kernel_against_plain()
     small_resnet_training_check()
     tick("12, 13 conv kernel, small ResNet")

@@ -1,2 +1,3 @@
-"""Models of the port: the Llama-style decoder LM, its sampler, and the
-weight bridge from the JAX reference."""
+"""Models of the port: the Llama-style decoder LM (dense, or with Switch
+mixture-of-experts layers, ``moe``), its sampler, and the weight bridge
+from the JAX reference."""

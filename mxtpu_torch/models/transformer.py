@@ -99,7 +99,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..base import resolve_device
+from ..base import MXTPUError, resolve_device
 from ..ops import paged_attention, prefill_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.contrib import rms_norm, rope, rows_rms_norm
@@ -121,11 +121,12 @@ from ..parallel.collectives import all_gather, all_reduce
 from ..parallel.sharding import (PartitionSpec as P, ShardingRules,
                                  int4_scale_split)
 from .convert import mxtpu_name, strip_instance_prefix
+from .moe import MoEDecoderLayer
 from .sampler import sample_next_token
 
 __all__ = ["RMSNorm", "MultiHeadAttention", "LlamaDecoderLayer",
-           "TransformerLM", "llama_tiny", "llama_3_8b", "pool_tensors",
-           "transformer_lm_sharding_rules"]
+           "MoEDecoderLayer", "TransformerLM", "llama_tiny", "llama_3_8b",
+           "pool_tensors", "transformer_lm_sharding_rules"]
 
 
 class RMSNorm(nn.Module):
@@ -543,9 +544,15 @@ class LlamaDecoderLayer(nn.Module):
     def forward(self, x):
         return self._ffn(x + self.attn(self.attn_norm(x)))
 
-    def prefill(self, x, cache_k, cache_v, start_pos=0):
+    def prefill(self, x, cache_k, cache_v, start_pos=0, total_len=None):
+        """``total_len`` (a routed layer's capacity budget) is accepted
+        and ignored, so the model passes it to every layer alike."""
         return self._ffn(x + self.attn.prefill(self.attn_norm(x), cache_k,
                                                cache_v, start_pos))
+
+    def step(self, x, cache_k, cache_v, pos):
+        """``generate``'s step: a one-token prefill at ``pos``."""
+        return self.prefill(x, cache_k, cache_v, pos)
 
     def step_slots(self, x, cache_k, cache_v, pos):
         return self._ffn(x + self.attn.step_slots(
@@ -566,7 +573,8 @@ class LlamaDecoderLayer(nn.Module):
             x, self.attn_norm, pool_k, pool_v, tables, pos, valid_len,
             tree), rows=True)
 
-    def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0):
+    def prefill_pages(self, x, pool_k, pool_v, table, start_pos=0,
+                      total_len=None):
         return self._ffn(x + self.attn.prefill_pages(
             self.attn_norm(x), pool_k, pool_v, table, start_pos))
 
@@ -578,19 +586,32 @@ class TransformerLM(nn.Module):
     device named and no CUDA present the constructor raises.  With
     ``tie_weights`` the logits head is the embedding's weight (no
     ``lm_head``, so ``quantize_weights`` leaves the head in float, as
-    the reference never quantizes a tied head)."""
+    the reference never quantizes a tied head).
+
+    ``num_experts`` builds :class:`~mxtpu_torch.models.moe.
+    MoEDecoderLayer`s (a Switch top-1 FFN of that many experts of
+    ``hidden_size``, ``capacity_factor``) in place of the SwiGLU
+    layers; with ``return_moe_aux`` the full forward returns ``(logits,
+    aux)``, aux the layers' load-balancing terms summed over the layers
+    and divided by their count."""
 
     def __init__(self, vocab_size, units, hidden_size, num_layers, num_heads,
                  num_kv_heads=None, device=None, dtype=torch.float32,
-                 tie_weights=False):
+                 tie_weights=False, num_experts=None, capacity_factor=1.25,
+                 return_moe_aux=False):
         super().__init__()
         device = resolve_device(device)
         fk = {"device": device, "dtype": dtype}
         self.vocab_size = vocab_size
+        self.num_experts = int(num_experts) if num_experts else None
+        self.return_moe_aux = bool(return_moe_aux and num_experts)
         self.embed = nn.Embedding(vocab_size, units, **fk)
+        kv = num_kv_heads or num_heads
         self.layers = nn.ModuleList([
-            LlamaDecoderLayer(units, hidden_size, num_heads,
-                              num_kv_heads or num_heads, **fk)
+            MoEDecoderLayer(units, hidden_size, num_heads, kv, num_experts,
+                            capacity_factor, return_aux=self.return_moe_aux,
+                            **fk) if num_experts else
+            LlamaDecoderLayer(units, hidden_size, num_heads, kv, **fk)
             for _ in range(num_layers)])
         self.norm = RMSNorm(units, **fk)
         self.tie_weights = bool(tie_weights)
@@ -633,12 +654,19 @@ class TransformerLM(nn.Module):
 
     def forward(self, token_ids):
         """token_ids (B, T) → logits (B, T, V), differentiable: the
-        training forward."""
+        training forward; ``(logits, aux)`` with ``return_moe_aux``."""
         x = self._embed(torch.as_tensor(token_ids,
                                         device=self.device).long())
+        aux = None
         for layer in self.layers:
             x = layer(x)
-        return self._logits(x)
+            if self.return_moe_aux:
+                x, a = x
+                aux = a if aux is None else aux + a
+        logits = self._logits(x)
+        if self.return_moe_aux:
+            return logits, aux / len(self.layers)
+        return logits
 
     # -- contiguous cache: the isolated reference --------------------------
     def init_cache(self, batch_size, max_length, dtype=None):
@@ -649,18 +677,26 @@ class TransformerLM(nn.Module):
                 for layer in self.layers]
 
     @torch.no_grad()
-    def prefill(self, token_ids, caches, start_pos=0):
+    def prefill(self, token_ids, caches, start_pos=0, total_len=None):
         """token_ids (B, T) at positions [start_pos, start_pos+T) →
-        logits (B, T, V); every layer's cache is written in place."""
+        logits (B, T, V); every layer's cache is written in place.
+        ``total_len``: the whole prompt's length, from which routed
+        (MoE) layers budget their expert capacity (start_pos + T by
+        default)."""
         x = self._embed(token_ids)
         for layer, (ck, cv) in zip(self.layers, caches):
-            x = layer.prefill(x, ck, cv, start_pos)
+            x = layer.prefill(x, ck, cv, start_pos, total_len=total_len)
         return self._logits(x)
 
+    @torch.no_grad()
     def step(self, token_ids, caches, pos):
         """One token per row, token_ids (B, 1), at position ``pos``
-        (int) → logits (B, 1, V): a one-token prefill."""
-        return self.prefill(token_ids, caches, start_pos=pos)
+        (int) → logits (B, 1, V): a one-token prefill (routed layers
+        capacity-unbounded)."""
+        x = self._embed(token_ids)
+        for layer, (ck, cv) in zip(self.layers, caches):
+            x = layer.step(x, ck, cv, pos)
+        return self._logits(x)
 
     @torch.no_grad()
     def step_slots(self, token_ids, caches, pos):
@@ -757,13 +793,17 @@ class TransformerLM(nn.Module):
                 paged_cache_permute_span(leaf, tables, pos, src_lane)
 
     @torch.no_grad()
-    def prefill_pages(self, token_ids, pools, table, start_pos=0):
+    def prefill_pages(self, token_ids, pools, table, start_pos=0,
+                      total_len=None):
         """One prompt chunk token_ids (1, T) at positions [start_pos,
         start_pos+T) through the block table ``table`` (M,) int32 →
-        logits (1, T, V)."""
+        logits (1, T, V).  ``total_len``: the whole prompt's length, the
+        routed layers' capacity budget (the chunk's length by
+        default)."""
         x = self._embed(token_ids)
         for layer, (pk, pv) in zip(self.layers, pools):
-            x = layer.prefill_pages(x, pk, pv, table, start_pos)
+            x = layer.prefill_pages(x, pk, pv, table, start_pos,
+                                    total_len=total_len)
         return self._logits(x)
 
     @torch.no_grad()
@@ -857,7 +897,10 @@ class TransformerLM(nn.Module):
         - the head split on vocabulary: local logits, then
           ``all_gather``; a tied head (the embedding's hidden split) is
           row parallel, its partial logits over the whole vocabulary
-          reduced.
+          reduced;
+        - a routed (MoE) layer's ``ffn_norm``, router and experts whole
+          on every rank (a rule that splits them raises: expert
+          parallelism is not ported).
 
         A layer's projections are split together or not at all, and
         every split is over one mesh axis; anything else raises.  A mesh
@@ -902,13 +945,21 @@ class TransformerLM(nn.Module):
                 "tensor parallel: %s must be split on dims %s together or "
                 "not at all; the rules give %s" % (names, want, got))
 
+        for name, d in dims.items():
+            if d and "_moe_" in name:
+                raise MXTPUError(
+                    "tensor parallel: %s is split by the rules (dims %s); "
+                    "the router and the experts stay whole on every rank — "
+                    "expert parallelism (an ep axis) is not ported"
+                    % (name, d))
         tp = _TP(mesh, axis, *shard)
         n = tp.n
         seen = set()
         for i, layer in enumerate(self.layers):
             pre = "layer%d_" % i
             attn = [pre + "attn_qkv_weight", pre + "attn_out_weight"]
-            ffn = [pre + "gate_weight", pre + "up_weight", pre + "down_weight"]
+            ffn = [] if isinstance(layer, MoEDecoderLayer) else [
+                pre + "gate_weight", pre + "up_weight", pre + "down_weight"]
             seen.update(attn + ffn)
             if form(attn, [0, 1]):
                 a = layer.attn
@@ -1105,28 +1156,32 @@ class TransformerLM(nn.Module):
         return torch.cat(tokens, dim=1).to(prompt_ids.dtype)
 
 
-def llama_tiny(vocab_size=256, device=None, dtype=torch.float32):
+def llama_tiny(vocab_size=256, device=None, dtype=torch.float32, **kwargs):
     """Tiny decoder for tests: 2 layers, 64 units, 4 heads over 2 kv
-    heads (head_dim 16), SwiGLU 172."""
+    heads (head_dim 16), SwiGLU 172.  ``kwargs``: the constructor's
+    (``num_experts``, ``capacity_factor``, ``return_moe_aux``,
+    ``tie_weights``)."""
     return TransformerLM(vocab_size, units=64, hidden_size=172, num_layers=2,
                          num_heads=4, num_kv_heads=2, device=device,
-                         dtype=dtype)
+                         dtype=dtype, **kwargs)
 
 
 def llama_3_8b(vocab_size=128256, width_factor=1.0, depth_factor=1.0,
-               device=None, dtype=torch.bfloat16):
+               device=None, dtype=torch.bfloat16, **kwargs):
     """Llama-3-8B geometry: 4096 units, 32 heads over 8 kv heads
     (head_dim 128), SwiGLU 14336, 32 layers, vocab 128256.
 
     ``width_factor``/``depth_factor`` scale it down as the reference
     does, with its rounding: heads a multiple of 4 (at least 4), head_dim
-    128, SwiGLU a multiple of 128, 4:1 GQA, at least one layer."""
+    128, SwiGLU a multiple of 128, 4:1 GQA, at least one layer.
+    ``kwargs``: the constructor's (``num_experts=8`` makes each layer a
+    Switch FFN of 8 experts of the SwiGLU's hidden width)."""
     heads = max(4, int(32 * width_factor) // 4 * 4)
     hidden = int(14336 * width_factor) // 128 * 128 or 128
     return TransformerLM(vocab_size, units=128 * heads, hidden_size=hidden,
                          num_layers=max(1, int(32 * depth_factor)),
                          num_heads=heads, num_kv_heads=max(1, heads // 4),
-                         device=device, dtype=dtype)
+                         device=device, dtype=dtype, **kwargs)
 
 
 def transformer_lm_sharding_rules():

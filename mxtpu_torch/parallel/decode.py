@@ -263,6 +263,7 @@ class ShardedDecoder:
                 "port serves over tp alone (dp, pp, sp and ep meshes are "
                 "among ROADMAP A6/A7's leftovers)" % (self._mesh,))
         self._validate_kv_sharding()
+        self._has_moe = None
         self._ch = None
         if self.tp == 1:
             return
@@ -301,6 +302,20 @@ class ShardedDecoder:
                     "divisible by the tp axis, or pass "
                     "cache_spec=PartitionSpec() to replicate the caches."
                     % (tuple(spec), kv, "layers.%d.attn" % i, shards))
+
+    def _block_has_moe(self):
+        """Whether the model routes through experts (a ``SwitchMoE``
+        anywhere in it), computed once.  The engines then opt out of
+        prefill bucketing (padded tokens would join the routing), prefix
+        sharing and the hierarchical cache (capacity budgets from the
+        whole prompt, so a prefix's K/V depends on its suffix) and
+        speculation (a window's routing is not the steps')."""
+        if self._has_moe is None:
+            from ..models.moe import SwitchMoE
+
+            self._has_moe = any(isinstance(m, SwitchMoE)
+                                for m in self._block.modules())
+        return self._has_moe
 
     @property
     def device(self):

@@ -482,7 +482,11 @@ class ContinuousBatchingEngine:
                 "spec_tree drafting is self-drafted (n-gram tree lookup): "
                 "it cannot be combined with draft_block; pick one proposal "
                 "source")
-        self._spec_on = self._spec_k > 0 or self._spec_tree is not None
+        # a routed (MoE) target's window is not its steps (the capacity
+        # of the unbounded decode routing is a function of the batch):
+        # self-drafting is silently off for it, linear and tree alike
+        self._spec_on = ((self._spec_k > 0 or self._spec_tree is not None)
+                         and not self._dec._block_has_moe())
         self._draft = draft_block
         self._draft_dec = None
         self._draft_pool = None
@@ -490,10 +494,23 @@ class ContinuousBatchingEngine:
             if self._spec_k < 1:
                 raise ValueError("draft_block needs spec_k >= 1 (it bounds "
                                  "the drafted window)")
+            if not self._spec_on:
+                # an explicit draft model is a configuration the caller
+                # asked for: fail loudly instead of serving without it
+                raise ValueError(
+                    "draft_block speculation is unsupported for MoE target "
+                    "blocks: their decode routing is not window-parity-"
+                    "safe, so MoE targets opt out of speculation entirely "
+                    "(docs/inference.md)")
             if not isinstance(draft_block, TransformerLM):
                 raise ValueError(
                     "draft_block must be a dense port TransformerLM, not %s"
                     % type(draft_block).__name__)
+            if draft_block.num_experts:
+                raise ValueError(
+                    "draft_block must be a dense block: MoE decode routing "
+                    "is not window-parity-safe (the same reason MoE targets "
+                    "opt out of speculation)")
             if draft_block.vocab_size != model.vocab_size:
                 raise ValueError(
                     "draft_block's vocabulary (%d) is not the target's (%d)"
@@ -662,7 +679,8 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     "submit(spec_tree=...) needs a self-drafting "
                     "speculation-enabled engine (spec_k > 0 or spec_tree= "
-                    "at construction, and no draft_block)")
+                    "at construction, a dense non-MoE block, and no "
+                    "draft_block)")
         prompt = np.asarray(torch.as_tensor(prompt_ids).cpu(),
                             dtype=np.int32)
         if prompt.ndim != 2 or prompt.shape[0] != 1:
@@ -708,12 +726,14 @@ class ContinuousBatchingEngine:
     # -- admission -------------------------------------------------------
     def _slot_prefill(self, dec, cache, cache_dtype, row, prompt):
         """Prefill ``prompt`` (1, Tp) int32 into row ``row`` of ``cache``
-        (the model's behind the decoder ``dec``): the prompt padded to the power-of-two ladder
-        (capped at max_length) through a fresh batch-1 scratch cache,
-        then copied into the row.  Returns the logits of the prompt's
-        last real position, (1, V)."""
+        (the model's behind the decoder ``dec``): the prompt padded to
+        the power-of-two ladder (capped at max_length; a routed model's
+        exactly Tp long, since padded tokens would join its routing)
+        through a fresh batch-1 scratch cache, then copied into the row.
+        Returns the logits of the prompt's last real position, (1, V)."""
         Tp = prompt.shape[1]
-        Tb = min(_bucket(Tp), self._max_length)
+        Tb = Tp if dec._block_has_moe() else min(_bucket(Tp),
+                                                  self._max_length)
         raw = np.zeros((1, Tb), np.int64)
         raw[0, :Tp] = prompt[0]
         scratch = dec.init_cache(1, Tb, cache_dtype)
@@ -1803,10 +1823,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         per_rank = sum(t[0].numel() * t.element_size()
                        for t in pool_tensors(self._pools))
         self._bytes_per_block = per_rank * self._dec.tp
+        self._moe = self._dec._block_has_moe()
+        # a routed model shares no prefix, so its cache has no budget and
+        # never holds a chain (sessions are refused at submit)
         self._hc = HierarchicalCache(
             self._bp, self._prefix,
-            pin_blocks=self._pin_bytes // per_rank,
-            host_blocks=self._host_bytes // self._bytes_per_block)
+            pin_blocks=0 if self._moe else self._pin_bytes // per_rank,
+            host_blocks=0 if self._moe
+            else self._host_bytes // self._bytes_per_block)
 
     @staticmethod
     def _budget_bytes(value, env):
@@ -2017,6 +2041,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if arr.ndim != 2 or arr.shape[0] != 1:
             raise ValueError("prefix_probe takes ONE prompt: (1, T), got %r"
                              % (arr.shape,))
+        if self._moe:
+            return 0            # a routed model opts out of sharing
         Tp = arr.shape[1]
         n = self._prefix.probe(arr[0], limit=Tp - 1)
         if self._hc.host_chains:
@@ -2046,12 +2072,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         """Chunk schedule over prompt positions [start, Tp), the
         reference's: chunk shapes stay on the power-of-two ladder
         (<= prefill_chunk) and descend it where bucket padding would
-        spill past the slot extent.  Returns the schedule and the padded
-        extent (the last position any chunk's padding writes)."""
+        spill past the slot extent; a routed model's chunks are
+        unpadded, min(rest, prefill_chunk) tokens (padded tokens would
+        join its routing).  Returns the schedule and the padded extent
+        (the last position any chunk's padding writes)."""
         cap = -(-self._max_length // self._bs) * self._bs
         chunks, extent = [], 0
         while start < Tp:
             rem = Tp - start
+            if self._moe:
+                Tact = Tb = min(rem, self._chunk)
+                chunks.append((start, Tact, Tb))
+                extent = max(extent, start + Tb)
+                start += Tact
+                continue
             Tb = min(_bucket(rem), self._chunk)
             while Tb > 8 and start + Tb > cap:
                 Tb //= 2
@@ -2087,7 +2121,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                deadline_s=None, retries=0, speculative=None, session=None,
                spec_tree=None) -> int:
         """The base ``submit``; a ``session`` handle is counted open until
-        ``close_session``."""
+        ``close_session``.  A routed (MoE) model refuses ``session``: it
+        shares no prefix, so a chain cannot be reused across turns."""
+        if session is not None and self._moe:
+            raise ValueError(
+                "submit(session=...) is unsupported for MoE blocks: they "
+                "opt out of prefix sharing (expert capacity budgets from "
+                "the FULL prompt length), and a chain that cannot be shared "
+                "cannot be reused across turns")
         rid = super().submit(prompt_ids, max_new_tokens, temperature, top_k,
                              top_p, repetition_penalty, seed, eos_id,
                              deadline_s, retries, speculative, session,
@@ -2113,20 +2154,27 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         _inject("serving.admit", key=req.rid)
         Tp = req.prompt.shape[1]
         self._emit("engine.admit", req.rid, prompt_tokens=Tp)
-        _inject("serving.prefix_lookup", key=req.rid)
-        full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
-        if self._overlap_swaps:
-            # restores run only at the iteration boundary
-            # (_service_pending_swap): a cold-chain admission defers once
-            if req.rid not in self._swap_attempted and self._hc.host_chains:
-                m = self._hc.host_match(req.prompt[0], limit=Tp - 1)
-                if m is not None and m[1] > len(full):
-                    self._swap_pending = req
-                    raise _AdmissionDeferred()
-        elif self._try_swap_in(req, full):
-            # a restore adds pages and its reclaim may have freed some of
-            # the first walk's: walk again
+        full, partial = [], None
+        if not self._moe:
+            # a routed model's prefix K/V depends on its whole prompt
+            # (capacity budgets from it): it skips the lookup and restores
+            _inject("serving.prefix_lookup", key=req.rid)
             full, partial = self._prefix.lookup(req.prompt[0], limit=Tp - 1)
+            if self._overlap_swaps:
+                # restores run only at the iteration boundary
+                # (_service_pending_swap): a cold-chain admission defers
+                # once
+                if (req.rid not in self._swap_attempted
+                        and self._hc.host_chains):
+                    m = self._hc.host_match(req.prompt[0], limit=Tp - 1)
+                    if m is not None and m[1] > len(full):
+                        self._swap_pending = req
+                        raise _AdmissionDeferred()
+            elif self._try_swap_in(req, full):
+                # a restore adds pages and its reclaim may have freed some
+                # of the first walk's: walk again
+                full, partial = self._prefix.lookup(req.prompt[0],
+                                                    limit=Tp - 1)
         n_shared = len(full) * self._bs + (partial[1] if partial else 0)
         chunks, extent = self._plan_chunks(n_shared, Tp)
         n_pages = -(-max(Tp + req.max_new_tokens, extent) // self._bs)
@@ -2186,9 +2234,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._dec.copy_block(self._pools, *slot.cow)
             slot.cow = None
         table = torch.from_numpy(self._table_row(row)).to(self._device)
+        # a routed model budgets every chunk's capacity from the prompt
         logits = self._dec.prefill_pages(
             torch.from_numpy(raw).to(self._device), self._pools, table,
-            start)
+            start, total_len=slot.Tp if self._moe else None)
         slot.chunk_i += 1
         self._prefill_chunks += 1
         self._prefill_tokens += Tact
@@ -2197,7 +2246,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._first_token(slot, logits[:, slot.Tp - 1 - start])
 
     def _prefilled(self, slot):
-        # prompt pages fully below Tp are now immutable
+        # prompt pages fully below Tp are now immutable (a routed model's
+        # are never shared)
+        if self._moe:
+            return
         self._prefix.register(slot.req.prompt[0],
                               self._slot_pages[slot.row][:slot.Tp // self._bs])
 

@@ -2,6 +2,12 @@
 per-step path): forward, the loss's mean, backward, then the optimizer's
 ``_step_t`` on every parameter with ``t`` the update count.
 
+A block that returns a tuple (``TransformerLM(return_moe_aux=True)``'s
+``(logits, aux)``) hands the loss its FIRST output, unless the loss has
+``accepts_full_output = True``, as the reference's trainer does.
+``NextTokenLoss`` and ``synthetic_batches`` are the reference training
+example's loss and data (``examples/parallel/llama_train.py``).
+
 The reference compiles the step as one SPMD program over a device mesh;
 the port runs it eagerly on the model's one device.  Parameters are
 updated in place, in the reference's order (sorted by reference
@@ -22,7 +28,47 @@ import torch
 from .. import optimizer as opt_mod
 from ..models.convert import mxtpu_name
 
-__all__ = ["SPMDTrainer"]
+__all__ = ["SPMDTrainer", "NextTokenLoss", "synthetic_batches"]
+
+
+def synthetic_batches(batch, seq, steps, vocab, seed=0):
+    """The reference training example's synthetic language, with the
+    vocabulary a parameter: arithmetic token sequences with 2% noise, as
+    int32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    for _ in range(steps):
+        start = rng.randint(0, vocab, (batch, 1))
+        stride = rng.randint(1, 5, (batch, 1))
+        base = (start + stride * np.arange(seq)) % vocab
+        noise = (rng.rand(batch, seq) < 0.02) * rng.randint(0, vocab,
+                                                            (batch, seq))
+        yield ((base + noise) % vocab).astype(np.int32)
+
+
+class NextTokenLoss:
+    """The reference training example's shifted cross-entropy: predict
+    token t+1 from the prefix up to t (one loss per predicted token).
+    It takes the model's whole output (``accepts_full_output``): from a
+    ``(logits, aux)`` pair it adds ``moe_aux_weight`` times the Switch
+    load-balancing term."""
+
+    accepts_full_output = True
+
+    def __init__(self, moe_aux_weight=0.0):
+        from ..gluon.loss import SoftmaxCrossEntropyLoss
+
+        self._ce = SoftmaxCrossEntropyLoss()
+        self._aux_w = moe_aux_weight
+
+    def __call__(self, logits, labels):
+        aux = None
+        if isinstance(logits, tuple):
+            logits, aux = logits
+        loss = self._ce(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                        labels[:, 1:].reshape(-1))
+        if aux is not None and self._aux_w:
+            loss = loss + self._aux_w * aux
+        return loss
 
 
 class SPMDTrainer:
@@ -76,7 +122,11 @@ class SPMDTrainer:
                        for x in (data, label))
         for p in self._params:
             p.grad = None
-        loss = self._loss_fn(self._block(data), label).mean()
+        out = self._block(data)
+        if isinstance(out, tuple) and not getattr(
+                self._loss_fn, "accepts_full_output", False):
+            out = out[0]
+        loss = self._loss_fn(out, label).mean()
         loss.backward()
         self._num_update += 1
         opt = self._optimizer

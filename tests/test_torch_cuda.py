@@ -255,6 +255,35 @@ def test_prefill_tensor_core_route_at_its_edges(cuda, edge, pools):
         assert torch.equal(got, again), start
 
 
+#: the chunk lengths a routed (MoE) model's unpadded prefill gives K2
+UNBUCKETED_T = [1, 37, 97, 641]
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("T", UNBUCKETED_T)
+def test_prefill_kernel_at_unbucketed_chunk_lengths(cuda, T, pools):
+    """K2 at chunk lengths off the power-of-two ladder, the 8B geometry
+    (head_dim 128, block 16, 8 kv heads, rep 4), a chunk starting
+    mid-page: float32 and bf16 queries within TOL of the plain version,
+    the tensor-core route the same bits on a second call."""
+    geom = (128, 16, 8, 4, 1, T, 2 * T + 64)
+    start = 3 * 16 + 9
+    for dtype in DTYPES:
+        q, pk, pv, table, _ = _prefill_case(geom, dtype, seed=T, start=start)
+        kw = {}
+        if pools == "int8":
+            (pk, ks), (pv, vs) = _q8(pk), _q8(pv)
+            kw = dict(k_scales=ks, v_scales=vs)
+        got = pf.paged_prefill_attention(q, pk, pv, table, start, **kw)
+        want = pf.paged_prefill_attention_plain(q, pk, pv, table, start,
+                                                **kw)
+        assert got.shape == q.shape and got.dtype == dtype
+        assert _err(got, want) <= TOL[dtype], (T, dtype)
+        if dtype == torch.bfloat16:
+            again = pf.paged_prefill_attention(q, pk, pv, table, start, **kw)
+            assert torch.equal(got, again)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, pk, pv, tables, pos = _decode_case(GEOMETRIES[0], torch.float32, 0)
     base.reset_counts()

@@ -90,14 +90,14 @@ def controlled(rank, mesh, models, fn):
         ShardedDecoder.shutdown(mesh)
 
 
-def model_from(spec, params=None, seed=None):
+def model_from(spec, params=None, seed=None, **kw):
     """A CPU float32 port ``TransformerLM`` of ``spec`` (its constructor's
-    arguments), loaded from the reference's ``params`` or filled from a
-    numpy ``seed``."""
+    arguments, and keywords ``kw``), loaded from the reference's
+    ``params`` or filled from a numpy ``seed``."""
     from mxtpu_torch.models.convert import load_mxtpu_params
     from mxtpu_torch.models.transformer import TransformerLM
 
-    model = TransformerLM(*spec, device="cpu")
+    model = TransformerLM(*spec, device="cpu", **kw)
     if params is not None:
         load_mxtpu_params(model, params)
     else:
@@ -334,6 +334,56 @@ def speculative_tp4(rank, mesh, pl):
         return out
 
     return controlled(rank, mesh, [model], run)
+
+
+def moe(rank, mesh, pl):
+    """tp=2 over a Switch MoE model (the attention split, the router and
+    the experts whole on each rank): ``ShardedDecoder.generate``, both
+    engines' greedy streams and the gathered parameters; then the
+    refusal of rules that split an expert."""
+    from mxtpu_torch.base import MXTPUError
+    from mxtpu_torch.models.moe import moe_sharding_rules
+    from mxtpu_torch.models.transformer import transformer_lm_sharding_rules
+    from mxtpu_torch.parallel.decode import ShardedDecoder
+    from mxtpu_torch.parallel.serving import (ContinuousBatchingEngine,
+                                              PagedContinuousBatchingEngine)
+    from mxtpu_torch.parallel.sharding import PartitionSpec, ShardingRules
+
+    rules = moe_sharding_rules(transformer_lm_sharding_rules())
+    model = model_from(pl["spec"], pl["params"], **pl["moe"])
+    split = model_from(pl["spec"], pl["params"], **pl["moe"])
+
+    def run():
+        out = {}
+        dec = ShardedDecoder(model, mesh, rules)
+        out["has_moe"] = dec._block_has_moe()
+        out["generate"] = dec.generate(torch.from_numpy(pl["prompt"]),
+                                       3).numpy()
+        eng = PagedContinuousBatchingEngine(
+            model, device="cpu", mesh=mesh, rules=rules, **pl["engine"])
+        out["paged"] = streams(eng, pl["reqs"])
+        out["paged_stats"] = eng.stats
+        eng = ContinuousBatchingEngine(
+            model, num_slots=pl["engine"]["num_slots"],
+            max_length=pl["engine"]["max_length"], device="cpu", mesh=mesh,
+            rules=rules)
+        out["slot"] = streams(eng, pl["reqs"])
+        out["report"] = dec.rank_report()
+        out["export"] = {k: v.numpy()
+                         for k, v in dec.gathered_params().items()}
+        try:
+            ShardedDecoder(split, mesh, ShardingRules(
+                [(r"experts_w1$", PartitionSpec("tp", None, None))]).extend(
+                    transformer_lm_sharding_rules()))
+            out["split_error"] = None
+        except MXTPUError as exc:
+            out["split_error"] = str(exc)
+        out["split_untouched"] = split.layers[0].attn.heads
+        return out
+
+    out = controlled(rank, mesh, [model], run)
+    local = {name: tuple(p.shape) for name, p in model._adoption_params()}
+    return {"rank0": out, "shapes": local}
 
 
 def collectives_world(rank, mesh, pl):
